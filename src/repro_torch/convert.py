@@ -1,0 +1,28 @@
+"""Carry a parameter tree across from the JAX package.
+
+The JAX tree is handed over as nested dicts of numpy arrays (for example
+``jax.tree.map(np.asarray, params)``), so this module needs no JAX.  Dtypes
+and the stacked ``blocks`` layout are kept.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _to_tensor(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: exact via float32
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def params_from_numpy(tree, device: str | torch.device = "cuda"):
+    """Nested dicts of numpy arrays -> the same nesting of tensors on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    return _to_tensor(tree, dev)

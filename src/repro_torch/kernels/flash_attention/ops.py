@@ -1,0 +1,86 @@
+"""Public attention entry point: ``mha`` over (B, H, L, D) tensors.
+
+On a CPU tensor it runs the plain version (``ref.mha_ref``); on a CUDA
+tensor it launches the hand-written kernel (``csrc/flash_attention.cu``) or
+raises.  GQA is mapped by head index inside the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core import lut
+from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels.flash_attention.ref import mha_ref
+
+HEAD_DIMS = (8, 16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MODES = {"safe": 0, "lut": 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    fn = build.library("flash_attention").repro_flash_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_float] * 5
+        + [ctypes.c_void_p]
+    )
+    return fn
+
+
+def mha(
+    q: torch.Tensor,  # (B, Hq, Lq, D)
+    k: torch.Tensor,  # (B, Hkv, Lkv, D)
+    v: torch.Tensor,  # (B, Hkv, Lkv, D)
+    *,
+    causal: bool = False,
+    window: int | None = None,
+    mode: str = "safe",
+    kv_len: int | None = None,  # true (unpadded) kv length; keys past it are masked
+) -> torch.Tensor:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"mha wants q (B,Hq,Lq,D), k = v (B,Hkv,Lkv,D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, lq, d = q.shape
+    _, hkv, lkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % hkv != 0:
+        raise ValueError(f"incompatible q {tuple(q.shape)} and k/v {tuple(k.shape)}")
+    if mode not in _MODES:
+        raise ValueError(f"unknown softmax mode {mode!r}")
+    kv_len = lkv if kv_len is None else kv_len
+    if not 1 <= kv_len <= lkv or (window is not None and window < 1):
+        raise ValueError(f"need 1 <= kv_len <= {lkv} and window >= 1")
+    devices = {q.device, k.device, v.device}
+    if len(devices) != 1:
+        raise ValueError(f"q, k, v on different devices: {devices}")
+    if q.device.type == "cpu":
+        return mha_ref(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha runs on cpu or cuda, got {q.device}")
+
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in the kernel's {HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q/k/v must share float32 or bfloat16, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("mha kernel needs contiguous q, k, v")
+    out = torch.empty_like(q)
+    exp_tab, inv_tab = lut.exp_table(q.device), lut.inv_table(q.device)
+    exp_off, exp_step = lut.index_constants(lut.EXP_SPEC)
+    inv_off, inv_step = lut.index_constants(lut.INV_SPEC)
+    err = _lib()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        exp_tab.data_ptr(), inv_tab.data_ptr(),
+        b, hq, hkv, lq, lkv, d, kv_len, int(causal),
+        0 if window is None else window, _MODES[mode], _DTYPES[q.dtype],
+        1.0 / (d ** 0.5), exp_off, exp_step, inv_off, inv_step,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,0 +1,111 @@
+"""The port's attention (plain version behind ``repro_torch`` ``mha`` on the
+CPU) against the JAX package's ``mha``, both its jnp path and its Pallas
+kernel in interpret mode, on the same numpy inputs."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.flash_attention import attention_ref as jax_attention_ref  # noqa: E402
+from repro.kernels.flash_attention import mha as jax_mha  # noqa: E402
+from repro_torch.kernels import LAUNCHES  # noqa: E402
+from repro_torch.kernels.flash_attention import mha  # noqa: E402
+
+# safe: both sides sum in float32 in different orders (2e-5, as the JAX
+# kernel test).  lut: 1e-4 as the JAX kernel test, for the same reason: a
+# float-order difference in a score or a row sum can flip a nearest-table
+# entry at a bin boundary.  Such a flip moves its whole row by one table step
+# (against the jnp path: 2.4e-4 on 9 elements of one row in 800), so rows
+# with a flip may reach 1e-3 and must be under 1 % of the rows.
+ATOL = {"safe": 2e-5, "lut": 1e-4}
+LUT_FLIP_ATOL, LUT_FLIP_ROWS = 1e-3, 0.01
+
+
+def assert_close(ours, ref, mode):
+    if mode == "safe":
+        np.testing.assert_allclose(ours, ref, atol=ATOL["safe"], rtol=0)
+        return
+    err = np.abs(ours.astype(np.float32) - np.asarray(ref, np.float32))
+    rows_flipped = (err > ATOL["lut"]).any(axis=-1).mean()
+    assert err.max() <= LUT_FLIP_ATOL and rows_flipped <= LUT_FLIP_ROWS, (
+        err.max(), rows_flipped)
+
+
+def _qkv(b, hq, hkv, lq, lkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(
+        rng.normal(size=shape).astype(np.float32)
+        for shape in ((b, hq, lq, d), (b, hkv, lkv, d), (b, hkv, lkv, d))
+    )
+
+
+def _both(qkv, use_pallas, **kw):
+    ref = jax_mha(*(jnp.asarray(t) for t in qkv), use_pallas=use_pallas,
+                  interpret=True, **kw)
+    ours = mha(*(torch.from_numpy(t) for t in qkv), **kw)
+    return np.asarray(ref), ours.numpy()
+
+
+# (B, H, L, D) of engine_anomaly, btagging and gw at batch 8
+PHYSICS_SHAPES = [(8, 2, 50, 8), (8, 8, 15, 8), (8, 4, 100, 8)]
+
+
+@pytest.mark.parametrize("shape", PHYSICS_SHAPES)
+@pytest.mark.parametrize("mode", ["safe", "lut"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_physics_shapes(shape, mode, use_pallas):
+    b, h, l, d = shape
+    ref, ours = _both(_qkv(b, h, h, l, l, d, seed=l), use_pallas, mode=mode)
+    assert_close(ours, ref, mode)
+
+
+@pytest.mark.parametrize("mode", ["safe", "lut"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_mask_grid_gqa(mode, causal, window, use_pallas):
+    """The JAX kernel test's grid (GQA 4 query heads over 2 kv heads)."""
+    ref, ours = _both(
+        _qkv(2, 4, 2, 100, 100, 32, seed=1), use_pallas,
+        causal=causal, window=window, mode=mode,
+    )
+    assert_close(ours, ref, mode)
+
+
+@pytest.mark.parametrize("mode", ["safe", "lut"])
+def test_padding_mask_kv_len(mode):
+    q, k, v = _qkv(1, 2, 2, 40, 48, 16, seed=4)
+    ref = jax_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        scale=1 / 4.0, mode=mode, kv_len=37, causal=True,
+    )
+    ours = mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+               mode=mode, kv_len=37, causal=True)
+    assert_close(ours.numpy(), ref, mode)
+
+
+def test_bf16_inputs():
+    q, k, v = _qkv(1, 2, 2, 64, 64, 32, seed=7)
+    ref = jax_mha(*(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), causal=True)
+    ours = mha(*(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)), causal=True)
+    assert ours.dtype == torch.bfloat16
+    # both widen bf16 to float32, compute, and round once to bf16; a float
+    # order difference can move that rounding by one bf16 ulp (2^-8 relative)
+    np.testing.assert_allclose(
+        ours.float().numpy(), np.asarray(ref, np.float32), atol=1e-2, rtol=0
+    )
+
+
+def test_cpu_path_launches_no_kernel_and_rejects_bad_args():
+    q, k, v = (torch.from_numpy(t) for t in _qkv(1, 2, 2, 8, 8, 8))
+    before = LAUNCHES["flash_attention"]
+    mha(q, k, v)
+    assert LAUNCHES["flash_attention"] == before
+    with pytest.raises(ValueError):
+        mha(q, k, v, mode="bogus")
+    with pytest.raises(ValueError):
+        mha(q, k, v, kv_len=0)
+    with pytest.raises(ValueError):
+        mha(q, k[:, :, :4], v)

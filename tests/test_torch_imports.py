@@ -1,0 +1,98 @@
+"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor anything of ``repro``, and the entry points never fall
+back to the CPU on their own."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.models import physics  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+def test_port_files_found():
+    assert len(PORT_FILES) > 20 and (ROOT / "chip_smoke.py").is_file()
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    bad = [
+        m for m in _imported_modules(path)
+        if m.split(".")[0] in ("jax", "jaxlib", "flax", "repro")
+    ]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = (
+        "import sys, repro_torch, repro_torch.models.physics, repro_torch.convert, "
+        "repro_torch.kernels.flash_attention, repro_torch.kernels.layernorm, "
+        "repro_torch.data; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+        "assert not bad, bad"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("gw")
+    params = physics.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.zeros(1, cfg.seq_len, cfg.input_vec_size)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        physics.forward(params, cfg, x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        physics.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({"w": x.numpy()})
+    assert physics.forward(params, cfg, x, device="cpu").shape == (1, 1)
+
+
+@pytest.mark.parametrize("helper", ["exp_table", "inv_table", "rsqrt_table", "params_init"])
+def test_public_helpers_default_to_cuda(monkeypatch, helper):
+    from repro_torch.core import lut
+    from repro_torch.models import params as params_lib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = {"w": params_lib.ArraySpec((2, 3))}
+    if helper == "params_init":
+        call = lambda **kw: params_lib.init_params(spec, torch.Generator().manual_seed(0), **kw)  # noqa: E731
+    else:
+        call = getattr(lut, helper)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    out = call(device="cpu")
+    leaves = [out] if isinstance(out, torch.Tensor) else list(out.values())
+    assert all(t.device.type == "cpu" for t in leaves)
+
+
+def test_import_turns_tf32_off():
+    code = (
+        "import torch; torch.backends.cuda.matmul.allow_tf32 = True; "
+        "torch.backends.cudnn.allow_tf32 = True; import repro_torch; "
+        "assert not torch.backends.cuda.matmul.allow_tf32; "
+        "assert not torch.backends.cudnn.allow_tf32"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
