@@ -19,7 +19,14 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``float`` and ``paper_vu13p`` policies at batch 1 and 8192; logits must
    match the port's CPU path, both kernels' launch counts must grow by the
    expected number per forward, and the median latency (CUDA events) and
-   events/s are printed.
+   events/s are printed;
+4. mha -- the paper's int8 4-stage streaming MHA (``core.streaming_mha``:
+   qmatmul, fused attention, qmatmul) at each encoder's published width and
+   at granite-8b's, under the ``lut`` and ``safe`` softmax, checked against
+   the port's CPU path and the float oracle, with 4 qmatmul and 1 attention
+   launches per call; then the LUT softmax entry point
+   (``kernels.lut_softmax.lut_softmax``) on the encoders' attention scores.
+   Each path sets the launch counts to 0 before it and reads them after.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  The full measurements
@@ -45,7 +52,7 @@ OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 # Published H100 SXM peaks (NVIDIA data sheet, dense), at the full 700 W limit,
 # by the type of the inputs: the card's rate for the type, whatever units a
 # kernel happens to use.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12  # HBM3
 
 MODELS = ("engine_anomaly", "btagging", "gw")
@@ -80,6 +87,25 @@ LN_LUT_STEP = 0.003
 MODEL_TOL = {"float": 1e-4, "paper_vu13p": 1e-3}
 MODEL_FLIP_EVENTS, MODEL_FLIP_CAP = 2e-2, 1e-1
 CPU_CHECK_EVENTS = 1024
+
+# qmatmul: exact int32 sums and the same float epilogue -> bitwise.
+# lut_softmax: the exp entries are the same (same index arithmetic on the
+# same score), the row sums are taken in another order, so a row at a
+# 1/x-table tie may take the neighbouring entry, 0.76 % away (then cross one
+# ap_fixed level); such rows must be under FLIP_ROWS.
+SOFTMAX_INV_STEP = 0.008
+# Streaming MHA on the card vs the port's CPU path, stage by stage: stage 1
+# (per-row codes, exact int32 sums, the same epilogue) and stage 4 on the
+# same attention output are bitwise equal; the attention in between sums in
+# another float order and may flip a LUT entry at a tie (its own tolerance,
+# phase 2), which can flip a stage-4 int8 code at a rounding tie.  One flip
+# moves a token's output by about 3 / (127 sqrt(d)) of its norm (d = 16 ..
+# 4096: 0.6 % .. 0.04 %), so end to end the relative Frobenius error must
+# stay under 1e-2.  Against the float oracle: the JAX test's bound, < 0.1.
+MHA_TOL, MHA_REL_VS_CPU, MHA_FLOAT_REL = 1e-4, 1e-2, 0.1
+# (d_model, n_heads, seq, causal) of granite-8b's attention, run as MHA
+# (streaming_mha has no GQA) at batch 1.
+GRANITE = (4096, 32, 1024, True)
 
 
 class SmokeError(RuntimeError):
@@ -278,6 +304,71 @@ def _layernorm_case(dev, rows, k, rms, use_lut):
                 bound_by=bound_by)
 
 
+def _qmatmul_case(dev, m, k, n, grid_k=1):
+    import torch
+
+    from repro_torch.kernels.qmatmul import qmatmul_int8, qmatmul_ref
+
+    g = torch.Generator(device=dev).manual_seed(m + 3 * k + 7 * n)
+    x = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    xs = torch.rand(m, 1, generator=g, device=dev) * 0.05 + 1e-3
+    ws = torch.rand(1, n, generator=g, device=dev) * 0.05 + 1e-3
+    out = qmatmul_int8(x, w, xs, ws, grid_k=grid_k)
+    ref = qmatmul_ref(x, w, xs, ws)
+    torch.cuda.synchronize()
+    ok = torch.equal(out, ref)
+    err = float((out - ref).abs().max())
+    bound_ms, bound_by = bound(2.0 * m * n * k, m * k + k * n + 4 * (m + n) + 4 * m * n, "int8")
+    iters = 20 if m * n * k > 1e10 else 50
+    ms = time_ms(lambda: qmatmul_int8(x, w, xs, ws, grid_k=grid_k), iters)
+    plain_ms = time_ms(lambda: qmatmul_ref(x, w, xs, ws), max(3, iters // 5))
+    # Yardstick: torch._int_mm, the int32 product alone (no epilogue), where
+    # its shape rules hold.
+    library_ms, library_note = None, "torch._int_mm (int32 product, no epilogue)"
+    try:
+        library_ms = time_ms(lambda: torch._int_mm(x, w), iters)
+    except RuntimeError as e:  # a shape _int_mm does not take: no yardstick
+        library_note = f"torch._int_mm refused: {str(e).splitlines()[0][:80]}"
+    return dict(kernel="qmatmul", shape=[m, k, n], mode=f"R={grid_k}", dtype="int8",
+                max_abs_err=err,
+                rows_over_atol=float((out != ref).any(dim=-1).float().mean()),
+                tol="bitwise", ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_note=library_note, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _lut_softmax_case(dev, rows, k, fixed):
+    import torch
+
+    from repro_torch.core import fixed_point, precision
+    from repro_torch.kernels.lut_softmax import lut_softmax, lut_softmax_ref
+
+    prec = precision.fixed(12, 6) if fixed else None
+    g = torch.Generator(device=dev).manual_seed(rows + k)
+    x = torch.randn(rows, k, generator=g, device=dev) * 3
+
+    def plain():
+        ref = lut_softmax_ref(x)
+        return ref if prec is None else fixed_point.quantize(ref, prec.fixed_cfg())
+
+    out, ref = lut_softmax(x, precision=prec), plain()
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    allow = SOFTMAX_INV_STEP * ref.abs() + (prec.fixed_cfg().step if fixed else 0.0)
+    rows_over = float((err > 0).any(dim=-1).float().mean())
+    ok = bool((err <= allow).all()) and rows_over <= FLIP_ROWS
+    # about 4 float32 operations per score (index, sum, multiply) against
+    # 8 bytes: bound by bytes
+    bound_ms, bound_by = bound(4.0 * x.numel(), 8 * x.numel() + (1024 + 4096) * 4)
+    iters = 20 if x.numel() > 1e8 else 50
+    ms = time_ms(lambda: lut_softmax(x, precision=prec), iters)
+    plain_ms = time_ms(plain, max(3, iters // 5))
+    return dict(kernel="lut_softmax", shape=[rows, k], mode="fixed<12,6>" if fixed else "none",
+                max_abs_err=float(err.max()), rows_over_atol=rows_over,
+                tol="bitwise (+1 table step)", ok=ok, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_kernels(dev):
     from repro_torch.configs import get_config
 
@@ -298,6 +389,19 @@ def phase_kernels(dev):
         for rms in (False, True):
             for use_lut in (False, True):
                 cases.append(_layernorm_case(dev, rows, k, rms, use_lut))
+    for name in MODELS:  # stage 1/4 GEMMs of the streaming MHA at batch 8192
+        cfg = get_config(name)
+        cases.append(_qmatmul_case(dev, 8192 * cfg.seq_len, cfg.d_model, cfg.d_model))
+    cases.append(_qmatmul_case(dev, 4096, 4096, 4096))
+    for r in (1, 2, 4, 8):  # the reuse factor R: every output bitwise equal
+        cases.append(_qmatmul_case(dev, 1024, 4096, 4096, grid_k=r))
+    for name in MODELS:  # attention scores (B*H*L, L) at batch 8192
+        cfg = get_config(name)
+        for fixed in (False, True):
+            cases.append(_lut_softmax_case(dev, 8192 * cfg.n_heads * cfg.seq_len,
+                                           cfg.seq_len, fixed))
+    for fixed in (False, True):
+        cases.append(_lut_softmax_case(dev, 8192, 1024, fixed))
     for c in cases:
         lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         log(f"[kernel] {c['kernel']:15s} {str(c['shape']):22s} {c['mode']:6s} "
@@ -392,6 +496,185 @@ def _to(tree, device):
     return tree.to(device)
 
 
+# ---------------------------------------------------------------- phase 4 --
+
+
+def _mha_inputs(name: str):
+    """(x (batch, seq, d_model) float32 on the CPU, weights, n_heads, causal)
+    for an encoder, from its seeded events through a seeded input embedding,
+    or random activations at granite-8b's width."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import GENERATORS
+
+    g = torch.Generator().manual_seed(SEED)
+    if name == "granite-8b":
+        d, h, seq, causal = GRANITE
+        x = torch.randn(1, seq, d, generator=g)
+    else:
+        cfg = get_config(name)
+        d, h, causal = cfg.d_model, cfg.n_heads, False  # encoders attend both ways
+        events, _ = GENERATORS[name](max(BATCHES), seed=SEED)
+        w_in = torch.randn(events.shape[-1], d, generator=g) / np.sqrt(events.shape[-1])
+        x = torch.from_numpy(events) @ w_in
+    ws = [torch.randn(d, d, generator=g) / np.sqrt(d) for _ in range(4)]
+    return x, ws, h, causal
+
+
+def _mha_stages_match(x, params, params_cpu, h, causal, mode) -> bool:
+    """Stages 1 and 4 on the card bitwise equal to the CPU path's, given the
+    same inputs (stage 4: the card's own attention output).  The launches
+    made here are comparisons and are taken off the counts again."""
+    import torch
+
+    from repro_torch.core.streaming_mha import split_heads, int8_linear
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import mha
+
+    saved = dict(LAUNCHES)
+    b, s, d = x.shape
+    flat = x.reshape(b * s, d)
+    same = True
+    qkv = []
+    for name in ("q", "k", "v"):
+        w, bias = getattr(params, "w" + name), getattr(params, "b" + name)
+        w_cpu, bias_cpu = getattr(params_cpu, "w" + name), getattr(params_cpu, "b" + name)
+        t = int8_linear(flat, w, bias)
+        same &= torch.equal(t.cpu(), int8_linear(flat.cpu(), w_cpu, bias_cpu))
+        qkv.append(split_heads(t, b, s, h))
+    o = mha(*qkv, causal=causal, mode=mode).transpose(1, 2).reshape(b * s, -1)
+    out = int8_linear(o, params.wo, params.bo)
+    same &= torch.equal(out.cpu(), int8_linear(o.cpu(), params_cpu.wo, params_cpu.bo))
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    LAUNCHES.update(saved)
+    return bool(same)
+
+
+def phase_mha(dev):
+    import torch
+
+    from repro_torch.core.streaming_mha import (
+        quantize_mha_params,
+        streaming_mha,
+        streaming_mha_float_ref,
+    )
+    from repro_torch.kernels import LAUNCHES
+
+    results = []
+    LAUNCHES.clear()  # the streaming-MHA path's window starts here
+    for name in (*MODELS, "granite-8b"):
+        x_all, ws, h, causal = _mha_inputs(name)
+        ws_dev = [w.to(dev) for w in ws]
+        params = quantize_mha_params(*ws_dev)
+        params_cpu = quantize_mha_params(*ws)
+        batches = (1,) if name == "granite-8b" else BATCHES
+        for mode in ("lut", "safe"):
+            for batch in batches:
+                x = x_all[:batch].to(dev)
+
+                def call():
+                    return streaming_mha(x, params, n_heads=h, causal=causal, softmax_mode=mode)
+
+                before = dict(LAUNCHES)
+                out = call()
+                torch.cuda.synchronize()
+                grew = {k: LAUNCHES[k] - before.get(k, 0) for k in ("qmatmul", "flash_attention")}
+                if grew != {"qmatmul": 4, "flash_attention": 1}:
+                    raise SmokeError(f"mha {name}/{mode}/b{batch}: launches per call {grew}, "
+                                     "expected 4 qmatmul and 1 flash_attention")
+                if out.shape != x.shape or not torch.isfinite(out).all():
+                    raise SmokeError(f"mha {name}/{mode}/b{batch}: bad output {tuple(out.shape)}")
+                n_chk = min(batch, CPU_CHECK_EVENTS)
+                if not _mha_stages_match(x[:n_chk], params, params_cpu, h, causal, mode):
+                    raise SmokeError(f"mha {name}/{mode}/b{batch}: stage 1 or 4 differs from "
+                                     "the CPU path on the same inputs")
+                ref = streaming_mha(x_all[:n_chk], params_cpu, n_heads=h, causal=causal,
+                                    softmax_mode=mode)
+                diff = out[:n_chk].cpu() - ref
+                err = float(diff.abs().max())
+                over = float((diff.abs().amax(dim=-1) > MHA_TOL).float().mean())
+                rel_cpu = float(diff.norm() / ref.norm())
+                if not rel_cpu < MHA_REL_VS_CPU:
+                    raise SmokeError(f"mha {name}/{mode}/b{batch}: {rel_cpu:.2e} from the CPU "
+                                     f"path (bound {MHA_REL_VS_CPU}); max {err:.3e}")
+                oracle = streaming_mha_float_ref(x, *ws_dev, n_heads=h, causal=causal)
+                rel = float((out - oracle).norm() / oracle.norm())
+                if not rel < MHA_FLOAT_REL:
+                    raise SmokeError(f"mha {name}/{mode}/b{batch}: {rel:.3f} from the float "
+                                     f"oracle (bound {MHA_FLOAT_REL})")
+                iters = 200 if batch == 1 and name != "granite-8b" else 30
+                ms = median_ms(call, iters)
+                prof = profile_forward(call)
+                r = dict(model=name, softmax=mode, batch=batch, seq=x.shape[1],
+                         d_model=x.shape[2], n_heads=h, causal=causal, median_ms=ms,
+                         events_per_s=batch / (ms * 1e-3), max_abs_err_vs_cpu=err,
+                         rel_vs_cpu=rel_cpu, tokens_over_1e4=over, events_checked=n_chk,
+                         stages_1_4_bitwise=True, rel_vs_float=rel,
+                         profile=prof)
+                results.append(r)
+                busy = prof["busy_share"]
+                log(f"[mha] {name:14s} {mode:4s} batch {batch:5d} (seq {x.shape[1]}, d "
+                    f"{x.shape[2]}, {h} heads)  median {ms:.4f} ms  {r['events_per_s']:.1f} "
+                    f"events/s  stages 1+4 bitwise  |out - cpu| {err:.2e} (rel {rel_cpu:.1e}, "
+                    f"{over:.3%} tokens over {MHA_TOL}, {n_chk} events)  rel vs float "
+                    f"{rel:.4f}  device busy "
+                    f"{'not measured' if busy is None else f'{busy:.1%}'}  top {prof['top']}")
+    counts = dict(LAUNCHES)  # the streaming-MHA path's window ends here
+    for kname in ("qmatmul", "flash_attention"):
+        if counts.get(kname, 0) <= 0:
+            raise SmokeError(f"{kname} was never launched on the streaming-MHA path")
+    log(f"[mha] streaming-MHA path launches: {counts}")
+    return results, counts
+
+
+def phase_lut_softmax_path(dev):
+    """The LUT softmax entry point on the encoders' attention scores at
+    batch 8192 (Q K^T / sqrt(d) of the streaming MHA's stage-1 projections),
+    with the paper's ap_fixed<12,6> output."""
+    import torch
+
+    from repro_torch.core import fixed_point, precision
+    from repro_torch.core.streaming_mha import split_heads, int8_linear, quantize_mha_params
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.lut_softmax import lut_softmax, lut_softmax_ref
+
+    prec = precision.fixed(12, 6)
+    scores = {}
+    for name in MODELS:  # inputs, made before the path's window
+        x_all, ws, h, _ = _mha_inputs(name)
+        p = quantize_mha_params(*(w.to(dev) for w in ws))
+        b, s, d = x_all.shape
+        flat = x_all.to(dev).reshape(b * s, d)
+        q, k = (split_heads(int8_linear(flat, w, None), b, s, h) for w in (p.wq, p.wk))
+        scores[name] = (q @ k.transpose(-1, -2)) / (d // h) ** 0.5
+    results = []
+    LAUNCHES.clear()  # the LUT softmax path's window starts here
+    for name, sc in scores.items():
+        out = lut_softmax(sc, precision=prec)
+        torch.cuda.synchronize()
+        ref = fixed_point.quantize(lut_softmax_ref(sc), prec.fixed_cfg())
+        err = (out - ref).abs()
+        rows_over = float((err > 0).reshape(-1, sc.shape[-1]).any(dim=-1).float().mean())
+        allow = SOFTMAX_INV_STEP * ref.abs() + prec.fixed_cfg().step
+        if not (bool((err <= allow).all()) and rows_over <= FLIP_ROWS):
+            raise SmokeError(f"lut_softmax on {name}'s scores: {float(err.max()):.3e}, "
+                             f"{rows_over:.3%} rows differ")
+        rows_sum = float((out.sum(-1) - 1).abs().max())
+        results.append(dict(model=name, shape=list(sc.shape), max_abs_err=float(err.max()),
+                            rows_over=rows_over, max_row_sum_dev=rows_sum))
+        log(f"[lut_softmax] {name:14s} scores {tuple(sc.shape)}  err vs plain "
+            f"{float(err.max()):.2e} ({rows_over:.4%} rows differ)  max |row sum - 1| "
+            f"{rows_sum:.3f}")
+    counts = dict(LAUNCHES)  # the LUT softmax path's window ends here
+    if counts.get("lut_softmax", 0) != len(scores):
+        raise SmokeError(f"lut_softmax launched {counts.get('lut_softmax', 0)} times on its "
+                         f"path, expected {len(scores)}")
+    return results, counts
+
+
 # ------------------------------------------------------------------- main --
 
 
@@ -423,22 +706,30 @@ def main() -> int:
             f"cuda {torch.version.cuda} device {kind}")
         build_s = phase_build()
         cases = phase_kernels(dev)
-        models, counts = phase_models(dev)
+        models, model_counts = phase_models(dev)
+        mha, mha_counts = phase_mha(dev)
+        softmax_path, softmax_counts = phase_lut_softmax_path(dev)
     except Exception:  # noqa: BLE001 - report every failed phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
+    # launches: each kernel's count summed over the path windows it runs in
+    counts = {k: model_counts.get(k, 0) + mha_counts.get(k, 0) + softmax_counts.get(k, 0)
+              for k in ("flash_attention", "layernorm", "qmatmul", "lut_softmax")}
     main_shape = {"flash_attention": ([8192, 4, 100, 8], "safe"),
-                  "layernorm": ([8192 * 100, 32], "ln")}
-    sources = {"flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-               "layernorm": "src/repro_torch/csrc/layernorm.cu"}
+                  "layernorm": ([8192 * 100, 32], "ln"),
+                  "qmatmul": ([8192 * 100, 32, 32], "R=1"),
+                  "lut_softmax": ([8192 * 4 * 100, 100], "none")}
+    sources = {k: f"src/repro_torch/csrc/{k}.cu" for k in main_shape}
     replaces = {"flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:154",
-                "layernorm": "src/repro/kernels/layernorm/layernorm.py:69"}
+                "layernorm": "src/repro/kernels/layernorm/layernorm.py:69",
+                "qmatmul": "src/repro/kernels/qmatmul/qmatmul.py:56",
+                "lut_softmax": "src/repro/kernels/lut_softmax/lut_softmax.py:67"}
     line = []
     for kname, (shape, mode) in main_shape.items():
         c = next(c for c in cases if c["kernel"] == kname and c["shape"] == shape
-                 and c["mode"] == mode and c.get("dtype", "float32") == "float32")
+                 and c["mode"] == mode and c.get("dtype", "float32") in ("float32", "int8"))
         line.append({"name": kname, "route": "cuda", "source": sources[kname],
                      "replaces": replaces[kname], "launches": counts[kname],
                      "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
@@ -446,7 +737,10 @@ def main() -> int:
                      "library_ms": c["library_ms"]})
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({"device": kind, "nvidia_smi": smi, "build_s": build_s,
-                               "kernels": cases, "models": models, "launches": counts,
+                               "kernels": cases, "models": models, "mha": mha,
+                               "lut_softmax_path": softmax_path, "launches": counts,
+                               "launches_by_path": {"models": model_counts, "mha": mha_counts,
+                                                    "lut_softmax": softmax_counts},
                                "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s; details in {OUT.relative_to(ROOT)}")
     print(json.dumps({"kernels": line}))

@@ -1,6 +1,6 @@
-"""Carry a parameter tree across from the JAX package.
+"""Carry parameters across from the JAX package.
 
-The JAX tree is handed over as nested dicts of numpy arrays (for example
+The JAX side is handed over as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), so this module needs no JAX.  Dtypes
 and the stacked ``blocks`` layout are kept.
 """
@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.quant import QTensor
+from repro_torch.core.streaming_mha import StreamingMHAParams
 from repro_torch.device import resolve_device
 
 
@@ -26,3 +28,20 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     return _to_tensor(tree, dev)
+
+
+def streaming_mha_params_from_numpy(tree, device: str | torch.device = "cuda"):
+    """The JAX package's ``StreamingMHAParams`` as numpy -> the port's.
+
+    ``tree`` maps ``wq``, ``wk``, ``wv``, ``wo`` to ``{"values", "scale",
+    "axis"}`` (a ``QTensor``'s codes, scales and channel axis) and, where
+    present, ``bq``, ``bk``, ``bv``, ``bo`` to bias arrays."""
+    dev = resolve_device(device)
+    weights = {
+        name: QTensor(_to_tensor(tree[name]["values"], dev),
+                      _to_tensor(tree[name]["scale"], dev), tree[name]["axis"])
+        for name in ("wq", "wk", "wv", "wo")
+    }
+    biases = {name: None if tree.get(name) is None else _to_tensor(tree[name], dev)
+              for name in ("bq", "bk", "bv", "bo")}
+    return StreamingMHAParams(**weights, **biases)

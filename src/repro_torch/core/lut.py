@@ -16,7 +16,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, scalar
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +61,9 @@ def lut_index(x: torch.Tensor, spec: LutSpec) -> torch.Tensor:
     offset, step = index_constants(spec)
     if spec.spacing == "log":
         x = torch.log2(torch.clamp_min(x, 1e-30))
-    idx = torch.round((x - offset) / step)
+    # A true division on both devices (see device.scalar): a reciprocal
+    # multiply would move the index at ties by one entry.
+    idx = torch.round((x - offset) / scalar(step, torch.float32, str(x.device)))
     return torch.clamp(idx, 0, spec.size - 1).to(torch.int64)
 
 

@@ -1,6 +1,8 @@
 """int8 tensors and the runtime fake-quant hook (port of ``repro.core.quant``).
 
-PTQ calibration and the pytree sweep helpers wait for the training slice.
+``quantize_pytree_int8`` turns the float matrices of a nested dict into
+``QTensor`` s for the int8 datapath (``kernels/qmatmul``).  PTQ calibration
+and the fixed-point pytree sweeps wait for the training slice.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import fixed_point as fxp
+from repro_torch.device import scalar
 
 
 @dataclasses.dataclass
@@ -20,6 +23,10 @@ class QTensor:
     values: torch.Tensor
     scale: torch.Tensor
     axis: int | None = None
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.values.shape
 
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         scale = self.scale
@@ -38,7 +45,9 @@ def quantize_int8(x: torch.Tensor, axis: int | None = None, bits: int = 8) -> QT
     else:
         reduce_axes = tuple(i for i in range(x.ndim) if i != axis)
         amax = torch.amax(torch.abs(x), dim=reduce_axes)
-    scale = torch.clamp_min(amax, 1e-8) / qmax
+    # a true division on both devices (device.scalar), as the reference's
+    # eager quantizer divides
+    scale = torch.clamp_min(amax, 1e-8) / scalar(float(qmax), amax.dtype, str(amax.device))
     if axis is None:
         codes = torch.round(x / scale)
     else:
@@ -54,6 +63,18 @@ def fake_quant_int8(x: torch.Tensor, axis: int | None = None, bits: int = 8) -> 
     """Quantize-dequantize with STE gradient (int8 QAT)."""
     deq = quantize_int8(x.detach(), axis=axis, bits=bits).dequantize(x.dtype)
     return x + (deq - x).detach()
+
+
+def quantize_pytree_int8(params, axis: int | None = 0):
+    """Every float matrix leaf of a nested dict -> ``QTensor``, with one
+    scale per output channel (the last axis), or per tensor when ``axis``
+    is None.  1-D leaves (biases, norm scales) stay float, as the paper keeps
+    bias precision above the datapath's."""
+    if isinstance(params, dict):
+        return {k: quantize_pytree_int8(v, axis) for k, v in params.items()}
+    if isinstance(params, torch.Tensor) and params.is_floating_point() and params.ndim >= 2:
+        return quantize_int8(params, axis=(params.ndim - 1) if axis is not None else None)
+    return params
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,6 +7,8 @@ for it (the tests pass ``device="cpu"``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -23,3 +25,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {device!r}")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def scalar(value: float, dtype: torch.dtype, device: str) -> torch.Tensor:
+    """``value`` as a 0-dim tensor on ``device``, for exact division.
+
+    PyTorch's CUDA division of a tensor by a Python number multiplies by the
+    number's reciprocal, which can be one ulp away from the quotient that
+    the CPU, the JAX package and the CUDA kernels compute; dividing by a
+    tensor on the same device divides on both devices."""
+    return torch.tensor(value, dtype=dtype, device=device)

@@ -4,6 +4,7 @@ on a GPU machine with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py``.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -11,6 +12,13 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.flash_attention import mha, mha_ref  # noqa: E402
 from repro_torch.kernels.layernorm import layernorm, layernorm_ref  # noqa: E402
+from repro_torch.kernels.lut_softmax import lut_softmax, lut_softmax_ref  # noqa: E402
+from repro_torch.kernels.qmatmul import (  # noqa: E402
+    qmatmul,
+    qmatmul_int8,
+    qmatmul_prequantized,
+    qmatmul_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +94,145 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="float32"):
         layernorm(torch.randn(4, 8, device=dev, dtype=torch.float16),
                   torch.ones(8, device=dev), torch.zeros(8, device=dev))
+
+
+def _codes(g, m, k, n):
+    x = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
+    xs = torch.rand(m, 1, generator=g) * 0.05 + 1e-3
+    ws = torch.rand(1, n, generator=g) * 0.05 + 1e-3
+    return x, w, xs, ws
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (8, 16, 8), (100, 300, 200), (128, 128, 128), (7, 130, 65), (1, 256, 512),
+    (1000, 16, 16), (600, 64, 64), (700, 32, 32), (257, 48, 40), (300, 1024, 24),
+])
+def test_qmatmul_kernel_bitwise(dev, m, k, n):
+    g = torch.Generator(device="cpu").manual_seed(m * 7 + k + n)
+    x, w, xs, ws = (t.to(dev) for t in _codes(g, m, k, n))
+    before = LAUNCHES["qmatmul"]
+    out = qmatmul_int8(x, w, xs, ws)
+    torch.cuda.synchronize()
+    assert LAUNCHES["qmatmul"] == before + 1
+    # exact int32 sums and the same float epilogue: bitwise equal
+    ref = qmatmul_ref(x, w, xs, ws)
+    assert torch.equal(out, ref)
+    assert torch.equal(out.cpu(), qmatmul_ref(*(t.cpu() for t in (x, w, xs, ws))))
+
+
+@pytest.mark.parametrize("r", [1, 2, 4, 8])
+def test_qmatmul_kernel_reuse_factor_bitwise(dev, r):
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x, w, xs, ws = (t.to(dev) for t in _codes(g, 64, 1024, 96))
+    base = qmatmul_int8(x, w, xs, ws, grid_k=1)
+    assert torch.equal(qmatmul_int8(x, w, xs, ws, grid_k=r), base)
+    xf, wf = (torch.randn(64, 512, generator=g).to(dev), torch.randn(512, 96, generator=g).to(dev))
+    assert torch.equal(qmatmul(xf, wf, reuse_factor=r), qmatmul(xf, wf))
+
+
+def test_qmatmul_kernel_int32_exact(dev):
+    rng = np.random.default_rng(7)
+    xq = rng.integers(-128, 128, (64, 4096), dtype=np.int8)
+    wq = rng.integers(-128, 128, (4096, 64), dtype=np.int8)
+    out = qmatmul_int8(torch.from_numpy(xq).to(dev), torch.from_numpy(wq).to(dev),
+                       torch.ones(64, 1, device=dev), torch.ones(1, 64, device=dev))
+    expected = xq.astype(np.int64) @ wq.astype(np.int64)
+    np.testing.assert_array_equal(out.cpu().numpy(), expected.astype(np.float32))
+
+
+def test_qmatmul_prequantized_per_tensor(dev):
+    from repro_torch.core import quant
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x, w = torch.randn(33, 40, generator=g).to(dev), torch.randn(40, 24, generator=g).to(dev)
+    for ax, aw in ((0, 1), (None, None), (0, None)):
+        xq, wq = quant.quantize_int8(x, axis=ax), quant.quantize_int8(w, axis=aw)
+        out = qmatmul_prequantized(xq, wq)
+        xs = xq.scale.reshape(-1, 1).expand(33, 1)
+        ws = wq.scale.reshape(1, -1).expand(1, 24)
+        assert torch.equal(out, qmatmul_ref(xq.values, wq.values, xs, ws))
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (2, 4, 48, 48), (1, 16), (128, 100), (3, 5, 7),
+                                   (1000, 15), (1000, 50), (200, 1024), (9, 3)])
+@pytest.mark.parametrize("fixed", [False, True])
+def test_lut_softmax_kernel_matches_plain(dev, shape, fixed):
+    from repro_torch.core import fixed_point, precision
+
+    prec = precision.fixed(12, 6) if fixed else None
+    g = torch.Generator(device="cpu").manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g) * 3).to(dev)
+    before = LAUNCHES["lut_softmax"]
+    out = lut_softmax(x, precision=prec)
+    torch.cuda.synchronize()
+    assert LAUNCHES["lut_softmax"] == before + 1
+    ref = lut_softmax_ref(x)
+    if prec is not None:
+        ref = fixed_point.quantize(ref, prec.fixed_cfg())
+    # The exp entries are the same (same index arithmetic on the same score);
+    # the row sums are taken in another order, so a row at a 1/x-table tie
+    # may take the neighbouring entry, 0.76 % away (and then cross one
+    # ap_fixed<12,6> level, 2^-6).  Such rows must be under 1 % of the rows.
+    err = (out - ref).abs()
+    step = 0.008 * ref.abs() + (2.0 ** -6 if fixed else 0.0)
+    assert (err <= step).all()
+    assert (err > 0).reshape(-1, shape[-1]).any(dim=-1).float().mean() <= 0.01
+
+
+def test_streaming_mha_on_the_card(dev):
+    from repro_torch.core.streaming_mha import quantize_mha_params, streaming_mha
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    d, h = 32, 4
+    ws = [torch.randn(d, d, generator=g) / d ** 0.5 for _ in range(4)]
+    bs = [0.1 * torch.randn(d, generator=g) for _ in range(4)]
+    x = torch.randn(3, 20, d, generator=g)
+    p_cpu = quantize_mha_params(*ws, *bs)
+    p_dev = quantize_mha_params(*(t.to(dev) for t in ws), *(t.to(dev) for t in bs))
+    for mode in ("safe", "lut"):
+        before = dict(LAUNCHES)
+        out = streaming_mha(x.to(dev), p_dev, n_heads=h, causal=True, softmax_mode=mode)
+        torch.cuda.synchronize()
+        assert LAUNCHES["qmatmul"] - before.get("qmatmul", 0) == 4
+        assert LAUNCHES["flash_attention"] - before.get("flash_attention", 0) == 1
+        ref = streaming_mha(x, p_cpu, n_heads=h, causal=True, softmax_mode=mode)
+        # float order in attention may move a stage-4 int8 code by one step
+        torch.testing.assert_close(out.cpu(), ref, atol=5e-3, rtol=0)
+
+
+def test_quantizer_and_stage1_bitwise_across_devices(dev):
+    """Row scales divide exactly on the card too (no reciprocal multiply),
+    so the int8 codes, scales and a stage-1 projection are bitwise equal to
+    the CPU's, and so are the plain version's exp-table indices."""
+    from repro_torch.core import lut, quant
+    from repro_torch.core.streaming_mha import int8_linear
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(4096, 96, generator=g) * torch.rand(4096, 1, generator=g) * 5
+    w = quant.quantize_int8(torch.randn(96, 64, generator=g), axis=1)
+    for axis in (0, 1, None):
+        a, b = quant.quantize_int8(x, axis=axis), quant.quantize_int8(x.to(dev), axis=axis)
+        assert torch.equal(a.values, b.values.cpu()) and torch.equal(a.scale, b.scale.cpu())
+    w_dev = quant.QTensor(w.values.to(dev), w.scale.to(dev), w.axis)
+    assert torch.equal(int8_linear(x, w, None), int8_linear(x.to(dev), w_dev, None).cpu())
+    # the linear exp table (a log table's log2 may differ by ulps at ties)
+    assert torch.equal(lut.lut_index(x, lut.EXP_SPEC), lut.lut_index(x.to(dev), lut.EXP_SPEC).cpu())
+
+
+def test_int8_and_lut_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(8, 16, dtype=torch.int8, device=dev)
+    w = torch.zeros(16, 8, dtype=torch.int8, device=dev)
+    xs, ws = torch.ones(8, 1, device=dev), torch.ones(1, 8, device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        qmatmul_int8(x.float(), w, xs, ws)
+    with pytest.raises(ValueError, match="float32"):
+        qmatmul_int8(x, w, xs.double(), ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        qmatmul_int8(x, torch.zeros(8, 16, dtype=torch.int8, device=dev).t(), xs, ws)
+    with pytest.raises(ValueError, match="devices"):
+        qmatmul_int8(x, w.cpu(), xs, ws)
+    with pytest.raises(ValueError, match="float32"):
+        lut_softmax(torch.zeros(4, 8, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        lut_softmax(torch.zeros(8, 4, device=dev).t())

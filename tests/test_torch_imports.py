@@ -47,7 +47,8 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys, repro_torch, repro_torch.models.physics, repro_torch.convert, "
         "repro_torch.kernels.flash_attention, repro_torch.kernels.layernorm, "
-        "repro_torch.data; "
+        "repro_torch.kernels.qmatmul, repro_torch.kernels.lut_softmax, "
+        "repro_torch.core.streaming_mha, repro_torch.core.reuse, repro_torch.data; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )
