@@ -25,7 +25,16 @@ Phases, each of which fails the run (exit code 1) when it fails:
    at granite-8b's, under the ``lut`` and ``safe`` softmax, checked against
    the port's CPU path and the float oracle, with 4 qmatmul and 1 attention
    launches per call; then the LUT softmax entry point
-   (``kernels.lut_softmax.lut_softmax``) on the encoders' attention scores.
+   (``kernels.lut_softmax.lut_softmax``) on the encoders' attention scores;
+5. mamba -- mamba2-130m at its published size (24 layers, d_model 768,
+   24 SSM heads of P 64, N 128, chunk 64) on seeded random weights through
+   ``models.lm.prefill`` / ``decode_step``: in float32, 2 prompts of 256
+   tokens and 64 greedy decode steps held against the port's CPU path
+   (logits and tokens) and against one 320-token ``forward`` (continuity),
+   with 24 ``ssd_scan`` + 49 ``layernorm`` launches per prefill and 0 + 49
+   per decode step; then, in the config's bfloat16, the median time of a
+   prefill of 1 x 2048 and 8 x 2048 tokens and of a decode step at batch 1
+   and 8, with the profiler's busy share and top kernels.
    Each path sets the launch counts to 0 before it and reads them after.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
@@ -106,6 +115,17 @@ MHA_TOL, MHA_REL_VS_CPU, MHA_FLOAT_REL = 1e-4, 1e-2, 0.1
 # (d_model, n_heads, seq, causal) of granite-8b's attention, run as MHA
 # (streaming_mha has no GQA) at batch 1.
 GRANITE = (4096, 32, 1024, True)
+# SSD scan vs its plain version: float32 sums in another order, the JAX
+# kernel test's 1e-4 on y and on the final state.
+SSD_ATOL = 1e-4
+# mamba2-130m, float32: logits on the card vs the port's CPU path, and the
+# decoded logits vs one forward over the whole sequence, within
+# tests/test_ssm.py's 2e-4 (float32 sums in other orders).  A greedy token
+# may differ only where the CPU path's top-two margin is below that bound.
+MAMBA = "mamba2-130m"
+MAMBA_TOL = 2e-4
+MAMBA_CHECK = (2, 256, 64)  # batch, prompt tokens, greedy decode steps
+MAMBA_TIME_LEN, MAMBA_TIME_BATCHES, MAMBA_TIME_STEPS = 2048, (1, 8), 64
 
 
 class SmokeError(RuntimeError):
@@ -282,16 +302,17 @@ def _layernorm_case(dev, rows, k, rms, use_lut):
     g = torch.Generator().manual_seed(rows + k)
     x = (torch.randn(rows, k, generator=g) * 3).to(dev)
     gamma, beta = (torch.randn(k, generator=g).to(dev) for _ in range(2))
-    out = layernorm(x, gamma, beta, use_lut=use_lut, rms=rms)
-    ref = layernorm_ref(x, gamma, beta, use_lut=use_lut, rms=rms)
+    b_arg = None if rms else beta  # the model path hands RMSNorm no beta
+    out = layernorm(x, gamma, b_arg, use_lut=use_lut, rms=rms)
+    ref = layernorm_ref(x, gamma, b_arg, use_lut=use_lut, rms=rms)
     torch.cuda.synchronize()
     flip = LN_LUT_STEP * (ref.abs() + beta.abs()) if use_lut else None
     err, rows_over, ok = close_enough(out, ref, LN_ATOL, flip_allow=flip)
     nbytes = 2 * x.numel() * 4 + (1 if rms else 2) * k * 4 + (4096 * 4 if use_lut else 0)
     bound_ms, bound_by = bound(8.0 * x.numel(), nbytes)
     iters = 20 if x.numel() > 1e7 else 100
-    ms = time_ms(lambda: layernorm(x, gamma, beta, use_lut=use_lut, rms=rms), iters)
-    plain_ms = time_ms(lambda: layernorm_ref(x, gamma, beta, use_lut=use_lut, rms=rms), iters)
+    ms = time_ms(lambda: layernorm(x, gamma, b_arg, use_lut=use_lut, rms=rms), iters)
+    plain_ms = time_ms(lambda: layernorm_ref(x, gamma, b_arg, use_lut=use_lut, rms=rms), iters)
     library_ms = None
     if not use_lut and not rms:
         library_ms = time_ms(lambda: F.layer_norm(x, (k,), gamma, beta, 1e-5), iters)
@@ -369,6 +390,57 @@ def _lut_softmax_case(dev, rows, k, fixed):
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _ssd_case(dev, b, l, h, p, n, groups, chunk, dtype="float32", decay=1.0):
+    """``ssd_with_state`` on (b, l, h, p) with B and C per group (``groups``;
+    None = per head, the reference ``ssd``'s layout) against the plain
+    version on the same inputs, y and final state."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_with_state
+
+    gb = h if groups is None else groups
+    g = torch.Generator().manual_seed(l + p + n + h)
+    tdt = getattr(torch, dtype)
+    x = [(torch.randn(b, l, h, p, generator=g) * 0.5),
+         -torch.randn(b, l, h, generator=g).abs() * 0.3 * decay,
+         torch.randn(b, l, gb, n, generator=g) * 0.5,
+         torch.randn(b, l, gb, n, generator=g) * 0.5]
+    x = [t.to(dev, tdt) for t in x]
+    q = min(chunk, l)
+
+    def plain():
+        rep = h // gb
+        return ssd_chunked(x[0].float(), x[1].float(), x[2].float().repeat_interleave(rep, 2),
+                           x[3].float().repeat_interleave(rep, 2), chunk=q)
+
+    y, state = ssd_with_state(*x, chunk=chunk)
+    y_ref, s_ref = plain()
+    torch.cuda.synchronize()
+    if dtype == "bfloat16":
+        err_y, _, ok_y = close_enough(y, y_ref.to(tdt), BF16_ATOL, BF16_RTOL)
+        tol = f"y atol {BF16_ATOL} rtol {BF16_RTOL}, state atol {SSD_ATOL}"
+    else:
+        err_y, _, ok_y = close_enough(y, y_ref, SSD_ATOL)
+        tol = f"atol {SSD_ATOL} (y and state)"
+    err_s, _, ok_s = close_enough(state, s_ref, SSD_ATOL)
+    ok = ok_y and ok_s and bool(torch.isfinite(y).all() and torch.isfinite(state).all())
+    # q(q+1)N + q(q+1)P + 4qPN float operations per chunk and head: the lower
+    # triangles of C B^T and G xdt (j <= i), C S and the state update; each
+    # input read once, y and S written once
+    es = x[0].element_size()
+    flops = b * h * (l // q) * (q * (q + 1) * (n + p) + 4 * q * p * n)
+    nbytes = es * (2 * b * l * h * p + b * l * h + 2 * b * l * gb * n) + 4 * b * h * p * n
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    iters = 10 if flops > 1e10 else 50
+    ms = time_ms(lambda: ssd_with_state(*x, chunk=chunk), iters)
+    plain_ms = time_ms(plain, max(3, iters // 5))
+    return dict(kernel="ssd_scan", shape=[b * h, l, p, n], mode=f"q{q} g{gb}"
+                + (f" a*{decay:g}" if decay != 1.0 else ""), dtype=dtype,
+                max_abs_err=max(err_y, err_s), max_abs_err_state=err_s, rows_over_atol=0.0,
+                tol=tol, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_kernels(dev):
     from repro_torch.configs import get_config
 
@@ -389,6 +461,12 @@ def phase_kernels(dev):
         for rms in (False, True):
             for use_lut in (False, True):
                 cases.append(_layernorm_case(dev, rows, k, rms, use_lut))
+    # mamba2-130m's RMSNorms (ln1 and the final norm at 768, gate_norm at
+    # 1536) at the rows of phase 5: decode at batch 1, 2 and 8, prefill of
+    # 2 x 256, 1 x 2048 and 8 x 2048
+    for k in (768, 1536):
+        for rows in (1, 2, 8, 2 * 256, 2048, 8 * 2048):
+            cases.append(_layernorm_case(dev, rows, k, True, False))
     for name in MODELS:  # stage 1/4 GEMMs of the streaming MHA at batch 8192
         cfg = get_config(name)
         cases.append(_qmatmul_case(dev, 8192 * cfg.seq_len, cfg.d_model, cfg.d_model))
@@ -402,6 +480,16 @@ def phase_kernels(dev):
                                            cfg.seq_len, fixed))
     for fixed in (False, True):
         cases.append(_lut_softmax_case(dev, 8192, 1024, fixed))
+    for chunk in (8, 16, 32, 64):  # the JAX kernel test's sweep (per-head B, C)
+        cases.append(_ssd_case(dev, 2, 64, 3, 16, 24, None, chunk))
+    for b, l, h, p, n in ((1, 32, 1, 8, 8), (2, 128, 2, 32, 16), (1, 64, 4, 64, 64)):
+        cases.append(_ssd_case(dev, b, l, h, p, n, None, 32))
+    cases.append(_ssd_case(dev, 2, 64, 3, 16, 24, None, 16, decay=50.0))  # strong decay
+    cases.append(_ssd_case(dev, 2, 12, 3, 16, 24, None, 64))  # l < chunk
+    cases.append(_ssd_case(dev, 2, 256, 8, 8, 16, 1, 16))  # mamba2-130m-reduced
+    for b in MAMBA_TIME_BATCHES:  # mamba2-130m's prefill at 2048 tokens
+        cases.append(_ssd_case(dev, b, 2048, 24, 64, 128, 1, 64))
+    cases.append(_ssd_case(dev, 1, 2048, 24, 64, 128, 1, 64, dtype="bfloat16"))
     for c in cases:
         lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         log(f"[kernel] {c['kernel']:15s} {str(c['shape']):22s} {c['mode']:6s} "
@@ -675,6 +763,140 @@ def phase_lut_softmax_path(dev):
     return results, counts
 
 
+# ---------------------------------------------------------------- phase 5 --
+
+
+def phase_mamba(dev):
+    """mamba2-130m through ``models.lm``: the float32 check, then the
+    bfloat16 timings.  Returns (results, launch counts of the window)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+
+    base = get_config(MAMBA)
+    cfg = dataclasses.replace(base, dtype="float32")
+    n_ln = 2 * cfg.n_layers + 1
+    per_call = {"prefill": {"ssd_scan": cfg.n_layers, "layernorm": n_ln},
+                "decode": {"ssd_scan": 0, "layernorm": n_ln}}
+    b, s0, steps = MAMBA_CHECK
+    params_cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    params = _to(params_cpu, dev)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s0), generator=torch.Generator().manual_seed(1))
+    params_bf16 = lm.init_params(base, torch.Generator().manual_seed(SEED), device=dev)
+    t_gen = torch.Generator(device=dev).manual_seed(2)
+    t_toks = {bt: torch.randint(0, base.vocab_size, (bt, MAMBA_TIME_LEN), generator=t_gen,
+                                device=dev) for bt in MAMBA_TIME_BATCHES}
+
+    def checked(kind, fn):
+        before = dict(LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        grew = {k: LAUNCHES[k] - before.get(k, 0) for k in per_call[kind]}
+        if grew != per_call[kind]:
+            raise SmokeError(f"mamba {kind}: launches per call {grew}, expected {per_call[kind]}")
+        return out
+
+    LAUNCHES.clear()  # the mamba path's window starts here
+    # float32 check: greedy decode on the card ...
+    caches = lm.init_caches(cfg, b, device=dev)
+    last, caches = checked("prefill", lambda: lm.prefill(
+        params, cfg, {"tokens": prompt.to(dev)}, caches, device=dev))
+    card, toks = [last.cpu()], []
+    for k in range(steps):
+        tok = last.argmax(-1, keepdim=True)
+        toks.append(tok.cpu())
+        pos = torch.full((b,), s0 + k, dtype=torch.int32, device=dev)
+        last, caches = checked("decode", lambda: lm.decode_step(
+            params, cfg, tok, pos, caches, device=dev))
+        card.append(last.cpu())
+    card = torch.stack(card, 1)  # (b, steps + 1, V): positions s0 - 1 .. s0 + steps - 1
+    seq = torch.cat([prompt, *toks], dim=1)
+    full, _, _ = checked("prefill", lambda: lm.forward(
+        params, cfg, {"tokens": seq.to(dev)}, device=dev))
+    cont_err = float((full[:, s0 - 1:].cpu() - card).abs().max())
+    # ... and the port's CPU path on the same weights, fed the card's tokens
+    c_last, c_caches = lm.prefill(params_cpu, cfg, {"tokens": prompt},
+                                  lm.init_caches(cfg, b, device="cpu"), device="cpu")
+    cpu = [c_last]
+    for k in range(steps):
+        c_last, c_caches = lm.decode_step(params_cpu, cfg, toks[k],
+                                          torch.full((b,), s0 + k), c_caches, device="cpu")
+        cpu.append(c_last)
+    cpu = torch.stack(cpu, 1)
+    cpu_err = float((card - cpu).abs().max())
+    greedy_cpu = cpu[:, :-1].argmax(-1)
+    greedy_card = torch.cat(toks, dim=1)
+    differ = (greedy_cpu != greedy_card).nonzero().tolist()
+    top2 = cpu[:, :-1].topk(2, dim=-1).values
+    margins = top2[..., 0] - top2[..., 1]
+    close_calls = [dict(seq=i, step=k, cpu_margin=float(margins[i, k])) for i, k in differ]
+    if any(c["cpu_margin"] >= MAMBA_TOL for c in close_calls):
+        raise SmokeError(f"mamba greedy tokens differ from the CPU path at {close_calls}")
+    if not (torch.isfinite(card).all() and card.shape == (b, steps + 1, cfg.padded_vocab_size)):
+        raise SmokeError(f"mamba: bad logits {tuple(card.shape)}")
+    if cpu_err > MAMBA_TOL or cont_err > MAMBA_TOL:
+        raise SmokeError(f"mamba float32: |card - cpu| {cpu_err:.3e}, |decode - forward| "
+                         f"{cont_err:.3e} (tol {MAMBA_TOL})")
+    check = dict(batch=b, prompt=s0, steps=steps, max_abs_err_vs_cpu=cpu_err,
+                 max_abs_err_decode_vs_forward=cont_err, tol=MAMBA_TOL,
+                 greedy_differs_at_close_calls=close_calls,
+                 min_cpu_top2_margin=float(margins.min()), launches_per_call=per_call)
+    log(f"[mamba] float32 check: {cfg.n_layers} layers d {cfg.d_model}, {b} x {s0} prompt + "
+        f"{steps} greedy steps  |card - cpu| {cpu_err:.2e}  |decode - forward({s0 + steps})| "
+        f"{cont_err:.2e} (tol {MAMBA_TOL})  tokens differ at {close_calls or 'no step'}  "
+        f"launches/call {per_call}")
+
+    # bfloat16 timings
+    timings = []
+    for bt in MAMBA_TIME_BATCHES:
+        caches = lm.init_caches(base, bt, device=dev)
+        tk = t_toks[bt]
+
+        def prefill():
+            return lm.prefill(params_bf16, base, {"tokens": tk}, caches, device=dev)
+
+        last, filled = checked("prefill", prefill)
+        if not torch.isfinite(last.float()).all():
+            raise SmokeError(f"mamba bf16 prefill b{bt}: non-finite logits")
+        ms = median_ms(prefill, 5 if bt > 1 else 10, warmup=2)
+        prof = profile_forward(prefill, iters=3)
+        timings.append(dict(kind="prefill", batch=bt, tokens=MAMBA_TIME_LEN, median_ms=ms,
+                            tokens_per_s=bt * MAMBA_TIME_LEN / (ms * 1e-3), profile=prof))
+        start_tok = last.argmax(-1, keepdim=True)
+
+        def decode_run():
+            tok, c = start_tok, filled
+            for k in range(MAMBA_TIME_STEPS):
+                pos = torch.full((bt,), MAMBA_TIME_LEN + k, dtype=torch.int32, device=dev)
+                lg, c = lm.decode_step(params_bf16, base, tok, pos, c, device=dev)
+                tok = lg.argmax(-1, keepdim=True)
+            return tok
+
+        checked("decode", lambda: lm.decode_step(
+            params_bf16, base, start_tok, torch.full((bt,), MAMBA_TIME_LEN, device=dev),
+            filled, device=dev))
+        run_ms = median_ms(decode_run, 3, warmup=1)
+        dprof = profile_forward(decode_run, iters=1)
+        timings.append(dict(kind="decode", batch=bt, steps=MAMBA_TIME_STEPS,
+                            ms_per_token=run_ms / MAMBA_TIME_STEPS,
+                            tokens_per_s=bt * MAMBA_TIME_STEPS / (run_ms * 1e-3), profile=dprof))
+    for t in timings:
+        busy = t["profile"]["busy_share"]
+        what = (f"prefill {t['batch']} x {t['tokens']}  median {t['median_ms']:.3f} ms"
+                if t["kind"] == "prefill" else
+                f"decode batch {t['batch']}  {t['ms_per_token']:.3f} ms/token")
+        log(f"[mamba] bf16 {what}  {t['tokens_per_s']:.1f} tokens/s  device busy "
+            f"{'not measured' if busy is None else f'{busy:.1%}'}  top {t['profile']['top']}")
+    counts = dict(LAUNCHES)  # the mamba path's window ends here
+    for kname in ("ssd_scan", "layernorm"):
+        if counts.get(kname, 0) <= 0:
+            raise SmokeError(f"{kname} was never launched on the mamba path")
+    log(f"[mamba] mamba path launches: {counts}")
+    return dict(check=check, timings=timings), counts
+
+
 # ------------------------------------------------------------------- main --
 
 
@@ -709,23 +931,27 @@ def main() -> int:
         models, model_counts = phase_models(dev)
         mha, mha_counts = phase_mha(dev)
         softmax_path, softmax_counts = phase_lut_softmax_path(dev)
+        mamba, mamba_counts = phase_mamba(dev)
     except Exception:  # noqa: BLE001 - report every failed phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
     # launches: each kernel's count summed over the path windows it runs in
-    counts = {k: model_counts.get(k, 0) + mha_counts.get(k, 0) + softmax_counts.get(k, 0)
-              for k in ("flash_attention", "layernorm", "qmatmul", "lut_softmax")}
+    windows = (model_counts, mha_counts, softmax_counts, mamba_counts)
+    counts = {k: sum(w.get(k, 0) for w in windows)
+              for k in ("flash_attention", "layernorm", "qmatmul", "lut_softmax", "ssd_scan")}
     main_shape = {"flash_attention": ([8192, 4, 100, 8], "safe"),
                   "layernorm": ([8192 * 100, 32], "ln"),
                   "qmatmul": ([8192 * 100, 32, 32], "R=1"),
-                  "lut_softmax": ([8192 * 4 * 100, 100], "none")}
+                  "lut_softmax": ([8192 * 4 * 100, 100], "none"),
+                  "ssd_scan": ([192, 2048, 64, 128], "q64 g1")}
     sources = {k: f"src/repro_torch/csrc/{k}.cu" for k in main_shape}
     replaces = {"flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:154",
                 "layernorm": "src/repro/kernels/layernorm/layernorm.py:69",
                 "qmatmul": "src/repro/kernels/qmatmul/qmatmul.py:56",
-                "lut_softmax": "src/repro/kernels/lut_softmax/lut_softmax.py:67"}
+                "lut_softmax": "src/repro/kernels/lut_softmax/lut_softmax.py:67",
+                "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:87"}
     line = []
     for kname, (shape, mode) in main_shape.items():
         c = next(c for c in cases if c["kernel"] == kname and c["shape"] == shape
@@ -738,9 +964,11 @@ def main() -> int:
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({"device": kind, "nvidia_smi": smi, "build_s": build_s,
                                "kernels": cases, "models": models, "mha": mha,
-                               "lut_softmax_path": softmax_path, "launches": counts,
+                               "lut_softmax_path": softmax_path, "mamba": mamba,
+                               "launches": counts,
                                "launches_by_path": {"models": model_counts, "mha": mha_counts,
-                                                    "lut_softmax": softmax_counts},
+                                                    "lut_softmax": softmax_counts,
+                                                    "mamba": mamba_counts},
                                "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s; details in {OUT.relative_to(ROOT)}")
     print(json.dumps({"kernels": line}))

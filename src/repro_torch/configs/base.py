@@ -46,6 +46,12 @@ class SSMConfig:
     chunk_size: int = 64
     n_groups: int = 1
 
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
 
 @dataclasses.dataclass(frozen=True)
 class HybridConfig:
@@ -105,3 +111,8 @@ class ModelConfig:
         if self.head_dim is not None:
             return self.head_dim
         return self.d_model // self.n_heads
+
+    @property
+    def padded_vocab_size(self) -> int:
+        """Vocab padded to a multiple of 256 (the reference's TP-friendly size)."""
+        return ((self.vocab_size + 255) // 256) * 256

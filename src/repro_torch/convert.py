@@ -2,7 +2,7 @@
 
 The JAX side is handed over as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), so this module needs no JAX.  Dtypes
-and the stacked ``blocks`` layout are kept.
+and the stacked ``blocks`` and cache layouts are kept.
 """
 
 from __future__ import annotations
@@ -28,6 +28,21 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     return _to_tensor(tree, dev)
+
+
+def caches_from_numpy(tree, device: str | torch.device = "cuda"):
+    """The JAX package's stacked model caches as numpy -> the port's.
+
+    So far the ``ssm`` family's ``{"layers": {"ssm_state", "conv_state"}}``
+    (float32, leading layer axis); the hybrid family's shared-attention
+    caches and the attention KV caches wait for ROADMAP queue 1, items 4
+    and 6."""
+    if set(tree) != {"layers"} or set(tree["layers"]) != {"ssm_state", "conv_state"}:
+        raise NotImplementedError(
+            f"only the ssm family's caches convert so far, got {sorted(tree)} / "
+            f"{sorted(tree.get('layers', {}))} (ROADMAP queue 1, items 4 and 6)"
+        )
+    return params_from_numpy(tree, device)
 
 
 def streaming_mha_params_from_numpy(tree, device: str | torch.device = "cuda"):

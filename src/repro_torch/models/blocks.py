@@ -1,6 +1,8 @@
-"""Pre-norm residual transformer blocks (the dense kind).
+"""Pre-norm residual blocks: the dense transformer kind and the Mamba2 kind
+(``ssm`` family).
 
-MoE and Mamba blocks come with ROADMAP queue 1, items 9 and 10.
+MoE blocks and the hybrid family (Mamba2 with the shared attention block)
+come with ROADMAP queue 1, items 9 and 10.
 """
 
 from __future__ import annotations
@@ -8,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, mlp
+from repro_torch.models import attention, layers, mlp, ssm
 
 
 def block_kind(cfg: ModelConfig) -> str:
@@ -19,17 +21,25 @@ def block_kind(cfg: ModelConfig) -> str:
     return "dense"
 
 
-def _require_dense(cfg: ModelConfig) -> None:
+def _require_ported(cfg: ModelConfig) -> str:
     kind = block_kind(cfg)
-    if kind != "dense":
+    if kind == "moe":
+        raise NotImplementedError("moe blocks are not ported yet (ROADMAP queue 1, item 9)")
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{kind} blocks are not ported yet (ROADMAP queue 1, "
-            f"item {9 if kind == 'moe' else 10})"
+            "hybrid blocks (Mamba2 + shared attention) are not ported yet "
+            "(ROADMAP queue 1, item 10)"
         )
+    return kind
 
 
 def block_spec(cfg: ModelConfig, dtype=torch.float32):
-    _require_dense(cfg)
+    kind = _require_ported(cfg)
+    if kind == "mamba":
+        return {
+            "ln1": layers.norm_spec(cfg.d_model, cfg.norm_kind, dtype),
+            "mamba": ssm.mamba_spec(cfg, dtype),
+        }
     return {
         "ln1": layers.norm_spec(cfg.d_model, cfg.norm_kind, dtype),
         "attn": attention.attention_spec(cfg, dtype),
@@ -50,10 +60,15 @@ def block_apply(
     quant=None,  # per-layer runtime hook from the precision plan
 ):
     """Returns (x, new_cache, aux) like the reference."""
-    _require_dense(cfg)
+    kind = _require_ported(cfg)
     rs = cfg.residual_scale
     norm_lut = (kernel or {}).get("norm_lut", False)
     h = layers.norm(params["ln1"], x, cfg.norm_kind, cfg.norm_eps, use_lut=norm_lut)
+    if kind == "mamba":
+        out, new_cache = ssm.mamba_apply(
+            params["mamba"], cfg, h, mode=mode, cache=cache, quant=quant
+        )
+        return x + rs * out, new_cache, {}
     attn_out, new_cache = attention.attention_apply(
         params["attn"], cfg, h, positions, mode=mode, cache=cache,
         kernel=kernel, quant=quant,

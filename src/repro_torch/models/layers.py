@@ -1,5 +1,5 @@
 """Shared primitive layers: dense (quantizable), norm (kernel-backed),
-activations."""
+activations, token embedding and the tied unembedding."""
 
 from __future__ import annotations
 
@@ -74,3 +74,16 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "relu":
         return torch.relu(x)
     raise ValueError(f"unknown activation {kind}")
+
+
+def embedding_spec(vocab: int, d: int, dtype=torch.float32):
+    return {"table": ArraySpec((vocab, d), dtype, ("vocab", "embed"), "embed", init_scale=0.02)}
+
+
+def embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens]
+
+
+def unembed(params, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: x @ table.T"""
+    return torch.matmul(x, params["table"].t())

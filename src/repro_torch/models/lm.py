@@ -1,0 +1,180 @@
+"""Causal LM orchestrator (port of ``repro.models.lm``) for the families
+ported so far: the ``ssm`` family (mamba2-130m).
+
+Entry points
+------------
+``param_spec / init_params / count_params``  -- parameter trees
+``forward(params, cfg, batch, mode=...)``    -- logits (+caches, aux)
+``prefill`` / ``decode_step``                -- serving steps on stacked caches
+``init_caches / abstract_caches``            -- from ``serve.kv_cache``
+
+The reference's scan over the stacked blocks is a Python loop.  ``prefill``
+and ``decode_step`` return new cache tensors and never write into the
+caller's.  ``loss_fn`` waits for training (ROADMAP queue 1, item 11); the
+dense, MoE, hybrid, VLM and audio families for items 4, 9 and 10.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import precision as precision_lib
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks, layers
+from repro_torch.models import params as params_lib
+from repro_torch.serve import kv_cache as kv_cache_lib
+
+# ---------------------------------------------------------------------------
+# Parameter trees
+# ---------------------------------------------------------------------------
+
+
+def resolve_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def param_spec(cfg: ModelConfig, dtype=None):
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.frontend} frontends are not ported yet (ROADMAP queue 1, item 9)"
+        )
+    dtype = resolve_dtype(cfg) if dtype is None else dtype
+    d = cfg.d_model
+    spec = {
+        "embed": layers.embedding_spec(cfg.padded_vocab_size, d, dtype),
+        "blocks": params_lib.stack_spec(blocks.block_spec(cfg, dtype), cfg.n_layers),
+        "final_norm": layers.norm_spec(d, cfg.norm_kind, dtype),
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = layers.dense_spec(
+            d, cfg.padded_vocab_size, axes=("embed", "vocab"), dtype=dtype
+        )
+    return spec
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, *, dtype=None,
+                device: str | torch.device = "cuda"):
+    return params_lib.init_params(param_spec(cfg, dtype), generator, device)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    leaves = []
+    params_lib.map_leaves(lambda _, s: leaves.append(s), param_spec(cfg))
+    return sum(int(np.prod(s.shape)) for s in leaves)
+
+
+abstract_caches = kv_cache_lib.abstract_caches
+init_caches = kv_cache_lib.init_caches
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Token embeddings (b, s, d); the patch and audio frontends wait for
+    ROADMAP queue 1, item 9."""
+    return layers.embed(params["embed"], batch["tokens"]) * cfg.emb_scale
+
+
+def _layer(tree, i: int):
+    return params_lib.map_leaves(lambda _, t: t[i], tree)
+
+
+def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: str,
+                caches, kernel, plan: precision_lib.PrecisionPlan):
+    uniform_quant = plan.uniform_layer_quant()
+    layer_quants = None if uniform_quant is not None else plan.layer_quant_arrays()
+    layer_caches = caches["layers"] if caches is not None else None
+    new_layers = []
+    for i in range(cfg.n_layers):  # the reference's scan over the stacked blocks
+        quant = uniform_quant if layer_quants is None else layer_quants.layer(i)
+        lcache = _layer(layer_caches, i) if layer_caches is not None else None
+        h, new_lcache, _ = blocks.block_apply(
+            _layer(params["blocks"], i), cfg, h, positions, mode=mode, cache=lcache,
+            kernel=kernel, quant=quant,
+        )
+        new_layers.append(new_lcache)
+    new_caches = None
+    if caches is not None:  # restacked: new tensors, the caller's are untouched
+        new_caches = {"layers": {k: torch.stack([c[k] for c in new_layers])
+                                 for k in layer_caches}}
+    return h, new_caches
+
+
+def _as_tensor(x, dev: torch.device) -> torch.Tensor:
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.array(x, copy=True))
+    return x.to(dev)
+
+
+def forward(
+    params,
+    cfg: ModelConfig,
+    batch: dict,
+    *,
+    mode: str = "train",
+    caches=None,
+    positions=None,
+    kernel: dict | None = None,
+    device: str | torch.device = "cuda",
+):
+    """Returns (logits (b, s, padded_vocab), new_caches, aux).
+
+    ``batch["tokens"]``: (b, s) token ids, tensor or array.  positions: (s,)
+    for train/prefill (defaults to arange), (b,) global positions of the new
+    token for decode (the Mamba2 blocks do not read them)."""
+    dev = resolve_device(device)
+    params_lib.check_on(params, dev)
+    plan = precision_lib.resolve_model_plan(cfg)
+    kernel = plan.kernel_defaults(kernel)
+    tokens = _as_tensor(batch["tokens"], dev)
+    h = _embed_inputs(params, cfg, {"tokens": tokens})
+    if positions is None:
+        if mode in ("decode", "extend"):
+            raise ValueError(f"{mode} requires explicit per-sequence positions")
+        positions = torch.arange(h.shape[1], dtype=torch.int32, device=dev)
+    else:
+        positions = _as_tensor(positions, dev)
+    x, new_caches = _run_blocks(params, cfg, h, positions, mode=mode, caches=caches,
+                                kernel=kernel, plan=plan)
+    x = layers.norm(
+        params["final_norm"], x, cfg.norm_kind, cfg.norm_eps,
+        use_lut=(kernel or {}).get("norm_lut", False),
+    )
+    if cfg.tie_embeddings:
+        logits = layers.unembed(params["embed"], x)
+    else:
+        logits = layers.dense(params["lm_head"], x, plan.logits_quant())
+    logits = logits * cfg.logit_scale
+    if cfg.padded_vocab_size > cfg.vocab_size:  # mask the vocab padding
+        pad = torch.arange(cfg.padded_vocab_size, device=dev) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e9)
+    return logits, new_caches, {"text_offset": 0}
+
+
+# ---------------------------------------------------------------------------
+# Serving entry points
+# ---------------------------------------------------------------------------
+
+
+def prefill(params, cfg: ModelConfig, batch: dict, caches, *, kernel: dict | None = None,
+            device: str | torch.device = "cuda"):
+    """Run the prompt through the model, filling caches.
+
+    Returns (last-position logits (B, V), new caches)."""
+    logits, new_caches, _ = forward(params, cfg, batch, mode="prefill", caches=caches,
+                                    kernel=kernel, device=device)
+    return logits[:, -1], new_caches
+
+
+def decode_step(params, cfg: ModelConfig, tokens, positions, caches, *,
+                kernel: dict | None = None, device: str | torch.device = "cuda"):
+    """tokens (B, 1), positions (B,) -> (logits (B, V), new caches)."""
+    logits, new_caches, _ = forward(params, cfg, {"tokens": tokens}, mode="decode",
+                                    caches=caches, positions=positions, kernel=kernel,
+                                    device=device)
+    return logits[:, -1], new_caches

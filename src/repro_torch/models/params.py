@@ -67,6 +67,17 @@ def init_params(
     return map_leaves(lambda path, _: values[path].to(device), spec)
 
 
+def check_on(params: Any, dev: torch.device) -> None:
+    """Raise unless every leaf of ``params`` lies on ``dev``'s device type."""
+    bad = []
+    map_leaves(
+        lambda path, t: bad.append("/".join(path)) if t.device.type != dev.type else None,
+        params,
+    )
+    if bad:
+        raise ValueError(f"parameters {bad[:3]}... are not on {dev}; move them first")
+
+
 def stack_spec(spec: SpecTree, n: int) -> SpecTree:
     """Prepend a ``layers`` axis to every leaf (the stacked ``blocks`` tree)."""
 

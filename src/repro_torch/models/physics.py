@@ -52,16 +52,6 @@ def init_params(
     return params_lib.init_params(param_spec(cfg, dtype), generator, device)
 
 
-def _check_on(params, dev: torch.device) -> None:
-    bad = []
-    params_lib.map_leaves(
-        lambda path, t: bad.append("/".join(path)) if t.device.type != dev.type else None,
-        params,
-    )
-    if bad:
-        raise ValueError(f"parameters {bad[:3]}... are not on {dev}; move them first")
-
-
 def forward(
     params,
     cfg: ModelConfig,
@@ -73,7 +63,7 @@ def forward(
     """x: (batch, seq_len, input_vec_size) tensor or array -> logits
     (batch, n_classes) on ``device``."""
     dev = resolve_device(device)
-    _check_on(params, dev)
+    params_lib.check_on(params, dev)
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
     x = x.to(dev)

@@ -19,6 +19,7 @@ from repro_torch.kernels.qmatmul import (  # noqa: E402
     qmatmul_prequantized,
     qmatmul_ref,
 )
+from repro_torch.kernels.ssd_scan import ssd, ssd_chunked, ssd_with_state  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -236,3 +237,124 @@ def test_int8_and_lut_wrappers_reject_what_the_kernels_do_not_take(dev):
         lut_softmax(torch.zeros(4, 8, device=dev, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         lut_softmax(torch.zeros(8, 4, device=dev).t())
+
+
+def _ssd_inputs(g, b, l, h, p, n, groups=None):
+    """The JAX kernel test's distributions; B and C per group when given."""
+    gb = h if groups is None else groups
+    return (torch.randn(b, l, h, p, generator=g) * 0.5,
+            -torch.randn(b, l, h, generator=g).abs() * 0.3,
+            torch.randn(b, l, gb, n, generator=g) * 0.5,
+            torch.randn(b, l, gb, n, generator=g) * 0.5)
+
+
+def _ssd_plain(xdt, a, bm, cm, chunk):
+    rep = xdt.shape[2] // bm.shape[2]
+    return ssd_chunked(xdt.float(), a.float(), bm.float().repeat_interleave(rep, 2),
+                       cm.float().repeat_interleave(rep, 2), chunk=min(chunk, xdt.shape[1]))
+
+
+# (b, l, h, p, n, groups, chunk): the JAX kernel test's sweep, the reduced
+# config, the published widths (g = 1, as mamba_apply hands B and C over)
+SSD_CASES = [
+    (2, 64, 3, 16, 24, None, 8), (2, 64, 3, 16, 24, None, 16), (2, 64, 3, 16, 24, None, 32),
+    (2, 64, 3, 16, 24, None, 64), (1, 32, 1, 8, 8, None, 32), (2, 128, 2, 32, 16, None, 32),
+    (1, 64, 4, 64, 64, None, 32), (2, 64, 8, 8, 16, 1, 16), (1, 256, 24, 64, 128, 1, 64),
+    (2, 128, 24, 64, 128, 2, 64), (1, 96, 3, 128, 128, None, 32),
+]
+
+
+@pytest.mark.parametrize("b,l,h,p,n,groups,chunk", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(dev, b, l, h, p, n, groups, chunk):
+    g = torch.Generator(device="cpu").manual_seed(l + p + n)
+    x = [t.to(dev) for t in _ssd_inputs(g, b, l, h, p, n, groups)]
+    before = LAUNCHES["ssd_scan"]
+    y, state = ssd_with_state(*x, chunk=chunk)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == before + 1
+    y_ref, s_ref = _ssd_plain(*x, chunk)
+    # float32 sums in another order: the JAX kernel test's 1e-4
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(state, s_ref, atol=1e-4, rtol=0)
+    assert torch.equal(ssd(*x, chunk=chunk) if groups is None else y, y)
+
+
+@pytest.mark.parametrize("l", [1, 3, 12, 50])
+def test_ssd_scan_kernel_length_below_chunk(dev, l):
+    g = torch.Generator(device="cpu").manual_seed(l)
+    x = [t.to(dev) for t in _ssd_inputs(g, 2, l, 3, 16, 24)]
+    y, state = ssd_with_state(*x, chunk=64)
+    y_ref, s_ref = _ssd_plain(*x, 64)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(state, s_ref, atol=1e-4, rtol=0)
+
+
+def test_ssd_scan_kernel_bf16_and_strong_decay(dev):
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = [t.to(dev) for t in _ssd_inputs(g, 2, 128, 4, 64, 128, 1)]
+    xb = [t.to(torch.bfloat16) for t in x]
+    y, state = ssd_with_state(*xb, chunk=64)
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    y_ref, s_ref = _ssd_plain(*xb, 64)  # the same bf16 inputs, in float32
+    torch.testing.assert_close(y.float(), y_ref.to(torch.bfloat16).float(), atol=1e-2, rtol=8e-3)
+    torch.testing.assert_close(state, s_ref, atol=1e-4, rtol=0)
+    # a * 50: exp(cs_i - cs_j) underflows, never overflows: finite, as plain
+    strong = (x[0], x[1] * 50.0, x[2], x[3])
+    y, state = ssd_with_state(*strong, chunk=64)
+    y_ref, s_ref = _ssd_plain(*strong, 64)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(state, s_ref, atol=1e-4, rtol=0)
+
+
+def test_ssd_scan_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    g = torch.Generator(device="cpu").manual_seed(2)
+    x = [t.to(dev) for t in _ssd_inputs(g, 1, 128, 2, 16, 16)]
+    with pytest.raises(ValueError, match="chunk <= 64"):
+        ssd(*x, chunk=128)
+    big_p = [t.to(dev) for t in _ssd_inputs(g, 1, 16, 1, 136, 16)]
+    with pytest.raises(ValueError, match="P <= 128"):
+        ssd(*big_p, chunk=16)
+    big_n = [t.to(dev) for t in _ssd_inputs(g, 1, 16, 1, 16, 136)]
+    with pytest.raises(ValueError, match="N <= 128"):
+        ssd(*big_n, chunk=16)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd(*x, chunk=48)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd(x[0].transpose(1, 2).contiguous().transpose(1, 2), *x[1:], chunk=32)
+    with pytest.raises(ValueError, match="one type"):
+        ssd(x[0], x[1].double(), *x[2:], chunk=32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssd(*(t.half() for t in x), chunk=32)
+
+
+def test_mamba_lm_on_the_card(dev):
+    """The reduced mamba2-130m: prefill launches the kernel once per layer
+    and the norm kernel 2 per layer + 1; decode launches no SSD kernel; the
+    logits match the CPU path on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_leaves
+
+    cfg = get_config("mamba2-130m", reduced=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params_dev = map_leaves(lambda _, t: t.to(dev), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=torch.Generator().manual_seed(1))
+    cache_cpu = lm.init_caches(cfg, 2, device="cpu")
+    cache_dev = lm.init_caches(cfg, 2, device=dev)
+    before = dict(LAUNCHES)
+    last, cache_dev = lm.prefill(params_dev, cfg, {"tokens": toks[:, :16]}, cache_dev, device=dev)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] - before.get("ssd_scan", 0) == cfg.n_layers
+    assert LAUNCHES["layernorm"] - before.get("layernorm", 0) == 2 * cfg.n_layers + 1
+    ref, cache_cpu = lm.prefill(params, cfg, {"tokens": toks[:, :16]}, cache_cpu, device="cpu")
+    torch.testing.assert_close(last.cpu(), ref, atol=2e-4, rtol=0)
+    before = dict(LAUNCHES)
+    last, _ = lm.decode_step(params_dev, cfg, toks[:, 16:].to(dev), torch.full((2,), 16),
+                             cache_dev, device=dev)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == before.get("ssd_scan", 0)
+    assert LAUNCHES["layernorm"] - before.get("layernorm", 0) == 2 * cfg.n_layers + 1
+    ref, _ = lm.decode_step(params, cfg, toks[:, 16:], torch.full((2,), 16), cache_cpu,
+                            device="cpu")
+    torch.testing.assert_close(last.cpu(), ref, atol=2e-4, rtol=0)

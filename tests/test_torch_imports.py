@@ -48,7 +48,8 @@ def test_import_leaves_jax_unloaded():
         "import sys, repro_torch, repro_torch.models.physics, repro_torch.convert, "
         "repro_torch.kernels.flash_attention, repro_torch.kernels.layernorm, "
         "repro_torch.kernels.qmatmul, repro_torch.kernels.lut_softmax, "
-        "repro_torch.core.streaming_mha, repro_torch.core.reuse, repro_torch.data; "
+        "repro_torch.core.streaming_mha, repro_torch.core.reuse, repro_torch.data, "
+        "repro_torch.kernels.ssd_scan, repro_torch.models.lm, repro_torch.serve.kv_cache; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )
