@@ -7,12 +7,19 @@ Phases, each of which fails the run (exit code 1) when it fails:
 
 1. build  -- compile the hand-written CUDA kernels (``src/repro_torch/csrc``)
    with nvcc for sm_90a into ``build/`` (skipped when the sources are
-   unchanged) and print the compiler's register / spill report;
+   unchanged), print the compiler's register / spill report and each
+   library's count of tensor-core instructions (``HGMMA`` = wgmma, ``HMMA``
+   = float mma.sync, ``IMMA`` = integer mma.sync) in ``cuobjdump -sass``;
+   the attention library must have HGMMA and HMMA;
 2. kernels -- call each kernel's wrapper on the card at the shapes the
-   physics models give it (batch 8192) and at LM-like shapes, hold it
-   against its plain PyTorch version on the same inputs, and time kernel,
-   plain version and the PyTorch library call that computes the same
-   function (a yardstick only; the port never calls it);
+   physics models give it (batch 8192), at LM-like shapes and at the main
+   path's own attention shapes (granite-8b's streaming MHA, (1, 32, 1024,
+   128) float32 causal; a dense GQA prefill, (1, 32 q / 8 kv, 2048, 128)
+   bf16 causal), hold it against its plain PyTorch version on the same
+   inputs, and time kernel, plain version and the PyTorch library call that
+   computes the same function (a yardstick only; the port never calls it);
+   the tensor-core attention cases also get their device time from the
+   profiler, kernel and library call alike;
 3. models -- the main path: the paper's three encoders (engine_anomaly,
    btagging, gw) at their published widths, random seeded weights PTQ'd by
    the precision plan, seeded events from ``repro_torch.data``, under the
@@ -47,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -60,8 +68,10 @@ OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense), at the full 700 W limit,
 # by the type of the inputs: the card's rate for the type, whatever units a
-# kernel happens to use.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12, "int8": 1979e12}
+# kernel happens to use.  "tf32x3": float32 work done on the tensor cores as
+# three TF32 products (the attention kernel at head_dim 64 / 128), 495 / 3.
+PEAK_FLOPS = {"float32": 67e12, "tf32x3": 495e12 / 3, "bfloat16": 989e12, "float16": 989e12,
+              "int8": 1979e12}
 PEAK_BYTES = 3.35e12  # HBM3
 
 MODELS = ("engine_anomaly", "btagging", "gw")
@@ -170,6 +180,24 @@ def median_ms(fn, iters: int, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters: int = 20) -> float | None:
+    """Device time per call of ``fn`` (the sum of its kernels' times under
+    ``torch.profiler``), free of the host's launch cost; None when the trace
+    shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum((getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages())
+    return us / iters / 1e3 if us > 0 else None
+
+
 def profile_forward(fn, iters: int = 5) -> dict:
     """Device-busy share and the top kernels by device time over ``iters``
     calls under ``torch.profiler`` (the profiler's own host cost included in
@@ -233,24 +261,45 @@ def phase_build():
     for name, r in report.items():
         log(f"[build] {name}: {r['seconds']:.1f} s  {Path(r['lib']).name}")
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"[build]   {line.strip()}")
-    return {n: r["seconds"] for n, r in report.items()}
+    # tensor-core instructions in each library's machine code, one cuobjdump each
+    cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
+    procs = {name: subprocess.Popen([cuobjdump, "-sass", r["lib"]], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, r in report.items()}
+    sass = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise SmokeError(f"cuobjdump -sass failed on {name}: {out[-500:]}")
+        ops = [ln.split(";")[0].split() for ln in out.splitlines() if "MMA" in ln]
+        sass[name] = {op: sum(any(w.startswith(op + ".") or w == op for w in ln) for ln in ops)
+                      for op in ("HGMMA", "HMMA", "IMMA")}
+        log(f"[build] {name}: " + ", ".join(f"{n} {op}" for op, n in sass[name].items())
+            + " instructions (cuobjdump -sass)")
+    if not (sass["flash_attention"]["HGMMA"] and sass["flash_attention"]["HMMA"]):
+        raise SmokeError("the flash_attention library has no wgmma (HGMMA) or no mma.sync "
+                         f"(HMMA) instructions: {sass['flash_attention']}")
+    return {n: r["seconds"] for n, r in report.items()}, sass
 
 
 # ---------------------------------------------------------------- phase 2 --
 
 
-def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"):
+def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32", hkv=None):
+    """``mha`` on q (b, h, l, d) and k, v (b, hkv, l, d): GQA when hkv < h."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import mha, mha_ref
+    from repro_torch.kernels.flash_attention.ops import TENSOR_CORE_DIMS
 
     b, h, l, d = shape
+    hkv = h if hkv is None else hkv
     g = torch.Generator().manual_seed(l * d + h)
     tdt = getattr(torch, dtype)
-    q, k, v = (torch.randn(b, h, l, d, generator=g).to(dev, tdt) for _ in range(3))
+    q, k, v = (torch.randn(b, hh, l, d, generator=g).to(dev, tdt) for hh in (h, hkv, hkv))
     out = mha(q, k, v, causal=causal, window=window, mode=mode)
     ref = mha_ref(q, k, v, causal=causal, window=window, mode=mode)
     torch.cuda.synchronize()
@@ -272,25 +321,36 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
     if window is not None:
         mask &= pos[:, None] - pos[None, :] < window
     pairs = int(mask.sum())
-    nbytes = 4 * q.numel() * q.element_size()
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v read, out written
     if mode == "lut":
         nbytes += (1024 + 4096) * 4
-    bound_ms, bound_by = bound(4.0 * b * h * pairs * d, nbytes, dtype)
+    tensor_cores = d in TENSOR_CORE_DIMS
+    peak = "tf32x3" if tensor_cores and dtype == "float32" else dtype
+    bound_ms, bound_by = bound(4.0 * b * h * pairs * d, nbytes, peak)
 
     iters = 20 if b * h * l * l * d > 1e8 else 50
     ms = time_ms(lambda: mha(q, k, v, causal=causal, window=window, mode=mode), iters)
     plain_ms = time_ms(lambda: mha_ref(q, k, v, causal=causal, window=window, mode=mode),
                        max(3, iters // 5))
-    library_ms = None
+    library_ms = sdpa = None
     if mode == "safe":  # SDPA computes the same function; timed as a yardstick only
         attn_mask = mask.to(dev) if window is not None else None
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=attn_mask, is_causal=causal and window is None), iters)
-    return dict(kernel="flash_attention", shape=list(shape), mode=mode, causal=causal,
-                window=window, dtype=dtype, max_abs_err=err, rows_over_atol=rows_over,
-                tol=tol, ok=ok, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                  is_causal=causal and window is None,
+                                                  enable_gqa=hkv != h)
+
+        library_ms = time_ms(sdpa, iters)
+    dev_ms = lib_dev_ms = None
+    if tensor_cores:  # small calls are bound by the host's launch cost: add device time
+        dev_ms = device_ms(lambda: mha(q, k, v, causal=causal, window=window, mode=mode))
+        lib_dev_ms = None if sdpa is None else device_ms(sdpa)
+    return dict(kernel="flash_attention", shape=list(shape), kv_heads=hkv, mode=mode,
+                causal=causal, window=window, dtype=dtype, max_abs_err=err,
+                rows_over_atol=rows_over, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bound_peak=peak)
 
 
 def _layernorm_case(dev, rows, k, rms, use_lut):
@@ -456,6 +516,14 @@ def phase_kernels(dev):
             cases.append(_attention_case(dev, (1, 8, 1024, d), mode, causal=True, window=256))
         cases.append(_attention_case(dev, (1, 8, 1024, d), "safe", causal=True,
                                      dtype="bfloat16"))
+    # the main path's own attention shapes: granite-8b's streaming MHA (phase 4,
+    # float32 causal, safe and lut) and a dense GQA prefill (32 q / 8 kv heads)
+    for mode in ("safe", "lut"):
+        cases.append(_attention_case(dev, (1, 32, 1024, 128), mode, causal=True))
+    cases.append(_attention_case(dev, (1, 32, 1024, 128), "safe", causal=True, dtype="bfloat16"))
+    for dtype in ("bfloat16", "float32"):
+        cases.append(_attention_case(dev, (1, 32, 2048, 128), "safe", causal=True, dtype=dtype,
+                                     hkv=8))
     ln_shapes = [(8192 * 15, 64), (8192 * 100, 32), (4096, 4096)]
     for rows, k in ln_shapes:
         for rms in (False, True):
@@ -492,12 +560,18 @@ def phase_kernels(dev):
     cases.append(_ssd_case(dev, 1, 2048, 24, 64, 128, 1, 64, dtype="bfloat16"))
     for c in cases:
         lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
-        log(f"[kernel] {c['kernel']:15s} {str(c['shape']):22s} {c['mode']:6s} "
+        dev_t = ""
+        if c.get("device_ms") is not None:
+            lib_dev = c["library_device_ms"]
+            dev_t = (f" | device ms {c['device_ms']:.4f} library "
+                     f"{'n/a' if lib_dev is None else f'{lib_dev:.4f}'}")
+        kv = f" kv {c['kv_heads']}" if c.get("kv_heads", c["shape"][1]) != c["shape"][1] else ""
+        log(f"[kernel] {c['kernel']:15s} {str(c['shape']) + kv:22s} {c['mode']:6s} "
             f"causal={c.get('causal', '-')!s:5s} window={c.get('window', '-')!s:4s} "
             f"{c.get('dtype', 'float32'):8s} err {c['max_abs_err']:.2e} ({c['tol']}; "
             f"{c['rows_over_atol']:.3%} rows over atol) "
             f"{'OK' if c['ok'] else 'FAIL'} | ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
-            f"library {lib} bound {c['bound_ms']:.4f} ({c['bound_by']})")
+            f"library {lib} bound {c['bound_ms']:.4f} ({c['bound_by']}){dev_t}")
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise SmokeError(f"{len(bad)} kernel checks out of tolerance: "
@@ -926,7 +1000,7 @@ def main() -> int:
         ).stdout.strip()
         log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
             f"cuda {torch.version.cuda} device {kind}")
-        build_s = phase_build()
+        build_s, sass = phase_build()
         cases = phase_kernels(dev)
         models, model_counts = phase_models(dev)
         mha, mha_counts = phase_mha(dev)
@@ -963,6 +1037,7 @@ def main() -> int:
                      "library_ms": c["library_ms"]})
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({"device": kind, "nvidia_smi": smi, "build_s": build_s,
+                               "sass_tensor_core_instructions": sass,
                                "kernels": cases, "models": models, "mha": mha,
                                "lut_softmax_path": softmax_path, "mamba": mamba,
                                "launches": counts,

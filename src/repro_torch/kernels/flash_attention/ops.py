@@ -2,7 +2,10 @@
 
 On a CPU tensor it runs the plain version (``ref.mha_ref``); on a CUDA
 tensor it launches the hand-written kernel (``csrc/flash_attention.cu``) or
-raises.  GQA is mapped by head index inside the kernel.
+raises.  GQA is mapped by head index inside the kernel.  head_dim 8, 16 and
+32 run on the CUDA cores; 64 and 128 on the tensor cores (bf16 on wgmma,
+float32 as 3xTF32 on mma.sync), with K/V tiles copied by TMA, which needs
+16-byte aligned q, k, v.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from repro_torch.kernels import LAUNCHES, build
 from repro_torch.kernels.flash_attention.ref import mha_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
+TENSOR_CORE_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"safe": 0, "lut": 1}
 
@@ -30,6 +34,15 @@ def _lib():
         + [ctypes.c_void_p]
     )
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(device: torch.device) -> tuple:
+    """Device pointers of the exp and 1/x tables (kept alive by ``lut``'s own
+    cache) and their index constants: looked up once per device, not per call."""
+    exp_tab, inv_tab = lut.exp_table(device), lut.inv_table(device)
+    return (exp_tab.data_ptr(), inv_tab.data_ptr(), *lut.index_constants(lut.EXP_SPEC),
+            *lut.index_constants(lut.INV_SPEC))
 
 
 def mha(
@@ -69,13 +82,12 @@ def mha(
                          f"{k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("mha kernel needs contiguous q, k, v")
+    if d in TENSOR_CORE_DIMS and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("mha kernel at head_dim 64/128 needs 16-byte aligned q, k, v (TMA)")
     out = torch.empty_like(q)
-    exp_tab, inv_tab = lut.exp_table(q.device), lut.inv_table(q.device)
-    exp_off, exp_step = lut.index_constants(lut.EXP_SPEC)
-    inv_off, inv_step = lut.index_constants(lut.INV_SPEC)
+    exp_ptr, inv_ptr, exp_off, exp_step, inv_off, inv_step = _tables(q.device)
     err = _lib()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        exp_tab.data_ptr(), inv_tab.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), exp_ptr, inv_ptr,
         b, hq, hkv, lq, lkv, d, kv_len, int(causal),
         0 if window is None else window, _MODES[mode], _DTYPES[q.dtype],
         1.0 / (d ** 0.5), exp_off, exp_step, inv_off, inv_step,

@@ -85,6 +85,63 @@ def test_layernorm_kernel_matches_plain(dev, rows, k, use_lut, rms):
     assert (err > 1e-5).any(dim=-1).float().mean() <= 0.01
 
 
+def _assert_attention_close(out, ref, v, dtype, mode, group):
+    """The existing tolerances: float32 safe 2e-5; lut 1e-4 except rows where
+    the other float order moves a table entry (at most 1.6 % of |v_j - out|,
+    under 1 % of the rows); bf16 atol 1e-2 + rtol 8e-3 (P is rounded to bf16
+    before P V on the tensor cores, as the output is)."""
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=8e-3)
+    elif mode == "safe":
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    else:
+        err = (out - ref).abs()
+        vmax = torch.repeat_interleave(v.abs().amax(dim=-2, keepdim=True), group, dim=1)
+        assert (err <= 1e-4 + 0.016 * (ref.abs() + vmax)).all()
+        assert (err > 1e-4).any(dim=-1).float().mean() <= 0.01
+
+
+# (Lq, Lkv, kv_len) for a length L: square; keys past kv_len masked; fewer
+# queries than keys (causal stays top-left aligned, as the plain version)
+def _lengths(length, layout):
+    if layout == "square":
+        return length, length, None
+    if layout == "kv_len":
+        return length, length, max(1, length - 13)
+    return length, length + 37, None
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype,mode", [(torch.float32, "safe"), (torch.float32, "lut"),
+                                        (torch.bfloat16, "safe")])
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None), (True, 256)])
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (8, 8)])
+@pytest.mark.parametrize("length", [1, 77, 1000, 1024])
+@pytest.mark.parametrize("layout", ["square", "kv_len", "lq_below_lkv"])
+def test_attention_tensor_core_path(dev, d, dtype, mode, causal, window, hq, hkv, length,
+                                    layout):
+    """head_dim 64 / 128: bf16 on wgmma, float32 as 3xTF32, K/V by TMA."""
+    lq, lkv, kv_len = _lengths(length, layout)
+    g = torch.Generator(device="cpu").manual_seed(length + d + hq)
+    q = torch.randn(1, hq, lq, d, generator=g).to(dev, dtype)
+    k, v = (torch.randn(1, hkv, lkv, d, generator=g).to(dev, dtype) for _ in range(2))
+    before = LAUNCHES["flash_attention"]
+    out = mha(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = mha_ref(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+    _assert_attention_close(out, ref, v, dtype, mode, hq // hkv)
+
+
+def test_attention_wrapper_rejects_misaligned_tma_input(dev):
+    """TMA needs 16-byte aligned tensors: a contiguous view 4 bytes off is refused."""
+    flat = torch.randn(2 * 4 * 16 * 64 + 1, device=dev)
+    x = flat[1:].view(2, 4, 16, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        mha(x, x, x)
+
+
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.randn(4, 2, 10, 12, device=dev)  # head_dim 12 has no kernel
     with pytest.raises(ValueError, match="head_dim"):

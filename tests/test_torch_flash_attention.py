@@ -11,7 +11,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref  # noqa: E402
 from repro.kernels.flash_attention import mha as jax_mha  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
-from repro_torch.kernels.flash_attention import mha  # noqa: E402
+from repro_torch.kernels.flash_attention import mha, mha_ref  # noqa: E402
 
 # safe: both sides sum in float32 in different orders (2e-5, as the JAX
 # kernel test).  lut: 1e-4 as the JAX kernel test, for the same reason: a
@@ -109,3 +109,54 @@ def test_cpu_path_launches_no_kernel_and_rejects_bad_args():
         mha(q, k, v, kv_len=0)
     with pytest.raises(ValueError):
         mha(q, k[:, :, :4], v)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mode", ["safe", "lut"])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_lm_head_dims_gqa(d, mode, window, use_pallas):
+    """head_dim 64 and 128 (the tensor-core path on the card) at an LM-like
+    GQA shape: 8 query heads over 2 kv heads, 256 tokens, causal."""
+    ref, ours = _both(
+        _qkv(1, 8, 2, 256, 256, d, seed=d), use_pallas,
+        causal=True, window=window, mode=mode,
+    )
+    assert_close(ours, ref, mode)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
+    """a @ b as the card's float32 attention path forms it: big = tf32(x),
+    small = tf32(x - big); three products (small*big + big*small +
+    big*big) or, for comparison, big*big alone.  Every product of two TF32
+    values is exact in float32."""
+    ab, bb = _tf32(a), _tf32(b)
+    if products == 1:
+        return ab @ bb
+    as_, bs = _tf32(a - ab), _tf32(b - bb)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_float32_path_needs_three_tf32_products(d):
+    """The kernel's TF32 split emulated in plain torch at (1, 2, 512, D),
+    causal: three TF32 products stay within the float32 tolerance (2e-5) of
+    the plain version, one does not (10 mantissa bits move the output by
+    ~1e-3)."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv(1, 2, 2, 512, 512, d, seed=11))
+    ref = mha_ref(q, k, v, causal=True)
+    mask = torch.ones(512, 512, dtype=torch.bool).tril()
+    errs = {}
+    for products in (3, 1):
+        s = _tf32_matmul(q, k.transpose(-1, -2), products) * (1.0 / d ** 0.5)
+        p = torch.softmax(torch.where(mask, s, -torch.inf), dim=-1)
+        errs[products] = float((_tf32_matmul(p, v, products) - ref).abs().max())
+    assert errs[3] <= ATOL["safe"], errs
+    assert errs[1] > 10 * ATOL["safe"], errs
