@@ -18,8 +18,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
    bf16 causal), hold it against its plain PyTorch version on the same
    inputs, and time kernel, plain version and the PyTorch library call that
    computes the same function (a yardstick only; the port never calls it);
-   the tensor-core attention cases also get their device time from the
-   profiler, kernel and library call alike;
+   the tensor-core attention cases and every layernorm case (float32,
+   bf16, fp16) also get their device time from the profiler, kernel and
+   library call alike; attention at head_dim 12 and 80 runs zero-padded
+   to 16 and 128;
 3. models -- the main path: the paper's three encoders (engine_anomaly,
    btagging, gw) at their published widths, random seeded weights PTQ'd by
    the precision plan, seeded events from ``repro_torch.data``, under the
@@ -41,7 +43,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    with 24 ``ssd_scan`` + 49 ``layernorm`` launches per prefill and 0 + 49
    per decode step; then, in the config's bfloat16, the median time of a
    prefill of 1 x 2048 and 8 x 2048 tokens and of a decode step at batch 1
-   and 8, with the profiler's busy share and top kernels.
+   and 8, with the profiler's busy share and top kernels, and the device
+   operations per decode step with and without float32 casts around each
+   norm.
    Each path sets the launch counts to 0 before it and reads them after.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
@@ -189,13 +193,16 @@ def device_ms(fn, iters: int = 20) -> float | None:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum((getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages())
-    return us / iters / 1e3 if us > 0 else None
+    for _ in range(2):  # a trace now and then comes back empty: one more try
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum((getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0)) for e in prof.key_averages())
+        if us > 0:
+            return us / iters / 1e3
+    return None
 
 
 def profile_forward(fn, iters: int = 5) -> dict:
@@ -293,7 +300,7 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import mha, mha_ref
-    from repro_torch.kernels.flash_attention.ops import TENSOR_CORE_DIMS
+    from repro_torch.kernels.flash_attention.ops import TENSOR_CORE_DIMS, padded_head_dim
 
     b, h, l, d = shape
     hkv = h if hkv is None else hkv
@@ -324,7 +331,7 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v read, out written
     if mode == "lut":
         nbytes += (1024 + 4096) * 4
-    tensor_cores = d in TENSOR_CORE_DIMS
+    tensor_cores = padded_head_dim(d) in TENSOR_CORE_DIMS
     peak = "tf32x3" if tensor_cores and dtype == "float32" else dtype
     bound_ms, bound_by = bound(4.0 * b * h * pairs * d, nbytes, peak)
 
@@ -353,36 +360,63 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
                 bound_ms=bound_ms, bound_by=bound_by, bound_peak=peak)
 
 
-def _layernorm_case(dev, rows, k, rms, use_lut):
+def _ulp(ref):
+    """One ulp of a 16-bit ``ref``'s dtype at each |ref| (0 for float32)."""
+    import torch
+
+    bits = {torch.bfloat16: 7, torch.float16: 10}.get(ref.dtype)
+    if bits is None:
+        return 0.0
+    r = ref.float().abs().clamp_min(torch.finfo(ref.dtype).tiny)
+    return torch.exp2(torch.floor(torch.log2(r)) - bits)
+
+
+def _layernorm_case(dev, rows, k, rms, use_lut, dtype="float32"):
+    """``layernorm`` on x (rows, k) of ``dtype``, with gamma and beta of the
+    same dtype (as a model in that dtype holds them)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.layernorm import layernorm, layernorm_ref
 
     g = torch.Generator().manual_seed(rows + k)
-    x = (torch.randn(rows, k, generator=g) * 3).to(dev)
-    gamma, beta = (torch.randn(k, generator=g).to(dev) for _ in range(2))
+    tdt = getattr(torch, dtype)
+    x = (torch.randn(rows, k, generator=g) * 3).to(dev, tdt)
+    gamma, beta = (torch.randn(k, generator=g).to(dev, tdt) for _ in range(2))
     b_arg = None if rms else beta  # the model path hands RMSNorm no beta
     out = layernorm(x, gamma, b_arg, use_lut=use_lut, rms=rms)
     ref = layernorm_ref(x, gamma, b_arg, use_lut=use_lut, rms=rms)
     torch.cuda.synchronize()
-    flip = LN_LUT_STEP * (ref.abs() + beta.abs()) if use_lut else None
-    err, rows_over, ok = close_enough(out, ref, LN_ATOL, flip_allow=flip)
-    nbytes = 2 * x.numel() * 4 + (1 if rms else 2) * k * 4 + (4096 * 4 if use_lut else 0)
-    bound_ms, bound_by = bound(8.0 * x.numel(), nbytes)
+    flip = LN_LUT_STEP * (ref.float().abs() + beta.float().abs()) if use_lut else None
+    err, rows_over, ok = close_enough(out, ref, LN_ATOL + _ulp(ref), flip_allow=flip)
+    ok = ok and out.dtype == x.dtype
+    es = x.element_size()
+    nbytes = 2 * x.numel() * es + (1 if rms else 2) * k * es + (4096 * 4 if use_lut else 0)
+    bound_ms, bound_by = bound(8.0 * x.numel(), nbytes)  # float32 arithmetic
+
+    def kernel():
+        return layernorm(x, gamma, b_arg, use_lut=use_lut, rms=rms)
+
     iters = 20 if x.numel() > 1e7 else 100
-    ms = time_ms(lambda: layernorm(x, gamma, b_arg, use_lut=use_lut, rms=rms), iters)
+    ms = time_ms(kernel, iters)
     plain_ms = time_ms(lambda: layernorm_ref(x, gamma, b_arg, use_lut=use_lut, rms=rms), iters)
-    library_ms = None
+    library = None
     if not use_lut and not rms:
-        library_ms = time_ms(lambda: F.layer_norm(x, (k,), gamma, beta, 1e-5), iters)
+        def library():
+            return F.layer_norm(x, (k,), gamma, beta, 1e-5)
     elif not use_lut and hasattr(F, "rms_norm"):
-        library_ms = time_ms(lambda: F.rms_norm(x, (k,), gamma, 1e-5), iters)
+        def library():
+            return F.rms_norm(x, (k,), gamma, 1e-5)
+    library_ms = None if library is None else time_ms(library, iters)
+    dev_ms = device_ms(kernel)
+    lib_dev_ms = None if library is None else device_ms(library)
     return dict(kernel="layernorm", shape=[rows, k], mode=("rms" if rms else "ln")
-                + ("+lut" if use_lut else ""), max_abs_err=err, rows_over_atol=rows_over,
-                tol=f"atol {LN_ATOL}" + (" (+1 table step)" if use_lut else ""), ok=ok,
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                + ("+lut" if use_lut else ""), dtype=dtype, max_abs_err=err,
+                rows_over_atol=rows_over,
+                tol=f"atol {LN_ATOL}" + (" + 1 ulp" if dtype != "float32" else "")
+                + (" (+1 table step)" if use_lut else ""), ok=ok,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms, device_ms=dev_ms,
+                library_device_ms=lib_dev_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _qmatmul_case(dev, m, k, n, grid_k=1):
@@ -529,12 +563,23 @@ def phase_kernels(dev):
         for rms in (False, True):
             for use_lut in (False, True):
                 cases.append(_layernorm_case(dev, rows, k, rms, use_lut))
+    for rows, k in ln_shapes[:2]:  # the physics shapes in bf16, and one in fp16
+        for use_lut in (False, True):
+            cases.append(_layernorm_case(dev, rows, k, False, use_lut, "bfloat16"))
+    cases.append(_layernorm_case(dev, 8192 * 100, 32, False, False, "float16"))
+    for rms in (False, True):
+        cases.append(_layernorm_case(dev, 4096, 4096, rms, False, "bfloat16"))
     # mamba2-130m's RMSNorms (ln1 and the final norm at 768, gate_norm at
     # 1536) at the rows of phase 5: decode at batch 1, 2 and 8, prefill of
-    # 2 x 256, 1 x 2048 and 8 x 2048
-    for k in (768, 1536):
-        for rows in (1, 2, 8, 2 * 256, 2048, 8 * 2048):
-            cases.append(_layernorm_case(dev, rows, k, True, False))
+    # 2 x 256, 1 x 2048 and 8 x 2048; float32 (the check) and bf16 (the config)
+    for dtype in ("float32", "bfloat16"):
+        for k in (768, 1536):
+            for rows in (1, 2, 8, 2 * 256, 2048, 8 * 2048):
+                cases.append(_layernorm_case(dev, rows, k, True, False, dtype))
+    # head_dims the kernel pads: 12 to 16 (minicpm-2b reduced), 80 to 128
+    # (hubert-xlarge)
+    for d in (12, 80):
+        cases.append(_attention_case(dev, (1, 8, 1024, d), "safe", causal=True))
     for name in MODELS:  # stage 1/4 GEMMs of the streaming MHA at batch 8192
         cfg = get_config(name)
         cases.append(_qmatmul_case(dev, 8192 * cfg.seq_len, cfg.d_model, cfg.d_model))
@@ -840,6 +885,35 @@ def phase_lut_softmax_path(dev):
 # ---------------------------------------------------------------- phase 5 --
 
 
+def _norm_with_casts(params, x, kind, eps=1e-5, use_lut=False):
+    """``models.layers.norm`` with float32 casts around the kernel (x, scale
+    and bias to float32 before it, the output back to x's dtype after it):
+    the norm as the models called it while the kernel took float32 only."""
+    from repro_torch.kernels.layernorm import layernorm
+
+    if kind == "none":
+        return x
+    out = layernorm(x.float().contiguous(), params["scale"].float(),
+                    params["bias"].float() if kind == "layernorm" else None,
+                    use_lut=use_lut, rms=kind == "rmsnorm", eps=eps)
+    return out.to(x.dtype)
+
+
+def _device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) that one call of ``fn``
+    runs, counted by the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def phase_mamba(dev):
     """mamba2-130m through ``models.lm``: the float32 check, then the
     bfloat16 timings.  Returns (results, launch counts of the window)."""
@@ -847,7 +921,7 @@ def phase_mamba(dev):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.models import lm
+    from repro_torch.models import layers, lm
 
     base = get_config(MAMBA)
     cfg = dataclasses.replace(base, dtype="float32")
@@ -948,19 +1022,40 @@ def phase_mamba(dev):
                 tok = lg.argmax(-1, keepdim=True)
             return tok
 
-        checked("decode", lambda: lm.decode_step(
-            params_bf16, base, start_tok, torch.full((bt,), MAMBA_TIME_LEN, device=dev),
-            filled, device=dev))
+        def one_step():
+            return lm.decode_step(params_bf16, base, start_tok,
+                                  torch.full((bt,), MAMBA_TIME_LEN, device=dev), filled,
+                                  device=dev)
+
+        checked("decode", one_step)
         run_ms = median_ms(decode_run, 3, warmup=1)
         dprof = profile_forward(decode_run, iters=1)
+        # the same step with float32 casts around each norm, for comparison:
+        # its launches are taken off the counts again
+        ops_step = _device_ops(one_step)
+        saved, plain_norm = dict(LAUNCHES), layers.norm
+        layers.norm = _norm_with_casts
+        try:
+            ops_casts = _device_ops(one_step)
+            casts_ms = median_ms(decode_run, 3, warmup=1)
+        finally:
+            layers.norm = plain_norm
+            LAUNCHES.clear()
+            LAUNCHES.update(saved)
         timings.append(dict(kind="decode", batch=bt, steps=MAMBA_TIME_STEPS,
                             ms_per_token=run_ms / MAMBA_TIME_STEPS,
-                            tokens_per_s=bt * MAMBA_TIME_STEPS / (run_ms * 1e-3), profile=dprof))
+                            tokens_per_s=bt * MAMBA_TIME_STEPS / (run_ms * 1e-3), profile=dprof,
+                            device_ops_per_step=ops_step,
+                            device_ops_per_step_with_casts=ops_casts,
+                            ms_per_token_with_casts=casts_ms / MAMBA_TIME_STEPS))
     for t in timings:
         busy = t["profile"]["busy_share"]
         what = (f"prefill {t['batch']} x {t['tokens']}  median {t['median_ms']:.3f} ms"
                 if t["kind"] == "prefill" else
-                f"decode batch {t['batch']}  {t['ms_per_token']:.3f} ms/token")
+                f"decode batch {t['batch']}  {t['ms_per_token']:.3f} ms/token, "
+                f"{t['device_ops_per_step']} device ops/step (with float32 casts around the "
+                f"norms: {t['device_ops_per_step_with_casts']}, "
+                f"{t['ms_per_token_with_casts']:.3f} ms/token)")
         log(f"[mamba] bf16 {what}  {t['tokens_per_s']:.1f} tokens/s  device busy "
             f"{'not measured' if busy is None else f'{busy:.1%}'}  top {t['profile']['top']}")
     counts = dict(LAUNCHES)  # the mamba path's window ends here

@@ -5,7 +5,9 @@ tensor it launches the hand-written kernel (``csrc/flash_attention.cu``) or
 raises.  GQA is mapped by head index inside the kernel.  head_dim 8, 16 and
 32 run on the CUDA cores; 64 and 128 on the tensor cores (bf16 on wgmma,
 float32 as 3xTF32 on mma.sync), with K/V tiles copied by TMA, which needs
-16-byte aligned q, k, v.
+16-byte aligned q, k, v.  Any other head_dim up to 128 is zero-padded to the
+next of those (zeros add nothing to q.k and give zero output columns, which
+are sliced off), with the scale kept at 1/sqrt(true head_dim).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import lut
 from repro_torch.kernels import LAUNCHES, build
@@ -43,6 +46,15 @@ def _tables(device: torch.device) -> tuple:
     exp_tab, inv_tab = lut.exp_table(device), lut.inv_table(device)
     return (exp_tab.data_ptr(), inv_tab.data_ptr(), *lut.index_constants(lut.EXP_SPEC),
             *lut.index_constants(lut.INV_SPEC))
+
+
+def padded_head_dim(d: int) -> int:
+    """The head_dim the kernel runs for a true head_dim ``d``: the smallest
+    of ``HEAD_DIMS`` that holds it."""
+    for hd in HEAD_DIMS:
+        if hd >= d:
+            return hd
+    raise ValueError(f"head_dim {d} is above the kernel's largest, {HEAD_DIMS[-1]}")
 
 
 def mha(
@@ -75,24 +87,25 @@ def mha(
     if q.device.type != "cuda":
         raise ValueError(f"mha runs on cpu or cuda, got {q.device}")
 
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in the kernel's {HEAD_DIMS}")
+    dk = padded_head_dim(d)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v must share float32 or bfloat16, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("mha kernel needs contiguous q, k, v")
-    if d in TENSOR_CORE_DIMS and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if dk != d:  # fresh, contiguous and aligned
+        q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
+    if dk in TENSOR_CORE_DIMS and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("mha kernel at head_dim 64/128 needs 16-byte aligned q, k, v (TMA)")
     out = torch.empty_like(q)
     exp_ptr, inv_ptr, exp_off, exp_step, inv_off, inv_step = _tables(q.device)
     err = _lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), exp_ptr, inv_ptr,
-        b, hq, hkv, lq, lkv, d, kv_len, int(causal),
+        b, hq, hkv, lq, lkv, dk, kv_len, int(causal),
         0 if window is None else window, _MODES[mode], _DTYPES[q.dtype],
         1.0 / (d ** 0.5), exp_off, exp_step, inv_off, inv_step,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out if dk == d else out[..., :d].contiguous()

@@ -49,21 +49,16 @@ def norm_spec(d: int, kind: str, dtype=torch.float32):
 def norm(
     params, x: torch.Tensor, kind: str, eps: float = 1e-5, use_lut: bool = False
 ) -> torch.Tensor:
-    """Staged LayerNorm / RMSNorm through the layernorm kernel; ``use_lut``
-    selects the paper's 1/sqrt-LUT datapath."""
+    """Staged LayerNorm / RMSNorm through the layernorm kernel, which reads
+    ``x`` and the params in their own dtypes, computes in float32 and returns
+    ``x.dtype``; ``use_lut`` selects the paper's 1/sqrt-LUT datapath."""
     if kind == "none":
         return x
     if kind not in ("layernorm", "rmsnorm"):
         raise ValueError(f"unknown norm kind {kind}")
-    out = layernorm(
-        x.float().contiguous(),
-        params["scale"].float(),
-        params["bias"].float() if kind == "layernorm" else None,
-        use_lut=use_lut,
-        rms=kind == "rmsnorm",
-        eps=eps,
-    )
-    return out.to(x.dtype)
+    rms = kind == "rmsnorm"
+    return layernorm(x, params["scale"], None if rms else params["bias"],
+                     use_lut=use_lut, rms=rms, eps=eps)
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:

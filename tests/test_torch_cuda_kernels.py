@@ -66,23 +66,95 @@ def test_attention_kernel_bf16_and_kv_len(dev):
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=0)
 
 
-@pytest.mark.parametrize("rows,k", [(120, 64), (800, 32), (33, 200), (64, 4096)])
+def _ulp(ref):
+    """One ulp of ref's dtype at each |ref| (0 for float32: its tolerance is
+    the atol alone)."""
+    bits = {torch.bfloat16: 7, torch.float16: 10}.get(ref.dtype)
+    if bits is None:
+        return torch.zeros_like(ref, dtype=torch.float32)
+    r = ref.float().abs().clamp_min(torch.finfo(ref.dtype).tiny)
+    return torch.exp2(torch.floor(torch.log2(r)) - bits)
+
+
+def _assert_layernorm_close(out, ref, beta, use_lut):
+    """1e-5 (float order) plus one ulp of a 16-bit output (its one
+    rounding); in LUT mode a row whose variance sits at a table tie may take
+    the neighbouring 1/sqrt entry, 0.27 % away, on at most 1 % of the rows."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    err = (out.float() - ref.float()).abs()
+    limit = 1e-5 + _ulp(ref)
+    flip = 0.003 * (ref.float().abs() + beta.float().abs()) if use_lut else 0.0
+    assert (err <= limit + flip).all()
+    assert (err > limit).reshape(-1, err.shape[-1]).any(dim=-1).float().mean() <= 0.01
+
+
+@pytest.mark.parametrize("rows,k", [(120, 64), (800, 32), (33, 200), (9, 33), (1100, 768),
+                                    (64, 4096), (1100, 4096), (16, 8192), (1100, 8192)])
+@pytest.mark.parametrize("dtype,param_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float32),
+    (torch.float16, torch.float16)])
 @pytest.mark.parametrize("use_lut", [False, True])
 @pytest.mark.parametrize("rms", [False, True])
-def test_layernorm_kernel_matches_plain(dev, rows, k, use_lut, rms):
+def test_layernorm_kernel_matches_plain(dev, rows, k, dtype, param_dtype, use_lut, rms):
+    """x in float32, bf16 or fp16 and gamma / beta in float32 or x's dtype,
+    at the lane-team (K 32, 64), warp (K 200, 768; K 33: single elements)
+    and block (K 4096, 8192; up to 1024 rows: 8 elements per thread)
+    instances: one launch, x's dtype out.  RMSNorm is handed beta too, and
+    ignores it."""
     g = torch.Generator(device="cpu").manual_seed(rows + k)
-    x = (torch.randn(rows, k, generator=g) * 3).to(dev)
-    gamma, beta = (torch.randn(k, generator=g).to(dev) for _ in range(2))
+    x = (torch.randn(rows, k, generator=g) * 3).to(dev, dtype)
+    gamma, beta = (torch.randn(k, generator=g).to(dev, param_dtype) for _ in range(2))
     before = LAUNCHES["layernorm"]
     out = layernorm(x, gamma, beta, use_lut=use_lut, rms=rms)
     torch.cuda.synchronize()
     assert LAUNCHES["layernorm"] == before + 1
     ref = layernorm_ref(x, gamma, beta, use_lut=use_lut, rms=rms)
-    # 1e-5 (float order); in LUT mode a row whose variance sits at a table
-    # tie may take the neighbouring 1/sqrt entry, 0.27 % away
+    _assert_layernorm_close(out, ref, beta, use_lut)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("what", ["x", "gamma"])
+def test_layernorm_kernel_misaligned(dev, dtype, what):
+    """A view one element off 16-byte alignment takes the single-element
+    instances."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    flat = torch.randn(64 * 96 + 1, generator=g).to(dev, dtype)
+    x = flat[1:].view(64, 96) if what == "x" else flat[:-1].view(64, 96)
+    gflat = torch.randn(97, generator=g).to(dev, dtype)
+    gamma = gflat[1:] if what == "gamma" else gflat[:96]
+    beta = torch.randn(96, generator=g).to(dev, dtype)
+    before = LAUNCHES["layernorm"]
+    out = layernorm(x, gamma, beta)
+    torch.cuda.synchronize()
+    assert LAUNCHES["layernorm"] == before + 1
+    _assert_layernorm_close(out, layernorm_ref(x, gamma, beta), beta, False)
+
+
+@pytest.mark.parametrize("bits", [(12, 6), (16, 6)])
+@pytest.mark.parametrize("rms", [False, True])
+def test_layernorm_kernel_fixed_precision_and_no_beta(dev, bits, rms):
+    """precision= snaps the kernel's output onto the ap_fixed grid (one grid
+    step apart where the float order crosses a midpoint); a LayerNorm
+    without beta is one with zeros."""
+    from repro_torch.core import precision
+
+    prec = precision.fixed(*bits)
+    step = prec.fixed_cfg().step
+    g = torch.Generator(device="cpu").manual_seed(bits[0])
+    x = (torch.randn(800, 32, generator=g) * 3).to(dev)
+    gamma = torch.randn(32, generator=g).to(dev)
+    before = LAUNCHES["layernorm"]
+    out = layernorm(x, gamma, precision=prec, rms=rms)
+    torch.cuda.synchronize()
+    assert LAUNCHES["layernorm"] == before + 1
+    assert torch.equal(out, torch.round(out / step) * step)
+    ref = layernorm_ref(x, gamma, precision=prec, rms=rms)
     err = (out - ref).abs()
-    assert (err <= 1e-5 + (0.003 * (ref.abs() + beta.abs()) if use_lut else 0)).all()
-    assert (err > 1e-5).any(dim=-1).float().mean() <= 0.01
+    assert (err <= 1e-5 + step).all() and (err > 1e-5).float().mean() <= 0.01
+    if not rms:
+        zeros = layernorm(x, gamma, torch.zeros(32, device=dev))
+        assert torch.equal(layernorm(x, gamma), zeros)
 
 
 def _assert_attention_close(out, ref, v, dtype, mode, group):
@@ -143,15 +215,37 @@ def test_attention_wrapper_rejects_misaligned_tma_input(dev):
 
 
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(dev):
-    x = torch.randn(4, 2, 10, 12, device=dev)  # head_dim 12 has no kernel
+    x = torch.randn(4, 2, 10, 192, device=dev)  # above the largest head_dim, 128
     with pytest.raises(ValueError, match="head_dim"):
         mha(x, x, x)
     x = torch.randn(4, 2, 10, 8, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         mha(x.transpose(1, 2), x.transpose(1, 2), x.transpose(1, 2))
     with pytest.raises(ValueError, match="float32"):
-        layernorm(torch.randn(4, 8, device=dev, dtype=torch.float16),
+        layernorm(torch.randn(4, 8, device=dev, dtype=torch.float64),
                   torch.ones(8, device=dev), torch.zeros(8, device=dev))
+    with pytest.raises(ValueError, match="float32"):  # bf16 params for a float16 x
+        layernorm(torch.randn(4, 8, device=dev, dtype=torch.float16),
+                  torch.ones(8, device=dev, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("d", [12, 14, 80, 96])
+@pytest.mark.parametrize("dtype,mode", [(torch.float32, "safe"), (torch.float32, "lut"),
+                                        (torch.bfloat16, "safe")])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_pads_other_head_dims(dev, d, dtype, mode, causal):
+    """head_dim 12 / 14 run at 16, 80 / 96 at 128 (zero-padded, sliced back),
+    one kernel launch, the existing tolerances."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    q = torch.randn(2, 4, 100, d, generator=g).to(dev, dtype)
+    k, v = (torch.randn(2, 2, 100, d, generator=g).to(dev, dtype) for _ in range(2))
+    before = LAUNCHES["flash_attention"]
+    out = mha(q, k, v, causal=causal, mode=mode)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+    ref = mha_ref(q, k, v, causal=causal, mode=mode)
+    _assert_attention_close(out, ref, v, dtype, mode, 2)
 
 
 def _codes(g, m, k, n):

@@ -12,6 +12,8 @@ from repro.kernels.flash_attention import attention_ref as jax_attention_ref  # 
 from repro.kernels.flash_attention import mha as jax_mha  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.flash_attention import mha, mha_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import padded_head_dim  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 
 # safe: both sides sum in float32 in different orders (2e-5, as the JAX
 # kernel test).  lut: 1e-4 as the JAX kernel test, for the same reason: a
@@ -160,3 +162,39 @@ def test_float32_path_needs_three_tf32_products(d):
         errs[products] = float((_tf32_matmul(p, v, products) - ref).abs().max())
     assert errs[3] <= ATOL["safe"], errs
     assert errs[1] > 10 * ATOL["safe"], errs
+
+
+# head_dims outside the kernel's (8, 16, 32, 64, 128): minicpm-2b /
+# granite-moe-3b reduced (12), internvl2-1b reduced (14), hubert-xlarge (80),
+# MLA's q/k (96)
+PADDED_DIMS = [12, 14, 80, 96]
+
+
+@pytest.mark.parametrize("d", PADDED_DIMS)
+@pytest.mark.parametrize("mode", ["safe", "lut"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_head_dims_outside_the_kernels(d, mode, use_pallas):
+    ref, ours = _both(_qkv(1, 4, 2, 64, 64, d, seed=d), use_pallas, causal=True, mode=mode)
+    assert ours.shape == ref.shape == (1, 4, 64, d)
+    assert_close(ours, ref, mode)
+
+
+@pytest.mark.parametrize("d", PADDED_DIMS)
+@pytest.mark.parametrize("mode", ["safe", "lut"])
+def test_zero_padded_head_dim_gives_the_same_attention(d, mode):
+    """What ``mha`` runs on the card for such a D: q, k, v zero-padded to the
+    next kernel head_dim, the scale at 1/sqrt(true D), the output sliced
+    back to D."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv(1, 4, 4, 64, 64, d, seed=d + 1))
+    dk = padded_head_dim(d)
+    assert dk == {12: 16, 14: 16, 80: 128, 96: 128}[d]
+    padded = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
+    out = attention_ref(*padded, scale=1.0 / d ** 0.5, causal=True, mode=mode)[..., :d]
+    assert_close(out.numpy(), mha_ref(q, k, v, causal=True, mode=mode).numpy(), mode)
+
+
+def test_padded_head_dim_bounds():
+    assert [padded_head_dim(d) for d in (1, 8, 9, 32, 33, 64, 65, 128)] == [
+        8, 8, 16, 32, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="head_dim 192"):
+        padded_head_dim(192)
