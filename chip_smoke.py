@@ -10,7 +10,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    unchanged), print the compiler's register / spill report and each
    library's count of tensor-core instructions (``HGMMA`` = wgmma, ``HMMA``
    = float mma.sync, ``IMMA`` = integer mma.sync) in ``cuobjdump -sass``;
-   the attention library must have HGMMA and HMMA;
+   the attention library must have HGMMA and HMMA, and every head_dim 8-32
+   attention instance HMMA in its own code;
 2. kernels -- call each kernel's wrapper on the card at the shapes the
    physics models give it (batch 8192), at LM-like shapes and at the main
    path's own attention shapes (granite-8b's streaming MHA, (1, 32, 1024,
@@ -18,10 +19,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
    bf16 causal), hold it against its plain PyTorch version on the same
    inputs, and time kernel, plain version and the PyTorch library call that
    computes the same function (a yardstick only; the port never calls it);
-   the tensor-core attention cases and every layernorm case (float32,
-   bf16, fp16) also get their device time from the profiler, kernel and
-   library call alike; attention at head_dim 12 and 80 runs zero-padded
-   to 16 and 128;
+   every attention and layernorm case (float32, bf16, fp16) also gets its
+   device time from the profiler, kernel and library call alike; attention
+   at head_dim 12 and 80 runs zero-padded to 16 and 128, and head_dim 16
+   causal at (1, 8, 1024) beside it;
 3. models -- the main path: the paper's three encoders (engine_anomaly,
    btagging, gw) at their published widths, random seeded weights PTQ'd by
    the precision plan, seeded events from ``repro_torch.data``, under the
@@ -280,15 +281,40 @@ def phase_build():
         out, _ = proc.communicate(timeout=300)
         if proc.returncode != 0:
             raise SmokeError(f"cuobjdump -sass failed on {name}: {out[-500:]}")
-        ops = [ln.split(";")[0].split() for ln in out.splitlines() if "MMA" in ln]
-        sass[name] = {op: sum(any(w.startswith(op + ".") or w == op for w in ln) for ln in ops)
-                      for op in ("HGMMA", "HMMA", "IMMA")}
+        funcs = _sass_functions(out)
+        sass[name] = {op: sum(f[op] for f in funcs.values()) for op in TC_OPS}
         log(f"[build] {name}: " + ", ".join(f"{n} {op}" for op, n in sass[name].items())
             + " instructions (cuobjdump -sass)")
+        if name == "flash_attention":
+            small = {f: c for f, c in funcs.items() if "small_attention_kernel" in f}
+            sass["flash_attention_small_head"] = {f: c["HMMA"] for f, c in small.items()}
+            log(f"[build] flash_attention: {len(small)} head_dim 8-32 instances, HMMA per "
+                f"instance {sorted(c['HMMA'] for c in small.values())}")
+            if not small or not all(c["HMMA"] for c in small.values()):
+                raise SmokeError("a head_dim 8-32 attention instance has no mma.sync (HMMA) "
+                                 f"instructions: { {f[-60:]: c for f, c in small.items()} }")
     if not (sass["flash_attention"]["HGMMA"] and sass["flash_attention"]["HMMA"]):
         raise SmokeError("the flash_attention library has no wgmma (HGMMA) or no mma.sync "
                          f"(HMMA) instructions: {sass['flash_attention']}")
     return {n: r["seconds"] for n, r in report.items()}, sass
+
+
+TC_OPS = ("HGMMA", "HMMA", "IMMA")
+
+
+def _sass_functions(listing: str) -> dict[str, dict[str, int]]:
+    """Tensor-core instruction counts per kernel function of a ``cuobjdump
+    -sass`` listing (each function's code follows its ``Function :`` line)."""
+    funcs, cur = {}, None
+    for ln in listing.splitlines():
+        if "Function :" in ln:
+            cur = ln.split("Function :", 1)[1].strip()
+            funcs[cur] = dict.fromkeys(TC_OPS, 0)
+        elif cur is not None and "MMA" in ln:
+            words = ln.split(";")[0].split()
+            for op in TC_OPS:
+                funcs[cur][op] += any(w.startswith(op + ".") or w == op for w in words)
+    return funcs
 
 
 # ---------------------------------------------------------------- phase 2 --
@@ -300,7 +326,6 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import mha, mha_ref
-    from repro_torch.kernels.flash_attention.ops import TENSOR_CORE_DIMS, padded_head_dim
 
     b, h, l, d = shape
     hkv = h if hkv is None else hkv
@@ -331,8 +356,7 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v read, out written
     if mode == "lut":
         nbytes += (1024 + 4096) * 4
-    tensor_cores = padded_head_dim(d) in TENSOR_CORE_DIMS
-    peak = "tf32x3" if tensor_cores and dtype == "float32" else dtype
+    peak = "tf32x3" if dtype == "float32" else dtype  # every head_dim on the tensor cores
     bound_ms, bound_by = bound(4.0 * b * h * pairs * d, nbytes, peak)
 
     iters = 20 if b * h * l * l * d > 1e8 else 50
@@ -349,10 +373,9 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
                                                   enable_gqa=hkv != h)
 
         library_ms = time_ms(sdpa, iters)
-    dev_ms = lib_dev_ms = None
-    if tensor_cores:  # small calls are bound by the host's launch cost: add device time
-        dev_ms = device_ms(lambda: mha(q, k, v, causal=causal, window=window, mode=mode))
-        lib_dev_ms = None if sdpa is None else device_ms(sdpa)
+    # small calls are bound by the host's launch cost: device time beside it
+    dev_ms = device_ms(lambda: mha(q, k, v, causal=causal, window=window, mode=mode))
+    lib_dev_ms = None if sdpa is None else device_ms(sdpa)
     return dict(kernel="flash_attention", shape=list(shape), kv_heads=hkv, mode=mode,
                 causal=causal, window=window, dtype=dtype, max_abs_err=err,
                 rows_over_atol=rows_over, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
@@ -544,6 +567,8 @@ def phase_kernels(dev):
         shape = (8192, cfg.n_heads, cfg.seq_len, cfg.resolved_head_dim)
         for mode in ("safe", "lut"):
             cases.append(_attention_case(dev, shape, mode))
+        if name != "engine_anomaly":  # btagging and gw in bf16
+            cases.append(_attention_case(dev, shape, "safe", dtype="bfloat16"))
     for d in (64, 128):  # LM-like
         for mode in ("safe", "lut"):
             cases.append(_attention_case(dev, (1, 8, 1024, d), mode, causal=True))
@@ -577,8 +602,8 @@ def phase_kernels(dev):
             for rows in (1, 2, 8, 2 * 256, 2048, 8 * 2048):
                 cases.append(_layernorm_case(dev, rows, k, True, False, dtype))
     # head_dims the kernel pads: 12 to 16 (minicpm-2b reduced), 80 to 128
-    # (hubert-xlarge)
-    for d in (12, 80):
+    # (hubert-xlarge); 16 itself beside them
+    for d in (12, 16, 80):
         cases.append(_attention_case(dev, (1, 8, 1024, d), "safe", causal=True))
     for name in MODELS:  # stage 1/4 GEMMs of the streaming MHA at batch 8192
         cfg = get_config(name)

@@ -9,31 +9,63 @@
 // What bounds it on an H100: the work is 4 Lq Lkv D FLOP per (batch, head)
 // (half that under a causal mask) against 4 L D bytes per element of
 // q/k/v/out, i.e. about L/4 FLOP per byte in float32 and L/2 in bf16.  The
-// physics shapes (head_dim 8; L = 15, 50, 100) sit at or under the float32
-// CUDA-core ridge (67 TFLOP/s / 3.35 TB/s = 20 FLOP per byte); the LM-like
-// shapes (D = 64, 128; L = 1024, 2048) are bound by operations, on the
-// tensor cores: 989 TFLOP/s in bf16, and 495 / 3 = 165 TFLOP/s of float32
-// work done as three TF32 products.  Two kernels, chosen by head_dim:
+// physics shapes (head_dim 8; L = 15, 50, 100) are bound by bytes once the
+// arithmetic is on the tensor cores (at gw, 10.5 GFLOP of float32 work is
+// 0.157 ms on the CUDA cores' 67 TFLOP/s, above the 0.125 ms bytes bound;
+// 0.064 ms as three TF32 products at 495 / 3 = 165 TFLOP/s).  The LM-like
+// shapes (D = 64, 128; L = 1024, 2048) are bound by operations: 989 TFLOP/s
+// in bf16, 165 TFLOP/s of float32 work done as 3xTF32.  Both kernels keep
+// every score and output element in the m16n8 accumulator fragment layout
+// of mma (thread lane: rows lane/4 and lane/4 + 8, columns 2 (lane % 4) +
+// {0, 1} of each 8-wide block), and run float32 as 3xTF32 on
+// mma.sync.m16n8k8.tf32: each operand is split into big, its nearest TF32
+// value, and small, the TF32 rest (kernel 2: cvt.rna.tf32 twice; kernel 1:
+// Veltkamp's split), and the float32 accumulator takes small*big +
+// big*small + big*big.  One TF32 product keeps 10 mantissa bits
+// (1e-3 off against the 2e-5 tolerance at every shape tried); three keep
+// float32's accuracy.  In the P V product the k order of an 8-key step is
+// permuted (k index t <-> key 2t, t + 4 <-> key 2t + 1) so the score
+// fragment is the A fragment with no shuffle.  Two kernels, by head_dim:
 //
-// 1. D = 8, 16, 32 (the physics encoders): CUDA-core float32 FMAs.  head_dim
-//    8 is below every tensor-core tile.  One block per (batch * head,
-//    64-query tile).  A query row is owned by TPR threads (1 for D <= 16,
-//    D/16 above), each holding D/TPR of the row's q and accumulator in
-//    registers, dims interleaved so the threads of one row read neighbouring
-//    shared-memory banks.  K/V tiles of 32 keys are staged in shared memory
-//    as fp32 (bf16 inputs are widened on load) and broadcast to all rows.
-//    Scores of a tile stay in registers; the online softmax rescales once
-//    per tile.  Masked keys get zero weight directly (no -1e30 sentinel), and
-//    a block only walks the key range its rows can see under the causal /
-//    window masks.  Tables are read through the read-only cache (__ldg).
+// 1. D = 8, 16, 32 (the physics encoders; head_dims 12 and 14 padded to
+//    16): small_attention_kernel.  A work item is (batch * head, 16 query
+//    rows), one m16 tile, and a warp owns one item; a group is W = 4 or 8
+//    consecutive items, so heads are packed: at L = 15 a group serves 8
+//    heads, at L = 100 the 7 tiles of a head (straddling two heads).  The
+//    only idle rows are those past Lq in a head's last tile.  Blocks are
+//    persistent (as many as fit on the SMs) and walk their groups' key tiles
+//    as one stream of steps through a two-stage shared-memory ring: K and V
+//    of each key/value head a group uses, staged once for the group, in
+//    tiles of 8 NB keys (NB = 2 at L <= 16, 7 at L = 50 and 100 in
+//    float32, else 8), and the group's query rows, all by 16-byte
+//    cp.async copies that zero-fill past the keys and past Lq (4- or 2-byte
+//    copies through registers when a pointer is not 16-byte aligned).  The
+//    next step's copies are in flight while this one is computed, across
+//    groups.  Rows are padded so every fragment load is free of bank
+//    conflicts.  float32: S = Q K^T takes four TF32 products (small * small
+//    too, so that the paper's fixed-point scores are exact) and P V three;
+//    no conversion instruction splits an operand: Q (once per item) and P
+//    by Veltkamp's method, four FP32 operations, K and V by truncation, an
+//    AND and a subtraction, per warp as it loads them (splitting K and V
+//    once per block in shared memory measured slower:
+//    tools/attention_small_variants.py).
+//    bf16: S on m16n8k8 (D = 8) or m16n8k16, P rounded to bf16 and O += P V
+//    on m16n8k16 with V's fragments by ldmatrix.trans; float32
+//    accumulators.  The online softmax runs on the fragments: a row's max
+//    over its 4 lanes with two shuffles, its sum once at the end; safe mode
+//    as ex2 with log2(e) folded into the scale.  Every 8-key block of a tile
+//    is computed without a branch (so the compiler interleaves the blocks'
+//    mma chains); a warp skips the tiles its rows cannot see, and element
+//    masks are evaluated only on tiles that cross the diagonal, the window
+//    edge or kv_len.  LUT mode: the table index without a division or a
+//    conversion (lut.cuh: lut_index_linear_fast), the table in shared
+//    memory.  Integer division by runtime sizes goes through a
+//    multiply-high (FastDiv).
 //
-// 2. D = 64, 128 (LM heads; the streaming MHA at granite-8b's width): the
-//    tensor cores.  A block owns 64 query rows and holds one or two
+// 2. D = 64, 128 (LM heads; the streaming MHA at granite-8b's width):
+//    tc_attention_kernel.  A block owns 64 query rows and holds one or two
 //    consumer warpgroups (4 warps, 128 threads each); warp w of a warpgroup
-//    owns rows 16w .. 16w + 15, and every score and output element sits in
-//    the m16n8 accumulator fragment layout (thread lane: rows lane/4 and
-//    lane/4 + 8, columns 2 (lane % 4) + {0, 1} of each 8-wide block), which
-//    both tensor-core routes share:
+//    owns rows 16w .. 16w + 15:
 //    - bf16: S = Q K^T is wgmma.mma_async m64n64k16 with Q and K both read
 //      from shared memory, K-major (D contiguous), 128-byte swizzled.  The
 //      online softmax runs on the accumulator fragments (a row's max is
@@ -43,17 +75,10 @@
 //      contiguous) is the shared-memory B operand with the transpose bit.
 //      S of the next tile and P V of this one are issued back to back, and
 //      the next tile's softmax runs while P V is on the tensor cores.
-//    - float32: 3xTF32 on mma.sync.m16n8k8.tf32.  Each operand is split as
-//      big = cvt.rna.tf32(a), small = cvt.rna.tf32(a - big), and the float32
-//      accumulator takes small*big + big*small + big*big, for Q K^T and for
-//      P V.  One TF32 product keeps 10 mantissa bits (1.6e-3 off at L =
-//      1024 against the 2e-5 tolerance); three keep float32's accuracy.
-//      mma.sync, not wgmma: TF32 wgmma takes only K-major operands, so V
+//    - float32: 3xTF32 on mma.sync for Q K^T and P V, not on wgmma: TF32 wgmma takes only K-major operands, so V
 //      would have to be written back transposed into shared memory each
 //      tile, and the split operands would have to be stored there too;
 //      mma.sync takes its fragments from registers, split on the way in.
-//      The P V k-order is permuted (k index t <-> key 2t, t + 4 <-> key
-//      2t + 1) so the score fragment is the A fragment with no shuffle.
 //      This route is bound by the splits and fragment loads on the CUDA
 //      cores (about 4 instructions per mma), not by the tensor cores.
 //    K/V tiles (64 keys in bf16, 32 in float32) come through a ring of two
@@ -77,14 +102,16 @@
 //
 // Both kernels: GQA maps query head h to key/value head h / (Hq / Hkv) by
 // index; K/V are never repeated in memory.  LUT mode: exp from the
-// 1024-entry linear table (in shared memory on the tensor-core path, whose
-// gathers diverge), running row sum without max subtraction, reciprocal
-// from the 4096-entry log table at the end.
+// 1024-entry linear table in shared memory (its gathers diverge), indexed
+// on the float32 score itself, running row sum without max subtraction,
+// reciprocal from the 4096-entry log table at the end.
 //
 // The kernels allocate nothing and launch on the caller's stream; the C
 // entry returns cudaGetLastError() (or cudaErrorInvalidValue when a tensor
-// map cannot be encoded, e.g. a pointer that is not 16-byte aligned).
+// map cannot be encoded: at D = 64 / 128 a pointer that is not 16-byte
+// aligned).
 
+#include <algorithm>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,156 +123,8 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kBlockQ = 64;   // query rows per block
-constexpr int kBlockKV = 32;  // keys per shared-memory tile (one bit each in `valid`)
 constexpr int kExpSize = 1024;
 constexpr int kInvSize = 4096;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
-
-template <int D>
-struct RowSplit {
-    static constexpr int kThreads = D >= 32 ? D / 16 : 1;  // threads per query row
-    static constexpr int kDims = D / kThreads;             // dims per thread
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kBlockQ * RowSplit<D>::kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       const float* __restrict__ exp_tab,
-                       const float* __restrict__ inv_tab, int Hq, int Hkv, int Lq,
-                       int Lkv, int kv_len, int causal, int window, int lut_mode,
-                       float scale, float exp_off, float exp_step, float inv_off,
-                       float inv_step) {
-    constexpr int TPR = RowSplit<D>::kThreads;
-    constexpr int DP = RowSplit<D>::kDims;
-    __shared__ float Ks[kBlockKV][D];
-    __shared__ float Vs[kBlockKV][D];
-
-    const int bh = blockIdx.x;
-    const int b = bh / Hq;
-    const int hk = (bh % Hq) / (Hq / Hkv);
-    const int q0 = blockIdx.y * kBlockQ;
-    const int part = threadIdx.x % TPR;
-    const int qi = q0 + threadIdx.x / TPR;
-    const bool row_ok = qi < Lq;
-
-    float qr[DP], acc[DP];
-    const T* qp = q + (static_cast<long long>(bh) * Lq + (row_ok ? qi : 0)) * D;
-#pragma unroll
-    for (int e = 0; e < DP; ++e) {
-        qr[e] = row_ok ? to_f32(qp[part + TPR * e]) : 0.0f;
-        acc[e] = 0.0f;
-    }
-    float m = -INFINITY, l = 0.0f;
-
-    const long long kv_base = (static_cast<long long>(b) * Hkv + hk) * Lkv * D;
-    const T* kp = k + kv_base;
-    const T* vp = v + kv_base;
-
-    // Keys any row of this block can attend to.
-    const int q_last = min(q0 + kBlockQ, Lq) - 1;
-    int kv_hi = min(kv_len, Lkv);
-    if (causal) kv_hi = min(kv_hi, q_last + 1);
-    const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-
-    for (int t0 = kv_lo; t0 < kv_hi; t0 += kBlockKV) {
-        __syncthreads();  // previous tile fully consumed
-        for (int i = threadIdx.x; i < kBlockKV * D; i += blockDim.x) {
-            const int j = i / D, d = i % D;
-            const int kpos = t0 + j;
-            const bool in = kpos < kv_hi;
-            Ks[j][d] = in ? to_f32(kp[static_cast<long long>(kpos) * D + d]) : 0.0f;
-            Vs[j][d] = in ? to_f32(vp[static_cast<long long>(kpos) * D + d]) : 0.0f;
-        }
-        __syncthreads();
-
-        float s[kBlockKV];
-        unsigned valid = 0u;
-        float tile_max = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kBlockKV; ++j) {
-            float dot = 0.0f;
-#pragma unroll
-            for (int e = 0; e < DP; ++e) dot = fmaf(qr[e], Ks[j][part + TPR * e], dot);
-            dot = group_sum<TPR>(dot);
-            s[j] = dot * scale;
-            const int kpos = t0 + j;
-            const bool ok = row_ok && kpos < kv_hi && (!causal || kpos <= qi) &&
-                            (window <= 0 || qi - kpos < window);
-            if (ok) {
-                valid |= 1u << j;
-                tile_max = fmaxf(tile_max, s[j]);
-            }
-        }
-        if (valid == 0u) continue;
-
-        if (!lut_mode) {
-            const float m_new = fmaxf(m, tile_max);
-            const float alpha = expf(m - m_new);  // 0 on the first visible tile
-            l *= alpha;
-#pragma unroll
-            for (int e = 0; e < DP; ++e) acc[e] *= alpha;
-            m = m_new;
-#pragma unroll
-            for (int j = 0; j < kBlockKV; ++j) {
-                if (valid >> j & 1u) {
-                    const float p = expf(s[j] - m);
-                    l += p;
-#pragma unroll
-                    for (int e = 0; e < DP; ++e) acc[e] = fmaf(p, Vs[j][part + TPR * e], acc[e]);
-                }
-            }
-        } else {
-#pragma unroll
-            for (int j = 0; j < kBlockKV; ++j) {
-                if (valid >> j & 1u) {
-                    const float p =
-                        __ldg(&exp_tab[lut_index_linear(s[j], exp_off, exp_step, kExpSize)]);
-                    l += p;
-#pragma unroll
-                    for (int e = 0; e < DP; ++e) acc[e] = fmaf(p, Vs[j][part + TPR * e], acc[e]);
-                }
-            }
-        }
-    }
-
-    if (!row_ok) return;
-    float inv = 0.0f;
-    if (l > 0.0f) {
-        inv = lut_mode ? __ldg(&inv_tab[lut_index_log(l, inv_off, inv_step, kInvSize)])
-                       : 1.0f / l;
-    }
-    T* op = out + (static_cast<long long>(bh) * Lq + qi) * D;
-#pragma unroll
-    for (int e = 0; e < DP; ++e) op[part + TPR * e] = from_f32<T>(acc[e] * inv);
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const float* exp_tab, const float* inv_tab, int B, int Hq, int Hkv,
-                   int Lq, int Lkv, int kv_len, int causal, int window, int lut_mode,
-                   float scale, float exp_off, float exp_step, float inv_off,
-                   float inv_step, cudaStream_t stream) {
-    const dim3 grid(B * Hq, (Lq + kBlockQ - 1) / kBlockQ);
-    const dim3 block(kBlockQ * RowSplit<D>::kThreads);
-    flash_attention_kernel<T, D><<<grid, block, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), exp_tab, inv_tab, Hq, Hkv, Lq, Lkv, kv_len, causal,
-        window, lut_mode, scale, exp_off, exp_step, inv_off, inv_step);
-    return cudaGetLastError();
-}
 
 // ------------------------------------------------------------------------
 // Tensor-core path, D = 64 and 128.
@@ -554,6 +433,510 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// ------------------------------------------------------------------------
+// Small-head path, D = 8, 16 and 32.
+
+constexpr int kSmRows = 16;  // query rows per warp: one m16 tile
+constexpr int kSmMaxNB = 8;  // 8-key blocks per staged K/V tile, at most
+constexpr int kSmStages = 2;  // the copy ring: one step copied while one is computed
+
+template <typename T, int D>
+struct SmTile {
+    // Row stride of a staged K/V tile, in elements.  float32: D + 4 words, so
+    // the 8 key rows of a fragment load start in 8 different 4-bank groups.
+    // bf16: an odd number of 16-byte units, so ldmatrix's 8 rows fall in 8
+    // different bank groups (and the 32-bit K loads are conflict-free too).
+    static constexpr bool kBf16 = sizeof(T) == 2;
+    static constexpr int kStride = kBf16 ? 8 * ((D / 8) | 1) : D + 4;
+    static constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte copy
+};
+
+// The A fragments of a warp's 16 query rows, loaded once per item.
+// float32: per 8-dim step, big and small TF32 halves.  bf16: per 16-dim
+// step (D = 8: registers 0 and 1 only, for m16n8k8).
+template <typename T, int D>
+struct QFrag;
+template <int D>
+struct QFrag<float, D> {
+    uint32_t big[D / 8][4], small[D / 8][4];
+};
+template <int D>
+struct QFrag<__nv_bfloat16, D> {
+    uint32_t a[(D + 15) / 16][4];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>  // wait until at most N committed groups are in flight
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1, const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(b0), "=r"(b1)
+                 : "r"(smem_u32(p))
+                 : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16_k16(float* c, const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16_k8(float* c, uint32_t a0, uint32_t a1, uint32_t b0) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// x = big + small: big rounded to the nearest TF32 value (11 significant
+// bits, Veltkamp's split by 2^13 + 1), small = x - big exactly.  The
+// tensor cores read the top 19 bits of a TF32 register, so small is used
+// truncated to 11 bits: 2^-23 |x| at most.  Four FP32 operations.
+__device__ __forceinline__ void split_fast(float x, uint32_t& big, uint32_t& small) {
+    const float t = __fmul_rn(x, 8193.0f);
+    const float b = __fsub_rn(t, __fsub_rn(t, x));
+    big = __float_as_uint(b);
+    small = __float_as_uint(__fsub_rn(x, b));
+}
+
+// x = big + small with big = x truncated to TF32 (one AND) and small the
+// exact rest, read truncated to 11 bits: 2^-22 |x| at most, and exact for
+// x of at most 22 significant bits.  For K and V, loaded once per block of
+// 8 keys; P, whose products set the output's last bits, takes split_fast.
+__device__ __forceinline__ void split_trunc(float x, uint32_t& big, uint32_t& small) {
+    big = __float_as_uint(x) & 0xffffe000u;
+    small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));
+}
+
+// The A fragments of rows g and g + 8 of a warp's 16 query rows, staged
+// at sq with row stride kStride.
+template <int D>
+__device__ __forceinline__ void load_q(QFrag<float, D>& f, const float* sq, int g, int tig) {
+    constexpr int S = SmTile<float, D>::kStride;
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+        const int c = 8 * ks + tig;
+        const float x[4] = {sq[g * S + c], sq[(g + 8) * S + c], sq[g * S + c + 4],
+                            sq[(g + 8) * S + c + 4]};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) split_fast(x[r], f.big[ks][r], f.small[ks][r]);
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void load_q(QFrag<__nv_bfloat16, D>& f, const __nv_bfloat16* sq, int g,
+                                       int tig) {
+    constexpr int S = SmTile<__nv_bfloat16, D>::kStride;
+    auto pair = [&](int row, int col) {
+        return *reinterpret_cast<const uint32_t*>(sq + row * S + col);
+    };
+#pragma unroll
+    for (int ks = 0; ks < (D + 15) / 16; ++ks) {
+        const int c = 16 * ks + 2 * tig;
+        f.a[ks][0] = pair(g, c);
+        f.a[ks][1] = pair(g + 8, c);
+        if constexpr (D >= 16) {
+            f.a[ks][2] = pair(g, c + 8);
+            f.a[ks][3] = pair(g + 8, c + 8);
+        }
+    }
+}
+
+// c (16 rows x 8 keys) = Q K^T for the 8 keys whose rows start at sk.
+// float32: four TF32 products, small * small too, so that each product of
+// operands of at most 22 significant bits (the paper's ap_fixed<12, 6>
+// activations have 12) is formed exactly, as in the plain version: three
+// products miss up to 2^-12 of a score there, which moves LUT indices.
+template <int D>
+__device__ __forceinline__ void block_scores(float* c, const QFrag<float, D>& f, const float* sk,
+                                             int g, int tig) {
+    constexpr int S = SmTile<float, D>::kStride;
+    c[0] = c[1] = c[2] = c[3] = 0.0f;
+    const float* kr = sk + g * S + tig;
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split_trunc(kr[8 * ks], bb0, bs0);
+        split_trunc(kr[8 * ks + 4], bb1, bs1);
+        mma_tf32(c, f.small[ks], bs0, bs1);
+        mma_tf32(c, f.small[ks], bb0, bb1);
+        mma_tf32(c, f.big[ks], bs0, bs1);
+        mma_tf32(c, f.big[ks], bb0, bb1);
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void block_scores(float* c, const QFrag<__nv_bfloat16, D>& f,
+                                             const __nv_bfloat16* sk, int g, int tig) {
+    constexpr int S = SmTile<__nv_bfloat16, D>::kStride;
+    c[0] = c[1] = c[2] = c[3] = 0.0f;
+    const __nv_bfloat16* kr = sk + g * S + 2 * tig;
+    if constexpr (D == 8) {
+        mma_bf16_k8(c, f.a[0][0], f.a[0][1], *reinterpret_cast<const uint32_t*>(kr));
+    } else {
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+            mma_bf16_k16(c, f.a[ks], *reinterpret_cast<const uint32_t*>(kr + 16 * ks),
+                         *reinterpret_cast<const uint32_t*>(kr + 16 * ks + 8));
+        }
+    }
+}
+
+// o (16 rows x D) += P V for the 8 keys (float32) whose rows start at sv;
+// p: their 4 weights in this thread's fragment.
+template <int D>
+__device__ __forceinline__ void block_pv(float* o, const float* p, const float* sv, int g,
+                                         int tig) {
+    constexpr int S = SmTile<float, D>::kStride;
+    uint32_t ab[4], as[4];
+    split_fast(p[0], ab[0], as[0]);
+    split_fast(p[2], ab[1], as[1]);
+    split_fast(p[1], ab[2], as[2]);
+    split_fast(p[3], ab[3], as[3]);
+    const float* vr = sv + 2 * tig * S + g;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split_trunc(vr[8 * nb], bb0, bs0);
+        split_trunc(vr[S + 8 * nb], bb1, bs1);
+        mma_3xtf32(&o[4 * nb], ab, as, bb0, bb1, bs0, bs1);
+    }
+}
+
+// o += P V for the 16 keys (bf16) whose rows start at sv; p: the 8 weights
+// of their two 8-key blocks, rounded to bf16 as the A operand.
+template <int D>
+__device__ __forceinline__ void pair_pv(float* o, const float* p, const __nv_bfloat16* sv,
+                                        int lane) {
+    constexpr int S = SmTile<__nv_bfloat16, D>::kStride;
+    const uint32_t a[4] = {pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]), pack_bf16(p[4], p[5]),
+                           pack_bf16(p[6], p[7])};
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb) {
+        uint32_t b0, b1;
+        ldsm_x2_trans(b0, b1, sv + (lane & 15) * S + 8 * nb);
+        mma_bf16_k16(&o[4 * nb], a, b0, b1);
+    }
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {  // 2^x; 0 for -inf
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// n / d for 0 <= n < 2^31 by a multiply-high and a shift (Granlund and
+// Montgomery), d >= 1 fixed per kernel: a runtime integer division is some
+// 20 instructions.
+struct FastDiv {
+    uint32_t mul, shift;
+    __device__ explicit FastDiv(uint32_t d) : shift(0) {
+        while ((1u << shift) < d) ++shift;
+        mul = static_cast<uint32_t>(((1ull << 32) * ((1ull << shift) - d)) / d + 1);
+    }
+    __device__ __forceinline__ int operator()(int n) const {
+        return static_cast<int>((__umulhi(static_cast<uint32_t>(n), mul) + n) >> shift);
+    }
+};
+
+// A group: W consecutive items, one per warp, and the keys any of them
+// sees.  Lane i of every warp also holds item it0 + i's fields (i < n).
+struct SmGroup {
+    int it0, n;         // items [it0, it0 + n)
+    int lo, hi;         // keys [lo, hi): the union of the items' ranges
+    int n_tiles;        // key tiles, at least 1
+    int hkv0, n_slots;  // first key/value head, and how many the items use
+    int bh, q0, ilo, ihi, hkv;  // lane i's item: head, first row, keys, key/value head
+};
+
+// Persistent blocks of W warps; block b takes groups b, b + gridDim.x, ...
+// and walks their key tiles as one stream of steps through a ring of two
+// shared-memory stages: step s + 1 (K and V of every slot for one tile and,
+// on a group's first tile, its 16 query rows per warp) is copied by
+// cp.async while step s is computed, across group boundaries.  Every 8-key
+// block of a tile is computed without a branch, so the compiler interleaves
+// the blocks' mma chains; P V goes to two accumulators for the same reason.
+// Dynamic shared memory: the exp table (LUT mode), two query buffers, two
+// K/V stages of `slots` x (K, V) x 8 NB keys.
+template <typename T, int D, int NB, int W, bool ALIGNED>
+__global__ void __launch_bounds__(32 * W, 16 / W)
+small_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       const float* __restrict__ exp_tab, const float* __restrict__ inv_tab,
+                       int BHq, int Hq, int Hkv, int Lq, int Lkv, int kv_len, int causal,
+                       int window, int lut_mode, float scale, float exp_off, float exp_step,
+                       float inv_off, float inv_step, int slots) {
+    using C = SmTile<T, D>;
+    static_assert(!C::kBf16 || NB % 2 == 0, "bf16 P V takes 16 keys per step");
+    constexpr int S = C::kStride;
+    constexpr int kRows = 8 * NB;  // keys per staged tile
+    constexpr int kThreads = 32 * W;
+    constexpr int kQElems = W * kSmRows * S;  // one query buffer
+    constexpr int kPerRow = ALIGNED ? D / C::kVec : D;  // copies per row
+    constexpr int kCopy = ALIGNED ? C::kVec : 1;        // elements per copy
+    extern __shared__ float4 sm_raw[];  // 16-byte aligned
+    float* s_exp = reinterpret_cast<float*>(sm_raw);
+    T* qbuf = reinterpret_cast<T*>(s_exp + (lut_mode ? kExpSize : 0));
+    T* ring = qbuf + kSmStages * kQElems;
+    const int stage_elems = slots * 2 * kRows * S;
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
+    const int nqt = (Lq + kSmRows - 1) / kSmRows;
+    const int n_items = BHq * nqt;
+    const int n_groups = (n_items + W - 1) / W;
+    const int kv_end = min(kv_len, Lkv);
+    const FastDiv div_nqt(nqt), div_hq(Hq), div_group(Hq / Hkv);
+    const float sc = lut_mode ? scale : scale * kLog2e;  // LUT indexes the score itself
+    const float exp_inv_step = 1.0f / exp_step;
+    if (lut_mode) {
+        for (int i = tid; i < kExpSize; i += kThreads) s_exp[i] = __ldg(&exp_tab[i]);
+    }  // read only after the first step's __syncthreads
+    if (blockIdx.x >= n_groups) return;
+
+    // Called by whole warps.  Item -> (batch * head, first query row, keys
+    // [lo, hi) its rows can see); under a causal mask a head's longest query
+    // tiles come first.  GQA: query head h reads key/value head h / (Hq / Hkv).
+    auto group_info = [&](int grp, SmGroup& gi) {
+        gi.it0 = grp * W;
+        gi.n = min(W, n_items - gi.it0);
+        const int item = gi.it0 + min(lane, gi.n - 1);
+        gi.bh = div_nqt(item);
+        const int r = item - gi.bh * nqt;
+        gi.q0 = (causal ? nqt - 1 - r : r) * kSmRows;
+        gi.ihi = causal ? min(kv_end, min(gi.q0 + kSmRows, Lq)) : kv_end;
+        gi.ilo = window > 0 ? max(0, gi.q0 - window + 1) : 0;
+        const int b = div_hq(gi.bh);
+        gi.hkv = b * Hkv + div_group(gi.bh - b * Hq);
+        const bool seen = gi.ihi > gi.ilo;
+        int lo = __reduce_min_sync(0xffffffffu, seen ? gi.ilo : 0x7fffffff);
+        int hi = __reduce_max_sync(0xffffffffu, seen ? gi.ihi : 0);
+        if (hi <= lo) lo = hi = 0;  // no key visible: one empty step, zero output
+        gi.lo = lo;
+        gi.hi = hi;
+        gi.n_tiles = max(1, (hi - lo + kRows - 1) / kRows);
+        gi.hkv0 = __shfl_sync(0xffffffffu, gi.hkv, 0);
+        gi.n_slots = __shfl_sync(0xffffffffu, gi.hkv, gi.n - 1) - gi.hkv0 + 1;  // <= slots
+    };
+    auto copy = [&](T* dst, const T* src, bool in) {  // zeros where !in
+        if constexpr (ALIGNED) {
+            cp_async16(dst, src, in ? 16 : 0);
+        } else {
+            *dst = in ? *src : T(0.0f);
+        }
+    };
+    // One step's copies: tile `tile` of group gi into K/V stage `st` and, on
+    // its first tile, each warp its item's query rows into query buffer `qs`;
+    // zeros past the group's keys and past Lq.
+    auto issue = [&](const SmGroup& gi, int tile, int qs, int st) {
+        if (tile == 0) {
+            const int bh_w = __shfl_sync(0xffffffffu, gi.bh, warp);
+            const int q0_w = __shfl_sync(0xffffffffu, gi.q0, warp);
+            T* dq = qbuf + qs * kQElems + warp * kSmRows * S;
+            for (int i = lane; i < kSmRows * kPerRow && warp < gi.n; i += 32) {
+                const int c = i % kPerRow, row = i / kPerRow;
+                const bool in = q0_w + row < Lq;
+                const T* src = q + (static_cast<long long>(bh_w) * Lq + (in ? q0_w + row : 0)) * D;
+                copy(dq + row * S + c * kCopy, src + c * kCopy, in);
+            }
+        }
+        T* dst0 = ring + st * stage_elems;
+        const int t0 = gi.lo + tile * kRows;
+        const int n = gi.n_slots * 2 * kRows * kPerRow;
+        for (int i = tid; i < n; i += kThreads) {
+            const int c = i % kPerRow, r = i / kPerRow;  // r = (slot * 2 + K|V) * kRows + key
+            const int key = r % kRows, sv = r / kRows;
+            const int kpos = t0 + key;
+            const bool in = kpos < gi.hi;
+            const T* src = ((sv & 1) ? v : k) +
+                           (static_cast<long long>(gi.hkv0 + (sv >> 1)) * Lkv + (in ? kpos : 0)) * D;
+            copy(dst0 + r * S + c * kCopy, src + c * kCopy, in);
+        }
+    };
+
+    // Producer cursor: the next step to copy.
+    SmGroup gp;
+    int grp_p = blockIdx.x, tile_p = 0, gq_p = 0;
+    bool more_p = true;
+    group_info(grp_p, gp);
+    auto produce = [&](int st) {
+        if (more_p) {
+            issue(gp, tile_p, gq_p % kSmStages, st);
+            if (++tile_p == gp.n_tiles) {
+                tile_p = 0;
+                ++gq_p;
+                grp_p += gridDim.x;
+                more_p = grp_p < n_groups;
+                if (more_p) group_info(grp_p, gp);
+            }
+        }
+        cp_async_commit();  // one group per step, empty or not
+    };
+    produce(0);
+
+    // Consumer cursor, and this warp's item.
+    SmGroup gc;
+    group_info(blockIdx.x, gc);
+    int grp_c = blockIdx.x, tile_c = 0, gq_c = 0;
+    bool active = false;
+    int bh = 0, q0 = 0, lo_w = 0, hi_w = 0, slot = 0, q_last = 0;
+    QFrag<T, D> qf;
+    constexpr int kAcc = 2;  // P V accumulators: key block nb into nb % kAcc
+    float o[kAcc][D / 2];
+    float m[2], l[2];
+
+    for (int step = 0;; ++step) {
+        produce((step + 1) % kSmStages);
+        cp_async_wait<1>();
+        __syncthreads();
+        if (tile_c == 0) {  // a new group: this warp's item, its query fragments
+            active = warp < gc.n;
+            bh = __shfl_sync(0xffffffffu, gc.bh, warp);
+            q0 = __shfl_sync(0xffffffffu, gc.q0, warp);
+            lo_w = __shfl_sync(0xffffffffu, gc.ilo, warp);
+            hi_w = __shfl_sync(0xffffffffu, gc.ihi, warp);
+            if (!active) lo_w = hi_w = 0;
+            slot = __shfl_sync(0xffffffffu, gc.hkv, warp) - gc.hkv0;
+            q_last = min(q0 + kSmRows, Lq) - 1;
+            load_q<D>(qf, qbuf + (gq_c % kSmStages) * kQElems + warp * kSmRows * S, g, tig);
+#pragma unroll
+            for (int a = 0; a < kAcc; ++a) {
+#pragma unroll
+                for (int i = 0; i < D / 2; ++i) o[a][i] = 0.0f;
+            }
+            m[0] = m[1] = -INFINITY;
+            l[0] = l[1] = 0.0f;
+        }
+        const int t0 = gc.lo + tile_c * kRows;
+        if (t0 < hi_w && t0 + kRows > lo_w) {
+            const T* sk = ring + (step % kSmStages) * stage_elems + slot * 2 * kRows * S;
+            const T* sv = sk + kRows * S;
+            float s[NB * 4];
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb) block_scores<D>(&s[4 * nb], qf, sk + 8 * nb * S, g, tig);
+            // Element i is key t0 + 2 tig + c, c = 8 (i / 4) + i % 2, of row
+            // q0 + g + 8 h, h = (i / 2) % 2: visible when lo[h] < c < hi[h].
+            // Tested only on tiles at the end of the keys, the diagonal or the
+            // window edge.
+            if (t0 + kRows > kv_end || (causal && t0 + kRows - 1 > q0) ||
+                (window > 0 && q_last - t0 >= window)) {
+                int lo[2], hi[2];
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int qrel = q0 + g + 8 * h - t0 - 2 * tig;
+                    hi[h] = causal ? min(kv_end - t0 - 2 * tig, qrel + 1) : kv_end - t0 - 2 * tig;
+                    lo[h] = window > 0 ? qrel - window : -0x7fffffff;
+                }
+                if (causal || window > 0) {
+#pragma unroll
+                    for (int i = 0; i < NB * 4; ++i) {
+                        const int c = 8 * (i >> 2) + (i & 1), h = (i >> 1) & 1;
+                        if (c <= lo[h] || c >= hi[h]) s[i] = -INFINITY;
+                    }
+                } else {  // the end of the keys only: the same bound for both rows
+#pragma unroll
+                    for (int i = 0; i < NB * 4; ++i) {
+                        if (8 * (i >> 2) + (i & 1) >= hi[0]) s[i] = -INFINITY;
+                    }
+                }
+            }
+            if (lut_mode) {  // no max subtraction: weights straight from the table
+#pragma unroll
+                for (int i = 0; i < NB * 4; ++i) {
+                    const float w = s_exp[lut_index_linear_fast(s[i] * sc, exp_off, exp_step,
+                                                                exp_inv_step, kExpSize)];
+                    s[i] = s[i] == -INFINITY ? 0.0f : w;
+                    l[(i >> 1) & 1] += s[i];
+                }
+            } else {  // sc > 0: the row max of s sc is sc times that of s
+                float mt[2] = {-INFINITY, -INFINITY}, mu[2], alpha[2];
+#pragma unroll
+                for (int i = 0; i < NB * 4; ++i) mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], s[i]);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {  // the 4 lanes of a row: 4 g .. 4 g + 3
+                    mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+                    mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+                    const float m_new = fmaxf(m[h], mt[h] * sc);
+                    mu[h] = m_new == -INFINITY ? 0.0f : m_new;  // nothing visible yet
+                    alpha[h] = ex2_approx(m[h] - mu[h]);        // 0 on the first visible tile
+                    m[h] = m_new;
+                    l[h] *= alpha[h];
+                }
+#pragma unroll
+                for (int i = 0; i < NB * 4; ++i) {
+                    s[i] = ex2_approx(fmaf(s[i], sc, -mu[(i >> 1) & 1]));
+                    l[(i >> 1) & 1] += s[i];
+                }
+#pragma unroll
+                for (int a = 0; a < kAcc; ++a) {
+#pragma unroll
+                    for (int i = 0; i < D / 2; ++i) o[a][i] *= alpha[(i >> 1) & 1];
+                }
+            }
+            if constexpr (C::kBf16) {
+#pragma unroll
+                for (int kk = 0; kk < NB / 2; ++kk) pair_pv<D>(o[kk % kAcc], &s[8 * kk], sv + 16 * kk * S, lane);
+            } else {
+#pragma unroll
+                for (int nb = 0; nb < NB; ++nb) block_pv<D>(o[nb % kAcc], &s[4 * nb], sv + 8 * nb * S, g, tig);
+            }
+        }
+        if (tile_c == gc.n_tiles - 1 && active) {  // the item's last tile: normalize, store
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+                l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int qi = q0 + g + 8 * h;
+                if (qi >= Lq) continue;
+                float inv = 0.0f;
+                if (l[h] > 0.0f) {
+                    inv = lut_mode ? __ldg(&inv_tab[lut_index_log(l[h], inv_off, inv_step, kInvSize)])
+                                   : __frcp_rn(l[h]);  // = 1.0f / l[h], without the division
+                }
+                T* op = out + (static_cast<long long>(bh) * Lq + qi) * D + 2 * tig;
+#pragma unroll
+                for (int nb = 0; nb < D / 8; ++nb) {
+                    const int i = 4 * nb + 2 * h;
+                    float a = o[0][i], b = o[0][i + 1];
+#pragma unroll
+                    for (int j = 1; j < kAcc; ++j) a += o[j][i], b += o[j][i + 1];
+                    a *= inv;
+                    b *= inv;
+                    if constexpr (ALIGNED) {
+                        store_pair(op + 8 * nb, a, b);
+                    } else {
+                        op[8 * nb] = T(a);
+                        op[8 * nb + 1] = T(b);
+                    }
+                }
+            }
+        }
+        __syncthreads();  // this step's stage and query buffer may be refilled
+        if (++tile_c == gc.n_tiles) {
+            tile_c = 0;
+            ++gq_c;
+            grp_c += gridDim.x;
+            if (grp_c >= n_groups) break;
+            group_info(grp_c, gc);
+        }
+    }
+    cp_async_wait<0>();
+}
+
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(TcTile<T, D, G>::kThreads)
 tc_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -838,6 +1221,89 @@ int sm_count(int dev) {
     return count[dev];
 }
 
+template <typename T, int D, int NB, int W, bool ALIGNED>
+cudaError_t launch_small_w(int dev, int items, int smem, int slots,
+                           const void* q, const void* k, const void* v, void* out,
+                           const float* exp_tab, const float* inv_tab, int B, int Hq, int Hkv,
+                           int Lq, int Lkv, int kv_len, int causal, int window, int lut_mode,
+                           float scale, float exp_off, float exp_step, float inv_off,
+                           float inv_step, cudaStream_t stream) {
+    const auto kernel = small_attention_kernel<T, D, NB, W, ALIGNED>;
+    static int opted_in[kMaxDevices] = {};  // dynamic shared memory allowed so far
+    if (smem > 48 * 1024 && smem > opted_in[dev]) {
+        const cudaError_t err =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+        opted_in[dev] = smem;
+    }
+    // resident blocks only: each walks its groups through one copy ring
+    int per_sm = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * W, smem);
+    if (err != cudaSuccess) return err;
+    const int grid = std::min((items + W - 1) / W, std::max(1, per_sm) * sm_count(dev));
+    kernel<<<grid, 32 * W, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), exp_tab, inv_tab, B * Hq, Hq, Hkv, Lq, Lkv, kv_len, causal, window,
+        lut_mode, scale, exp_off, exp_step, inv_off, inv_step, slots);
+    return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_small(const void* q, const void* k, const void* v, void* out,
+                         const float* exp_tab, const float* inv_tab, int B, int Hq, int Hkv,
+                         int Lq, int Lkv, int kv_len, int causal, int window, int lut_mode,
+                         float scale, float exp_off, float exp_step, float inv_off,
+                         float inv_step, cudaStream_t stream) {
+    const int nqt = (Lq + kSmRows - 1) / kSmRows;
+    const long long items = static_cast<long long>(B) * Hq * nqt;
+    if (items > 0x7fffffffLL - 8) return cudaErrorInvalidValue;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) &
+                          15) == 0;
+    // 8-key blocks per tile: the fewest that cover the keys in as few tiles
+    // of at most 8 blocks as there can be, where an instance has it: 2 (L up
+    // to 16: btagging's 15), 7 (float32; engine_anomaly's 50 and gw's 100 in
+    // one and two tiles), else 8 (and for unaligned pointers).
+    const int kv_end = std::min(kv_len, Lkv);
+    const int blocks = (kv_end + 7) / 8, tiles = (blocks + kSmMaxNB - 1) / kSmMaxNB;
+    const int need = (blocks + tiles - 1) / tiles;
+    const int nb = !aligned ? 8 : need <= 2 ? 2 : need == 7 && sizeof(T) == 4 ? 7 : 8;
+    const int rows = 8 * nb;
+    // K/V slots per stage: the most key/value heads W consecutive items span.
+    auto slots_for = [&](int w) { return std::min(w, 1 + (w - 1 + nqt - 1) / nqt); };
+    auto smem_for = [&](int w) {  // the exp table, 2 x (query rows, K/V tiles)
+        return (lut_mode ? kExpSize * 4 : 0) + kSmStages * (w * kSmRows + slots_for(w) * 2 * rows) *
+                                                   SmTile<T, D>::kStride * static_cast<int>(sizeof(T));
+    };
+    // Eight warps per block once the grid has two such blocks per SM and
+    // their ring leaves room for two blocks on an SM; else four (more blocks
+    // for small grids, fewer slots when Lq <= 16 and the keys are long).
+    const bool eight = aligned && items >= 2LL * 8 * sm_count(dev) && smem_for(8) <= 96 * 1024;
+    constexpr int kNb7 = sizeof(T) == 4 ? 7 : 8;  // bf16 takes 16 keys per P V step
+#define REPRO_FA_SMALL(NB, W, AL)                                                               \
+    launch_small_w<T, D, NB, W, AL>(dev, static_cast<int>(items), smem_for(W), slots_for(W), q,  \
+                                    k, v, out, exp_tab, inv_tab, B, Hq, Hkv, Lq, Lkv, kv_len,    \
+                                    causal, window, lut_mode, scale, exp_off, exp_step, inv_off, \
+                                    inv_step, stream)
+#define REPRO_FA_SMALL_W(NB) eight ? REPRO_FA_SMALL(NB, 8, true) : REPRO_FA_SMALL(NB, 4, true)
+    if (!aligned) return REPRO_FA_SMALL(8, 4, false);
+    switch (nb) {
+        case 2:
+            return REPRO_FA_SMALL_W(2);
+        case 7:
+            return REPRO_FA_SMALL_W(kNb7);
+        default:
+            return REPRO_FA_SMALL_W(8);
+    }
+#undef REPRO_FA_SMALL_W
+#undef REPRO_FA_SMALL
+}
+
 template <typename T, int D, int G>
 cudaError_t launch_tc_groups(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                              int dev, int blocks, void* out, const float* exp_tab,
@@ -904,9 +1370,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
                               kv_len, causal, window, lut_mode, scale, exp_off,         \
                               exp_step, inv_off, inv_step, stream);
     switch (D) {
-        REPRO_FA_CASE(8, launch)
-        REPRO_FA_CASE(16, launch)
-        REPRO_FA_CASE(32, launch)
+        REPRO_FA_CASE(8, launch_small)
+        REPRO_FA_CASE(16, launch_small)
+        REPRO_FA_CASE(32, launch_small)
         REPRO_FA_CASE(64, launch_tc)
         REPRO_FA_CASE(128, launch_tc)
         default:

@@ -17,6 +17,26 @@ __device__ __forceinline__ int lut_index_linear(float x, float offset, float ste
     return static_cast<int>(idx);
 }
 
+// lut_index_linear without a division, a float-to-int conversion or a
+// branch, for unrolled loops: the same index.  inv_step = 1.0f / step,
+// correctly rounded.  q = d * inv_step is within an ulp or so of d / step;
+// r = d - q * step is exact in one FMA, and q + r * inv_step rounded once
+// is then the correctly rounded quotient d / step (Markstein's theorem; no
+// operand here over- or underflows, and a -inf score gives NaN, which the
+// clamp maps to entry 0).  Clamping before rounding gives the same index,
+// the bounds being integers; adding 1.5 * 2^23 rounds a float in [0, 2^22)
+// to an integer (half to even, as rintf), which then sits in the low bits
+// of the sum.
+__device__ __forceinline__ int lut_index_linear_fast(float x, float offset, float step,
+                                                     float inv_step, int size) {
+    constexpr float kRound = 12582912.0f;  // 1.5 * 2^23
+    const float d = __fsub_rn(x, offset);
+    const float q = __fmul_rn(d, inv_step);
+    const float quot = __fmaf_rn(__fmaf_rn(-q, step, d), inv_step, q);
+    const float idx = fminf(fmaxf(quot, 0.0f), static_cast<float>(size - 1));
+    return __float_as_int(__fadd_rn(idx, kRound)) - __float_as_int(kRound);
+}
+
 __device__ __forceinline__ int lut_index_log(float x, float offset, float step, int size) {
     return lut_index_linear(log2f(fmaxf(x, 1e-30f)), offset, step, size);
 }

@@ -2,12 +2,16 @@
 
 On a CPU tensor it runs the plain version (``ref.mha_ref``); on a CUDA
 tensor it launches the hand-written kernel (``csrc/flash_attention.cu``) or
-raises.  GQA is mapped by head index inside the kernel.  head_dim 8, 16 and
-32 run on the CUDA cores; 64 and 128 on the tensor cores (bf16 on wgmma,
-float32 as 3xTF32 on mma.sync), with K/V tiles copied by TMA, which needs
-16-byte aligned q, k, v.  Any other head_dim up to 128 is zero-padded to the
-next of those (zeros add nothing to q.k and give zero output columns, which
-are sliced off), with the scale kept at 1/sqrt(true head_dim).
+raises.  GQA is mapped by head index inside the kernel.  Every head_dim runs
+on the tensor cores, float32 as 3xTF32 on mma.sync:
+- 8, 16 and 32: one warp per 16 query rows, heads packed into blocks, K/V
+  staged once per head and block by cp.async (bf16 on mma.sync too); any
+  contiguous q, k, v (4- or 2-byte copies when one is not 16-byte aligned);
+- 64 and 128: 64 query rows per block, bf16 on wgmma, K/V tiles copied by
+  TMA, which needs 16-byte aligned q, k, v.
+Any other head_dim up to 128 is zero-padded to the next of those (zeros add
+nothing to q.k and give zero output columns, which are sliced off), with the
+scale kept at 1/sqrt(true head_dim).
 """
 
 from __future__ import annotations
@@ -22,8 +26,8 @@ from repro_torch.core import lut
 from repro_torch.kernels import LAUNCHES, build
 from repro_torch.kernels.flash_attention.ref import mha_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
-TENSOR_CORE_DIMS = (64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128)  # all on the tensor cores
+TMA_DIMS = (64, 128)  # K/V by TMA: q, k, v must be 16-byte aligned
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"safe": 0, "lut": 1}
 
@@ -95,7 +99,7 @@ def mha(
         raise ValueError("mha kernel needs contiguous q, k, v")
     if dk != d:  # fresh, contiguous and aligned
         q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
-    if dk in TENSOR_CORE_DIMS and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if dk in TMA_DIMS and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("mha kernel at head_dim 64/128 needs 16-byte aligned q, k, v (TMA)")
     out = torch.empty_like(q)
     exp_ptr, inv_ptr, exp_off, exp_step, inv_off, inv_step = _tables(q.device)

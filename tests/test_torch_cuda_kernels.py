@@ -206,6 +206,76 @@ def test_attention_tensor_core_path(dev, d, dtype, mode, causal, window, hq, hkv
     _assert_attention_close(out, ref, v, dtype, mode, hq // hkv)
 
 
+@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("dtype,mode", [(torch.float32, "safe"), (torch.float32, "lut"),
+                                        (torch.bfloat16, "safe")])
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None), (True, 24)])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 2)])
+@pytest.mark.parametrize("length", [1, 15, 50, 100, 113, 1024])
+@pytest.mark.parametrize("layout", ["square", "kv_len", "lq_below_lkv"])
+def test_attention_small_head_tensor_core_path(dev, d, dtype, mode, causal, window, hq, hkv,
+                                               length, layout):
+    """head_dim 8 / 16 / 32: a warp per 16 query rows, heads packed, K/V
+    staged per head; 3xTF32 or bf16 on mma.sync."""
+    lq, lkv, kv_len = _lengths(length, layout)
+    g = torch.Generator(device="cpu").manual_seed(length + d + hkv)
+    q = torch.randn(1, hq, lq, d, generator=g).to(dev, dtype)
+    k, v = (torch.randn(1, hkv, lkv, d, generator=g).to(dev, dtype) for _ in range(2))
+    before = LAUNCHES["flash_attention"]
+    out = mha(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = mha_ref(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+    _assert_attention_close(out, ref, v, dtype, mode, hq // hkv)
+
+
+@pytest.mark.parametrize("length", [15, 50, 100])
+@pytest.mark.parametrize("dtype,mode", [(torch.float32, "safe"), (torch.float32, "lut"),
+                                        (torch.bfloat16, "safe")])
+@pytest.mark.parametrize("batch,hq,hkv", [(3, 5, 5), (3, 6, 2), (303, 7, 7), (45, 8, 4)])
+def test_attention_small_head_packing(dev, length, dtype, mode, batch, hq, hkv):
+    """Blocks that straddle heads: B * H * ceil(L / 16) is not a multiple of
+    the warps per block (4 for the small grids, 8 for the large ones).
+    Every key/value head has its own random values and, on top, its own
+    offset among 8 neighbours (a block spans at most 8 heads), so a row that
+    read another head's K or V would show."""
+    g = torch.Generator(device="cpu").manual_seed(length + batch)
+    q = torch.randn(batch, hq, length, 8, generator=g)
+    k = torch.randn(batch, hkv, length, 8, generator=g)
+    offset = 0.5 * (torch.arange(batch * hkv) % 8).float().reshape(batch, hkv, 1, 1)
+    v = torch.randn(batch, hkv, length, 8, generator=g) + offset
+    q, k, v = (t.to(dev, dtype) for t in (q, k, v))
+    before = LAUNCHES["flash_attention"]
+    out = mha(q, k, v, mode=mode)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    _assert_attention_close(out, mha_ref(q, k, v, mode=mode), v, dtype, mode, hq // hkv)
+
+
+@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_small_head_misaligned(dev, d, dtype):
+    """Contiguous views one element off 16-byte alignment (q alone, then
+    q, k and v) run, staged by element copies, and match rather than
+    raise."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+
+    def view(*shape):
+        n = int(np.prod(shape))
+        return torch.randn(n + 1, generator=g).to(dev, dtype)[1:].view(*shape)
+
+    q, k, v = view(2, 4, 100, d), view(2, 2, 100, d), view(2, 2, 100, d)
+    k_al, v_al = k.clone(), v.clone()
+    before = LAUNCHES["flash_attention"]
+    outs = [mha(q, k_al, v_al, causal=True), mha(q, k, v, causal=True, mode="lut")]
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 2
+    _assert_attention_close(outs[0], mha_ref(q, k, v, causal=True), v, dtype, "safe", 2)
+    _assert_attention_close(outs[1], mha_ref(q, k, v, causal=True, mode="lut"), v, dtype,
+                            "lut", 2)
+
+
 def test_attention_wrapper_rejects_misaligned_tma_input(dev):
     """TMA needs 16-byte aligned tensors: a contiguous view 4 bytes off is refused."""
     flat = torch.randn(2 * 4 * 16 * 64 + 1, device=dev)

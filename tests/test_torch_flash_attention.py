@@ -2,6 +2,8 @@
 CPU) against the JAX package's ``mha``, both its jnp path and its Pallas
 kernel in interpret mode, on the same numpy inputs."""
 
+from fractions import Fraction
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -146,15 +148,26 @@ def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tenso
     return as_ @ bb + ab @ bs + ab @ bb
 
 
-@pytest.mark.parametrize("d", [64, 128])
-def test_float32_path_needs_three_tf32_products(d):
-    """The kernel's TF32 split emulated in plain torch at (1, 2, 512, D),
-    causal: three TF32 products stay within the float32 tolerance (2e-5) of
-    the plain version, one does not (10 mantissa bits move the output by
-    ~1e-3)."""
-    q, k, v = (torch.from_numpy(t) for t in _qkv(1, 2, 2, 512, 512, d, seed=11))
-    ref = mha_ref(q, k, v, causal=True)
-    mask = torch.ones(512, 512, dtype=torch.bool).tril()
+# (B, H, L, D, causal): the head_dim 64 / 128 path at (1, 2, 512, D) causal;
+# head_dim 8 / 16 / 32 at the physics shapes (unmasked) and at (1, 8, 1024,
+# 16) causal
+TF32_CASES = {"64": (1, 2, 512, 64, True), "128": (1, 2, 512, 128, True)}
+TF32_CASES.update({f"{b}x{h}x{l}x{d}": (b, h, l, d, False)
+                   for b, h, l, _ in PHYSICS_SHAPES for d in (8, 16, 32)})
+TF32_CASES["1x8x1024x16-causal"] = (1, 8, 1024, 16, True)
+
+
+@pytest.mark.parametrize("case", list(TF32_CASES.values()), ids=list(TF32_CASES))
+def test_float32_path_needs_three_tf32_products(case):
+    """The kernel's TF32 split emulated in plain torch: three TF32 products
+    stay within the float32 tolerance (2e-5) of the plain version, one does
+    not (10 mantissa bits move the output by ~1e-3)."""
+    b, h, l, d, causal = case
+    q, k, v = (torch.from_numpy(t) for t in _qkv(b, h, h, l, l, d, seed=11))
+    ref = mha_ref(q, k, v, causal=causal)
+    mask = torch.ones(l, l, dtype=torch.bool)
+    if causal:
+        mask = mask.tril()
     errs = {}
     for products in (3, 1):
         s = _tf32_matmul(q, k.transpose(-1, -2), products) * (1.0 / d ** 0.5)
@@ -162,6 +175,53 @@ def test_float32_path_needs_three_tf32_products(d):
         errs[products] = float((_tf32_matmul(p, v, products) - ref).abs().max())
     assert errs[3] <= ATOL["safe"], errs
     assert errs[1] > 10 * ATOL["safe"], errs
+
+
+def _f32(x) -> np.float32:
+    return np.float32(x)
+
+
+def _rn(fr: Fraction) -> np.float32:
+    """A rational rounded to the nearest float32, ties to even."""
+    x = np.float32(float(fr))
+    best = x
+    for cand in (np.nextafter(x, np.float32(-np.inf)), np.nextafter(x, np.float32(np.inf))):
+        dc, db = abs(Fraction(float(cand)) - fr), abs(Fraction(float(best)) - fr)
+        if dc < db or (dc == db and int(np.array(cand).view(np.int32)) % 2 == 0):
+            best = cand
+    return best
+
+
+def test_lut_index_without_division_picks_the_plain_entry():
+    """The small-head kernel's exp-table index (csrc/lut.cuh,
+    lut_index_linear_fast), emulated with exact rationals for its two FMAs:
+    q = d / step by a multiply with the rounded reciprocal, Markstein's
+    correction q + (d - q step) / step, a clamp, then rounding by adding
+    1.5 * 2^23.  It must pick the plain version's entry (a true division)
+    everywhere, also for quotients within a few ulps of a half-integer,
+    where a reciprocal multiply alone picks the neighbour."""
+    from repro_torch.core import lut
+
+    off, step = (_f32(c) for c in lut.index_constants(lut.EXP_SPEC))
+    inv = _f32(1.0) / step
+    rng = np.random.default_rng(0)
+    xs = [_f32(x) for x in rng.uniform(-12, 12, 1500)]
+    for kk in rng.integers(-2, 1026, 500):  # quotients next to kk + 0.5
+        x = _f32(_f32((kk + 0.5) * float(step)) + off)
+        xs += [x, np.nextafter(x, _f32(np.inf)), np.nextafter(x, _f32(-np.inf))]
+    ours, recip = [], []
+    for x in xs:
+        d = _f32(x - off)
+        q = _f32(d * inv)
+        r = _rn(Fraction(float(d)) - Fraction(float(q)) * Fraction(float(step)))
+        quot = _rn(Fraction(float(r)) * Fraction(float(inv)) + Fraction(float(q)))
+        idx = min(max(quot, _f32(0)), _f32(lut.EXP_SPEC.size - 1))
+        big = _f32(idx + _f32(12582912.0))
+        ours.append(int(np.array(big).view(np.int32)) - int(np.array(_f32(12582912.0)).view(np.int32)))
+        recip.append(int(np.clip(np.rint(q), 0, lut.EXP_SPEC.size - 1)))
+    plain = lut.lut_index(torch.tensor(np.array(xs)), lut.EXP_SPEC).tolist()
+    assert ours == plain
+    assert recip != plain  # the test reaches the inputs where the correction matters
 
 
 # head_dims outside the kernel's (8, 16, 32, 64, 128): minicpm-2b /
