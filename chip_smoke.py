@@ -10,8 +10,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    unchanged), print the compiler's register / spill report and each
    library's count of tensor-core instructions (``HGMMA`` = wgmma, ``HMMA``
    = float mma.sync, ``IMMA`` = integer mma.sync) in ``cuobjdump -sass``;
-   the attention library must have HGMMA and HMMA, and every head_dim 8-32
-   attention instance HMMA in its own code;
+   the attention library must have HGMMA and HMMA, every head_dim 8-32
+   attention instance HMMA in its own code, and every instance of the SSD
+   scan's chunk-state and output kernels HMMA in its own code;
 2. kernels -- call each kernel's wrapper on the card at the shapes the
    physics models give it (batch 8192), at LM-like shapes and at the main
    path's own attention shapes (granite-8b's streaming MHA, (1, 32, 1024,
@@ -19,8 +20,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    bf16 causal), hold it against its plain PyTorch version on the same
    inputs, and time kernel, plain version and the PyTorch library call that
    computes the same function (a yardstick only; the port never calls it);
-   every attention and layernorm case (float32, bf16, fp16) also gets its
-   device time from the profiler, kernel and library call alike; attention
+   every attention, layernorm and SSD scan case (float32, bf16, fp16) also
+   gets its device time from the profiler, kernel and library call alike,
+   the SSD scan with each of its three passes' share; attention
    at head_dim 12 and 80 runs zero-padded to 16 and 128, and head_dim 16
    causal at (1, 8, 1024) beside it;
 3. models -- the main path: the paper's three encoders (engine_anomaly,
@@ -44,9 +46,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    with 24 ``ssd_scan`` + 49 ``layernorm`` launches per prefill and 0 + 49
    per decode step; then, in the config's bfloat16, the median time of a
    prefill of 1 x 2048 and 8 x 2048 tokens and of a decode step at batch 1
-   and 8, with the profiler's busy share and top kernels, and the device
-   operations per decode step with and without float32 casts around each
-   norm.
+   and 8, with the profiler's busy share, top kernels and the SSD scan's
+   share, and the device operations per decode step with and without
+   float32 casts around each norm.
    Each path sets the launch counts to 0 before it and reads them after.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
@@ -74,7 +76,7 @@ OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 # Published H100 SXM peaks (NVIDIA data sheet, dense), at the full 700 W limit,
 # by the type of the inputs: the card's rate for the type, whatever units a
 # kernel happens to use.  "tf32x3": float32 work done on the tensor cores as
-# three TF32 products (the attention kernel at head_dim 64 / 128), 495 / 3.
+# three TF32 products (every attention route and the SSD scan), 495 / 3.
 PEAK_FLOPS = {"float32": 67e12, "tf32x3": 495e12 / 3, "bfloat16": 989e12, "float16": 989e12,
               "int8": 1979e12}
 PEAK_BYTES = 3.35e12  # HBM3
@@ -133,6 +135,8 @@ GRANITE = (4096, 32, 1024, True)
 # SSD scan vs its plain version: float32 sums in another order, the JAX
 # kernel test's 1e-4 on y and on the final state.
 SSD_ATOL = 1e-4
+# the SSD scan's three device kernels (csrc/ssd_scan.cu), by function name
+SSD_PASSES = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_output_kernel")
 # mamba2-130m, float32: logits on the card vs the port's CPU path, and the
 # decoded logits vs one forward over the whole sequence, within
 # tests/test_ssm.py's 2e-4 (float32 sums in other orders).  A greedy token
@@ -185,10 +189,10 @@ def median_ms(fn, iters: int, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20) -> float | None:
-    """Device time per call of ``fn`` (the sum of its kernels' times under
-    ``torch.profiler``), free of the host's launch cost; None when the trace
-    shows no device time."""
+def device_times(fn, iters: int = 20) -> dict[str, float] | None:
+    """Device ms per call of ``fn`` by kernel name under ``torch.profiler``,
+    free of the host's launch cost; None when the trace shows no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -199,11 +203,22 @@ def device_ms(fn, iters: int = 20) -> float | None:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum((getattr(e, "self_device_time_total", None)
-                  or getattr(e, "self_cuda_time_total", 0)) for e in prof.key_averages())
-        if us > 0:
-            return us / iters / 1e3
+        times = {e.key: us / iters / 1e3 for e in prof.key_averages()
+                 if (us := getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0)) > 0}
+        if times:
+            return times
     return None
+
+
+def device_ms(fn, iters: int = 20) -> float | None:
+    """Device time per call of ``fn``: the sum of its kernels' times."""
+    times = device_times(fn, iters)
+    return None if times is None else sum(times.values())
+
+
+def _kernel_label(key: str) -> str:
+    return key.removeprefix("void ").replace("(anonymous namespace)::", "")[:48]
 
 
 def profile_forward(fn, iters: int = 5) -> dict:
@@ -234,9 +249,10 @@ def profile_forward(fn, iters: int = 5) -> dict:
     if busy_us <= 0:
         return {"busy_share": None, "top": "not measured (no device time in the trace)"}
     rows.sort(reverse=True)
-    top = [(k[:48], round(us / busy_us, 3)) for us, k in rows[:4]]
+    top = [(_kernel_label(k), round(us / busy_us, 3)) for us, k in rows[:4]]
+    ssd_us = sum(us for us, k in rows if any(name in k for name in SSD_PASSES))
     return {"busy_share": busy_us / wall_us, "device_ms_per_fwd": busy_us / iters / 1e3,
-            "top": top}
+            "top": top, "ssd_scan_share": ssd_us / busy_us}
 
 
 def bound(flops: float, nbytes: float, dtype: str = "float32") -> tuple[float, str]:
@@ -293,6 +309,14 @@ def phase_build():
             if not small or not all(c["HMMA"] for c in small.values()):
                 raise SmokeError("a head_dim 8-32 attention instance has no mma.sync (HMMA) "
                                  f"instructions: { {f[-60:]: c for f, c in small.items()} }")
+        if name == "ssd_scan":
+            mma = {f: c["HMMA"] for f, c in funcs.items()
+                   if SSD_PASSES[0] in f or SSD_PASSES[2] in f}
+            sass["ssd_scan_by_kernel"] = mma
+            log(f"[build] ssd_scan: HMMA per chunk-state / output instance {sorted(mma.values())}")
+            if len(mma) < 4 or not all(mma.values()):
+                raise SmokeError("an ssd_scan chunk-state or output instance has no mma.sync "
+                                 f"(HMMA) instructions: { {f[-60:]: n for f, n in mma.items()} }")
     if not (sass["flash_attention"]["HGMMA"] and sass["flash_attention"]["HMMA"]):
         raise SmokeError("the flash_attention library has no wgmma (HGMMA) or no mma.sync "
                          f"(HMMA) instructions: {sass['flash_attention']}")
@@ -541,20 +565,31 @@ def _ssd_case(dev, b, l, h, p, n, groups, chunk, dtype="float32", decay=1.0):
         tol = f"atol {SSD_ATOL} (y and state)"
     err_s, _, ok_s = close_enough(state, s_ref, SSD_ATOL)
     ok = ok_y and ok_s and bool(torch.isfinite(y).all() and torch.isfinite(state).all())
-    # q(q+1)N + q(q+1)P + 4qPN float operations per chunk and head: the lower
-    # triangles of C B^T and G xdt (j <= i), C S and the state update; each
-    # input read once, y and S written once
+    # per chunk: q(q+1)N operations per group (the lower triangle of C B^T),
+    # q(q+1)P + 4qPN per head (the lower triangle of G xdt, C S_in and the
+    # chunk state); float32 runs on the tensor cores as 3xTF32.  Each input
+    # read once, y and the final state written once.
     es = x[0].element_size()
-    flops = b * h * (l // q) * (q * (q + 1) * (n + p) + 4 * q * p * n)
+    nc = l // q
+    flops = b * nc * (gb * q * (q + 1) * n + h * (q * (q + 1) * p + 4 * q * p * n))
     nbytes = es * (2 * b * l * h * p + b * l * h + 2 * b * l * gb * n) + 4 * b * h * p * n
-    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    bound_ms, bound_by = bound(flops, nbytes, "tf32x3" if dtype == "float32" else dtype)
+    # the three-pass design's own floor: the chunk states (b nc h P N float32)
+    # written, read and rewritten, read; xdt, a and B read twice, C once
+    scratch = 4 * b * nc * h * p * n
+    floor_bytes = 4 * scratch + nbytes + es * (b * l * h * p + b * l * h + b * l * gb * n)
     iters = 10 if flops > 1e10 else 50
     ms = time_ms(lambda: ssd_with_state(*x, chunk=chunk), iters)
     plain_ms = time_ms(plain, max(3, iters // 5))
+    times = device_times(lambda: ssd_with_state(*x, chunk=chunk)) or {}
+    passes = {name: sum(t for k, t in times.items() if name in k) for name in SSD_PASSES}
+    dev_ms = sum(times.values()) or None
     return dict(kernel="ssd_scan", shape=[b * h, l, p, n], mode=f"q{q} g{gb}"
                 + (f" a*{decay:g}" if decay != 1.0 else ""), dtype=dtype,
                 max_abs_err=max(err_y, err_s), max_abs_err_state=err_s, rows_over_atol=0.0,
                 tol=tol, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=None,
+                device_ms=dev_ms, library_device_ms=None, pass_device_ms=passes,
+                scratch_bytes=scratch, floor_ms=floor_bytes / PEAK_BYTES * 1e3,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -625,9 +660,9 @@ def phase_kernels(dev):
     cases.append(_ssd_case(dev, 2, 64, 3, 16, 24, None, 16, decay=50.0))  # strong decay
     cases.append(_ssd_case(dev, 2, 12, 3, 16, 24, None, 64))  # l < chunk
     cases.append(_ssd_case(dev, 2, 256, 8, 8, 16, 1, 16))  # mamba2-130m-reduced
-    for b in MAMBA_TIME_BATCHES:  # mamba2-130m's prefill at 2048 tokens
-        cases.append(_ssd_case(dev, b, 2048, 24, 64, 128, 1, 64))
-    cases.append(_ssd_case(dev, 1, 2048, 24, 64, 128, 1, 64, dtype="bfloat16"))
+    for dtype in ("float32", "bfloat16"):  # mamba2-130m's prefill at 2048 tokens
+        for b in MAMBA_TIME_BATCHES:
+            cases.append(_ssd_case(dev, b, 2048, 24, 64, 128, 1, 64, dtype=dtype))
     for c in cases:
         lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         dev_t = ""
@@ -642,6 +677,13 @@ def phase_kernels(dev):
             f"{c['rows_over_atol']:.3%} rows over atol) "
             f"{'OK' if c['ok'] else 'FAIL'} | ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
             f"library {lib} bound {c['bound_ms']:.4f} ({c['bound_by']}){dev_t}")
+    for c in cases:
+        if c["kernel"] == "ssd_scan" and c["device_ms"]:
+            shares = ", ".join(f"{k.removeprefix('ssd_').removesuffix('_kernel')} "
+                               f"{v / c['device_ms']:.1%}" for k, v in c["pass_device_ms"].items())
+            log(f"[ssd] {str(c['shape']):22s} {c['mode']:10s} {c['dtype']:8s} device ms "
+                f"{c['device_ms']:.4f} ({shares}); scratch {c['scratch_bytes'] / 1e6:.1f} MB, "
+                f"three-pass floor {c['floor_ms']:.4f} ms; bound {c['bound_ms']:.4f} ms")
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise SmokeError(f"{len(bad)} kernel checks out of tolerance: "
@@ -1081,8 +1123,11 @@ def phase_mamba(dev):
                 f"{t['device_ops_per_step']} device ops/step (with float32 casts around the "
                 f"norms: {t['device_ops_per_step_with_casts']}, "
                 f"{t['ms_per_token_with_casts']:.3f} ms/token)")
+        prof = t["profile"]
+        dev_t = ("" if busy is None else f"  device ms {prof['device_ms_per_fwd']:.3f}, "
+                 f"ssd_scan share {prof['ssd_scan_share']:.1%}")
         log(f"[mamba] bf16 {what}  {t['tokens_per_s']:.1f} tokens/s  device busy "
-            f"{'not measured' if busy is None else f'{busy:.1%}'}  top {t['profile']['top']}")
+            f"{'not measured' if busy is None else f'{busy:.1%}'}{dev_t}  top {prof['top']}")
     counts = dict(LAUNCHES)  # the mamba path's window ends here
     for kname in ("ssd_scan", "layernorm"):
         if counts.get(kname, 0) <= 0:

@@ -7,7 +7,8 @@ dividing h (head i reads group i // (h / g)), so the per-head copies are
 never made.  On CPU tensors they run the plain version (``ref.ssd_chunked``);
 on CUDA tensors they launch ``csrc/ssd_scan.cu`` or raise.  Inputs are
 float32 or bfloat16, computed in float32; y has the input type and the final
-state is float32.
+state is float32.  One call on the card is three device kernels (chunk
+states, state passing, output) and counts as one launch of ``ssd_scan``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _lib():
     fn = build.library("ssd_scan").repro_ssd_scan
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _states_floats():
+    fn = build.library("ssd_scan").repro_ssd_scan_states_floats
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 6
     return fn
 
 
@@ -61,10 +70,16 @@ def _kernel(xdt, a, bmat, cmat, chunk):
     if xdt.dtype not in _DTYPES:
         raise ValueError(f"ssd_scan kernel takes float32 or bfloat16, got {xdt.dtype}")
     y = torch.empty_like(xdt)
-    state = torch.empty((b, h, p, n), dtype=torch.float32, device=xdt.device)
+    f32 = dict(dtype=torch.float32, device=xdt.device)
+    state = torch.empty((b, h, p, n), **f32)
+    # scratch: each chunk's state, then the state entering it (rows padded as
+    # the kernel lays them out); exp of each chunk's summed decay
+    states = torch.empty(_states_floats()(b, l, h, p, n, chunk), **f32)
+    decay = torch.empty((b, h, l // chunk), **f32)
     err = _lib()(
         xdt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), y.data_ptr(),
-        state.data_ptr(), b, l, h, p, g, n, chunk, _DTYPES[xdt.dtype],
+        state.data_ptr(), states.data_ptr(), decay.data_ptr(), b, l, h, p, g, n, chunk,
+        _DTYPES[xdt.dtype],
         torch.cuda.current_stream(xdt.device).cuda_stream,
     )
     build.check(err, "ssd_scan")

@@ -476,12 +476,19 @@ def _ssd_plain(xdt, a, bm, cm, chunk):
 
 
 # (b, l, h, p, n, groups, chunk): the JAX kernel test's sweep, the reduced
-# config, the published widths (g = 1, as mamba_apply hands B and C over)
+# config, the published widths (g = 1, as mamba_apply hands B and C over);
+# then the edges of the kernel's tiles: l < chunk (q 12), P 8 / 16 / 128
+# against N 16 / 24 / 128 (zero-padded to 32 in shared memory), 2 groups of
+# 8 heads, 23 heads (prime: no head tile but 1 and 23 divides them), and 64
+# chunks at batch 1 (a long chain through the state pass)
 SSD_CASES = [
     (2, 64, 3, 16, 24, None, 8), (2, 64, 3, 16, 24, None, 16), (2, 64, 3, 16, 24, None, 32),
     (2, 64, 3, 16, 24, None, 64), (1, 32, 1, 8, 8, None, 32), (2, 128, 2, 32, 16, None, 32),
     (1, 64, 4, 64, 64, None, 32), (2, 64, 8, 8, 16, 1, 16), (1, 256, 24, 64, 128, 1, 64),
     (2, 128, 24, 64, 128, 2, 64), (1, 96, 3, 128, 128, None, 32),
+    (2, 12, 3, 16, 24, None, 64), (2, 128, 2, 8, 128, 1, 64), (1, 128, 4, 16, 24, 2, 32),
+    (2, 192, 2, 128, 16, 1, 64), (1, 256, 3, 128, 128, 1, 64), (2, 128, 8, 64, 24, 1, 16),
+    (1, 128, 8, 32, 64, 2, 32), (1, 2048, 23, 64, 128, 1, 64), (1, 4096, 4, 64, 128, 1, 64),
 ]
 
 
@@ -525,6 +532,42 @@ def test_ssd_scan_kernel_bf16_and_strong_decay(dev):
     y_ref, s_ref = _ssd_plain(*strong, 64)
     assert torch.isfinite(y).all() and torch.isfinite(state).all()
     torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(state, s_ref, atol=1e-4, rtol=0)
+
+
+def test_ssd_scan_kernel_heads_read_their_own_decay_and_state(dev):
+    """Head i's inputs and decay scaled by i + 1: a head that read another's
+    decay, chunk state or scratch slot would be far off.  |y| reaches ~110,
+    so float32 products accumulated in long tensor-core chains would show
+    here too."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    xdt, a, bm, cm = _ssd_inputs(g, 2, 256, 6, 64, 128, 1)
+    scale = torch.arange(1, 7, dtype=torch.float32)
+    x = [t.to(dev) for t in (xdt * scale[:, None], a * scale, bm, cm)]
+    before = LAUNCHES["ssd_scan"]
+    y, state = ssd_with_state(*x, chunk=64)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == before + 1
+    y_ref, s_ref = _ssd_plain(*x, 64)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(state, s_ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("decay", [1.0, 50.0])
+def test_ssd_scan_kernel_bf16_at_mamba_widths(dev, decay):
+    """bf16 at mamba2-130m's widths (24 heads, P 64, N 128, one group), and
+    under strong decay (a * 50)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    xdt, a, bm, cm = _ssd_inputs(g, 1, 256, 24, 64, 128, 1)
+    xb = [t.to(dev, torch.bfloat16) for t in (xdt, a * decay, bm, cm)]
+    before = LAUNCHES["ssd_scan"]
+    y, state = ssd_with_state(*xb, chunk=64)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == before + 1
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    y_ref, s_ref = _ssd_plain(*xb, 64)  # the same bf16 inputs, in float32
+    torch.testing.assert_close(y.float(), y_ref.to(torch.bfloat16).float(), atol=1e-2, rtol=8e-3)
     torch.testing.assert_close(state, s_ref, atol=1e-4, rtol=0)
 
 

@@ -232,3 +232,150 @@ def test_strong_decay_prefix_sums_keep_their_digits():
                                rep(bg), rep(cg), chunk=64)
     torch.testing.assert_close(y.double(), y64, atol=2e-5, rtol=0)
     torch.testing.assert_close(state.double(), s64, atol=2e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The card's kernel (csrc/ssd_scan.cu) emulated in plain torch: its three
+# passes (chunk states, state passing, output) and its precision plan
+# ---------------------------------------------------------------------------
+
+
+def _tf32_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to the nearest TF32 value (10 mantissa bits), ties to
+    even, as Veltkamp's split by 2^13 + 1 does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x0FFF + ((bits >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """float32 as the tensor cores read it in a TF32 operand: the low 13 bits
+    dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """The kernel's split: big = x rounded to the nearest TF32 value, small
+    the exact rest, read truncated to TF32."""
+    big = _tf32_nearest(x)
+    return big, _tf32_truncated(x - big)
+
+
+def _split_bf16(x):
+    """bf16 hi + lo: hi = x rounded to bf16, lo = the rest rounded to bf16."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _split_mm(split, products):
+    """a @ b as the tensor cores form it from operands split by ``split``
+    into (big, small): three products (small*big + big*small + big*big) or
+    big*big alone.  An operand that the split keeps exact has small = 0.
+    Every product of two such values is exact in float32."""
+    def mm(a, b):
+        (ab, as_), (bb, bs) = split(a), split(b)
+        if products == 1:
+            return ab @ bb
+        return as_ @ bb + ab @ bs + ab @ bb
+    return mm
+
+
+def _exact_mm(a, b):
+    return (a.double() @ b.double()).float()
+
+
+def _kernel_emulated(xdt, a, bm, cm, chunk, mm_state, mm_cb, mm_gx, mm_cs):
+    """The kernel's arithmetic: pass 1 S_c = (xdt * exp(cs_last - cs))^T B;
+    pass 2 S_in[c+1] = exp(cs_last) S_in[c] + S_c from S_in[0] = 0; pass 3
+    y = (C B^T * L) xdt + (exp(cs) C) S_in^T with C B^T once per group; cs in
+    float64.  ``mm_*`` form the four products.  B and C per group."""
+    b, l, h, p = xdt.shape
+    g, n = bm.shape[2:]
+    rep, nc, q = h // g, l // chunk, chunk
+    x = xdt.float().reshape(b, nc, q, h, p).permute(0, 1, 3, 2, 4)  # (b, c, h, q, p)
+    cs = torch.cumsum(a.double().reshape(b, nc, q, h).permute(0, 1, 3, 2), dim=-1)
+    bg = bm.float().reshape(b, nc, q, g, n).permute(0, 1, 3, 2, 4)  # (b, c, g, q, n)
+    cg = cm.float().reshape(b, nc, q, g, n).permute(0, 1, 3, 2, 4)
+    w = torch.exp((cs[..., -1:] - cs).float())
+    chunk_states = mm_state((x * w[..., None]).transpose(-1, -2), bg.repeat_interleave(rep, 2))
+    decay = torch.exp(cs[..., -1].float())  # (b, c, h)
+    s = torch.zeros_like(chunk_states[:, 0])
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = decay[:, c, :, None, None] * s + chunk_states[:, c]
+    cb = mm_cb(cg, bg.transpose(-1, -2)).repeat_interleave(rep, 2)  # (b, c, h, q, q)
+    low = torch.ones(q, q, dtype=torch.bool).tril()
+    el = torch.where(low, torch.exp((cs[..., :, None] - cs[..., None, :]).float()
+                                    .masked_fill(~low, 0.0)), 0.0)
+    y = mm_gx(cb * el, x) + mm_cs(cg.repeat_interleave(rep, 2) * torch.exp(cs.float())[..., None],
+                                  torch.stack(s_in, 1).transpose(-1, -2))
+    return y.permute(0, 1, 3, 2, 4).reshape(b, l, h, p), s
+
+
+# (b, l, h, p, n, groups, chunk): mamba2-130m's widths over 4 heads, the JAX
+# kernel test's per-head shape, a narrower grouped one
+EMULATED = {"mamba2": (1, 256, 4, 64, 128, 1, 64), "per-head": (2, 128, 3, 16, 24, 3, 32),
+            "grouped": (1, 128, 4, 32, 64, 2, 64)}
+
+
+def _grouped_inputs(b, l, h, p, n, groups, seed=0):
+    xdt, a, bm, cm = _inputs(b, l, h, p, n, seed)
+    return _t((xdt, a, bm[:, :, :groups], cm[:, :, :groups]))
+
+
+def _plain(xdt, a, bm, cm, chunk):
+    rep = xdt.shape[2] // bm.shape[2]
+    return ssm.ssd_chunked(xdt.float(), a.float(), bm.float().repeat_interleave(rep, 2),
+                           cm.float().repeat_interleave(rep, 2), chunk=chunk)
+
+
+@pytest.mark.parametrize("case", list(EMULATED.values()), ids=list(EMULATED))
+def test_three_pass_decomposition_matches_the_chunked_scan(case):
+    """Exact products: the kernel's passes (chunk states, state passing,
+    output with C B^T per group) compute the reference's scan."""
+    *shape, chunk = case
+    x = _grouped_inputs(*shape)
+    y, state = _kernel_emulated(*x, chunk, *[_exact_mm] * 4)
+    y_ref, s_ref = _plain(*x, chunk)
+    torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(state, s_ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", list(EMULATED.values()), ids=list(EMULATED))
+def test_float32_route_needs_three_tf32_products(case):
+    """float32 inputs: 3xTF32 on all four products, with the kernel's
+    operand split, stays within the 1e-4 tolerance of the plain version on y
+    and the state; one TF32 product (10 mantissa bits) does not."""
+    *shape, chunk = case
+    x = _grouped_inputs(*shape)
+    y_ref, s_ref = _plain(*x, chunk)
+    errs = {}
+    for products in (3, 1):
+        y, state = _kernel_emulated(*x, chunk, *[_split_mm(_split_tf32, products)] * 4)
+        errs[products] = (float((y - y_ref).abs().max()), float((state - s_ref).abs().max()))
+    assert max(errs[3]) <= ATOL, errs
+    assert errs[1][0] > 10 * ATOL, errs
+
+
+def test_bf16_route_precision_plans():
+    """bf16 inputs at mamba2-130m's widths, held as chip_smoke.py holds the
+    kernel (y rounded to bf16 within atol 1e-2 + rtol 8e-3 of the plain
+    version's, the state within 1e-4).  The kernel's plan, 3xTF32 with the
+    exact bf16 operands unsplit, passes; so does plain bf16 C B^T with every
+    float32 operand split into bf16 hi + lo; a single bf16 G * L does not."""
+    *shape, chunk = EMULATED["mamba2"]
+    x = [t.to(torch.bfloat16) for t in _grouped_inputs(*shape)]
+    y_ref, s_ref = _plain(*x, chunk)
+    y_ref = y_ref.to(torch.bfloat16).float()
+
+    def over(plan):
+        y, state = _kernel_emulated(*x, chunk, *plan)
+        err = (y.to(torch.bfloat16).float() - y_ref).abs()
+        return float((err - (1e-2 + 8e-3 * y_ref.abs())).max()), float((state - s_ref).abs().max())
+
+    tf32, hi_lo, one = (_split_mm(_split_tf32, 3), _split_mm(_split_bf16, 3),
+                        _split_mm(_split_bf16, 1))
+    for plan in ((tf32,) * 4, (hi_lo, one, hi_lo, hi_lo)):
+        y_over, s_err = over(plan)
+        assert y_over <= 0 and s_err <= ATOL, (y_over, s_err)
+    assert over((hi_lo, one, one, hi_lo))[0] > 0
