@@ -24,7 +24,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
    gets its device time from the profiler, kernel and library call alike,
    the SSD scan with each of its three passes' share; attention
    at head_dim 12 and 80 runs zero-padded to 16 and 128, and head_dim 16
-   causal at (1, 8, 1024) beside it;
+   causal at (1, 8, 1024) beside it; the dense LM path's shapes: granite-8b's
+   prefill attend at (8, 32 q / 8 kv, 2048, 128) bf16, minicpm-2b's at
+   (1, 36, 2048, 64), starcoder2-7b's window of 4096 over (1, 36 q / 4 kv,
+   8192, 128), and their norms at 8 x 2048 rows (RMSNorm at 4096, LayerNorm
+   with bias at 4608), bf16;
 3. models -- the main path: the paper's three encoders (engine_anomaly,
    btagging, gw) at their published widths, random seeded weights PTQ'd by
    the precision plan, seeded events from ``repro_torch.data``, under the
@@ -48,7 +52,21 @@ Phases, each of which fails the run (exit code 1) when it fails:
    prefill of 1 x 2048 and 8 x 2048 tokens and of a decode step at batch 1
    and 8, with the profiler's busy share, top kernels and the SSD scan's
    share, and the device operations per decode step with and without
-   float32 casts around each norm.
+   float32 casts around each norm;
+6. dense LM -- the dense GQA family through ``models.lm.prefill`` /
+   ``decode_step``: (a) in float32 at the published widths of granite-8b,
+   minicpm-2b and starcoder2-7b (and starcoder2-7b with a window of 64, so
+   the rolling buffer wraps) cut to 2 layers and a vocab of 512, 2 prompts
+   of 128 tokens and 16 greedy steps held against the port's CPU path
+   (logits and tokens) and one 144-token ``forward`` (continuity), with 2
+   ``flash_attention`` + 5 ``layernorm`` launches per prefill and 0 + 5 per
+   decode step; (b) granite-8b in bfloat16 at its full published size (36
+   layers, d_model 4096, 32 q / 8 kv heads of 128, d_ff 14336, vocab
+   49152) on seeded random weights drawn on the card: the median time of a
+   prefill of 1 x 2048 (time to first token) and 8 x 2048 tokens and of 64
+   greedy decode steps at batch 1 and 8, with the profiler's busy share,
+   top kernels, attention and layernorm shares, the device operations per
+   decode step and the cache bytes each step copies.
    Each path sets the launch counts to 0 before it and reads them after.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
@@ -145,6 +163,21 @@ MAMBA = "mamba2-130m"
 MAMBA_TOL = 2e-4
 MAMBA_CHECK = (2, 256, 64)  # batch, prompt tokens, greedy decode steps
 MAMBA_TIME_LEN, MAMBA_TIME_BATCHES, MAMBA_TIME_STEPS = 2048, (1, 8), 64
+# The dense GQA family, float32 check (phase 6a): the published widths cut to
+# 2 layers and a vocab of 512, the same 2e-4 and margin rule as mamba2-130m;
+# starcoder2-7b runs twice, the second time with a window of 64 so that its
+# rolling buffer (and the kernel's window mask) is exercised by 128 + 16
+# tokens.  bf16 timings (phase 6b): granite-8b at full size.
+DENSE = ("granite-8b", "minicpm-2b", "starcoder2-7b")
+DENSE_CUT = dict(n_layers=2, vocab_size=512, dtype="float32")
+DENSE_ROLLING_WINDOW = 64
+DENSE_TOL = 2e-4
+DENSE_CHECK = (2, 128, 16)  # batch, prompt tokens, greedy decode steps
+GRANITE_TIME_LEN, GRANITE_TIME_BATCHES, GRANITE_TIME_STEPS = 2048, (1, 8), 64
+GRANITE_PROFILE_STEPS = 16  # the decode steps under the profiler
+# kernel names in the profiler, for each kernel's share of device time
+KERNEL_FUNCS = {"attention": ("small_attention_kernel", "tc_attention_kernel"),
+                "layernorm": ("layernorm_kernel",)}
 
 
 class SmokeError(RuntimeError):
@@ -251,8 +284,10 @@ def profile_forward(fn, iters: int = 5) -> dict:
     rows.sort(reverse=True)
     top = [(_kernel_label(k), round(us / busy_us, 3)) for us, k in rows[:4]]
     ssd_us = sum(us for us, k in rows if any(name in k for name in SSD_PASSES))
+    shares = {f"{kname}_share": sum(us for us, k in rows if any(f in k for f in funcs)) / busy_us
+              for kname, funcs in KERNEL_FUNCS.items()}
     return {"busy_share": busy_us / wall_us, "device_ms_per_fwd": busy_us / iters / 1e3,
-            "top": top, "ssd_scan_share": ssd_us / busy_us}
+            "top": top, "ssd_scan_share": ssd_us / busy_us, **shares}
 
 
 def bound(flops: float, nbytes: float, dtype: str = "float32") -> tuple[float, str]:
@@ -618,6 +653,16 @@ def phase_kernels(dev):
     for dtype in ("bfloat16", "float32"):
         cases.append(_attention_case(dev, (1, 32, 2048, 128), "safe", causal=True, dtype=dtype,
                                      hkv=8))
+    # the dense LM path's (phase 6): granite-8b's prefill at batch 8,
+    # minicpm-2b's (36 heads x 64), starcoder2-7b's window of 4096 over 8192
+    # tokens (36 q / 4 kv heads), and their norms at 8 x 2048 rows
+    cases.append(_attention_case(dev, (8, 32, 2048, 128), "safe", causal=True,
+                                 dtype="bfloat16", hkv=8))
+    cases.append(_attention_case(dev, (1, 36, 2048, 64), "safe", causal=True, dtype="bfloat16"))
+    cases.append(_attention_case(dev, (1, 36, 8192, 128), "safe", causal=True, window=4096,
+                                 dtype="bfloat16", hkv=4))
+    cases.append(_layernorm_case(dev, 8 * 2048, 4096, True, False, "bfloat16"))
+    cases.append(_layernorm_case(dev, 8 * 2048, 4608, False, False, "bfloat16"))
     ln_shapes = [(8192 * 15, 64), (8192 * 100, 32), (4096, 4096)]
     for rows, k in ln_shapes:
         for rms in (False, True):
@@ -981,6 +1026,86 @@ def _device_ops(fn) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
+def _launch_checker(label, per_call):
+    """``checked(kind, fn)``: run ``fn`` and raise unless each kernel of
+    ``per_call[kind]`` was launched exactly that many times."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+
+    def checked(kind, fn):
+        before = dict(LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        grew = {k: LAUNCHES[k] - before.get(k, 0) for k in per_call[kind]}
+        if grew != per_call[kind]:
+            raise SmokeError(f"{label} {kind}: launches per call {grew}, expected {per_call[kind]}")
+        return out
+
+    return checked
+
+
+def _greedy_check(label, cfg, params, params_cpu, prompt, steps, checked, tol) -> dict:
+    """Greedy decode on the card from ``prompt`` (float32 caches of prompt +
+    ``steps`` tokens), held against the port's CPU path on the same weights
+    fed the card's tokens (logits within ``tol``; a token may differ only
+    where the CPU path's top-two margin is below ``tol``) and against one
+    ``forward`` over the whole sequence (continuity).  ``checked(kind, fn)``
+    runs a prefill or decode call and checks its launches.  Raises on a
+    failure; returns the check's record."""
+    import torch
+
+    from repro_torch.models import lm
+
+    dev = params["embed"]["table"].device
+    b, s0 = prompt.shape
+    max_len = s0 + steps
+    caches = lm.init_caches(cfg, b, max_len, torch.float32, device=dev)
+    last, caches = checked("prefill", lambda: lm.prefill(
+        params, cfg, {"tokens": prompt.to(dev)}, caches, device=dev))
+    card, toks = [last.cpu()], []
+    for k in range(steps):
+        tok = last.argmax(-1, keepdim=True)
+        toks.append(tok.cpu())
+        pos = torch.full((b,), s0 + k, dtype=torch.int32, device=dev)
+        last, caches = checked("decode", lambda: lm.decode_step(
+            params, cfg, tok, pos, caches, device=dev))
+        card.append(last.cpu())
+    card = torch.stack(card, 1)  # (b, steps + 1, V): positions s0 - 1 .. s0 + steps - 1
+    seq = torch.cat([prompt, *toks], dim=1)
+    full, _, _ = checked("prefill", lambda: lm.forward(
+        params, cfg, {"tokens": seq.to(dev)}, device=dev))
+    cont_err = float((full[:, s0 - 1:].cpu() - card).abs().max())
+    # ... and the port's CPU path on the same weights, fed the card's tokens
+    c_last, c_caches = lm.prefill(params_cpu, cfg, {"tokens": prompt},
+                                  lm.init_caches(cfg, b, max_len, torch.float32, device="cpu"),
+                                  device="cpu")
+    cpu = [c_last]
+    for k in range(steps):
+        c_last, c_caches = lm.decode_step(params_cpu, cfg, toks[k],
+                                          torch.full((b,), s0 + k), c_caches, device="cpu")
+        cpu.append(c_last)
+    cpu = torch.stack(cpu, 1)
+    cpu_err = float((card - cpu).abs().max())
+    greedy_cpu = cpu[:, :-1].argmax(-1)
+    greedy_card = torch.cat(toks, dim=1)
+    differ = (greedy_cpu != greedy_card).nonzero().tolist()
+    top2 = cpu[:, :-1].topk(2, dim=-1).values
+    margins = top2[..., 0] - top2[..., 1]
+    close_calls = [dict(seq=i, step=k, cpu_margin=float(margins[i, k])) for i, k in differ]
+    if any(c["cpu_margin"] >= tol for c in close_calls):
+        raise SmokeError(f"{label} greedy tokens differ from the CPU path at {close_calls}")
+    if not (torch.isfinite(card).all() and card.shape == (b, steps + 1, cfg.padded_vocab_size)):
+        raise SmokeError(f"{label}: bad logits {tuple(card.shape)}")
+    if cpu_err > tol or cont_err > tol:
+        raise SmokeError(f"{label} float32: |card - cpu| {cpu_err:.3e}, |decode - forward| "
+                         f"{cont_err:.3e} (tol {tol})")
+    return dict(batch=b, prompt=s0, steps=steps, max_abs_err_vs_cpu=cpu_err,
+                max_abs_err_decode_vs_forward=cont_err, tol=tol,
+                greedy_differs_at_close_calls=close_calls,
+                min_cpu_top2_margin=float(margins.min()))
+
+
 def phase_mamba(dev):
     """mamba2-130m through ``models.lm``: the float32 check, then the
     bfloat16 timings.  Returns (results, launch counts of the window)."""
@@ -1004,69 +1129,21 @@ def phase_mamba(dev):
     t_toks = {bt: torch.randint(0, base.vocab_size, (bt, MAMBA_TIME_LEN), generator=t_gen,
                                 device=dev) for bt in MAMBA_TIME_BATCHES}
 
-    def checked(kind, fn):
-        before = dict(LAUNCHES)
-        out = fn()
-        torch.cuda.synchronize()
-        grew = {k: LAUNCHES[k] - before.get(k, 0) for k in per_call[kind]}
-        if grew != per_call[kind]:
-            raise SmokeError(f"mamba {kind}: launches per call {grew}, expected {per_call[kind]}")
-        return out
+    checked = _launch_checker("mamba", per_call)
 
     LAUNCHES.clear()  # the mamba path's window starts here
-    # float32 check: greedy decode on the card ...
-    caches = lm.init_caches(cfg, b, device=dev)
-    last, caches = checked("prefill", lambda: lm.prefill(
-        params, cfg, {"tokens": prompt.to(dev)}, caches, device=dev))
-    card, toks = [last.cpu()], []
-    for k in range(steps):
-        tok = last.argmax(-1, keepdim=True)
-        toks.append(tok.cpu())
-        pos = torch.full((b,), s0 + k, dtype=torch.int32, device=dev)
-        last, caches = checked("decode", lambda: lm.decode_step(
-            params, cfg, tok, pos, caches, device=dev))
-        card.append(last.cpu())
-    card = torch.stack(card, 1)  # (b, steps + 1, V): positions s0 - 1 .. s0 + steps - 1
-    seq = torch.cat([prompt, *toks], dim=1)
-    full, _, _ = checked("prefill", lambda: lm.forward(
-        params, cfg, {"tokens": seq.to(dev)}, device=dev))
-    cont_err = float((full[:, s0 - 1:].cpu() - card).abs().max())
-    # ... and the port's CPU path on the same weights, fed the card's tokens
-    c_last, c_caches = lm.prefill(params_cpu, cfg, {"tokens": prompt},
-                                  lm.init_caches(cfg, b, device="cpu"), device="cpu")
-    cpu = [c_last]
-    for k in range(steps):
-        c_last, c_caches = lm.decode_step(params_cpu, cfg, toks[k],
-                                          torch.full((b,), s0 + k), c_caches, device="cpu")
-        cpu.append(c_last)
-    cpu = torch.stack(cpu, 1)
-    cpu_err = float((card - cpu).abs().max())
-    greedy_cpu = cpu[:, :-1].argmax(-1)
-    greedy_card = torch.cat(toks, dim=1)
-    differ = (greedy_cpu != greedy_card).nonzero().tolist()
-    top2 = cpu[:, :-1].topk(2, dim=-1).values
-    margins = top2[..., 0] - top2[..., 1]
-    close_calls = [dict(seq=i, step=k, cpu_margin=float(margins[i, k])) for i, k in differ]
-    if any(c["cpu_margin"] >= MAMBA_TOL for c in close_calls):
-        raise SmokeError(f"mamba greedy tokens differ from the CPU path at {close_calls}")
-    if not (torch.isfinite(card).all() and card.shape == (b, steps + 1, cfg.padded_vocab_size)):
-        raise SmokeError(f"mamba: bad logits {tuple(card.shape)}")
-    if cpu_err > MAMBA_TOL or cont_err > MAMBA_TOL:
-        raise SmokeError(f"mamba float32: |card - cpu| {cpu_err:.3e}, |decode - forward| "
-                         f"{cont_err:.3e} (tol {MAMBA_TOL})")
-    check = dict(batch=b, prompt=s0, steps=steps, max_abs_err_vs_cpu=cpu_err,
-                 max_abs_err_decode_vs_forward=cont_err, tol=MAMBA_TOL,
-                 greedy_differs_at_close_calls=close_calls,
-                 min_cpu_top2_margin=float(margins.min()), launches_per_call=per_call)
+    check = _greedy_check(MAMBA, cfg, params, params_cpu, prompt, steps, checked, MAMBA_TOL)
+    check["launches_per_call"] = per_call
     log(f"[mamba] float32 check: {cfg.n_layers} layers d {cfg.d_model}, {b} x {s0} prompt + "
-        f"{steps} greedy steps  |card - cpu| {cpu_err:.2e}  |decode - forward({s0 + steps})| "
-        f"{cont_err:.2e} (tol {MAMBA_TOL})  tokens differ at {close_calls or 'no step'}  "
-        f"launches/call {per_call}")
+        f"{steps} greedy steps  |card - cpu| {check['max_abs_err_vs_cpu']:.2e}  "
+        f"|decode - forward({s0 + steps})| {check['max_abs_err_decode_vs_forward']:.2e} "
+        f"(tol {MAMBA_TOL})  tokens differ at "
+        f"{check['greedy_differs_at_close_calls'] or 'no step'}  launches/call {per_call}")
 
     # bfloat16 timings
     timings = []
     for bt in MAMBA_TIME_BATCHES:
-        caches = lm.init_caches(base, bt, device=dev)
+        caches = lm.init_caches(base, bt, MAMBA_TIME_LEN + MAMBA_TIME_STEPS, device=dev)
         tk = t_toks[bt]
 
         def prefill():
@@ -1136,6 +1213,153 @@ def phase_mamba(dev):
     return dict(check=check, timings=timings), counts
 
 
+# ---------------------------------------------------------------- phase 6 --
+
+
+def _dense_check_configs():
+    """(label, float32 config) of phase 6a: the published widths, 2 layers,
+    a vocab of 512; starcoder2-7b again with a window its check passes."""
+    from repro_torch.configs import get_config
+
+    cfgs = [(name, dataclasses.replace(get_config(name), **DENSE_CUT)) for name in DENSE]
+    star = cfgs[-1][1]
+    cfgs.append((f"starcoder2-7b/w{DENSE_ROLLING_WINDOW}",
+                 dataclasses.replace(star, sliding_window=DENSE_ROLLING_WINDOW)))
+    return cfgs
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def phase_dense(dev):
+    """The dense GQA family through ``models.lm``: the float32 check of
+    granite-8b, minicpm-2b and starcoder2-7b at their published widths, then
+    granite-8b's bfloat16 timings at full size.  Returns (results, launch
+    counts of the window)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+
+    b, s0, steps = DENSE_CHECK
+    prompt_gen = torch.Generator().manual_seed(1)
+    LAUNCHES.clear()  # the dense path's window starts here
+    checks, name = [], None
+    for label, cfg in _dense_check_configs():
+        t0 = time.perf_counter()
+        n_ln = 2 * cfg.n_layers + 1
+        per_call = {"prefill": {"flash_attention": cfg.n_layers, "layernorm": n_ln},
+                    "decode": {"flash_attention": 0, "layernorm": n_ln}}
+        if cfg.name != name:  # the windowed starcoder2-7b keeps its weights
+            name = cfg.name
+            params_cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+            params = _to(params_cpu, dev)
+        prompt = torch.randint(0, cfg.vocab_size, (b, s0), generator=prompt_gen)
+        check = _greedy_check(label, cfg, params, params_cpu, prompt, steps,
+                              _launch_checker(label, per_call), DENSE_TOL)
+        check.update(model=label, d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+                     head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, n_layers=cfg.n_layers,
+                     window=cfg.sliding_window, launches_per_call=per_call,
+                     seconds=time.perf_counter() - t0)
+        checks.append(check)
+        log(f"[dense] float32 check {label}: {cfg.n_layers} layers d {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+            f"window {cfg.sliding_window}; {b} x {s0} prompt + {steps} greedy steps  "
+            f"|card - cpu| {check['max_abs_err_vs_cpu']:.2e}  |decode - forward({s0 + steps})| "
+            f"{check['max_abs_err_decode_vs_forward']:.2e} (tol {DENSE_TOL})  tokens differ at "
+            f"{check['greedy_differs_at_close_calls'] or 'no step'}  launches/call {per_call}  "
+            f"({check['seconds']:.1f} s)")
+    del params, params_cpu
+
+    # bfloat16 timings: granite-8b at its full published size, drawn on the card
+    torch.cuda.empty_cache()
+    base = get_config("granite-8b")
+    n_ln = 2 * base.n_layers + 1
+    checked = _launch_checker("granite-8b bf16", {
+        "prefill": {"flash_attention": base.n_layers, "layernorm": n_ln},
+        "decode": {"flash_attention": 0, "layernorm": n_ln}})
+    params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    weight_bytes = _nbytes(params)
+    t_gen = torch.Generator(device=dev).manual_seed(2)
+    timings = []
+    for bt in GRANITE_TIME_BATCHES:
+        t0 = time.perf_counter()
+        max_len = GRANITE_TIME_LEN + GRANITE_TIME_STEPS
+        caches = lm.init_caches(base, bt, max_len, device=dev)
+        tk = torch.randint(0, base.vocab_size, (bt, GRANITE_TIME_LEN), generator=t_gen, device=dev)
+
+        def prefill():
+            return lm.prefill(params, base, {"tokens": tk}, caches, device=dev)
+
+        torch.cuda.reset_peak_memory_stats()
+        last, filled = checked("prefill", prefill)
+        if not torch.isfinite(last.float()).all():
+            raise SmokeError(f"granite-8b bf16 prefill b{bt}: non-finite logits")
+        ms = median_ms(prefill, 5 if bt > 1 else 10, warmup=2)
+        prof = profile_forward(prefill, iters=3)
+        timings.append(dict(kind="prefill", batch=bt, tokens=GRANITE_TIME_LEN, median_ms=ms,
+                            tokens_per_s=bt * GRANITE_TIME_LEN / (ms * 1e-3), profile=prof,
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        start_tok = last.argmax(-1, keepdim=True)
+        del last
+
+        def decode_run(steps=GRANITE_TIME_STEPS):
+            tok, c = start_tok, filled
+            for k in range(steps):
+                pos = torch.full((bt,), GRANITE_TIME_LEN + k, dtype=torch.int32, device=dev)
+                lg, c = lm.decode_step(params, base, tok, pos, c, device=dev)
+                tok = lg.argmax(-1, keepdim=True)
+            return tok
+
+        def one_step():
+            return lm.decode_step(params, base, start_tok,
+                                  torch.full((bt,), GRANITE_TIME_LEN, device=dev), filled,
+                                  device=dev)
+
+        checked("decode", one_step)
+        torch.cuda.reset_peak_memory_stats()
+        run_ms = median_ms(decode_run, 3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        dprof = profile_forward(lambda: decode_run(GRANITE_PROFILE_STEPS), iters=1)
+        dprof["device_ms_per_step"] = dprof.get("device_ms_per_fwd", 0.0) / GRANITE_PROFILE_STEPS
+        timings.append(dict(kind="decode", batch=bt, steps=GRANITE_TIME_STEPS,
+                            cache_len=max_len, ms_per_token=run_ms / GRANITE_TIME_STEPS,
+                            tokens_per_s=bt * GRANITE_TIME_STEPS / (run_ms * 1e-3),
+                            profile=dprof, device_ops_per_step=_device_ops(one_step),
+                            cache_bytes_copied_per_step=_nbytes(filled), peak_gb=peak,
+                            seconds=time.perf_counter() - t0))
+        del filled, caches
+    for t in timings:
+        prof, busy = t["profile"], t["profile"]["busy_share"]
+        what = (f"prefill {t['batch']} x {t['tokens']}  median {t['median_ms']:.3f} ms"
+                if t["kind"] == "prefill" else
+                f"decode batch {t['batch']}  {t['ms_per_token']:.3f} ms/token, "
+                f"{t['device_ops_per_step']} device ops/step, cache copy "
+                f"{t['cache_bytes_copied_per_step'] / 1e9:.3f} GB/step")
+        per, key = (("step", "device_ms_per_step") if t["kind"] == "decode"
+                    else ("call", "device_ms_per_fwd"))
+        dev_t = ("" if busy is None else f"  device ms/{per} {prof[key]:.3f}, attention share "
+                 f"{prof['attention_share']:.1%}, layernorm share {prof['layernorm_share']:.1%}")
+        if "seconds" in t:
+            dev_t += f"  ({t['seconds']:.1f} s with the prefill)"
+        log(f"[dense] granite-8b bf16 {what}  {t['tokens_per_s']:.1f} tokens/s  peak "
+            f"{t['peak_gb']:.1f} GB  device busy "
+            f"{'not measured' if busy is None else f'{busy:.1%}'}{dev_t}  top {prof['top']}")
+    del params
+    torch.cuda.empty_cache()
+    counts = dict(LAUNCHES)  # the dense path's window ends here
+    for kname in ("flash_attention", "layernorm"):
+        if counts.get(kname, 0) <= 0:
+            raise SmokeError(f"{kname} was never launched on the dense LM path")
+    log(f"[dense] dense LM path launches: {counts}")
+    return dict(check=checks, granite_8b=dict(n_layers=base.n_layers, d_model=base.d_model,
+                                               weight_bytes=weight_bytes, timings=timings)), counts
+
+
 # ------------------------------------------------------------------- main --
 
 
@@ -1171,13 +1395,14 @@ def main() -> int:
         mha, mha_counts = phase_mha(dev)
         softmax_path, softmax_counts = phase_lut_softmax_path(dev)
         mamba, mamba_counts = phase_mamba(dev)
+        dense, dense_counts = phase_dense(dev)
     except Exception:  # noqa: BLE001 - report every failed phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
     # launches: each kernel's count summed over the path windows it runs in
-    windows = (model_counts, mha_counts, softmax_counts, mamba_counts)
+    windows = (model_counts, mha_counts, softmax_counts, mamba_counts, dense_counts)
     counts = {k: sum(w.get(k, 0) for w in windows)
               for k in ("flash_attention", "layernorm", "qmatmul", "lut_softmax", "ssd_scan")}
     main_shape = {"flash_attention": ([8192, 4, 100, 8], "safe"),
@@ -1205,10 +1430,12 @@ def main() -> int:
                                "sass_tensor_core_instructions": sass,
                                "kernels": cases, "models": models, "mha": mha,
                                "lut_softmax_path": softmax_path, "mamba": mamba,
+                               "dense": dense,
                                "launches": counts,
                                "launches_by_path": {"models": model_counts, "mha": mha_counts,
                                                     "lut_softmax": softmax_counts,
-                                                    "mamba": mamba_counts},
+                                                    "mamba": mamba_counts,
+                                                    "dense": dense_counts},
                                "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s; details in {OUT.relative_to(ROOT)}")
     print(json.dumps({"kernels": line}))

@@ -1,14 +1,16 @@
 """Config registry: ``get_config(name, reduced=False)`` for the paper's
-physics models and the LM configs ported so far (``mamba2-130m``).
+physics models and the LM configs ported so far: the dense GQA family
+(``granite-8b``, ``minicpm-2b``, ``starcoder2-7b``) and ``mamba2-130m``.
 
-The rest of the LM zoo waits for its slices (ROADMAP queue 1, item 4).
+The rest of the LM zoo waits for its slices: ROADMAP queue 1, item 9 (MLA,
+MoE, the VLM and audio frontends) and item 10 (hybrid).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import mamba2_130m, physics
+from repro_torch.configs import granite_8b, mamba2_130m, minicpm_2b, physics, starcoder2_7b
 from repro_torch.configs.base import (  # noqa: F401
     HybridConfig,
     MLAConfig,
@@ -25,9 +27,24 @@ _PHYSICS = {
 
 PHYSICS_NAMES = list(_PHYSICS)
 
-_ARCH_MODULES = {"mamba2-130m": mamba2_130m}
+_ARCH_MODULES = {
+    "minicpm-2b": minicpm_2b,
+    "granite-8b": granite_8b,
+    "starcoder2-7b": starcoder2_7b,
+    "mamba2-130m": mamba2_130m,
+}
 
 ARCH_NAMES = list(_ARCH_MODULES)
+
+# the JAX package's other configs, by the ROADMAP queue 1 item that ports them
+_UNPORTED = {
+    "minicpm3-4b": 9,
+    "dbrx-132b": 9,
+    "granite-moe-3b-a800m": 9,
+    "zamba2-1.2b": 10,
+    "internvl2-1b": 9,
+    "hubert-xlarge": 9,
+}
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
@@ -38,8 +55,9 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
         if reduced:  # reduced smoke configs run on the CPU in float32
             return dataclasses.replace(mod.reduced_config(), dtype="float32")
         return mod.config()
-    raise NotImplementedError(
-        f"config {name!r} is not ported yet: the port has the physics models "
-        f"{PHYSICS_NAMES} and {ARCH_NAMES}; the rest of the LM zoo comes with "
-        "ROADMAP queue 1, item 4"
-    )
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"config {name!r} is not ported yet (ROADMAP queue 1, item {_UNPORTED[name]}); "
+            f"the port has the physics models {PHYSICS_NAMES} and {ARCH_NAMES}"
+        )
+    raise KeyError(f"unknown arch {name!r}; available: {ARCH_NAMES + PHYSICS_NAMES}")

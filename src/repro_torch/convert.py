@@ -30,17 +30,24 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
     return _to_tensor(tree, dev)
 
 
+# the stacked per-layer cache trees that convert: the ssm family's state, the
+# dense KV slabs and the rolling sliding-window buffer
+_CACHE_LAYOUTS = ({"ssm_state", "conv_state"}, {"k", "v"}, {"k", "v", "slot_pos"})
+
+
 def caches_from_numpy(tree, device: str | torch.device = "cuda"):
     """The JAX package's stacked model caches as numpy -> the port's.
 
-    So far the ``ssm`` family's ``{"layers": {"ssm_state", "conv_state"}}``
-    (float32, leading layer axis); the hybrid family's shared-attention
-    caches and the attention KV caches wait for ROADMAP queue 1, items 4
-    and 6."""
-    if set(tree) != {"layers"} or set(tree["layers"]) != {"ssm_state", "conv_state"}:
+    ``{"layers": {...}}`` with a leading layer axis: the ``ssm`` family's
+    ``ssm_state`` and ``conv_state`` (float32), or the dense family's ``k``
+    and ``v`` slabs (B, Hkv, L, D), plus the int32 ``slot_pos`` of a rolling
+    buffer.  The int8 KV, MLA latent, paged and hybrid caches wait for ROADMAP
+    queue 1, items 6, 9 and 10."""
+    if set(tree) != {"layers"} or set(tree["layers"]) not in _CACHE_LAYOUTS:
         raise NotImplementedError(
-            f"only the ssm family's caches convert so far, got {sorted(tree)} / "
-            f"{sorted(tree.get('layers', {}))} (ROADMAP queue 1, items 4 and 6)"
+            f"only the ssm family's and the dense KV caches convert so far, got "
+            f"{sorted(tree)} / {sorted(tree.get('layers', {}))} (ROADMAP queue 1, "
+            "items 6, 9 and 10)"
         )
     return params_from_numpy(tree, device)
 

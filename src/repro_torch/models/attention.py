@@ -1,8 +1,11 @@
-"""GQA/MHA attention in ``train`` mode (a whole sequence, no KV cache),
-through the fused attention kernel.
+"""GQA/MHA attention (port of ``repro.models.attention``): ``train`` over a
+whole sequence, ``prefill`` and ``decode`` over a dense KV cache or a
+rolling sliding-window buffer (``serve.kv_cache``).
 
-Prefill, extend and decode over a KV cache, and MLA, come with the LM slice
-(ROADMAP queue 1, item 4, and item 9 for MLA).
+Train and prefill attend through the fused attention kernel (``mha``); the
+decode attend is plain torch ops, as the reference's is plain jnp.  Not
+ported yet: ``mode="extend"`` (ROADMAP queue 1, item 8), the int8 KV cache,
+MLA (item 9) and the paged layout (item 6).
 """
 
 from __future__ import annotations
@@ -10,8 +13,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import scalar
 from repro_torch.kernels.flash_attention import mha
 from repro_torch.models import layers
+
+MODES = ("train", "prefill", "extend", "decode")
 
 
 def gqa_spec(cfg: ModelConfig, dtype=torch.float32):
@@ -43,37 +49,124 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
+def _check_cache(cache) -> None:
+    if "k_scale" in cache:
+        raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP queue 1, item 9)")
+    if "page_table" in cache:
+        raise NotImplementedError("the paged KV layout is not ported yet (ROADMAP queue 1, item 6)")
+
+
+def _prefill_write(cache, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                   window: int | None) -> None:
+    """Write a prompt's k/v (B, Hkv, S, D) into ``cache`` in place: at offset
+    0 of a dense slab, or, for a rolling buffer, its last ``window``
+    positions at ``pos % window`` over an emptied buffer (slot positions of
+    the rest -1).  A negative position is dropped, as the reference's
+    scatter with ``mode="drop"`` drops its padded slots."""
+    if "slot_pos" not in cache:
+        cache["k"][:, :, : k.shape[2]] = k
+        cache["v"][:, :, : v.shape[2]] = v
+        return
+    b, hkv, w, d = cache["k"].shape
+    pos_tail = positions[-w:]
+    slots = torch.where(pos_tail >= 0, pos_tail % w, w)  # w: the drop bin
+    for name, t in (("k", k), ("v", v)):
+        buf = cache[name].new_zeros(b, hkv, w + 1, d)
+        buf[:, :, slots] = t[:, :, -w:]
+        cache[name].copy_(buf[:, :, :w])
+    slot_pos = torch.full((w + 1,), -1, dtype=torch.int32, device=slots.device)
+    slot_pos[slots] = pos_tail.to(torch.int32)
+    cache["slot_pos"].copy_(slot_pos[:w].expand(b, w))  # every row alike after prefill
+
+
+def _decode_write(cache, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                  window: int | None) -> torch.Tensor:
+    """Write one token's k/v (B, Hkv, 1, D) per sequence into ``cache`` in
+    place, at ``pos`` or, rolling, at ``pos % window`` with its slot
+    position.  Returns the (B, L) mask of the cache entries the token
+    attends to."""
+    b, hkv = k.shape[:2]
+    rolling = "slot_pos" in cache
+    slot = pos % window if rolling else pos
+    bi = torch.arange(b, device=pos.device)[:, None]
+    hi = torch.arange(hkv, device=pos.device)[None, :]
+    cache["k"][bi, hi, slot[:, None]] = k[:, :, 0]
+    cache["v"][bi, hi, slot[:, None]] = v[:, :, 0]
+    if rolling:
+        cache["slot_pos"][bi[:, 0], slot] = pos.to(torch.int32)
+        sp, p = cache["slot_pos"], pos[:, None]
+        return (sp >= 0) & (sp <= p) & (sp > p - window)
+    kv_pos = torch.arange(cache["k"].shape[2], device=pos.device)
+    return kv_pos[None, :] <= pos[:, None]
+
+
+def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """One query position (B, Hq, 1, D) against the cache (B, Hkv, L, D)
+    under ``valid`` (B, L), in float32; the result in q's dtype.  Scores
+    are divided by sqrt(D) through a device scalar: CUDA's division by a
+    Python number is a reciprocal multiply."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    qf = q.float().reshape(b, hkv, (hq // hkv) * s, d)
+    scores = torch.matmul(qf, k.float().transpose(-1, -2))
+    scores = scores / scalar(d ** 0.5, torch.float32, str(q.device))
+    scores = torch.where(valid[:, None, None, :], scores, -1e30)
+    out = torch.matmul(torch.softmax(scores, dim=-1), v.float())
+    return out.reshape(b, hq, s, d).to(q.dtype)
+
+
 def gqa_apply(
     params,
     cfg: ModelConfig,
     x: torch.Tensor,  # (B, S, D)
-    positions: torch.Tensor | None = None,  # (S,); used by RoPE, not ported yet
+    positions: torch.Tensor | None = None,  # (S,) train/prefill, (B,) decode
     *,
     mode: str = "train",
     cache=None,
     kernel: dict | None = None,
     quant=None,  # per-layer runtime hook from the precision plan
 ):
-    """Returns (out, cache) like the reference; only ``mode="train"``."""
-    if mode != "train" or cache is not None:
+    """Returns (out, cache) like the reference.  With a cache, prefill and
+    decode write the new k/v rows into ``cache``'s tensors in place and
+    return it (``models.lm`` hands each layer its slice of one copy of the
+    caller's caches); without one, every mode attends causally over ``x``
+    alone, as the reference's."""
+    if mode not in MODES:
+        raise ValueError(f"unknown attention mode {mode!r}; use one of {MODES}")
+    if mode == "extend":
         raise NotImplementedError(
-            f"gqa_apply mode={mode!r} with a KV cache is not ported yet "
-            "(ROADMAP queue 1, item 4: LM forward, prefill and decode)"
+            "gqa_apply mode='extend' (the cache-extending prefill) is not ported yet "
+            "(ROADMAP queue 1, item 8)"
         )
-    if cfg.use_rope:
-        raise NotImplementedError("RoPE is not ported yet (ROADMAP queue 1, item 4)")
+    if cache is not None:
+        _check_cache(cache)
     kernel = kernel or {}
     qc = cfg.quant if quant is None else quant
     hd = cfg.resolved_head_dim
     q = _split_heads(layers.dense(params["wq"], x, qc), cfg.n_heads, hd)
     k = _split_heads(layers.dense(params["wk"], x, qc), cfg.n_kv_heads, hd)
     v = _split_heads(layers.dense(params["wv"], x, qc), cfg.n_kv_heads, hd)
-    out = mha(
-        q, k, v,
-        causal=not cfg.is_encoder,
-        window=cfg.sliding_window,
-        mode=kernel.get("softmax_mode", "safe"),
-    )
+    if positions is None:
+        if mode == "decode":
+            raise ValueError("decode requires explicit per-sequence positions")
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    if cfg.use_rope:  # q, k stay fresh contiguous tensors, as the kernel needs
+        rope_pos = positions[:, None, None] if mode == "decode" else positions
+        cos, sin = layers.rope_cos_sin(rope_pos, hd, cfg.rope_theta)  # once for q and k
+        q, k = layers.rotate(q, cos, sin), layers.rotate(k, cos, sin)
+    window = cfg.sliding_window
+    softmax_mode = kernel.get("softmax_mode", "safe")
+
+    if mode == "train" or cache is None:
+        out = mha(q, k, v, causal=not cfg.is_encoder, window=window, mode=softmax_mode)
+    elif mode == "prefill":
+        _prefill_write(cache, k.to(cache["k"].dtype), v.to(cache["v"].dtype), positions, window)
+        out = mha(q, k, v, causal=True, window=window, mode=softmax_mode)
+    else:  # decode: one token per sequence at its global position (B,)
+        valid = _decode_write(cache, k.to(cache["k"].dtype), v.to(cache["v"].dtype),
+                              positions, window)
+        out = _decode_attend(q, cache["k"], cache["v"], valid)
     return layers.dense(params["wo"], _merge_heads(out), qc), cache
 
 

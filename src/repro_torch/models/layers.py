@@ -1,5 +1,5 @@
-"""Shared primitive layers: dense (quantizable), norm (kernel-backed),
-activations, token embedding and the tied unembedding."""
+"""Shared primitive layers: dense (quantizable), norm (kernel-backed), rotary
+position embedding, activations, token embedding and the tied unembedding."""
 
 from __future__ import annotations
 
@@ -59,6 +59,36 @@ def norm(
     rms = kind == "rmsnorm"
     return layernorm(x, params["scale"], None if rms else params["bias"],
                      use_lut=use_lut, rms=rms, eps=eps)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """The (head_dim / 2,) float32 rotary frequencies theta^(-2i / head_dim)."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim))
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """float32 cos and sin of the rotary angles, (..., seq, head_dim / 2)
+    for ``positions`` (..., seq)."""
+    angles = positions[..., :, None].to(torch.float32) * rope_freqs(head_dim, theta,
+                                                                    positions.device)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the pairs formed by the two halves of the head (not
+    interleaved pairs) of ``x`` (..., seq, head_dim) in float32; the result
+    in x's dtype, a fresh contiguous tensor."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding of ``x`` (..., seq, head_dim) at
+    ``positions``, which broadcast against x's leading axes with a seq axis
+    last: (seq,) in train and prefill, (B, 1, 1) in decode, (B, 1, seq) in
+    extend."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Causal LM orchestrator (port of ``repro.models.lm``) for the families
-ported so far: the ``ssm`` family (mamba2-130m).
+ported so far: ``dense`` (granite-8b, minicpm-2b, starcoder2-7b) and ``ssm``
+(mamba2-130m).
 
 Entry points
 ------------
@@ -10,8 +11,9 @@ Entry points
 
 The reference's scan over the stacked blocks is a Python loop.  ``prefill``
 and ``decode_step`` return new cache tensors and never write into the
-caller's.  ``loss_fn`` waits for training (ROADMAP queue 1, item 11); the
-dense, MoE, hybrid, VLM and audio families for items 4, 9 and 10.
+caller's: the new stack is one copy of the caller's, into which each layer
+writes its new rows.  ``loss_fn`` waits for training (ROADMAP queue 1,
+item 11); the MoE, hybrid, VLM and audio families for items 9 and 10.
 """
 
 from __future__ import annotations
@@ -88,21 +90,20 @@ def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: s
                 caches, kernel, plan: precision_lib.PrecisionPlan):
     uniform_quant = plan.uniform_layer_quant()
     layer_quants = None if uniform_quant is not None else plan.layer_quant_arrays()
-    layer_caches = caches["layers"] if caches is not None else None
-    new_layers = []
+    # one copy of the caller's stack, whose layer slices the blocks update
+    # in place (attention) or that takes their new state (Mamba2)
+    new_layers = None if caches is None else {k: t.clone() for k, t in caches["layers"].items()}
     for i in range(cfg.n_layers):  # the reference's scan over the stacked blocks
         quant = uniform_quant if layer_quants is None else layer_quants.layer(i)
-        lcache = _layer(layer_caches, i) if layer_caches is not None else None
-        h, new_lcache, _ = blocks.block_apply(
+        lcache = None if new_layers is None else {k: t[i] for k, t in new_layers.items()}
+        h, out_lcache, _ = blocks.block_apply(
             _layer(params["blocks"], i), cfg, h, positions, mode=mode, cache=lcache,
             kernel=kernel, quant=quant,
         )
-        new_layers.append(new_lcache)
-    new_caches = None
-    if caches is not None:  # restacked: new tensors, the caller's are untouched
-        new_caches = {"layers": {k: torch.stack([c[k] for c in new_layers])
-                                 for k in layer_caches}}
-    return h, new_caches
+        for k, t in (out_lcache or {}).items():
+            if t is not lcache[k]:
+                lcache[k].copy_(t)
+    return h, None if new_layers is None else {"layers": new_layers}
 
 
 def _as_tensor(x, dev: torch.device) -> torch.Tensor:

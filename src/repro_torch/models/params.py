@@ -3,10 +3,10 @@
 A spec tree is a nested dict whose leaves are ``ArraySpec``s; the parameter
 tree mirrors it with tensors.  ``stack_spec`` prepends the layer axis of the
 stacked ``blocks`` tree, as in the JAX package.  Init draws from an explicit
-``torch.Generator`` on the CPU, leaf by leaf in sorted path order, then moves
-the tree to the device, so a seed gives the same parameters on every
-device.  It cannot reproduce the JAX package's parameters; parity tests
-carry those across with ``repro_torch.convert.params_from_numpy``.
+``torch.Generator``, leaf by leaf in sorted path order, each leaf on the
+generator's own device, cast and placed before the next is drawn.  It cannot
+reproduce the JAX package's parameters; parity tests carry those across with
+``repro_torch.convert.params_from_numpy``.
 """
 
 from __future__ import annotations
@@ -35,18 +35,18 @@ class ArraySpec:
 
 
 def _leaf_init(spec: ArraySpec, gen: torch.Generator) -> torch.Tensor:
-    shape, dtype = spec.shape, spec.dtype
+    shape, dtype, dev = spec.shape, spec.dtype, gen.device
     if spec.init == "zeros":
-        return torch.zeros(shape, dtype=dtype)
+        return torch.zeros(shape, dtype=dtype, device=dev)
     if spec.init == "ones":
-        return torch.ones(shape, dtype=dtype)
+        return torch.ones(shape, dtype=dtype, device=dev)
     default_scale = {"embed": 1.0, "normal": 0.02, "small": 1e-3}
     if spec.init in default_scale:
         scale = spec.init_scale or default_scale[spec.init]
     else:  # fan_in: 1/sqrt(fan_in); stacked (layers, in, out) leaves use axis -2
         fan_in = shape[-2] if len(shape) >= 2 else shape[0]
         scale = spec.init_scale or (1.0 / max(fan_in, 1)) ** 0.5
-    return (torch.randn(shape, generator=gen, dtype=torch.float32) * scale).to(dtype)
+    return (torch.randn(shape, generator=gen, dtype=torch.float32, device=dev) * scale).to(dtype)
 
 
 def map_leaves(fn: Callable[[tuple, Any], Any], tree: Any, path=()) -> Any:
@@ -59,12 +59,17 @@ def map_leaves(fn: Callable[[tuple, Any], Any], tree: Any, path=()) -> Any:
 def init_params(
     spec: SpecTree, generator: torch.Generator, device: str | torch.device = "cuda"
 ) -> Any:
-    """Parameters for ``spec``, drawn from ``generator`` in sorted path order."""
+    """Parameters for ``spec`` on ``device``, drawn from ``generator`` in
+    sorted path order, one leaf at a time on the generator's device (float32,
+    then cast to the leaf's dtype and moved), so at most one leaf's float32
+    draw is held besides the tree.  A seed gives the same parameters on
+    every ``device`` for a CPU generator; a CUDA generator draws other
+    values (fast for large models: nothing crosses from the host)."""
     device = resolve_device(device)
     leaves = {}
     map_leaves(lambda path, s: leaves.setdefault(path, s), spec)
-    values = {path: _leaf_init(leaves[path], generator) for path in sorted(leaves)}
-    return map_leaves(lambda path, _: values[path].to(device), spec)
+    values = {path: _leaf_init(leaves[path], generator).to(device) for path in sorted(leaves)}
+    return map_leaves(lambda path, _: values[path], spec)
 
 
 def check_on(params: Any, dev: torch.device) -> None:

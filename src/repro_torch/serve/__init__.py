@@ -1,3 +1,4 @@
-"""Serving substrate of the port.  So far the stacked model caches of the
-``ssm`` family (``kv_cache``); the engine, scheduler and paged KV cache
-come with ROADMAP queue 1, items 5-8."""
+"""Serving substrate of the port.  So far the cache specs and the stacked
+model caches (``kv_cache``): dense KV slabs, rolling sliding-window buffers
+and the ``ssm`` family's state; sampling, the paged KV cache, the scheduler
+and the engine come with ROADMAP queue 1, items 5-8."""

@@ -1,4 +1,5 @@
-"""The port's physics configs equal the JAX package's field for field."""
+"""The port's configs (physics, mamba2-130m and the dense GQA family) equal
+the JAX package's field for field."""
 
 import dataclasses
 
@@ -7,7 +8,9 @@ import pytest
 pytest.importorskip("torch")
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
-from repro_torch.configs import PHYSICS_NAMES, get_config  # noqa: E402
+from repro_torch.configs import ARCH_NAMES, PHYSICS_NAMES, get_config  # noqa: E402
+
+DENSE = ["granite-8b", "minicpm-2b", "starcoder2-7b"]
 
 
 @pytest.mark.parametrize("name", ["engine_anomaly", "btagging", "gw"])
@@ -22,8 +25,36 @@ def test_physics_config_fields_equal(name):
 
 def test_registry_names_and_unported():
     assert PHYSICS_NAMES == ["engine_anomaly", "btagging", "gw"]
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        get_config("granite-8b")
+    assert sorted(ARCH_NAMES) == sorted(DENSE + ["mamba2-130m"])
+    for name in DENSE:
+        for reduced in (False, True):
+            ref, ours = jax_get_config(name, reduced), get_config(name, reduced)
+            assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        get_config("granite-moe-3b-a800m")
+    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+        get_config("zamba2-1.2b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-model")
+
+
+@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_dense_config_fields_equal(name, reduced):
+    ref, ours = jax_get_config(name, reduced), get_config(name, reduced)
+    assert [f.name for f in dataclasses.fields(ours)] == [
+        f.name for f in dataclasses.fields(ref)
+    ]
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ours.dtype == ("float32" if reduced else "bfloat16")
+    assert ours.padded_vocab_size == ref.padded_vocab_size
+    assert ours.resolved_head_dim == ref.resolved_head_dim
+    if name == "minicpm-2b" and not reduced:
+        assert ours.padded_vocab_size == 122880 and ours.emb_scale == 12.0
+        assert ours.residual_scale == 1.4 / 40 ** 0.5 and ours.logit_scale == 256 / 2304
+    if name == "starcoder2-7b":
+        assert ours.sliding_window == (8 if reduced else 4096) and ours.rope_theta == 1e6
+        assert not ours.tie_embeddings and ours.attn_bias and ours.mlp_bias
 
 
 @pytest.mark.parametrize("reduced", [False, True])

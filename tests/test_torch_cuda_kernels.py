@@ -604,8 +604,8 @@ def test_mamba_lm_on_the_card(dev):
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     params_dev = map_leaves(lambda _, t: t.to(dev), params)
     toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=torch.Generator().manual_seed(1))
-    cache_cpu = lm.init_caches(cfg, 2, device="cpu")
-    cache_dev = lm.init_caches(cfg, 2, device=dev)
+    cache_cpu = lm.init_caches(cfg, 2, 17, device="cpu")
+    cache_dev = lm.init_caches(cfg, 2, 17, device=dev)
     before = dict(LAUNCHES)
     last, cache_dev = lm.prefill(params_dev, cfg, {"tokens": toks[:, :16]}, cache_dev, device=dev)
     torch.cuda.synchronize()
@@ -622,3 +622,41 @@ def test_mamba_lm_on_the_card(dev):
     ref, _ = lm.decode_step(params, cfg, toks[:, 16:], torch.full((2,), 16), cache_cpu,
                             device="cpu")
     torch.testing.assert_close(last.cpu(), ref, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["granite-8b", "minicpm-2b", "starcoder2-7b"])
+def test_dense_lm_on_the_card(dev, name):
+    """The reduced dense configs (starcoder2-7b's rolling buffer included):
+    prefill launches the attention kernel once per layer and the norm kernel
+    2 per layer + 1; decode launches no attention kernel; logits and caches
+    match the CPU path on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_leaves
+
+    cfg = get_config(name, reduced=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params_dev = map_leaves(lambda _, t: t.to(dev), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(1))
+    caches = {d: lm.init_caches(cfg, 2, 16, torch.float32, device=d) for d in ("cpu", dev)}
+    before = dict(LAUNCHES)
+    last, caches[dev] = lm.prefill(params_dev, cfg, {"tokens": toks[:, :12]}, caches[dev],
+                                   device=dev)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] - before.get("flash_attention", 0) == cfg.n_layers
+    assert LAUNCHES["layernorm"] - before.get("layernorm", 0) == 2 * cfg.n_layers + 1
+    ref, caches["cpu"] = lm.prefill(params, cfg, {"tokens": toks[:, :12]}, caches["cpu"],
+                                    device="cpu")
+    torch.testing.assert_close(last.cpu(), ref, atol=2e-4, rtol=0)
+    for i in range(12, 16):
+        before = dict(LAUNCHES)
+        last, caches[dev] = lm.decode_step(params_dev, cfg, toks[:, i:i + 1].to(dev),
+                                           torch.full((2,), i), caches[dev], device=dev)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention"] == before.get("flash_attention", 0)
+        assert LAUNCHES["layernorm"] - before.get("layernorm", 0) == 2 * cfg.n_layers + 1
+        ref, caches["cpu"] = lm.decode_step(params, cfg, toks[:, i:i + 1], torch.full((2,), i),
+                                            caches["cpu"], device="cpu")
+        torch.testing.assert_close(last.cpu(), ref, atol=2e-4, rtol=0)
+    for k, t in caches[dev]["layers"].items():
+        torch.testing.assert_close(t.cpu(), caches["cpu"]["layers"][k], atol=2e-4, rtol=0)

@@ -153,7 +153,7 @@ def test_forward_prefill_decode_match_reference(size, policy):
     _close(logits, ref)
     assert (logits[..., tcfg.vocab_size:] == -1e9).all()
 
-    caches = lm.init_caches(tcfg, b, device="cpu")
+    caches = lm.init_caches(tcfg, b, 2 * q, device="cpu")
     jcaches = jlm.init_caches(jcfg, b, 2 * q, dtype=jnp.float32)
     last, caches = lm.prefill(tparams, tcfg, {"tokens": toks[:, :q]}, caches, device="cpu")
     jlast, jcaches = _jprefill(params, jcfg, {"tokens": jnp.asarray(toks[:, :q])}, jcaches)
@@ -177,7 +177,7 @@ def test_greedy_tokens_identical_to_reference(size):
     prompt = np.random.default_rng(8).integers(0, jcfg.vocab_size, (b, s)).astype(np.int32)
 
     last, caches = lm.prefill(tparams, tcfg, {"tokens": prompt},
-                              lm.init_caches(tcfg, b, device="cpu"), device="cpu")
+                              lm.init_caches(tcfg, b, s + steps, device="cpu"), device="cpu")
     jlast, jcaches = _jprefill(params, jcfg, {"tokens": jnp.asarray(prompt)},
                                jlm.init_caches(jcfg, b, s + steps, dtype=jnp.float32))
     ours, theirs = [], []
@@ -202,7 +202,7 @@ def test_prefill_decode_continuity():
     toks = torch.randint(0, cfg.vocab_size, (b, s + extra), generator=gen)
     full, _, _ = lm.forward(params, cfg, {"tokens": toks[:, :16]}, device="cpu")
     last, caches = lm.prefill(params, cfg, {"tokens": toks[:, :s]},
-                              lm.init_caches(cfg, b, device="cpu"), device="cpu")
+                              lm.init_caches(cfg, b, s + extra, device="cpu"), device="cpu")
     torch.testing.assert_close(last, full[:, s - 1], atol=ATOL, rtol=0)
     for i in range(extra):
         last, caches = lm.decode_step(params, cfg, toks[:, s + i: s + i + 1],
@@ -220,7 +220,7 @@ def test_caches_from_numpy_round_trip():
     _, jcaches = _jprefill(params, jcfg, {"tokens": jnp.asarray(toks[:, :16])},
                            jlm.init_caches(jcfg, 2, 17, dtype=jnp.float32))
     caches = caches_from_numpy(jax.tree.map(np.asarray, jcaches), "cpu")
-    spec = kv_cache.abstract_caches(tcfg, 2)
+    spec = kv_cache.abstract_caches(tcfg, 2, 17)
     for k, (shape, dtype) in spec["layers"].items():
         assert caches["layers"][k].shape == shape and caches["layers"][k].dtype == dtype
     _close(caches, jcaches, atol=0)
@@ -237,7 +237,7 @@ def test_caller_caches_left_unchanged():
     _, cfg = _configs("reduced")
     params = lm.init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
     toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(3))
-    caches = lm.init_caches(cfg, 2, device="cpu")
+    caches = lm.init_caches(cfg, 2, 9, device="cpu")
     _, filled = lm.prefill(params, cfg, {"tokens": toks[:, :8]}, caches, device="cpu")
     assert all(float(t.abs().max()) == 0.0 for t in caches["layers"].values())
     before = {k: v.clone() for k, v in filled["layers"].items()}
@@ -254,7 +254,7 @@ def test_prefill_length_must_fit_the_chunk():
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     toks = torch.zeros(1, 20, dtype=torch.int64)
     with pytest.raises(ValueError, match="multiple of the chunk"):
-        lm.prefill(params, cfg, {"tokens": toks}, lm.init_caches(cfg, 1, device="cpu"),
+        lm.prefill(params, cfg, {"tokens": toks}, lm.init_caches(cfg, 1, 20, device="cpu"),
                    device="cpu")
     with pytest.raises(ValueError, match="positions"):
         lm.forward(params, cfg, {"tokens": toks[:, :1]}, mode="decode", device="cpu")
@@ -294,7 +294,7 @@ def test_init_params_dtypes_and_seed():
 @pytest.mark.parametrize("batch", [1, 3])
 def test_cache_spec_matches_reference(batch):
     jcfg, tcfg = jax_get_config("mamba2-130m"), get_config("mamba2-130m")
-    ours = kv_cache.abstract_caches(tcfg, batch)
+    ours = kv_cache.abstract_caches(tcfg, batch, 64)
     ref = jlm.abstract_caches(jcfg, batch, 64, jnp.bfloat16)
     assert set(ours) == set(ref) == {"layers"}
     for k, (shape, dtype) in ours["layers"].items():
@@ -309,10 +309,13 @@ def test_unported_families_raise():
     moe = dataclasses.replace(get_config("gw"), moe=MoEConfig(4, 2, 16))
     with pytest.raises(NotImplementedError, match="item 9"):
         blocks.block_spec(moe)
-    with pytest.raises(NotImplementedError, match="items 4 and 6"):
-        kv_cache.abstract_caches(get_config("gw"), 1)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        kv_cache.abstract_caches(dataclasses.replace(mamba, family="hybrid"), 1)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        kv_cache.abstract_caches(get_config("granite-8b"), 1, 16, quantized=True)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        kv_cache.abstract_caches(get_config("granite-8b"), 1, 16, layout="paged",
+                                 page_size=8, num_pages=4)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        kv_cache.abstract_caches(dataclasses.replace(mamba, family="hybrid"), 1, 16)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -320,8 +323,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
     _, cfg = _configs("reduced")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     toks = torch.zeros(1, 4, dtype=torch.int64)
+    dense = get_config("granite-8b", reduced=True)
+    dparams = lm.init_params(dense, torch.Generator().manual_seed(0), device="cpu")
+    dcaches = lm.init_caches(dense, 1, 8, torch.float32, device="cpu")
     for call in (lambda: lm.forward(params, cfg, {"tokens": toks}),
-                 lambda: lm.init_caches(cfg, 1),
-                 lambda: lm.init_params(cfg, torch.Generator().manual_seed(0))):
+                 lambda: lm.init_caches(cfg, 1, 8),
+                 lambda: lm.init_params(cfg, torch.Generator().manual_seed(0)),
+                 lambda: lm.init_caches(dense, 1, 8),
+                 lambda: lm.prefill(dparams, dense, {"tokens": toks}, dcaches),
+                 lambda: lm.decode_step(dparams, dense, toks[:, :1], torch.zeros(1), dcaches)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
