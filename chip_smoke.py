@@ -8,11 +8,13 @@ Phases, each of which fails the run (exit code 1) when it fails:
 1. build  -- compile the hand-written CUDA kernels (``src/repro_torch/csrc``)
    with nvcc for sm_90a into ``build/`` (skipped when the sources are
    unchanged), print the compiler's register / spill report and each
-   library's count of tensor-core instructions (``HGMMA`` = wgmma, ``HMMA``
-   = float mma.sync, ``IMMA`` = integer mma.sync) in ``cuobjdump -sass``;
-   the attention library must have HGMMA and HMMA, every head_dim 8-32
-   attention instance HMMA in its own code, and every instance of the SSD
-   scan's chunk-state and output kernels HMMA in its own code;
+   library's count of tensor-core instructions (``HGMMA`` = float wgmma,
+   ``IGMMA`` = integer wgmma, ``HMMA`` = float mma.sync, ``IMMA`` = integer
+   mma.sync) in ``cuobjdump -sass``; the attention library must have HGMMA
+   and HMMA, every head_dim 8-32 attention instance HMMA in its own code,
+   every instance of the SSD scan's chunk-state and output kernels HMMA in
+   its own code, the qmatmul library's wgmma route IGMMA and every instance
+   of its streaming route IMMA;
 2. kernels -- call each kernel's wrapper on the card at the shapes the
    physics models give it (batch 8192), at LM-like shapes and at the main
    path's own attention shapes (granite-8b's streaming MHA, (1, 32, 1024,
@@ -20,9 +22,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
    bf16 causal), hold it against its plain PyTorch version on the same
    inputs, and time kernel, plain version and the PyTorch library call that
    computes the same function (a yardstick only; the port never calls it);
-   every attention, layernorm and SSD scan case (float32, bf16, fp16) also
-   gets its device time from the profiler, kernel and library call alike,
-   the SSD scan with each of its three passes' share; attention
+   every attention, layernorm, qmatmul and SSD scan case (float32, bf16,
+   fp16, int8) also gets its device time from the profiler, kernel and
+   library call alike, the SSD scan with each of its three passes' share,
+   qmatmul with the route it took (wgmma or streaming); attention
    at head_dim 12 and 80 runs zero-padded to 16 and 128, and head_dim 16
    causal at (1, 8, 1024) beside it; the dense LM path's shapes: granite-8b's
    prefill attend at (8, 32 q / 8 kv, 2048, 128) bf16, minicpm-2b's at
@@ -177,7 +180,8 @@ GRANITE_TIME_LEN, GRANITE_TIME_BATCHES, GRANITE_TIME_STEPS = 2048, (1, 8), 64
 GRANITE_PROFILE_STEPS = 16  # the decode steps under the profiler
 # kernel names in the profiler, for each kernel's share of device time
 KERNEL_FUNCS = {"attention": ("small_attention_kernel", "tc_attention_kernel"),
-                "layernorm": ("layernorm_kernel",)}
+                "layernorm": ("layernorm_kernel",),
+                "qmatmul": ("qmatmul_wgmma_kernel", "qmatmul_stream_kernel")}
 
 
 class SmokeError(RuntimeError):
@@ -344,6 +348,18 @@ def phase_build():
             if not small or not all(c["HMMA"] for c in small.values()):
                 raise SmokeError("a head_dim 8-32 attention instance has no mma.sync (HMMA) "
                                  f"instructions: { {f[-60:]: c for f, c in small.items()} }")
+        if name == "qmatmul":
+            wide = {f: c["IGMMA"] for f, c in funcs.items() if "qmatmul_wgmma_kernel" in f}
+            stream = {f: c["IMMA"] for f, c in funcs.items() if "qmatmul_stream_kernel" in f}
+            sass["qmatmul_by_kernel"] = {**wide, **stream}
+            log(f"[build] qmatmul: IGMMA in the wgmma route {sorted(wide.values())}, IMMA per "
+                f"streaming instance {sorted(stream.values())}")
+            if not wide or not all(wide.values()):
+                raise SmokeError("the qmatmul library's wgmma route has no integer wgmma "
+                                 f"(IGMMA) instructions: {sass['qmatmul']}")
+            if not stream or not all(stream.values()):
+                raise SmokeError("a qmatmul streaming instance has no integer mma.sync (IMMA) "
+                                 f"instructions: { {f[-60:]: n for f, n in stream.items()} }")
         if name == "ssd_scan":
             mma = {f: c["HMMA"] for f, c in funcs.items()
                    if SSD_PASSES[0] in f or SSD_PASSES[2] in f}
@@ -358,7 +374,7 @@ def phase_build():
     return {n: r["seconds"] for n, r in report.items()}, sass
 
 
-TC_OPS = ("HGMMA", "HMMA", "IMMA")
+TC_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
 
 
 def _sass_functions(listing: str) -> dict[str, dict[str, int]]:
@@ -502,36 +518,49 @@ def _layernorm_case(dev, rows, k, rms, use_lut, dtype="float32"):
 
 
 def _qmatmul_case(dev, m, k, n, grid_k=1):
+    """``qmatmul_int8`` on seeded codes, with the K-major weight copy as the
+    streaming MHA hands it over; the profiler's kernel names are kept."""
     import torch
 
-    from repro_torch.kernels.qmatmul import qmatmul_int8, qmatmul_ref
+    from repro_torch.kernels.qmatmul import ROUTES, qmatmul_int8, qmatmul_ref, route
 
     g = torch.Generator(device=dev).manual_seed(m + 3 * k + 7 * n)
     x = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
     w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
     xs = torch.rand(m, 1, generator=g, device=dev) * 0.05 + 1e-3
     ws = torch.rand(1, n, generator=g, device=dev) * 0.05 + 1e-3
-    out = qmatmul_int8(x, w, xs, ws, grid_k=grid_k)
+    w_kmajor = w.t().contiguous()
+
+    def kernel():
+        return qmatmul_int8(x, w, xs, ws, grid_k=grid_k, w_kmajor=w_kmajor)
+
+    path, before = route(k, n), dict(ROUTES)
+    out = kernel()
     ref = qmatmul_ref(x, w, xs, ws)
     torch.cuda.synchronize()
-    ok = torch.equal(out, ref)
+    ok = torch.equal(out, ref) and ROUTES[path] == before.get(path, 0) + 1
     err = float((out - ref).abs().max())
     bound_ms, bound_by = bound(2.0 * m * n * k, m * k + k * n + 4 * (m + n) + 4 * m * n, "int8")
     iters = 20 if m * n * k > 1e10 else 50
-    ms = time_ms(lambda: qmatmul_int8(x, w, xs, ws, grid_k=grid_k), iters)
+    ms = time_ms(kernel, iters)
     plain_ms = time_ms(lambda: qmatmul_ref(x, w, xs, ws), max(3, iters // 5))
     # Yardstick: torch._int_mm, the int32 product alone (no epilogue), where
     # its shape rules hold.
-    library_ms, library_note = None, "torch._int_mm (int32 product, no epilogue)"
+    library_ms = lib_dev_ms = None
+    library_note = "torch._int_mm (int32 product, no epilogue)"
     try:
         library_ms = time_ms(lambda: torch._int_mm(x, w), iters)
+        lib_dev_ms = device_ms(lambda: torch._int_mm(x, w))
     except RuntimeError as e:  # a shape _int_mm does not take: no yardstick
         library_note = f"torch._int_mm refused: {str(e).splitlines()[0][:80]}"
+    times = device_times(kernel) or {}
     return dict(kernel="qmatmul", shape=[m, k, n], mode=f"R={grid_k}", dtype="int8",
+                route=path, device_kernels=sorted(_kernel_label(t) for t in times),
                 max_abs_err=err,
                 rows_over_atol=float((out != ref).any(dim=-1).float().mean()),
                 tol="bitwise", ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                library_note=library_note, bound_ms=bound_ms, bound_by=bound_by)
+                library_note=library_note, device_ms=sum(times.values()) or None,
+                library_device_ms=lib_dev_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _lut_softmax_case(dev, rows, k, fixed):
@@ -716,7 +745,8 @@ def phase_kernels(dev):
             dev_t = (f" | device ms {c['device_ms']:.4f} library "
                      f"{'n/a' if lib_dev is None else f'{lib_dev:.4f}'}")
         kv = f" kv {c['kv_heads']}" if c.get("kv_heads", c["shape"][1]) != c["shape"][1] else ""
-        log(f"[kernel] {c['kernel']:15s} {str(c['shape']) + kv:22s} {c['mode']:6s} "
+        mode = c["mode"] + (f" {c['route']}" if "route" in c else "")
+        log(f"[kernel] {c['kernel']:15s} {str(c['shape']) + kv:22s} {mode:6s} "
             f"causal={c.get('causal', '-')!s:5s} window={c.get('window', '-')!s:4s} "
             f"{c.get('dtype', 'float32'):8s} err {c['max_abs_err']:.2e} ({c['tol']}; "
             f"{c['rows_over_atol']:.3%} rows over atol) "
@@ -860,11 +890,11 @@ def _mha_stages_match(x, params, params_cpu, h, causal, mode) -> bool:
     for name in ("q", "k", "v"):
         w, bias = getattr(params, "w" + name), getattr(params, "b" + name)
         w_cpu, bias_cpu = getattr(params_cpu, "w" + name), getattr(params_cpu, "b" + name)
-        t = int8_linear(flat, w, bias)
+        t = int8_linear(flat, w, bias, params.kmajor["w" + name])
         same &= torch.equal(t.cpu(), int8_linear(flat.cpu(), w_cpu, bias_cpu))
         qkv.append(split_heads(t, b, s, h))
     o = mha(*qkv, causal=causal, mode=mode).transpose(1, 2).reshape(b * s, -1)
-    out = int8_linear(o, params.wo, params.bo)
+    out = int8_linear(o, params.wo, params.bo, params.kmajor["wo"])
     same &= torch.equal(out.cpu(), int8_linear(o.cpu(), params_cpu.wo, params_cpu.bo))
     torch.cuda.synchronize()
     LAUNCHES.clear()
@@ -940,7 +970,10 @@ def phase_mha(dev):
                     f"events/s  stages 1+4 bitwise  |out - cpu| {err:.2e} (rel {rel_cpu:.1e}, "
                     f"{over:.3%} tokens over {MHA_TOL}, {n_chk} events)  rel vs float "
                     f"{rel:.4f}  device busy "
-                    f"{'not measured' if busy is None else f'{busy:.1%}'}  top {prof['top']}")
+                    f"{'not measured' if busy is None else f'{busy:.1%}'}"
+                    + ("" if busy is None else f"  device ms/call {prof['device_ms_per_fwd']:.4f}"
+                       f", qmatmul share {prof['qmatmul_share']:.1%}")
+                    + f"  top {prof['top']}")
     counts = dict(LAUNCHES)  # the streaming-MHA path's window ends here
     for kname in ("qmatmul", "flash_attention"):
         if counts.get(kname, 0) <= 0:

@@ -57,7 +57,9 @@ def streaming_mha_params_from_numpy(tree, device: str | torch.device = "cuda"):
 
     ``tree`` maps ``wq``, ``wk``, ``wv``, ``wo`` to ``{"values", "scale",
     "axis"}`` (a ``QTensor``'s codes, scales and channel axis) and, where
-    present, ``bq``, ``bk``, ``bv``, ``bo`` to bias arrays."""
+    present, ``bq``, ``bk``, ``bv``, ``bo`` to bias arrays.  The K-major
+    copies of the codes (``StreamingMHAParams.kmajor``) are made here, on
+    ``device``."""
     dev = resolve_device(device)
     weights = {
         name: QTensor(_to_tensor(tree[name]["values"], dev),

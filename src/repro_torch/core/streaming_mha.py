@@ -22,10 +22,15 @@ from repro_torch.kernels.flash_attention import mha, mha_ref
 from repro_torch.kernels.qmatmul import qmatmul_prequantized
 
 
+WEIGHTS = ("wq", "wk", "wv", "wo")
+
+
 @dataclasses.dataclass
 class StreamingMHAParams:
     """int8 weights (one scale per output column) and float biases of one
-    MHA layer."""
+    MHA layer.  ``kmajor`` holds a K-major copy of each weight's codes,
+    (d_out, d_in) contiguous: the operand of the card's wgmma route
+    (``kernels/qmatmul``), made once with the weights rather than per call."""
 
     wq: quant.QTensor  # (d_model, n_heads * d_head)
     wk: quant.QTensor
@@ -35,6 +40,10 @@ class StreamingMHAParams:
     bk: torch.Tensor | None = None
     bv: torch.Tensor | None = None
     bo: torch.Tensor | None = None
+    kmajor: dict[str, torch.Tensor] = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.kmajor = {name: getattr(self, name).values.t().contiguous() for name in WEIGHTS}
 
 
 def quantize_mha_params(wq, wk, wv, wo, bq=None, bk=None, bv=None, bo=None) -> StreamingMHAParams:
@@ -47,10 +56,12 @@ def quantize_mha_params(wq, wk, wv, wo, bq=None, bk=None, bv=None, bo=None) -> S
     )
 
 
-def int8_linear(x: torch.Tensor, w: quant.QTensor, bias: torch.Tensor | None) -> torch.Tensor:
+def int8_linear(x: torch.Tensor, w: quant.QTensor, bias: torch.Tensor | None,
+                w_kmajor: torch.Tensor | None = None) -> torch.Tensor:
     """Stage 1 / 4 GEMM on (rows, d_in): per-row activation codes times the
-    prequantized weight codes, dequantized, plus the float bias."""
-    out = qmatmul_prequantized(quant.quantize_int8(x, axis=0), w)
+    prequantized weight codes (``w_kmajor``: their K-major copy), dequantized,
+    plus the float bias."""
+    out = qmatmul_prequantized(quant.quantize_int8(x, axis=0), w, w_kmajor=w_kmajor)
     return out if bias is None else out + bias
 
 
@@ -73,14 +84,15 @@ def streaming_mha(
     b, s, d_model = x.shape
     flat = x.reshape(b * s, d_model)
     # ---- Stage 1: linear projections
-    q = split_heads(int8_linear(flat, params.wq, params.bq), b, s, n_heads)
-    k = split_heads(int8_linear(flat, params.wk, params.bk), b, s, n_heads)
-    v = split_heads(int8_linear(flat, params.wv, params.bv), b, s, n_heads)
+    km = params.kmajor
+    q = split_heads(int8_linear(flat, params.wq, params.bq, km["wq"]), b, s, n_heads)
+    k = split_heads(int8_linear(flat, params.wk, params.bk, km["wk"]), b, s, n_heads)
+    v = split_heads(int8_linear(flat, params.wv, params.bv, km["wv"]), b, s, n_heads)
     # ---- Stages 2 + 3: fused scores / softmax / weighted sum
     o = mha(q, k, v, causal=causal, window=window, mode=softmax_mode)
     # ---- Stage 4: concat heads + output projection
     o = o.transpose(1, 2).reshape(b * s, -1)
-    return int8_linear(o, params.wo, params.bo).reshape(b, s, -1)
+    return int8_linear(o, params.wo, params.bo, km["wo"]).reshape(b, s, -1)
 
 
 def streaming_mha_float_ref(

@@ -1,4 +1,10 @@
-from repro_torch.kernels.qmatmul.ops import qmatmul, qmatmul_int8, qmatmul_prequantized
+from repro_torch.kernels.qmatmul.ops import (
+    ROUTES,
+    qmatmul,
+    qmatmul_int8,
+    qmatmul_prequantized,
+    route,
+)
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 
-__all__ = ["qmatmul", "qmatmul_int8", "qmatmul_prequantized", "qmatmul_ref"]
+__all__ = ["ROUTES", "qmatmul", "qmatmul_int8", "qmatmul_prequantized", "qmatmul_ref", "route"]

@@ -329,6 +329,7 @@ def _codes(g, m, k, n):
 @pytest.mark.parametrize("m,k,n", [
     (8, 16, 8), (100, 300, 200), (128, 128, 128), (7, 130, 65), (1, 256, 512),
     (1000, 16, 16), (600, 64, 64), (700, 32, 32), (257, 48, 40), (300, 1024, 24),
+    (33, 40, 4096), (4099, 64, 36), (5, 0, 8),
 ])
 def test_qmatmul_kernel_bitwise(dev, m, k, n):
     g = torch.Generator(device="cpu").manual_seed(m * 7 + k + n)
@@ -341,6 +342,44 @@ def test_qmatmul_kernel_bitwise(dev, m, k, n):
     ref = qmatmul_ref(x, w, xs, ws)
     assert torch.equal(out, ref)
     assert torch.equal(out.cpu(), qmatmul_ref(*(t.cpu() for t in (x, w, xs, ws))))
+
+
+@pytest.mark.parametrize("m", [1, 63, 65, 1000])
+@pytest.mark.parametrize("k", [16, 48, 64, 80, 130])
+@pytest.mark.parametrize("n", [8, 24, 30, 64, 65, 80, 200])
+def test_qmatmul_kernel_route_edges_bitwise(dev, m, k, n):
+    """Both routes at their edges (ragged M, a 16-deep K tail of a 32-deep
+    step, N off every tile, the K / N = 64 threshold), with and without the
+    K-major weight copy: bitwise equal to the plain version, through the
+    route ``route`` names."""
+    from repro_torch.kernels.qmatmul import ROUTES, route
+
+    g = torch.Generator(device="cpu").manual_seed(m + 3 * k + 7 * n)
+    x, w, xs, ws = (t.to(dev) for t in _codes(g, m, k, n))
+    ref = qmatmul_ref(x, w, xs, ws)
+    for w_kmajor in (None, w.t().contiguous()):
+        before = ROUTES[route(k, n)]
+        out = qmatmul_int8(x, w, xs, ws, w_kmajor=w_kmajor)
+        torch.cuda.synchronize()
+        assert ROUTES[route(k, n)] == before + 1
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(1024, 4096, 4096), (4096, 4096, 4096), (100, 48, 4096)])
+@pytest.mark.parametrize("r", [1, 2, 4, 8])
+def test_qmatmul_kernel_wide_shapes_take_wgmma_for_every_r(dev, m, k, n, r):
+    """granite-8b's projection and 4096^3 launch the wgmma route, bitwise
+    equal for every reuse factor, with the K-major copy as the streaming MHA
+    hands it."""
+    from repro_torch.kernels.qmatmul import ROUTES
+
+    g = torch.Generator(device="cpu").manual_seed(k + n + r)
+    x, w, xs, ws = (t.to(dev) for t in _codes(g, m, k, n))
+    before = ROUTES["wide"]
+    out = qmatmul_int8(x, w, xs, ws, grid_k=r, w_kmajor=w.t().contiguous())
+    torch.cuda.synchronize()
+    assert ROUTES["wide"] == before + 1
+    assert torch.equal(out, qmatmul_ref(x, w, xs, ws))
 
 
 @pytest.mark.parametrize("r", [1, 2, 4, 8])

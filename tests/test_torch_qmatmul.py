@@ -27,6 +27,7 @@ from repro_torch.kernels.qmatmul import (  # noqa: E402
     qmatmul_int8,
     qmatmul_prequantized,
     qmatmul_ref,
+    route,
 )
 
 SHAPES = [(8, 16, 8), (100, 300, 200), (128, 128, 128), (7, 130, 65), (1, 256, 512)]
@@ -191,3 +192,32 @@ def test_quantize_pytree_int8_matches():
             np.testing.assert_array_equal(tq.values.numpy(), np.asarray(jq.values))
             np.testing.assert_array_equal(tq.scale.numpy(), np.asarray(jq.scale))
         np.testing.assert_array_equal(ours["inner"]["b"].numpy(), tree["inner"]["b"])
+
+
+@pytest.mark.parametrize("k,n,expected", [
+    (16, 16, "stream"), (32, 32, "stream"), (64, 64, "stream"), (48, 40, "stream"),
+    (20, 30, "stream"), (1, 1, "stream"), (64, 65, "wide"), (65, 64, "wide"), (80, 16, "wide"),
+    (16, 80, "wide"), (4096, 4096, "wide"), (130, 8, "wide"), (300, 24, "wide"),
+])
+def test_route_is_chosen_by_k_and_n_alone(k, n, expected):
+    """The card's route: the streaming kernel for K and N up to 64 (the
+    encoders' projections), the wgmma kernel beyond either."""
+    assert route(k, n) == expected
+
+
+def test_w_kmajor_is_checked_and_leaves_the_plain_version_unchanged():
+    rng = np.random.default_rng(13)
+    xq = torch.from_numpy(rng.integers(-128, 128, (9, 40), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-128, 128, (40, 24), dtype=np.int8))
+    xs, ws = torch.rand(9, 1) + 0.1, torch.rand(1, 24) + 0.1
+    base = qmatmul_int8(xq, wq, xs, ws)
+    assert torch.equal(qmatmul_int8(xq, wq, xs, ws, w_kmajor=wq.t().contiguous()), base)
+    for bad in (wq, wq.t()[:, :39].contiguous(), wq.t().contiguous().to(torch.int16)):
+        with pytest.raises(ValueError, match="w_kmajor"):
+            qmatmul_int8(xq, wq, xs, ws, w_kmajor=bad)
+    with pytest.raises(ValueError, match="devices"):
+        qmatmul_int8(xq, wq, xs, ws, w_kmajor=wq.t().contiguous().to("meta"))
+    tx = tquant.quantize_int8(torch.randn(9, 40), axis=0)
+    tw = tquant.quantize_int8(torch.randn(40, 24), axis=1)
+    assert torch.equal(qmatmul_prequantized(tx, tw, w_kmajor=tw.values.t().contiguous()),
+                       qmatmul_prequantized(tx, tw))

@@ -190,3 +190,23 @@ def test_cpu_path_launches_no_kernel():
     before = dict(LAUNCHES)
     tsm.streaming_mha(torch.from_numpy(_x((1, 6, 16))), params, n_heads=2)
     assert dict(LAUNCHES) == before
+
+
+@pytest.mark.parametrize("hw", HEADS_WIDTH, ids=str)
+def test_kmajor_copies_of_the_weight_codes(hw):
+    """The K-major copy the card's wgmma route reads is the codes' transpose,
+    contiguous, both after quantize_mha_params and after carrying the JAX
+    package's params across."""
+    h, d = hw
+    ws, bs = _weights(d, seed=h + 20)
+    jp, carried = _params(ws, bs)
+    local = tsm.quantize_mha_params(*(torch.from_numpy(a) for a in ws + bs))
+    for params in (local, carried):
+        assert sorted(params.kmajor) == sorted(tsm.WEIGHTS)
+        for name in tsm.WEIGHTS:
+            kmajor = params.kmajor[name]
+            assert kmajor.is_contiguous() and kmajor.dtype == torch.int8
+            assert torch.equal(kmajor, getattr(params, name).values.t().contiguous())
+    for name in tsm.WEIGHTS:
+        np.testing.assert_array_equal(carried.kmajor[name].numpy(),
+                                      np.asarray(getattr(jp, name).values).T)
