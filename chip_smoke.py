@@ -70,6 +70,25 @@ Phases, each of which fails the run (exit code 1) when it fails:
    greedy decode steps at batch 1 and 8, with the profiler's busy share,
    top kernels, attention and layernorm shares, the device operations per
    decode step and the cache bytes each step copies.
+7. serve -- the serving engine (``serve.api.Engine``: scheduler, cache
+   manager, executor) on the card: (a) in float32, granite-8b (dense, and
+   paged + prefix cache) and mamba2-130m at their published widths cut to 2
+   layers and a vocab of 512, 6 requests x 8 greedy tokens: the card
+   engine's streams, the port's CPU engine's and a direct ``lm.prefill`` /
+   ``decode_step`` loop on the card each equal the CPU direct loop, a step
+   differing only where its top-two margin is under 2e-4; (b) granite-8b in
+   bfloat16 at full size, ``max_batch`` 8, ``max_seq_len`` 2048, buckets
+   256-2048, 4 decode steps per dispatch, 16 seeded requests of 64-1536
+   tokens (8 sharing a 512-token prefix) x 32 new tokens under the dense,
+   paged and paged + prefix-cache layouts: identical tokens across the
+   three, ``flash_attention`` once per layer per prefill dispatch and never
+   in decode, ``layernorm`` 2 per layer + 1 per prefill dispatch and decode
+   step, the program budget ``len(buckets) + 2``; TTFT p50/p95 and ITL p50
+   from ``TokenEvent.ts``, output tokens/s, peak memory, and over one pure
+   decode dispatch the profiler's device-busy share, the device operations
+   per decode step and the paged gather's share of decode device time;
+   (c) mamba2-130m in bfloat16 at full depth, 8 requests, ``ssd_scan`` once
+   per layer per prefill dispatch.
    Each path sets the launch counts to 0 before it and reads them after.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
@@ -88,6 +107,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -178,10 +198,34 @@ DENSE_TOL = 2e-4
 DENSE_CHECK = (2, 128, 16)  # batch, prompt tokens, greedy decode steps
 GRANITE_TIME_LEN, GRANITE_TIME_BATCHES, GRANITE_TIME_STEPS = 2048, (1, 8), 64
 GRANITE_PROFILE_STEPS = 16  # the decode steps under the profiler
+# The serving engine (phase 7).  (a) float32 check: granite-8b (dense, and
+# paged + prefix cache) and mamba2-130m at their published widths cut as in
+# phase 6a, 6 requests (the first 3 sharing a 32-token prefix; lengths <= 64
+# or multiples of 64, mamba2's chunk) x 8 greedy tokens, held to the same
+# 2e-4 margin rule against the CPU direct loop.  (b) granite-8b bf16 at full
+# size: 16 requests of 64-1536 tokens from a seed, 8 sharing a 512-token
+# prefix, 32 new tokens each, under three layouts that must give identical
+# tokens.  (c) mamba2-130m bf16 at full depth, 8 requests.
+SERVE_CHECK = (("granite-8b", ({}, dict(kv_layout="paged", kv_page_size=16,
+                                         kv_prefix_cache=True)), (40, 50, 64, 12, 20, 33)),
+               ("mamba2-130m", ({},), (40, 48, 64, 12, 20, 33)))
+SERVE_CHECK_SC = dict(max_batch=4, max_seq_len=128, prefill_buckets=(32, 64), decode_steps=4)
+SERVE_CHECK_NEW = 8
+SERVE_SC = dict(max_batch=8, max_seq_len=2048, prefill_buckets=(256, 512, 1024, 2048),
+                decode_steps=4)
+SERVE_LAYOUTS = ({}, dict(kv_layout="paged", kv_page_size=16),
+                 dict(kv_layout="paged", kv_page_size=16, kv_prefix_cache=True))
+SERVE_REQUESTS, SERVE_LEN, SERVE_NEW = 16, (64, 1536), 32
+SERVE_SHARED, SERVE_SHARED_REQUESTS = 512, 8
+MAMBA_SERVE_SC = dict(max_batch=8, max_seq_len=1024, decode_steps=4)
+MAMBA_SERVE_LEN = (64, 128, 192, 256, 320, 384, 448, 512)  # exact-length: multiples of the chunk
 # kernel names in the profiler, for each kernel's share of device time
 KERNEL_FUNCS = {"attention": ("small_attention_kernel", "tc_attention_kernel"),
                 "layernorm": ("layernorm_kernel",),
-                "qmatmul": ("qmatmul_wgmma_kernel", "qmatmul_stream_kernel")}
+                "qmatmul": ("qmatmul_wgmma_kernel", "qmatmul_stream_kernel"),
+                # the paged decode view's index_select (phase 7; the embedding
+                # lookup's row gather shares the kernel, a few KB per step)
+                "gather": ("vectorized_gather_kernel",)}
 
 
 class SmokeError(RuntimeError):
@@ -1393,6 +1437,294 @@ def phase_dense(dev):
                                                weight_bytes=weight_bytes, timings=timings)), counts
 
 
+# ---------------------------------------------------------------- phase 7 --
+
+
+def _serve_prompts(seed, lengths, shared, n_shared, vocab):
+    """Prompts of the given lengths from a seed; the first ``n_shared`` start
+    with one common prefix of ``shared`` tokens (prefix-cache traffic)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    pre = torch.randint(0, vocab, (shared,), generator=g).tolist()
+    out = []
+    for i, n in enumerate(lengths):
+        body = torch.randint(0, vocab, (n,), generator=g).tolist()
+        out.append(pre + body[:n - shared] if i < n_shared else body)
+    return out
+
+
+def _direct_greedy(cfg, params, prompt, steps, dev):
+    """Greedy tokens of ``lm.prefill`` / ``decode_step`` at batch 1 (float32
+    caches of prompt + steps) and each step's top-two logit margin."""
+    import torch
+
+    from repro_torch.models import lm
+
+    caches = lm.init_caches(cfg, 1, len(prompt) + steps, torch.float32, device=dev)
+    last, caches = lm.prefill(params, cfg, {"tokens": torch.tensor([prompt], device=dev)},
+                              caches, device=dev)
+    toks, margins = [], []
+    for k in range(steps):
+        top2 = last[0].float().topk(2).values
+        margins.append(float(top2[0] - top2[1]))
+        tok = last.argmax(-1, keepdim=True)
+        toks.append(int(tok))
+        pos = torch.full((1,), len(prompt) + k, dtype=torch.int32, device=dev)
+        last, caches = lm.decode_step(params, cfg, tok, pos, caches, device=dev)
+    return toks, margins
+
+
+def _held_to(label, streams, ref, margins, tol):
+    """Each stream equals ``ref`` (the CPU direct loop), or leaves it at a
+    step where the CPU's top-two margin is under ``tol``; returns the close
+    calls."""
+    close = []
+    for name, got in streams.items():
+        for i, (s, r, m) in enumerate(zip(got, ref, margins)):
+            if len(s) != len(r):
+                raise SmokeError(f"{label} {name} request {i}: {len(s)} tokens, expected {len(r)}")
+            k = next((k for k in range(len(r)) if s[k] != r[k]), None)
+            if k is None:
+                continue
+            if m[k] >= tol:
+                raise SmokeError(f"{label} {name} request {i} leaves the CPU direct loop at "
+                                 f"step {k} (margin {m[k]:.2e} >= {tol})")
+            close.append(dict(stream=name, request=i, step=k, cpu_margin=m[k]))
+    return close
+
+
+def _run_engine(eng, prompts, max_new):
+    """Submit every prompt, stream every request to its end; returns the
+    token streams and the engine-side metrics (TTFT and ITL from
+    ``TokenEvent.ts``)."""
+    handles = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    t0 = time.perf_counter()
+    events = [list(eng.stream(h)) for h in handles]
+    wall = time.perf_counter() - t0
+    streams = [[ev.token for ev in evs] for evs in events]
+    ttft = [evs[0].ts - eng.request(h).created_at for h, evs in zip(handles, events)]
+    itl = [(evs[-1].ts - evs[0].ts) / (len(evs) - 1) for evs in events if len(evs) > 1]
+    n_tok = sum(len(s) for s in streams)
+    q = statistics.quantiles
+    return streams, dict(
+        requests=len(prompts), tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+        ttft_ms_p50=statistics.median(ttft) * 1e3, ttft_ms_p95=q(ttft, n=20)[-1] * 1e3,
+        itl_ms_p50=statistics.median(itl) * 1e3 if itl else None)
+
+
+def _count_decodes(executor, fn):
+    """Run ``fn`` and return (its result, the executor's decode dispatches
+    in it, each of decode_steps steps).  The counting wrapper is removed
+    again: it refers back to the executor, and the cycle would keep the
+    executor's caches alive after the engine is dropped."""
+    calls = [0]
+    scan = executor._decode_scan
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return scan(*a, **k)
+
+    executor._decode_scan = counted
+    try:
+        return fn(), calls[0]
+    finally:
+        del executor._decode_scan
+
+
+def _decode_profile(eng, prompts):
+    """Fill every slot with a long request, then profile one pure decode
+    dispatch (``Engine.step``): device-busy share, device operations per
+    decode step, and the paged gather's (``paged_decode_view``'s
+    ``index_select``) share of the dispatch's device time, measured in
+    place (alone, the gather's writes would drain from L2 after it ends)."""
+    import torch
+
+    sc = eng.serve_cfg
+    for p in prompts[:sc.max_batch]:
+        eng.submit(p, max_new_tokens=8 * sc.decode_steps)
+    while len(eng.scheduler.queue) or not all(s.active for s in eng.executor.slots):
+        eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    prof = profile_forward(eng.step, iters=1)
+    ops = _device_ops(eng.step) / sc.decode_steps
+    dev_ms = prof.get("device_ms_per_fwd")
+    share = prof.get("gather_share")
+    eng.generate()  # drain
+    return dict(busy_share=prof["busy_share"], device_ms_per_dispatch=dev_ms,
+                device_ms_per_step=None if dev_ms is None else dev_ms / sc.decode_steps,
+                device_ops_per_step=ops, top=prof["top"], gather_share=share,
+                gather_ms_per_layer=(None if share is None else share * dev_ms
+                                     / (eng.executor.cfg.n_layers * sc.decode_steps)))
+
+
+def phase_serve(dev):
+    """The serving engine (``serve.api.Engine``) on the card: (a) the
+    float32 check of granite-8b and mamba2-130m at their published widths,
+    2 layers, against the port's CPU engine and a direct ``lm`` greedy loop;
+    (b) granite-8b bf16 at 36 layers under the dense, paged and paged +
+    prefix-cache layouts; (c) mamba2-130m bf16 at full depth.  Returns
+    (results, launch counts of the window)."""
+    import torch
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.serve.api import Engine
+
+    LAUNCHES.clear()  # the serving path's window starts here
+    # (a) float32 check
+    checks = []
+    for name, layouts, lengths in SERVE_CHECK:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(name), **DENSE_CUT)
+        params_cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        params = _to(params_cpu, dev)
+        prompts = _serve_prompts(3, lengths, 32, len(lengths) // 2, cfg.vocab_size)
+        steps = SERVE_CHECK_NEW
+        ref, margins = zip(*(_direct_greedy(cfg, params_cpu, p, steps, "cpu") for p in prompts))
+        streams = {"direct loop on the card":
+                   [_direct_greedy(cfg, params, p, steps, dev)[0] for p in prompts]}
+        streams["cpu engine"], _ = _run_engine(
+            Engine(cfg, params_cpu, ServeConfig(**SERVE_CHECK_SC), device="cpu"), prompts, steps)
+        for layout in layouts:
+            sc = ServeConfig(**SERVE_CHECK_SC, **layout)
+            label = f"{name} {sc.kv_layout}{' + prefix cache' if sc.kv_prefix_cache else ''}"
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)  # prefill-skip needs bit-exact
+                eng = Engine(cfg, params, sc, device=dev)
+            streams[f"card engine, {label}"], _ = _run_engine(eng, prompts, steps)
+            checks.append(dict(model=name, layout=label,
+                               disabled_features=eng.telemetry["disabled_features"]))
+        close = _held_to(f"[serve] {name}", streams, ref, margins, DENSE_TOL)
+        for c in checks[-len(layouts):]:
+            c.update(requests=len(prompts), new_tokens=steps, close_calls=close, tol=DENSE_TOL,
+                     min_cpu_margin=min(min(m) for m in margins))
+        log(f"[serve] float32 check {name}: {cfg.n_layers} layers d {cfg.d_model}, "
+            f"{len(prompts)} requests x {steps} greedy tokens: {'; '.join(streams)} agree with "
+            f"the CPU direct loop (close calls {close or 'none'}; disabled on the card: "
+            f"{[c['disabled_features'] for c in checks[-len(layouts):]]}) "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del params, params_cpu, eng
+
+    # (b) granite-8b bf16, 36 layers, three layouts
+    torch.cuda.empty_cache()
+    base = get_config("granite-8b")
+    params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    g = torch.Generator().manual_seed(4)
+    lengths = torch.randint(SERVE_LEN[0], SERVE_LEN[1] + 1, (SERVE_REQUESTS,), generator=g)
+    lengths = [max(int(n), SERVE_SHARED + 64) if i < SERVE_SHARED_REQUESTS else int(n)
+               for i, n in enumerate(lengths)]
+    prompts = _serve_prompts(5, lengths, SERVE_SHARED, SERVE_SHARED_REQUESTS, base.vocab_size)
+    runs, first = [], None
+    n_ln = 2 * base.n_layers + 1
+    for layout in SERVE_LAYOUTS:
+        t0 = time.perf_counter()
+        sc = ServeConfig(**SERVE_SC, **layout)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            eng = Engine(base, params, sc, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(LAUNCHES)
+        (streams, metrics), decodes = _count_decodes(
+            eng.executor, lambda: _run_engine(eng, prompts, SERVE_NEW))
+        grew = {k: LAUNCHES.get(k, 0) - before.get(k, 0) for k in ("flash_attention", "layernorm")}
+        tel = eng.telemetry
+        steps_run = decodes * sc.decode_steps
+        want = {"flash_attention": base.n_layers * tel["prefill_dispatches"],
+                "layernorm": n_ln * (tel["prefill_dispatches"] + steps_run)}
+        label = f"{sc.kv_layout}{' + prefix cache' if sc.kv_prefix_cache else ''}"
+        if grew != want:
+            raise SmokeError(f"[serve] granite-8b {label}: launches {grew}, expected {want} "
+                             f"({tel['prefill_dispatches']} prefill dispatches, {steps_run} "
+                             "decode steps)")
+        budget = len(eng.executor.buckets) + 2
+        if tel["prefill_compiles"] + tel["decode_compiles"] > budget:
+            raise SmokeError(f"[serve] granite-8b {label}: {tel['prefill_compiles']} prefill + "
+                             f"{tel['decode_compiles']} decode shapes > budget {budget}")
+        if any(len(s) != SERVE_NEW for s in streams):
+            raise SmokeError(f"[serve] granite-8b {label}: a request stopped short")
+        if first is None:
+            first = streams
+        elif streams != first:
+            bad = [i for i, (a, b) in enumerate(zip(streams, first)) if a != b]
+            raise SmokeError(f"[serve] granite-8b {label}: token streams differ from the "
+                             f"{SERVE_LAYOUTS[0] or 'dense'} run at requests {bad}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = _decode_profile(eng, prompts)
+        run = dict(model="granite-8b", n_layers=base.n_layers, layout=label, **metrics,
+                   prefill_dispatches=tel["prefill_dispatches"], decode_dispatches=decodes,
+                   prefill_compiles=tel["prefill_compiles"],
+                   decode_compiles=tel["decode_compiles"], budget=budget,
+                   prefix_hits=tel["prefix_hits"],
+                   prefix_tokens_shared=tel["prefix_tokens_shared"],
+                   disabled_features=tel["disabled_features"], launches=grew, peak_gb=peak,
+                   kv_bytes=tel["kv_bytes"], decode_profile=prof,
+                   seconds=time.perf_counter() - t0)
+        runs.append(run)
+        log(_serve_line(run))
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) mamba2-130m bf16 at full depth: exact-length prefill, dense state
+    mbase = get_config(MAMBA)
+    mparams = lm.init_params(mbase, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    mprompts = _serve_prompts(6, MAMBA_SERVE_LEN, 0, 0, mbase.vocab_size)
+    t0 = time.perf_counter()
+    eng = Engine(mbase, mparams, ServeConfig(**MAMBA_SERVE_SC), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(LAUNCHES)
+    (streams, metrics), decodes = _count_decodes(
+        eng.executor, lambda: _run_engine(eng, mprompts, SERVE_NEW))
+    tel = eng.telemetry
+    grew = {k: LAUNCHES.get(k, 0) - before.get(k, 0) for k in ("ssd_scan", "layernorm")}
+    m_ln = 2 * mbase.n_layers + 1
+    want = {"ssd_scan": mbase.n_layers * tel["prefill_dispatches"],
+            "layernorm": m_ln * (tel["prefill_dispatches"] + decodes * eng.serve_cfg.decode_steps)}
+    if grew != want:
+        raise SmokeError(f"[serve] mamba2-130m: launches {grew}, expected {want}")
+    if any(len(s) != SERVE_NEW for s in streams):
+        raise SmokeError("[serve] mamba2-130m: a request stopped short")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _decode_profile(eng, mprompts)
+    run = dict(model=MAMBA, n_layers=mbase.n_layers, layout=eng.executor.kv_layout, **metrics,
+               prefill_dispatches=tel["prefill_dispatches"], decode_dispatches=decodes,
+               prefill_compiles=tel["prefill_compiles"], decode_compiles=tel["decode_compiles"],
+               launches=grew, peak_gb=peak, kv_bytes=tel["kv_bytes"], decode_profile=prof,
+               seconds=time.perf_counter() - t0)
+    runs.append(run)
+    log(_serve_line(run))
+    del eng, mparams
+    torch.cuda.empty_cache()
+    counts = dict(LAUNCHES)  # the serving path's window ends here
+    for kname in ("flash_attention", "layernorm", "ssd_scan"):
+        if counts.get(kname, 0) <= 0:
+            raise SmokeError(f"{kname} was never launched on the serving path")
+    log(f"[serve] serving path launches: {counts}")
+    return dict(check=checks, runs=runs), counts
+
+
+def _serve_line(r) -> str:
+    p = r["decode_profile"]
+    busy = ("not measured" if p["busy_share"] is None else
+            f"{p['busy_share']:.1%}, {p['device_ms_per_step']:.2f} device ms/step")
+    gather = ("" if p["gather_share"] is None else
+              f", row gathers (the paged view) {p['gather_ms_per_layer']:.4f} ms/layer = "
+              f"{p['gather_share']:.1%} of decode device time")
+    itl = "n/a" if r["itl_ms_p50"] is None else f"{r['itl_ms_p50']:.2f}"
+    return (f"[serve] {r['model']} bf16 {r['n_layers']} layers, {r['layout']}: {r['requests']} "
+            f"requests, {r['tokens']} tokens in {r['wall_s']:.2f} s = {r['tokens_per_s']:.1f} "
+            f"output tokens/s  TTFT p50 {r['ttft_ms_p50']:.1f} / p95 {r['ttft_ms_p95']:.1f} ms  "
+            f"ITL p50 {itl} ms  {r['prefill_dispatches']} prefill + {r['decode_dispatches']} "
+            f"decode dispatches, {r['prefill_compiles']} + {r['decode_compiles']} shapes  "
+            f"launches {r['launches']}  peak {r['peak_gb']:.1f} GB  decode dispatch: device "
+            f"busy {busy}, {p['device_ops_per_step']:.0f} device ops/step{gather}  "
+            f"top {p['top']}  ({r['seconds']:.1f} s)")
+
+
 # ------------------------------------------------------------------- main --
 
 
@@ -1429,13 +1761,14 @@ def main() -> int:
         softmax_path, softmax_counts = phase_lut_softmax_path(dev)
         mamba, mamba_counts = phase_mamba(dev)
         dense, dense_counts = phase_dense(dev)
+        serve, serve_counts = phase_serve(dev)
     except Exception:  # noqa: BLE001 - report every failed phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
     # launches: each kernel's count summed over the path windows it runs in
-    windows = (model_counts, mha_counts, softmax_counts, mamba_counts, dense_counts)
+    windows = (model_counts, mha_counts, softmax_counts, mamba_counts, dense_counts, serve_counts)
     counts = {k: sum(w.get(k, 0) for w in windows)
               for k in ("flash_attention", "layernorm", "qmatmul", "lut_softmax", "ssd_scan")}
     main_shape = {"flash_attention": ([8192, 4, 100, 8], "safe"),
@@ -1463,12 +1796,13 @@ def main() -> int:
                                "sass_tensor_core_instructions": sass,
                                "kernels": cases, "models": models, "mha": mha,
                                "lut_softmax_path": softmax_path, "mamba": mamba,
-                               "dense": dense,
+                               "dense": dense, "serve": serve,
                                "launches": counts,
                                "launches_by_path": {"models": model_counts, "mha": mha_counts,
                                                     "lut_softmax": softmax_counts,
                                                     "mamba": mamba_counts,
-                                                    "dense": dense_counts},
+                                                    "dense": dense_counts,
+                                                    "serve": serve_counts},
                                "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s; details in {OUT.relative_to(ROOT)}")
     print(json.dumps({"kernels": line}))

@@ -1,8 +1,9 @@
-"""Config dataclasses (the model half of ``repro.configs.base``).
+"""Config dataclasses (port of ``repro.configs.base``): the model configs
+and ``ServeConfig``.
 
-Plain dataclasses with the reference's fields, so a config converts field
-for field.  ``ServeConfig``, ``TrainConfig``, ``ParallelismConfig`` and the
-dry-run shapes wait for the slices that use them.
+Plain dataclasses with the reference's fields and defaults, so a config
+converts field for field.  ``TrainConfig`` waits for ROADMAP queue 1, item
+11; ``ParallelismConfig`` and the dry-run shapes for item 12.
 """
 
 from __future__ import annotations
@@ -116,3 +117,89 @@ class ModelConfig:
     def padded_vocab_size(self) -> int:
         """Vocab padded to a multiple of 256 (the reference's TP-friendly size)."""
         return ((self.vocab_size + 255) // 256) * 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """The serving engine's knobs (``serve.api.Engine``), field for field
+    the reference's.  Features that wait for a later slice raise
+    ``NotImplementedError`` in the executor when asked for: ``async_loop``
+    (ROADMAP queue 1, item 8, step 7), ``speculative`` (step 8),
+    ``kv_host_pages > 0`` (step 9) and ``shard_decode``; ``replicas > 1``
+    (``router.py``) in the CLI.  ``cache_extend`` stays True by default:
+    the port's executor has no cache-extending prefill program yet (step
+    5) and reports ``cache_extend=False``, so the scheduler's own gating
+    warns for what needs it."""
+
+    max_batch: int = 8
+    max_seq_len: int = 1024
+    #: engine-default softmax temperature (0.0 = greedy); a request's
+    #: ``SamplingParams.temperature`` overrides it
+    temperature: float = 0.0
+    #: serving precision: a PrecisionPolicy, a preset name or None (the
+    #: model's own policy)
+    policy: PrecisionPolicy | str | None = None
+    # --- KV-cache layout (serve/kv_cache.py CacheManager) ---
+    #: "dense" per-slot slabs of max_seq_len tokens, or "paged" block-table
+    #: pages; SSM and rolling-window caches fall back to dense
+    kv_layout: Literal["dense", "paged"] = "dense"
+    #: tokens per page; must divide max_seq_len
+    kv_page_size: int = 16
+    #: physical pages in the pool; None = every slot at full length + the
+    #: trash page
+    kv_pages: int | None = None
+    #: share full prompt pages across same-prefix requests (paged layout;
+    #: refcounts, LRU retention, copy-on-write)
+    kv_prefix_cache: bool = False
+    #: preempt the youngest resident instead of head-of-line blocking when
+    #: the pool cannot cover the queue head (paged layout)
+    kv_preemption: bool = False
+    # --- host-memory victim tier (ROADMAP queue 1, item 8, step 9) ---
+    kv_host_pages: int = 0
+    kv_victim_tier: bool = True
+    # --- bucketed prefill + multi-step decode ---
+    #: prompt-length buckets; None = powers of two up to max_seq_len,
+    #: () = exact-length prefill
+    prefill_buckets: tuple[int, ...] | None = None
+    #: decode tokens per dispatch
+    decode_steps: int = 4
+    #: prompts admitted per step; 0 = every free slot
+    max_prefill_per_step: int = 0
+    #: chunked prefill: admit a longer prompt by its first chunk, then
+    #: replay the tail interleaved with resident decode; None = off
+    prefill_chunk: int | None = None
+    #: the cache-extending prefill program (ROADMAP queue 1, item 8, step 5)
+    cache_extend: bool = True
+    # --- speculative decoding (ROADMAP queue 1, item 8, step 8) ---
+    speculative: bool = False
+    spec_tokens: int = 4
+    draft_config: str | None = None
+    # --- SLO-aware scheduling (serve/slo.py DeadlineScheduler) ---
+    #: "fifo" or "edf" (earliest deadline first)
+    scheduler: Literal["fifo", "edf"] = "fifo"
+    #: default per-request deadline in ms from submit; None = none
+    deadline_ms: float | None = None
+    #: what EDF does with a queued request past its deadline
+    overdue_policy: Literal["drop", "demote", "ignore"] = "drop"
+    # --- step-phase tracing (serve/phases.py) ---
+    trace_phases: bool = False
+    phase_ring: int = 512
+    phase_mode: Literal["fenced", "overlap"] = "fenced"
+    # --- pipelined loop (ROADMAP queue 1, item 8, step 7) ---
+    async_loop: bool = False
+    # --- mesh-sharded decode (ROADMAP queue 1, item 8) ---
+    shard_decode: bool = False
+    # --- data-parallel replicas behind a router (ROADMAP queue 1, item 8) ---
+    replicas: int = 1
+
+    def resolved_buckets(self) -> tuple[int, ...]:
+        """Prefill buckets, ascending.  Auto mode: powers of two in
+        [8, max_seq_len]."""
+        if self.prefill_buckets is not None:
+            return tuple(sorted(self.prefill_buckets))
+        buckets, b = [], 8
+        while b < self.max_seq_len:
+            buckets.append(b)
+            b *= 2
+        buckets.append(self.max_seq_len)
+        return tuple(buckets)

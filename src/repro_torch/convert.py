@@ -31,8 +31,9 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
 
 
 # the stacked per-layer cache trees that convert: the ssm family's state, the
-# dense KV slabs and the rolling sliding-window buffer
-_CACHE_LAYOUTS = ({"ssm_state", "conv_state"}, {"k", "v"}, {"k", "v", "slot_pos"})
+# dense KV slabs, the rolling sliding-window buffer and the paged pools
+_CACHE_LAYOUTS = ({"ssm_state", "conv_state"}, {"k", "v"}, {"k", "v", "slot_pos"},
+                  {"k", "v", "page_table"})
 
 
 def caches_from_numpy(tree, device: str | torch.device = "cuda"):
@@ -41,13 +42,14 @@ def caches_from_numpy(tree, device: str | torch.device = "cuda"):
     ``{"layers": {...}}`` with a leading layer axis: the ``ssm`` family's
     ``ssm_state`` and ``conv_state`` (float32), or the dense family's ``k``
     and ``v`` slabs (B, Hkv, L, D), plus the int32 ``slot_pos`` of a rolling
-    buffer.  The int8 KV, MLA latent, paged and hybrid caches wait for ROADMAP
-    queue 1, items 6, 9 and 10."""
+    buffer, or the paged ``k`` / ``v`` pools and the int32 ``page_table``.
+    The int8 KV, MLA latent and hybrid caches wait for ROADMAP queue 1,
+    items 9 and 10."""
     if set(tree) != {"layers"} or set(tree["layers"]) not in _CACHE_LAYOUTS:
         raise NotImplementedError(
-            f"only the ssm family's and the dense KV caches convert so far, got "
-            f"{sorted(tree)} / {sorted(tree.get('layers', {}))} (ROADMAP queue 1, "
-            "items 6, 9 and 10)"
+            f"only the ssm family's, the dense and the paged KV caches convert so far, "
+            f"got {sorted(tree)} / {sorted(tree.get('layers', {}))} (ROADMAP queue 1, "
+            "items 9 and 10)"
         )
     return params_from_numpy(tree, device)
 

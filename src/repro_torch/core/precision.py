@@ -82,11 +82,32 @@ def int8(per_channel: bool = True, bits: int = 8) -> Precision:
     return Precision("int8", per_channel=per_channel, bits=bits)
 
 
+def int8_perchannel() -> Precision:
+    return int8(per_channel=True)
+
+
 def lut8(bits: int = 8) -> Precision:
     return Precision("lut", bits=bits)
 
 
 _FIXED_RE = re.compile(r"^(ptq|qat)_fixed<(\d+)\s*,\s*(\d+)>$")
+
+
+def parse_precision(s: str) -> Precision:
+    """Parse a precision literal: ``float``, ``int8``, ``int8_pertensor``,
+    ``lut8``, ``ptq_fixed<12,6>``, ``qat_fixed<12,6>``."""
+    if s == "float":
+        return FLOAT
+    if s in ("int8", "int8_perchannel"):
+        return int8(per_channel=True)
+    if s == "int8_pertensor":
+        return int8(per_channel=False)
+    if s == "lut8":
+        return lut8()
+    m = _FIXED_RE.match(s)
+    if m:
+        return fixed(int(m.group(2)), int(m.group(3)), method=m.group(1))
+    raise ValueError(f"cannot parse precision literal {s!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,6 +224,10 @@ class PrecisionPlan:
     final_norm: Precision
     kv_cache: Precision
     accum: Precision
+
+    @property
+    def int8_kv_cache(self) -> bool:
+        return self.kv_cache.kind == "int8"
 
     def softmax_mode(self) -> str:
         """Attention softmax mode; must be uniform across layers."""
@@ -486,6 +511,10 @@ def get_policy(name: "str | PrecisionPolicy") -> PrecisionPolicy:
         f"unknown precision policy {name!r}; presets: {sorted(PRESETS)} "
         "or parametric 'ptq_fixed<W,I>' / 'qat_fixed<W,I>'"
     )
+
+
+def policy_names() -> list[str]:
+    return sorted(PRESETS)
 
 
 def from_quant_config(qc: quant_lib.QuantConfig) -> PrecisionPolicy | None:

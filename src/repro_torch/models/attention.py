@@ -1,11 +1,14 @@
 """GQA/MHA attention (port of ``repro.models.attention``): ``train`` over a
-whole sequence, ``prefill`` and ``decode`` over a dense KV cache or a
-rolling sliding-window buffer (``serve.kv_cache``).
+whole sequence, ``prefill`` over a dense KV cache or a rolling
+sliding-window buffer, ``decode`` over those or a paged cache
+(``serve.kv_cache``).
 
 Train and prefill attend through the fused attention kernel (``mha``); the
-decode attend is plain torch ops, as the reference's is plain jnp.  Not
-ported yet: ``mode="extend"`` (ROADMAP queue 1, item 8), the int8 KV cache,
-MLA (item 9) and the paged layout (item 6).
+decode attend is plain torch ops, as the reference's is plain jnp.  A paged
+decode writes its token through ``kv_cache.paged_decode_write`` and attends
+the dense view ``kv_cache.paged_decode_view`` gathers.  Not ported yet:
+``mode="extend"`` (ROADMAP queue 1, item 8, step 5), the int8 KV cache and
+MLA (item 9).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import scalar
 from repro_torch.kernels.flash_attention import mha
 from repro_torch.models import layers
+from repro_torch.serve import kv_cache as kv_cache_lib
 
 MODES = ("train", "prefill", "extend", "decode")
 
@@ -49,11 +53,14 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _check_cache(cache) -> None:
+def _check_cache(cache, mode: str) -> None:
     if "k_scale" in cache:
         raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP queue 1, item 9)")
-    if "page_table" in cache:
-        raise NotImplementedError("the paged KV layout is not ported yet (ROADMAP queue 1, item 6)")
+    if kv_cache_lib.is_paged(cache) and mode != "decode":
+        raise ValueError(
+            "a paged cache takes decode writes only: prefill fills a dense scratch "
+            "cache, which CacheManager.insert_prefill scatters into the pages"
+        )
 
 
 def _prefill_write(cache, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
@@ -137,10 +144,10 @@ def gqa_apply(
     if mode == "extend":
         raise NotImplementedError(
             "gqa_apply mode='extend' (the cache-extending prefill) is not ported yet "
-            "(ROADMAP queue 1, item 8)"
+            "(ROADMAP queue 1, item 8, step 5)"
         )
     if cache is not None:
-        _check_cache(cache)
+        _check_cache(cache, mode)
     kernel = kernel or {}
     qc = cfg.quant if quant is None else quant
     hd = cfg.resolved_head_dim
@@ -163,6 +170,11 @@ def gqa_apply(
     elif mode == "prefill":
         _prefill_write(cache, k.to(cache["k"].dtype), v.to(cache["v"].dtype), positions, window)
         out = mha(q, k, v, causal=True, window=window, mode=softmax_mode)
+    elif kv_cache_lib.is_paged(cache):  # decode into its page, attend the gathered view
+        kv_cache_lib.paged_decode_write(cache, {"k": k[:, :, 0], "v": v[:, :, 0]}, positions)
+        view = kv_cache_lib.paged_decode_view(cache)
+        kv_pos = torch.arange(view["k"].shape[2], device=positions.device)
+        out = _decode_attend(q, view["k"], view["v"], kv_pos[None, :] <= positions[:, None])
     else:  # decode: one token per sequence at its global position (B,)
         valid = _decode_write(cache, k.to(cache["k"].dtype), v.to(cache["v"].dtype),
                               positions, window)

@@ -12,7 +12,8 @@ Entry points
 The reference's scan over the stacked blocks is a Python loop.  ``prefill``
 and ``decode_step`` return new cache tensors and never write into the
 caller's: the new stack is one copy of the caller's, into which each layer
-writes its new rows.  ``loss_fn`` waits for training (ROADMAP queue 1,
+writes its new rows.  ``in_place=True`` skips that copy and writes into the
+caller's stack (the serving executor, which owns its caches).  ``loss_fn`` waits for training (ROADMAP queue 1,
 item 11); the MoE, hybrid, VLM and audio families for items 9 and 10.
 """
 
@@ -87,12 +88,18 @@ def _layer(tree, i: int):
 
 
 def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: str,
-                caches, kernel, plan: precision_lib.PrecisionPlan):
+                caches, kernel, plan: precision_lib.PrecisionPlan, in_place: bool = False):
     uniform_quant = plan.uniform_layer_quant()
     layer_quants = None if uniform_quant is not None else plan.layer_quant_arrays()
-    # one copy of the caller's stack, whose layer slices the blocks update
-    # in place (attention) or that takes their new state (Mamba2)
-    new_layers = None if caches is None else {k: t.clone() for k, t in caches["layers"].items()}
+    # one copy of the caller's stack (or, in place, the stack itself), whose
+    # layer slices the blocks update in place (attention) or that takes
+    # their new state (Mamba2)
+    if caches is None:
+        new_layers = None
+    elif in_place:
+        new_layers = caches["layers"]
+    else:
+        new_layers = {k: t.clone() for k, t in caches["layers"].items()}
     for i in range(cfg.n_layers):  # the reference's scan over the stacked blocks
         quant = uniform_quant if layer_quants is None else layer_quants.layer(i)
         lcache = None if new_layers is None else {k: t[i] for k, t in new_layers.items()}
@@ -103,7 +110,9 @@ def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: s
         for k, t in (out_lcache or {}).items():
             if t is not lcache[k]:
                 lcache[k].copy_(t)
-    return h, None if new_layers is None else {"layers": new_layers}
+    if new_layers is None:
+        return h, None
+    return h, caches if in_place else {"layers": new_layers}
 
 
 def _as_tensor(x, dev: torch.device) -> torch.Tensor:
@@ -122,12 +131,14 @@ def forward(
     positions=None,
     kernel: dict | None = None,
     device: str | torch.device = "cuda",
+    in_place: bool = False,
 ):
     """Returns (logits (b, s, padded_vocab), new_caches, aux).
 
     ``batch["tokens"]``: (b, s) token ids, tensor or array.  positions: (s,)
     for train/prefill (defaults to arange), (b,) global positions of the new
-    token for decode (the Mamba2 blocks do not read them)."""
+    token for decode (the Mamba2 blocks do not read them).  ``in_place``:
+    write into ``caches`` and return it, instead of a copy."""
     dev = resolve_device(device)
     params_lib.check_on(params, dev)
     plan = precision_lib.resolve_model_plan(cfg)
@@ -141,7 +152,7 @@ def forward(
     else:
         positions = _as_tensor(positions, dev)
     x, new_caches = _run_blocks(params, cfg, h, positions, mode=mode, caches=caches,
-                                kernel=kernel, plan=plan)
+                                kernel=kernel, plan=plan, in_place=in_place)
     x = layers.norm(
         params["final_norm"], x, cfg.norm_kind, cfg.norm_eps,
         use_lut=(kernel or {}).get("norm_lut", False),

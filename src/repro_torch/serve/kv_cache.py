@@ -1,29 +1,65 @@
-"""Cache specs and stacked model-level caches (port of the spec and
-model-level part of ``repro.serve.kv_cache``), dense layout.
+"""KV-cache subsystem (port of ``repro.serve.kv_cache``): one
+``CacheManager``, two storage layouts.
 
 Per layer:
 - dense GQA: ``k`` and ``v`` slabs (B, Hkv, L, D) in the cache dtype;
 - a sliding window shorter than ``max_len``: a rolling buffer of length
   ``window`` plus ``slot_pos`` (B, window) int32, the global position held
   in each slot (-1 = empty);
+- paged GQA: ``k`` and ``v`` pools (num_pages, Hkv, page_size, D) shared by
+  every slot, and a ``page_table`` (B, max_len // page_size) int32 of
+  physical page ids per slot.  Page 0 is the reserved trash page:
+  unallocated table entries point at it, so pad and retired-slot writes
+  land there and are never read back (reads are masked by position);
 - the ``ssm`` family's Mamba2 cache (``ssm_state`` (b, h, p, n) and
   ``conv_state`` (b, width - 1, conv_dim)), float32 of a fixed size whatever
   the model's type.
 Stacked on a leading layer axis: ``{"layers": {name: (n_layers, ...)}}``.
 
-Not ported yet: the paged layout and ``CacheManager`` (ROADMAP queue 1,
-item 6), int8 KV and MLA latent caches (item 9), hybrid caches (item 10).
+The device ops write into the caches they are handed, in place, and return
+them: ``paged_decode_write`` (one token per slot into its page),
+``paged_decode_view`` (each slot's pages gathered into a dense (B, Hkv, L, D)
+view, so decode attends exactly as over a dense slab), ``mask_cache_tail``
+(zero each row past its prompt length), ``insert_prefill_dense`` /
+``insert_prefill_paged`` (a prefill's dense scratch into its slots; pad rows,
+slot index ``max_batch``, are dropped by the dense scatter and go to the
+trash page in the paged one).  Slot indices come from the host (numpy or CPU
+tensors), so dropping pad rows needs no device synchronisation.
+
+``CacheManager`` is host bookkeeping in numpy and Python, ported by copy:
+page allocation, the worst-case reservation at admission, refcounts, the
+prefix index (hash-chained full prompt pages), LRU retention of refcount-0
+registered pages, copy-on-write (``flush_copies`` applies the queued page
+copies on the device) and ``check_invariants``.
+
+Not ported yet: the host-memory victim tier (``kv_host_pages``; ROADMAP
+queue 1, item 8, step 9), int8 KV and MLA latent caches (item 9), hybrid
+caches (item 10).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 
+#: cache leaves with a sequence axis: name -> axis index from the right
+SEQ_AXIS_FROM_RIGHT = {"k": 2, "v": 2}
+
+#: reserved physical page id: write sink for pad scatters, never read
+TRASH_PAGE = 0
+
 LAYOUTS = ("dense", "paged")
+
+
+# ---------------------------------------------------------------------------
+# Per-layer attention cache specs (both layouts)
+# ---------------------------------------------------------------------------
 
 
 def attention_cache_spec(
@@ -40,14 +76,14 @@ def attention_cache_spec(
     caller."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown kv layout {layout!r}; use one of {LAYOUTS}")
-    if layout == "paged":
-        raise NotImplementedError("the paged KV layout is not ported yet (ROADMAP queue 1, item 6)")
-    if cfg.attn_kind == "none":
-        return {}
     if cfg.attn_kind == "mla":
         raise NotImplementedError("MLA latent caches are not ported yet (ROADMAP queue 1, item 9)")
     if quantized:
         raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP queue 1, item 9)")
+    if layout == "paged":
+        return _paged_attention_cache_spec(cfg, max_len, dtype, batch, page_size, num_pages)
+    if cfg.attn_kind == "none":
+        return {}
     length, extra = max_len, {}
     if cfg.sliding_window is not None and cfg.sliding_window < max_len:
         length = cfg.sliding_window
@@ -56,7 +92,29 @@ def attention_cache_spec(
     return {"k": kv, "v": kv, **extra}
 
 
-def _zero_leaf(shape: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+def _paged_attention_cache_spec(cfg, max_len, dtype, batch, page_size, num_pages):
+    if page_size is None or num_pages is None:
+        raise ValueError("paged layout requires page_size and num_pages")
+    if max_len % page_size != 0:
+        raise ValueError(
+            f"paged layout requires max_seq_len ({max_len}) to be a whole "
+            f"number of pages (kv_page_size={page_size})"
+        )
+    if cfg.attn_kind != "gqa" or cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            f"paged layout supports position-addressed GQA/MLA caches only "
+            f"(got attn_kind={cfg.attn_kind!r}, family={cfg.family!r})"
+        )
+    if cfg.sliding_window is not None and cfg.sliding_window < max_len:
+        raise ValueError("paged layout does not support rolling sliding-window buffers")
+    pool = ((num_pages, cfg.n_kv_heads, page_size, cfg.resolved_head_dim), dtype)
+    return {"k": pool, "v": pool,
+            "page_table": ((batch, max_len // page_size), torch.int32)}
+
+
+def _zero_leaf(name: str, shape: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    if name == "page_table":
+        return torch.full(shape, TRASH_PAGE, dtype=dtype, device=device)
     if dtype == torch.int32:  # slot positions: -1 marks an empty slot
         return torch.full(shape, -1, dtype=dtype, device=device)
     return torch.zeros(shape, dtype=dtype, device=device)
@@ -67,7 +125,7 @@ def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
                          device: str | torch.device = "cuda", **kw) -> dict:
     dev = resolve_device(device)
     spec = attention_cache_spec(cfg, batch, max_len, dtype, **kw)
-    return {k: _zero_leaf(shape, dt, dev) for k, (shape, dt) in spec.items()}
+    return {k: _zero_leaf(k, shape, dt, dev) for k, (shape, dt) in spec.items()}
 
 
 def _per_layer_cache_spec(cfg: ModelConfig, batch: int, max_len: int, dtype, quantized,
@@ -110,9 +168,821 @@ def init_caches(
     device: str | torch.device = "cuda",
     **layout_kw,
 ) -> dict:
-    """Empty caches for ``abstract_caches`` on ``device``: zeros, and -1 in
-    the int32 slot positions."""
+    """Empty caches for ``abstract_caches`` on ``device``: zeros, -1 in the
+    int32 slot positions and the trash page in the page table."""
     dev = resolve_device(device)
     spec = abstract_caches(cfg, batch, max_len, dtype, quantized, **layout_kw)
-    return {"layers": {k: _zero_leaf(shape, dt, dev)
+    return {"layers": {k: _zero_leaf(k, shape, dt, dev)
                        for k, (shape, dt) in spec["layers"].items()}}
+
+
+# ---------------------------------------------------------------------------
+# Device ops: paged decode write / view (used by models/attention.py)
+# ---------------------------------------------------------------------------
+
+
+def is_paged(cache: dict | None) -> bool:
+    """A per-layer cache dict is paged iff it carries a page table."""
+    return cache is not None and "page_table" in cache
+
+
+def paged_decode_write(cache: dict, updates: dict[str, torch.Tensor],
+                       positions: torch.Tensor) -> dict:
+    """Scatter one token per slot into its physical page, in place.
+
+    ``updates``: leaf name -> per-slot values with the seq axis removed
+    (k/v: (B, Hkv, D)).  ``positions``: (B,) global write positions.
+    Retired slots have all-trash page tables, so their writes land in the
+    trash page and never alias live data."""
+    ps = cache["k"].shape[2]  # every pool is (num_pages, Hkv, page_size, D)
+    pos = positions.long()
+    phys = cache["page_table"].gather(1, (pos // ps)[:, None])[:, 0].long()
+    off = pos % ps
+    for name, val in updates.items():
+        pool = cache[name]
+        pool[phys, :, off] = val.to(pool.dtype)
+    return cache
+
+
+def paged_decode_view(cache: dict) -> dict[str, torch.Tensor]:
+    """Gather each slot's pages into a contiguous logical view: k/v
+    (B, Hkv, L, D) with ``L = pages_per_slot * page_size``, so the attention
+    math is the dense layout's (unallocated entries read the trash page and
+    are masked by position, like dense positions past the write head).
+    One ``index_select`` per leaf over (page, head) rows of page_size x D
+    elements, in (slot, head, page) order, so the result is contiguous."""
+    table = cache["page_table"].long()  # (B, n_pages)
+    b, n_pages = table.shape
+    pool = cache["k"]
+    heads = pool.shape[1]
+    rows = (table[:, None, :] * heads
+            + torch.arange(heads, device=table.device)[None, :, None]).reshape(-1)
+    out = {}
+    for name, pool in cache.items():
+        if name == "page_table":
+            continue
+        p, h, ps = pool.shape[:3]
+        g = pool.reshape(p * h, -1).index_select(0, rows)
+        out[name] = g.view(b, h, n_pages * ps, *pool.shape[3:])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Device ops: prefill masking + layout-specific slot insertion
+# ---------------------------------------------------------------------------
+
+
+def _host_index(idx) -> torch.Tensor:
+    """Host-side int64 indices (numpy, list or tensor; a device tensor is
+    copied back, which the executor never does)."""
+    if isinstance(idx, torch.Tensor):
+        return idx.detach().to("cpu", torch.int64)
+    return torch.from_numpy(np.array(idx, dtype=np.int64, copy=True))
+
+
+def mask_cache_tail(filled: dict, lengths: torch.Tensor) -> dict:
+    """Zero cache entries at positions >= the per-row prompt length, in
+    place.  ``filled``: stacked dense caches with batch axis 1 on every
+    leaf; ``lengths``: (N,) true prompt lengths.  Leaves without a sequence
+    axis (SSM state, slot_pos) pass through; those families prefill at
+    exact length, where the mask is all-true."""
+    for group in filled.values():
+        for name, leaf in group.items():
+            axis_r = SEQ_AXIS_FROM_RIGHT.get(name)
+            if axis_r is None:
+                continue
+            axis = leaf.ndim - axis_r
+            seq = torch.arange(leaf.shape[axis], device=leaf.device)
+            seq_b = seq.reshape((1,) * axis + (-1,) + (1,) * (leaf.ndim - axis - 1))
+            len_b = lengths.to(leaf.device).reshape((1, -1) + (1,) * (leaf.ndim - 2))
+            leaf.masked_fill_(seq_b >= len_b, 0)
+    return filled
+
+
+def insert_prefill_dense(big: dict, filled: dict, slots) -> dict:
+    """Scatter freshly prefilled rows into their slots (batch axis 1 on
+    every stacked leaf), in place.  Rows whose slot index is out of range
+    (the engine's pad sentinel ``max_batch``) are dropped."""
+    slots = _host_index(slots)
+    nb = next(iter(big["layers"].values())).shape[1]
+    keep = ((slots >= 0) & (slots < nb)).nonzero()[:, 0]
+    for name, f in filled["layers"].items():
+        b = big["layers"][name]
+        b[:, slots[keep].to(b.device)] = f[:, keep.to(f.device)].to(b.dtype)
+    return big
+
+
+def insert_prefill_paged(big: dict, filled: dict, slots, page_size: int,
+                         shared_pages=None) -> dict:
+    """Scatter dense prefilled rows into each slot's physical pages, in
+    place.
+
+    ``filled`` is the dense scratch cache the model wrote (tail-masked); it
+    may be shorter than the full logical range (the engine sizes it to the
+    bucket rounded up to whole pages) and fills the leading columns of the
+    slots' page-table rows.  Unallocated entries (the pad tail past a
+    prompt's pages, whole pad rows) point at the trash page.
+    ``shared_pages``: optional (N,) per-row count of leading entries that
+    alias prefix-cache pages owned by earlier requests; those columns go to
+    the trash page, so shared history is never rewritten."""
+    layers = big["layers"]
+    table = layers["page_table"][0]  # identical across layers: (B, n_pages)
+    nb, dev = table.shape[0], table.device
+    slots = _host_index(slots)
+    valid = ((slots >= 0) & (slots < nb)).to(dev)
+    rows = table[slots.clamp(0, nb - 1).to(dev)]  # (N, pages_per_slot)
+    rows = torch.where(valid[:, None], rows, TRASH_PAGE)
+    if shared_pages is not None:
+        shared = _host_index(shared_pages).to(dev)
+        col = torch.arange(rows.shape[1], device=dev)
+        rows = torch.where(col[None, :] < shared[:, None], TRASH_PAGE, rows)
+    rows = rows.long()
+    for name, small in filled["layers"].items():
+        pool = layers[name]
+        axis = small.ndim - SEQ_AXIS_FROM_RIGHT[name]
+        n_pages = small.shape[axis] // page_size
+        paged = small.reshape(small.shape[:axis] + (n_pages, page_size) + small.shape[axis + 1:])
+        pages = paged.movedim(axis, 2)  # (L, N, n_pages, Hkv, ps, D)
+        pool[:, rows[:, :n_pages]] = pages.to(pool.dtype)
+    return big
+
+
+# ---------------------------------------------------------------------------
+# Host-side manager
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CacheStats:
+    layout: str
+    kv_bytes: int
+    page_size: int
+    pages_in_use: int
+    pages_capacity: int
+    page_allocs_total: int
+    pages_in_use_peak: int
+    pages_cached: int = 0
+    prefix_queries: int = 0
+    prefix_hits: int = 0
+    prefix_pages_hit: int = 0
+    cow_copies: int = 0
+    page_evictions: int = 0
+    #: pages shared by mapping a resident parent's live pages onto an
+    #: n-best sibling (CacheManager.fork)
+    gen_pages_shared: int = 0
+    #: the victim tier's counters (ROADMAP queue 1, item 8, step 9): zero
+    #: here, kept so that telemetry has the reference's keys
+    swap_outs: int = 0
+    swap_ins: int = 0
+    host_evictions: int = 0
+    host_pages_used: int = 0
+    host_pages_capacity: int = 0
+    swap_latency_s: float = 0.0
+
+    @property
+    def page_utilization(self) -> float:
+        if self.pages_capacity <= 0:
+            return 0.0
+        return self.pages_in_use / self.pages_capacity
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        if self.prefix_queries <= 0:
+            return 0.0
+        return self.prefix_hits / self.prefix_queries
+
+    def as_dict(self) -> dict:
+        return {
+            "kv_layout": self.layout,
+            "kv_bytes": self.kv_bytes,
+            "kv_page_size": self.page_size,
+            "pages_in_use": self.pages_in_use,
+            "pages_capacity": self.pages_capacity,
+            "page_utilization": self.page_utilization,
+            "page_allocs_total": self.page_allocs_total,
+            "pages_in_use_peak": self.pages_in_use_peak,
+            "pages_cached": self.pages_cached,
+            "prefix_queries": self.prefix_queries,
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_rate": self.prefix_hit_rate,
+            "prefix_pages_hit": self.prefix_pages_hit,
+            "cow_copies": self.cow_copies,
+            "page_evictions": self.page_evictions,
+            "gen_pages_shared": self.gen_pages_shared,
+            "swap_outs": self.swap_outs,
+            "swap_ins": self.swap_ins,
+            "host_evictions": self.host_evictions,
+            "host_pages_used": self.host_pages_used,
+            "host_pages_capacity": self.host_pages_capacity,
+            "swap_latency_s": self.swap_latency_s,
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefixMatch:
+    """Longest prefix-index match for a prompt.  ``keys[i]`` is the
+    interned chain key of token chunk ``i`` (all full pages) and
+    ``pages[i]`` the device page holding it; ``tokens`` ==
+    ``len(keys) * page_size``.  Without a victim tier ``host_hits`` is 0."""
+
+    pages: tuple[int, ...] = ()
+    keys: tuple[int, ...] = ()
+    tokens: int = 0
+
+    @property
+    def host_hits(self) -> int:
+        """Matched chunks resident only in a host victim tier (none here)."""
+        return len(self.keys) - len(self.pages)
+
+    def __bool__(self) -> bool:
+        return bool(self.keys)
+
+
+class CacheManager:
+    """Owns the KV-cache storage layout for one serving engine.
+
+    Host-side: building the device cache tree, page allocation /
+    reclamation / refcounting per slot (paged layout), the prefix-cache
+    index (hash-chained full prompt pages, shared copy-on-write), and
+    keeping the device page table in sync (``write_table``).  Device-side:
+    inserting a prefilled dense slab into the big caches
+    (``insert_prefill``) and the queued copy-on-write page copies
+    (``flush_copies``).
+
+    Dense layout is one page of ``max_seq_len`` tokens per slot, bound to
+    the slot, so occupancy telemetry is uniform across layouts; prefix
+    caching is a no-op there.
+
+    Paged page lifecycle: ``free`` -> ``live`` (refcount >= 1, in one or
+    more slot tables) -> back to ``free`` (unregistered content) or
+    ``cached`` (refcount 0 but registered in the prefix index, evictable
+    LRU) when its last owner finishes.  The trash page 0 is in none of the
+    three sets.
+    """
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        serve_cfg: ServeConfig,
+        quantized: bool = False,
+        dtype: torch.dtype = torch.float32,
+        *,
+        device: str | torch.device = "cuda",
+    ):
+        self.cfg = cfg
+        self.serve_cfg = serve_cfg
+        self.quantized = quantized
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        sc = serve_cfg
+        if sc.kv_host_pages > 0:
+            raise NotImplementedError(
+                "the host-memory victim tier (kv_host_pages > 0) is not ported yet "
+                "(ROADMAP queue 1, item 8, step 9)"
+            )
+        rolling = cfg.sliding_window is not None and cfg.sliding_window < sc.max_seq_len
+        #: position-addressed caches can be right-padded (bucketed prefill)
+        #: and paged; SSM state and rolling buffers cannot
+        self.position_addressed = (
+            cfg.attn_kind in ("gqa", "mla")
+            and cfg.family not in ("ssm", "hybrid")
+            and not rolling
+        )
+        requested = sc.kv_layout
+        if requested not in LAYOUTS:
+            raise ValueError(f"unknown kv_layout {requested!r}; use one of {LAYOUTS}")
+        self.layout = "paged" if requested == "paged" and self.position_addressed else "dense"
+        if self.layout == "paged":
+            ps = sc.kv_page_size
+            if ps < 1 or sc.max_seq_len % ps != 0:
+                raise ValueError(
+                    f"kv_page_size={ps} must divide max_seq_len="
+                    f"{sc.max_seq_len} (fixed-stride pages)"
+                )
+            self.page_size = ps
+            self.pages_per_slot = sc.max_seq_len // ps
+            auto = sc.max_batch * self.pages_per_slot + 1  # +1 trash page
+            self.num_pages = auto if sc.kv_pages is None else sc.kv_pages
+            if self.num_pages < 2:
+                raise ValueError("kv_pages must be >= 2 (one is the trash page)")
+            # page 0 is the trash page; pop() allocates ascending
+            self._free = list(range(self.num_pages - 1, 0, -1))
+        else:
+            self.page_size = sc.max_seq_len
+            self.pages_per_slot = 1
+            self.num_pages = sc.max_batch
+            self._free = []
+        #: prefix-cache sharing is a paged-layout feature; inert for dense
+        self.prefix_cache = bool(sc.kv_prefix_cache and self.layout == "paged")
+        self._slot_pages: list[list[int]] = [[] for _ in range(sc.max_batch)]
+        # worst-case pages promised to each resident request at admission
+        self._slot_reserved: list[int] = [0] * sc.max_batch
+        #: per-slot interned chain keys for pages [0, len(keys)): the
+        #: registration watermark (truncated when a write mutates a
+        #: chained page: copy-on-write or deregister-on-write)
+        self._slot_keys: list[list[int]] = [[] for _ in range(sc.max_batch)]
+        self._table = np.zeros((sc.max_batch, self.pages_per_slot), np.int32)
+        self._table_dirty = True
+        self._allocs_total = 0
+        self._peak_in_use = 0
+        # --- refcounts + prefix index (paged sharing) ---
+        self._page_ref = np.zeros(self.num_pages, np.int32)
+        #: retained refcount-0 registered pages, insertion order == LRU
+        self._cached: dict[int, None] = {}
+        #: interned hash-chain keys: (parent_key, token chunk) -> key id.
+        #: Exact token tuples (no lossy hashing); ids from a monotonic
+        #: counter, never reused; mark-swept once the table doubles past
+        #: the reachable set (_maybe_gc_intern)
+        self._key_intern: dict[tuple[int, tuple[int, ...]], int] = {}
+        self._next_key_id = 1
+        self._intern_gc_floor = 1024
+        self._intern_gc_at = self._intern_gc_floor
+        self._prefix_index: dict[int, int] = {}  # key id -> physical page
+        self._page_key: dict[int, int] = {}  # physical page -> key id
+        #: device page copies scheduled by copy-on-write, applied by
+        #: flush_copies before the next decode dispatch
+        self._pending_copies: list[tuple[int, int]] = []
+        self._cow_copies = 0
+        self._evictions = 0
+        self._gen_pages_shared = 0
+        self._prefix_queries = 0
+        self._prefix_hits = 0
+        self._prefix_pages_hit = 0
+        self.kv_bytes = sum(
+            int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+            for shape, dt in self._abstract()["layers"].values()
+        )
+
+    # ----------------------------------------------------------- layout --
+    def _layout_kw(self) -> dict:
+        if self.layout == "paged":
+            return dict(layout="paged", page_size=self.page_size, num_pages=self.num_pages)
+        return dict(layout="dense")
+
+    def _abstract(self) -> dict:
+        return abstract_caches(
+            self.cfg, self.serve_cfg.max_batch, self.serve_cfg.max_seq_len,
+            dtype=self.dtype, quantized=self.quantized, **self._layout_kw(),
+        )
+
+    def init_device_caches(self) -> dict:
+        return init_caches(
+            self.cfg, self.serve_cfg.max_batch, self.serve_cfg.max_seq_len,
+            dtype=self.dtype, quantized=self.quantized, device=self.device,
+            **self._layout_kw(),
+        )
+
+    # ------------------------------------------------------- allocation --
+    def pages_for(self, length: int) -> int:
+        """Pages needed to hold ``length`` tokens (at least one)."""
+        return max(1, -(-length // self.page_size))
+
+    @property
+    def pages_reserved_unallocated(self) -> int:
+        """Reserved-but-not-yet-allocated pages (promised decode headroom)."""
+        return sum(max(r - len(p), 0) for r, p in zip(self._slot_reserved, self._slot_pages))
+
+    def can_reserve(self, n_pages: int) -> bool:
+        """Whether the pool can promise ``n_pages`` to a new request without
+        eating another resident's unallocated reservation.  Cached pages
+        count as available: allocation evicts them LRU under pressure."""
+        if self.layout != "paged":
+            return True  # dense slabs are slot-bound; the engine gates on slots
+        avail = len(self._free) + len(self._cached)
+        return avail - self.pages_reserved_unallocated >= n_pages
+
+    def _take_page(self) -> int | None:
+        """Pop a free page, evicting the LRU cached page when the free list
+        is empty.  None when the pool is truly exhausted."""
+        if self._free:
+            return self._free.pop()
+        if self._cached:
+            page = next(iter(self._cached))
+            del self._cached[page]
+            self._deregister(page)
+            self._evictions += 1
+            return page
+        return None
+
+    def _deregister(self, page: int) -> None:
+        key = self._page_key.pop(page, None)
+        if key is not None and self._prefix_index.get(key) == page:
+            del self._prefix_index[key]
+
+    def _intern_key(self, parent: int, chunk: tuple[int, ...]) -> int:
+        key = self._key_intern.get((parent, chunk))
+        if key is None:
+            key = self._next_key_id
+            self._next_key_id += 1
+            self._key_intern[(parent, chunk)] = key
+            self._maybe_gc_intern()
+        return key
+
+    def _maybe_gc_intern(self) -> None:
+        """Mark-sweep the chain-key intern table once it doubles past its
+        last post-sweep size: keep only keys reachable (via parent links)
+        from a registered page or a resident slot's chain watermark."""
+        if len(self._key_intern) <= self._intern_gc_at:
+            return
+        parent_of = {kid: parent for (parent, _), kid in self._key_intern.items()}
+        live: set[int] = set()
+        roots = list(self._prefix_index)
+        for keys in self._slot_keys:
+            roots.extend(keys)
+        for key in roots:
+            while key and key not in live:
+                live.add(key)
+                key = parent_of.get(key, 0)
+        self._key_intern = {pk: kid for pk, kid in self._key_intern.items() if kid in live}
+        self._intern_gc_at = max(self._intern_gc_floor, 2 * len(self._key_intern))
+
+    # ----------------------------------------------------- prefix cache --
+    def match_prefix(self, tokens: list[int]) -> PrefixMatch:
+        """Longest run of leading *full* prompt pages already in the prefix
+        index.  Pure lookup: hit/query telemetry is counted at ``admit``."""
+        if not self.prefix_cache:
+            return PrefixMatch()
+        parent = 0
+        pages: list[int] = []
+        keys: list[int] = []
+        for i in range(len(tokens) // self.page_size):
+            chunk = tuple(tokens[i * self.page_size:(i + 1) * self.page_size])
+            key = self._key_intern.get((parent, chunk))
+            page = None if key is None else self._prefix_index.get(key)
+            if page is None:
+                break
+            pages.append(page)
+            keys.append(key)
+            parent = key
+        return PrefixMatch(tuple(pages), tuple(keys), len(keys) * self.page_size)
+
+    def _tail_need(self, match: PrefixMatch | None, reserve_len: int, write_from: int) -> int:
+        """Pages this admission will still allocate beyond its shared
+        coverage: the uncovered tail, plus one copy-on-write headroom page
+        when the first decode write lands inside a covered page."""
+        total = self.pages_for(min(reserve_len, self.serve_cfg.max_seq_len))
+        shared = len(match.keys) if match else 0
+        headroom = 1 if match and write_from < match.tokens else 0
+        return max(total - shared, 0) + headroom
+
+    def _revived(self, match: PrefixMatch | None) -> int:
+        """Matched pages on the cached LRU (refcount 0): mapping them takes
+        them out of the evictable pool."""
+        if not match:
+            return 0
+        return sum(1 for p in match.pages if self._page_ref[p] == 0)
+
+    def admission_need(self, match: PrefixMatch | None, reserve_len: int,
+                       write_from: int) -> int:
+        """Pages the pool must have available (free + evictable cached, net
+        of other residents' unallocated reservations) to admit this
+        request."""
+        if self.layout != "paged":
+            return 0
+        return (self._tail_need(match, reserve_len, write_from) + self._revived(match)
+                + (match.host_hits if match else 0))
+
+    def admit(
+        self,
+        slot: int,
+        tokens: list[int],
+        reserve_len: int,
+        match: PrefixMatch | None = None,
+        lazy_tail: bool = False,
+        write_from: int | None = None,
+        fill_len: int | None = None,
+    ) -> int:
+        """Admit a request: map a prefix-cache hit onto the slot's leading
+        table entries (refcount++, reviving retained pages), reserve
+        worst-case pages for the uncovered remainder (``reserve_len`` =
+        prompt + generation budget, capped at max_seq_len), then allocate
+        and register the prompt's own pages.  ``lazy_tail=True`` skips the
+        prompt-tail allocation (prefill-skip fills it through decode
+        writes, allocated by ``ensure``); ``fill_len`` (chunked prefill)
+        allocates and registers only the leading ``fill_len`` positions.
+        Returns the number of covered leading pages."""
+        if write_from is None:
+            write_from = len(tokens)
+        if self.layout != "paged":
+            self.alloc(slot, len(tokens))
+            return 0
+        if self.prefix_cache:
+            self._prefix_queries += 1
+        shared = list(match.pages) if match else []
+        need = self.admission_need(match, reserve_len, write_from)
+        if not self.can_reserve(need):
+            raise RuntimeError(
+                f"cannot reserve {need} KV pages for admission; check "
+                "can_reserve() before calling admit()"
+            )
+        tail_need = self._tail_need(match, reserve_len, write_from)
+        if shared:
+            self._prefix_hits += 1
+            self._prefix_pages_hit += len(shared)
+            pages = self._slot_pages[slot]
+            for col, page in enumerate(shared):
+                if self._page_ref[page] == 0:  # revive a retained page
+                    del self._cached[page]
+                self._page_ref[page] += 1
+                self._table[slot, col] = page
+                pages.append(page)
+            self._slot_keys[slot] = list(match.keys)
+            self._table_dirty = True
+        self._slot_reserved[slot] = len(shared) + tail_need
+        if not lazy_tail:
+            self.ensure(slot, len(tokens))
+            self.register_filled(slot, tokens, len(tokens))
+        elif fill_len:
+            # chunked prefill: the dispatch fills [0, fill_len); its full
+            # pages are registerable (causal attention keeps their content
+            # independent of the suffix)
+            self.ensure(slot, fill_len)
+            self.register_filled(slot, tokens, fill_len)
+        self._peak_in_use = max(self._peak_in_use, self.pages_in_use)
+        return len(shared)
+
+    def fork_need(self, parent_slot: int, upto_len: int, reserve_len: int) -> int:
+        """Pages a fork admission must reserve: the worst-case tail beyond
+        the shared coverage, plus one copy-on-write headroom page."""
+        if self.layout != "paged":
+            return 0
+        shared = min(-(-upto_len // self.page_size), len(self._slot_pages[parent_slot]))
+        total = self.pages_for(min(reserve_len, self.serve_cfg.max_seq_len))
+        return max(total - shared, 0) + (1 if shared else 0)
+
+    def fork(self, slot: int, parent_slot: int, upto_len: int, reserve_len: int) -> int:
+        """Map the parent's pages covering [0, ``upto_len``) onto ``slot``
+        with a refcount bump each (the n-best sharing path; the child's
+        own writes split off private copies through ``ensure``).  Returns
+        the number of shared pages."""
+        if self.layout != "paged":
+            raise RuntimeError("fork() requires the paged layout")
+        need = self.fork_need(parent_slot, upto_len, reserve_len)
+        if not self.can_reserve(need):
+            raise RuntimeError(
+                f"cannot reserve {need} KV pages for fork; check "
+                "can_reserve(fork_need()) before calling fork()"
+            )
+        parent_pages = self._slot_pages[parent_slot]
+        n = min(-(-upto_len // self.page_size), len(parent_pages))
+        pages = self._slot_pages[slot]
+        if pages:
+            raise RuntimeError(f"fork target slot {slot} already holds pages")
+        for col in range(n):
+            page = parent_pages[col]
+            self._page_ref[page] += 1
+            self._table[slot, col] = page
+            pages.append(page)
+        self._table_dirty = True
+        self._slot_keys[slot] = list(self._slot_keys[parent_slot][:n])
+        self._slot_reserved[slot] = n + need
+        self._gen_pages_shared += n
+        self._peak_in_use = max(self._peak_in_use, self.pages_in_use)
+        return n
+
+    def register_filled(self, slot: int, tokens: list[int], upto_len: int) -> None:
+        """Register ``slot``'s fully written pages (positions
+        [0, upto_len), token ids ``tokens``) in the prefix index.
+        Idempotent and incremental (the slot's chain-key watermark)."""
+        if not self.prefix_cache:
+            return
+        pages = self._slot_pages[slot]
+        keys = self._slot_keys[slot]
+        parent = keys[-1] if keys else 0
+        for i in range(len(keys), min(upto_len // self.page_size, len(pages))):
+            chunk = tuple(tokens[i * self.page_size:(i + 1) * self.page_size])
+            parent = self._intern_key(parent, chunk)
+            keys.append(parent)
+            page = pages[i]
+            if page in self._page_key or parent in self._prefix_index:
+                continue
+            self._prefix_index[parent] = page
+            self._page_key[page] = parent
+
+    def alloc(self, slot: int, length: int) -> None:
+        """Ensure ``slot`` owns pages covering positions [0, length)."""
+        self.ensure(slot, length)
+
+    def ensure(self, slot: int, upto_len: int, write_from: int | None = None) -> None:
+        """Grow ``slot``'s page list to cover ``upto_len`` positions (before
+        each decode dispatch).  With ``write_from``, pages overlapping
+        [write_from, upto_len) are made privately writable first: a shared
+        page (refcount > 1) is copy-on-write replaced (fresh page, device
+        copy queued for ``flush_copies``, table entry swapped), and a
+        registered sole-owner page leaves the prefix index, so shared
+        history is immutable."""
+        if self.layout != "paged":
+            if not self._slot_pages[slot]:
+                self._slot_pages[slot] = [slot]
+                self._allocs_total += 1
+                self._peak_in_use = max(self._peak_in_use, self.pages_in_use)
+            return
+        pages = self._slot_pages[slot]
+        need = self.pages_for(upto_len)
+        while len(pages) < need:
+            page = self._take_page()
+            if page is None:
+                raise RuntimeError(
+                    f"KV page pool exhausted ({self.num_pages} pages of "
+                    f"{self.page_size} tokens); raise ServeConfig.kv_pages "
+                    "or admit fewer concurrent long sequences"
+                )
+            self._table[slot, len(pages)] = page
+            pages.append(page)
+            self._page_ref[page] = 1
+            self._allocs_total += 1
+            self._table_dirty = True
+        if write_from is not None and upto_len > write_from:
+            first = write_from // self.page_size
+            last = (upto_len - 1) // self.page_size
+            for col in range(first, min(last + 1, len(pages))):
+                page = pages[col]
+                if self._page_ref[page] > 1:
+                    fresh = self._take_page()
+                    if fresh is None:
+                        raise RuntimeError(
+                            "KV page pool exhausted during copy-on-write; "
+                            "raise ServeConfig.kv_pages"
+                        )
+                    self._pending_copies.append((page, fresh))
+                    self._page_ref[page] -= 1
+                    self._page_ref[fresh] = 1
+                    pages[col] = fresh
+                    self._table[slot, col] = fresh
+                    self._table_dirty = True
+                    self._cow_copies += 1
+                    self._allocs_total += 1
+                    # the CoW headroom reserved at admission is now spent
+                    self._slot_reserved[slot] = max(self._slot_reserved[slot] - 1, len(pages))
+                    # the chunk content diverges from the chained key
+                    del self._slot_keys[slot][col:]
+                elif page in self._page_key:
+                    # sole owner about to mutate a registered page
+                    self._deregister(page)
+                    del self._slot_keys[slot][col:]
+        self._peak_in_use = max(self._peak_in_use, self.pages_in_use)
+
+    def free(self, slot: int) -> None:
+        """Drop a finished (or preempted) slot's references at once.  A
+        page whose refcount falls to zero returns to the free list, unless
+        it is registered in the prefix index (then it is retained on the
+        evictable LRU)."""
+        pages = self._slot_pages[slot]
+        self._slot_pages[slot] = []
+        self._slot_reserved[slot] = 0
+        self._slot_keys[slot] = []
+        if self.layout != "paged" or not pages:
+            return
+        freed: set[int] = set()
+        for page in reversed(pages):
+            self._page_ref[page] -= 1
+            if self._page_ref[page] > 0:
+                continue
+            if self.prefix_cache and page in self._page_key:
+                self._cached[page] = None
+            else:
+                self._free.append(page)
+                freed.add(page)
+        if freed and self._pending_copies:
+            # a queued CoW copy whose destination just returned to the free
+            # list died with this tenancy; flushing it later would corrupt
+            # the page's next tenant
+            self._pending_copies = [(s, d) for s, d in self._pending_copies if d not in freed]
+        self._table[slot, :] = TRASH_PAGE
+        self._table_dirty = True
+
+    # ------------------------------------------------------ device sync --
+    def flush_copies(self, caches: dict) -> dict:
+        """Apply the queued copy-on-write page copies to the device pools,
+        in place (before the decode dispatch that writes the copied
+        pages)."""
+        if self.layout != "paged" or not self._pending_copies:
+            return caches
+        pairs = np.array(self._pending_copies, np.int64)
+        self._pending_copies.clear()
+        src, dst = (torch.from_numpy(pairs[:, i].copy()).to(self.device) for i in (0, 1))
+        for name, pool in caches["layers"].items():
+            if name != "page_table":
+                pool[:, dst] = pool[:, src]
+        return caches
+
+    def write_table(self, caches: dict) -> dict:
+        """Refresh the stacked device page table from the host table, in
+        place (no-op for dense or when nothing changed since the last
+        sync).  The host table is copied first: the device must never see
+        a later ``ensure`` / ``free`` of the live numpy array."""
+        if self.layout != "paged" or not self._table_dirty:
+            return caches
+        table = torch.from_numpy(self._table.copy()).to(self.device)
+        caches["layers"]["page_table"].copy_(table.expand_as(caches["layers"]["page_table"]))
+        self._table_dirty = False
+        return caches
+
+    def insert_prefill(self, big: dict, filled: dict, slots, shared_pages=None) -> dict:
+        """Insert tail-masked dense prefill rows into the big caches, in
+        place.  ``shared_pages``: per-row count of leading prefix-cache
+        pages that must not be rewritten (their columns go to the trash
+        page)."""
+        if self.layout == "paged":
+            return insert_prefill_paged(big, filled, slots, self.page_size, shared_pages)
+        return insert_prefill_dense(big, filled, slots)
+
+    # ---------------------------------------------------------- metrics --
+    @property
+    def pages_in_use(self) -> int:
+        """Distinct live pages (a shared page counts once)."""
+        if self.layout == "paged":
+            return int((self._page_ref > 0).sum())
+        return sum(len(p) for p in self._slot_pages)
+
+    @property
+    def pages_capacity(self) -> int:
+        if self.layout == "paged":
+            return self.num_pages - 1  # the trash page is not allocatable
+        return self.serve_cfg.max_batch
+
+    def stats(self) -> CacheStats:
+        return CacheStats(
+            layout=self.layout,
+            kv_bytes=self.kv_bytes,
+            page_size=self.page_size,
+            pages_in_use=self.pages_in_use,
+            pages_capacity=self.pages_capacity,
+            page_allocs_total=self._allocs_total,
+            pages_in_use_peak=self._peak_in_use,
+            pages_cached=len(self._cached),
+            prefix_queries=self._prefix_queries,
+            prefix_hits=self._prefix_hits,
+            prefix_pages_hit=self._prefix_pages_hit,
+            cow_copies=self._cow_copies,
+            page_evictions=self._evictions,
+            gen_pages_shared=self._gen_pages_shared,
+        )
+
+    # ------------------------------------------------------- invariants --
+    def check_invariants(self) -> None:
+        """Assert the paged pool's structural invariants; raises
+        AssertionError with a descriptive message on any violation."""
+        if self.layout != "paged":
+            return
+        ref = self._page_ref
+        assert ref[TRASH_PAGE] == 0, "trash page acquired a refcount"
+        assert TRASH_PAGE not in self._free, "trash page on the free list"
+        assert TRASH_PAGE not in self._cached, "trash page retained as cached"
+        assert TRASH_PAGE not in self._page_key, "trash page registered"
+        live = {p for p in range(self.num_pages) if ref[p] > 0}
+        free_set, cached_set = set(self._free), set(self._cached)
+        assert len(free_set) == len(self._free), "free list holds duplicates"
+        assert not (free_set & cached_set), "page both free and cached"
+        assert not (free_set & live), "live page on the free list"
+        assert not (cached_set & live), "live page retained as cached"
+        universe = free_set | cached_set | live
+        expected = set(range(self.num_pages)) - {TRASH_PAGE}
+        assert universe == expected, (
+            f"page leak/double-free: missing={sorted(expected - universe)} "
+            f"extra={sorted(universe - expected)}"
+        )
+        # refcount conservation: every reference is a slot table entry
+        counts = np.zeros(self.num_pages, np.int64)
+        for slot, pages in enumerate(self._slot_pages):
+            for col, page in enumerate(pages):
+                assert page != TRASH_PAGE, f"slot {slot} maps the trash page"
+                assert self._table[slot, col] == page, f"table desync at slot {slot} col {col}"
+                counts[page] += 1
+            for col in range(len(pages), self.pages_per_slot):
+                assert self._table[slot, col] == TRASH_PAGE, (
+                    f"stale table entry at slot {slot} col {col}"
+                )
+        assert np.array_equal(counts, ref), (
+            f"refcount drift: table refs {counts.nonzero()[0].tolist()} vs "
+            f"refcounts {ref.nonzero()[0].tolist()}"
+        )
+        assert self.pages_in_use == len(live) == len(
+            {p for pages in self._slot_pages for p in pages}
+        ), "pages_in_use != distinct live table entries"
+        for page in self._cached:
+            assert page in self._page_key, "cached page lost its index key"
+        for key, page in self._prefix_index.items():
+            assert self._page_key.get(page) == key, f"index/page key desync for page {page}"
+            assert page in live or page in cached_set, f"prefix index maps a freed page {page}"
+        for page in self._page_key:
+            assert page in live or page in cached_set, (
+                f"registered page {page} is neither live nor cached"
+            )
+        for slot, (reserved, pages) in enumerate(zip(self._slot_reserved, self._slot_pages)):
+            assert reserved >= len(pages) or reserved == 0, (
+                f"slot {slot} holds more pages than it reserved"
+            )
+            assert len(self._slot_keys[slot]) <= len(pages), (
+                f"slot {slot} chain-key watermark outran its page list"
+            )
+        # a page shared by several slots sits at the SAME table column in
+        # every owner, so its tokens hold the same global positions in every
+        # mapping (the paged gather's position arithmetic depends on it)
+        col_of: dict[int, int] = {}
+        for slot, pages in enumerate(self._slot_pages):
+            for col, page in enumerate(pages):
+                seen = col_of.setdefault(page, col)
+                assert seen == col, (
+                    f"shared page {page} mapped at column {seen} and at column {col} (slot {slot})"
+                )

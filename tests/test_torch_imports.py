@@ -49,7 +49,9 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.kernels.flash_attention, repro_torch.kernels.layernorm, "
         "repro_torch.kernels.qmatmul, repro_torch.kernels.lut_softmax, "
         "repro_torch.core.streaming_mha, repro_torch.core.reuse, repro_torch.data, "
-        "repro_torch.kernels.ssd_scan, repro_torch.models.lm, repro_torch.serve.kv_cache; "
+        "repro_torch.kernels.ssd_scan, repro_torch.models.lm, repro_torch.serve.kv_cache, "
+        "repro_torch.serve.api, repro_torch.serve.engine, repro_torch.serve.cli, "
+        "repro_torch.launch.serve; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

@@ -311,8 +311,8 @@ def test_unported_families_raise():
         blocks.block_spec(moe)
     with pytest.raises(NotImplementedError, match="item 9"):
         kv_cache.abstract_caches(get_config("granite-8b"), 1, 16, quantized=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        kv_cache.abstract_caches(get_config("granite-8b"), 1, 16, layout="paged",
+    with pytest.raises(ValueError, match="rolling sliding-window"):
+        kv_cache.abstract_caches(get_config("starcoder2-7b"), 1, 8192, layout="paged",
                                  page_size=8, num_pages=4)
     with pytest.raises(NotImplementedError, match="item 10"):
         kv_cache.abstract_caches(dataclasses.replace(mamba, family="hybrid"), 1, 16)

@@ -1,0 +1,74 @@
+"""The port's serving CLI (``repro_torch.serve.cli``) and launcher
+(``python -m repro_torch.launch.serve``).
+
+- The shared flags build the ServeConfig the reference's CLI builds from
+  the same arguments, field for field.
+- The launcher answers ``--requests 4`` on the CPU at a reduced config and
+  exits 0; without ``--device cpu`` on a host without CUDA it raises as
+  ``resolve_device`` does; ``--replicas`` above 1 and the flags of later
+  slices raise ``NotImplementedError``.
+"""
+
+import argparse
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.serve import cli as jcli  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import serve as launch  # noqa: E402
+from repro_torch.serve import cli  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+ARGS = ["--max-batch", "3", "--max-seq", "64", "--temperature", "0.5", "--policy", "auto",
+        "--prefill-buckets", "8", "16", "--prefill-chunk", "8", "--decode-steps", "2",
+        "--kv-layout", "paged", "--kv-page-size", "8", "--kv-pages", "20", "--kv-prefix-cache",
+        "--kv-preemption", "--scheduler", "edf", "--deadline-ms", "50", "--trace-phases"]
+
+
+def _parse(mod, argv):
+    return mod.add_serving_args(argparse.ArgumentParser()).parse_args(argv)
+
+
+@pytest.mark.parametrize("argv", [[], ARGS, ["--prefill-buckets", "--quantized"]])
+def test_config_from_args_matches_reference(argv):
+    ours = cli.config_from_args(_parse(cli, argv), get_config("granite-8b", reduced=True))
+    ref = jcli.config_from_args(_parse(jcli, argv), jax_get_config("granite-8b", reduced=True))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert _parse(cli, argv).device == "cuda"
+
+
+def test_launcher_serves_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu", "--arch",
+         "granite-8b", "--requests", "4", "--max-new", "5", "--kv-layout", "paged",
+         "--kv-page-size", "8", "--stream"],
+        capture_output=True, text=True, env=env, timeout=300, check=True,
+    ).stdout
+    assert "4 requests streamed, 20 tokens" in out
+    assert "device=cpu" in out and "layout=paged" in out
+
+
+def test_launcher_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.main(["--arch", "granite-8b", "--requests", "1"])
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--replicas", "2"], "router.py"),
+    (["--async-loop"], "step 7"),
+    (["--speculative"], "step 8"),
+    (["--kv-layout", "paged", "--kv-prefix-cache", "--kv-host-pages", "8"], "step 9"),
+])
+def test_flags_of_later_slices_raise(flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        launch.main(["--device", "cpu", "--requests", "1", *flags])
