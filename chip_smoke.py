@@ -66,7 +66,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    decode step; (b) granite-8b in bfloat16 at its full published size (36
    layers, d_model 4096, 32 q / 8 kv heads of 128, d_ff 14336, vocab
    49152) on seeded random weights drawn on the card: the median time of a
-   prefill of 1 x 2048 (time to first token) and 8 x 2048 tokens and of 64
+   prefill of 1 x 2048 (time to first token) and 8 x 2048 tokens and of 32
    greedy decode steps at batch 1 and 8, with the profiler's busy share,
    top kernels, attention and layernorm shares, the device operations per
    decode step and the cache bytes each step copies.
@@ -88,7 +88,30 @@ Phases, each of which fails the run (exit code 1) when it fails:
    decode dispatch the profiler's device-busy share, the device operations
    per decode step and the paged gather's share of decode device time;
    (c) mamba2-130m in bfloat16 at full depth, 8 requests, ``ssd_scan`` once
-   per layer per prefill dispatch.
+   per layer per prefill dispatch;
+8. train -- (a) the gradients of ``mha`` and ``layernorm`` on the card, which
+   go through their ``torch.autograd.Function`` (kernel forward, torch-op
+   backward), against torch autograd through the plain versions: attention
+   ``safe`` and ``lut`` at the encoders' shapes (batch 1024), granite-like
+   GQA (2, 32/8, 256, 128) causal in float32 and bf16, a window with
+   kv_len < L; LN, RMSNorm and the LUT norm at the encoders' and granite's
+   widths; ``ssd_scan``, ``lut_softmax`` and ``qmatmul`` must raise under
+   grad; (b) the paper's physics workflow (``repro_torch.examples.
+   physics_inference``) for the three encoders at batch 1024: the first
+   float steps on the card against the port's CPU path from the same init,
+   the launches per train step (``flash_attention`` n_layers, ``layernorm``
+   2 n_layers + 1 or 0), the step time, then 150 float steps, PTQ and 60
+   QAT steps under the paper-optimal policies and ``paper_vu13p``, whose
+   float AUC and AUC ratios must be within 0.02 of the JAX package's run of
+   ``examples/physics_inference.py``; (c) ``train.run_training`` on
+   granite-8b's published width cut to 2 layers, float32, 2 x 2048 tokens,
+   8 steps with a checkpoint at step 4, then again killed at step 6 and
+   resumed (b and c run under ``torch.use_deterministic_algorithms(True)``): the two
+   runs' parameters and moments bitwise equal, the card's checkpoint
+   restored on the CPU bitwise equal; the step's time, tokens/s, device
+   busy share, top kernels, the attention and layernorm backwards' shares
+   and the peak memory.  ``python3 tools/train_phase.py`` runs this phase
+   alone.
    Each path sets the launch counts to 0 before it and reads them after.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
@@ -185,7 +208,7 @@ SSD_PASSES = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_output_ker
 MAMBA = "mamba2-130m"
 MAMBA_TOL = 2e-4
 MAMBA_CHECK = (2, 256, 64)  # batch, prompt tokens, greedy decode steps
-MAMBA_TIME_LEN, MAMBA_TIME_BATCHES, MAMBA_TIME_STEPS = 2048, (1, 8), 64
+MAMBA_TIME_LEN, MAMBA_TIME_BATCHES, MAMBA_TIME_STEPS = 2048, (1, 8), 32
 # The dense GQA family, float32 check (phase 6a): the published widths cut to
 # 2 layers and a vocab of 512, the same 2e-4 and margin rule as mamba2-130m;
 # starcoder2-7b runs twice, the second time with a window of 64 so that its
@@ -196,7 +219,7 @@ DENSE_CUT = dict(n_layers=2, vocab_size=512, dtype="float32")
 DENSE_ROLLING_WINDOW = 64
 DENSE_TOL = 2e-4
 DENSE_CHECK = (2, 128, 16)  # batch, prompt tokens, greedy decode steps
-GRANITE_TIME_LEN, GRANITE_TIME_BATCHES, GRANITE_TIME_STEPS = 2048, (1, 8), 64
+GRANITE_TIME_LEN, GRANITE_TIME_BATCHES, GRANITE_TIME_STEPS = 2048, (1, 8), 32
 GRANITE_PROFILE_STEPS = 16  # the decode steps under the profiler
 # The serving engine (phase 7).  (a) float32 check: granite-8b (dense, and
 # paged + prefix cache) and mamba2-130m at their published widths cut as in
@@ -1725,10 +1748,508 @@ def _serve_line(r) -> str:
             f"top {p['top']}  ({r['seconds']:.1f} s)")
 
 
+# ---------------------------------------------------------------- phase 8 --
+
+# Training (phase 8).  (a) Each autograd.Function (the kernel forward, a
+# backward in torch ops) against torch autograd through the plain version on
+# the card, at the encoders' attention shapes (batch 1024), granite-like GQA
+# (2, 32 q / 8 kv, 256, 128) causal in float32 and bf16, and a window with
+# kv_len < L; the norms at the encoders' and granite's widths.  safe: 2e-5
+# of the largest |grad| (the two backwards sum the same float32 terms in
+# other orders); bf16: 3e-2 of it (the inputs' rounding).  lut: dQ = dK = 0
+# exactly, dV within 1e-4 of max(1, max |dV|), plus on under 1 % of its rows
+# one exp-table step of P^T |dO| (the two recompute the scores with
+# differently shaped products, which may move a table entry at a tie).
+# Norms: 1e-5 of max(1, max |grad|); with the LUT, rows whose variance sits at
+# a 1/sqrt-table tie may move by one table step (0.3 %), on under 1 % of rows.
+TRAIN_ATT_CASES = (  # (b, h, l, d), kv heads, causal, window, kv_len, dtype
+    ((1024, 4, 100, 8), 4, False, None, None, "float32"),  # gw
+    ((1024, 8, 15, 8), 8, False, None, None, "float32"),  # btagging
+    ((1024, 2, 50, 8), 2, False, None, None, "float32"),  # engine_anomaly
+    ((2, 32, 256, 128), 8, True, None, None, "float32"),
+    ((2, 32, 256, 128), 8, True, None, None, "bfloat16"),
+    ((2, 8, 256, 64), 2, True, 64, 200, "float32"),
+)
+TRAIN_LN_CASES = (  # rows, width, RMSNorm, LUT
+    (102400, 32, False, False), (102400, 32, False, True),  # gw
+    (15360, 64, False, False), (15360, 64, False, True),  # btagging
+    (4096, 4096, True, False), (4096, 4096, True, True),  # granite-8b (2 x 2048 tokens)
+)
+ATT_GRAD_REL = {"float32": 2e-5, "bfloat16": 3e-2}
+LN_GRAD_REL = 1e-5
+# (b) The physics workflow at Table I's widths (batch 1024, the example's
+# seeded events).  The first 20 float steps of the port's CPU path, the card
+# taking each step from the CPU's state: the loss within 1e-4, the
+# parameters after the step within 1e-6 except where the card's and the
+# CPU's gradients differ by more than 1e-4 of the CPU's (gradients at the
+# float32 noise floor, which Adam's m / sqrt(v) follows).  Each step,
+# not the two free-running runs: full-batch AdamW at lr 3e-3 amplifies a
+# float32 rounding difference about 10x per step (the card's and the CPU's
+# free-running losses part by 2e-4 by step 3 at gw), so after a few steps
+# the runs differ by the trajectory, not by the arithmetic.  Then the whole
+# workflow (150 float steps, PTQ, 60 QAT steps) against the JAX package's CPU
+# run of the example's own ``train`` and ``auc_of`` from the same init (the
+# port's, a torch generator seeded 0; the example itself draws JAX's
+# PRNGKey(0), which torch cannot reproduce, and the init alone moves these
+# AUCs by about 0.01).  The values come from
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/physics_workflow_reference.py
+TRAIN_EVENTS, TRAIN_TRACK_STEPS, TRAIN_TRACK_TOL = 1024, 20, 1e-4
+TRACK_PARAM_ATOL, TRACK_GRAD_NOISE = 1e-6, 1e-4
+JAX_WORKFLOW = {  # (model, policy): (float AUC, PTQ AUC / float, QAT AUC / float)
+    ("engine_anomaly", None): (0.9777763364719887, 1.0000312154922488, 0.9995103069653468),
+    ("engine_anomaly", "paper_vu13p"): (0.9777763364719887, 1.0000312154922488,
+                                        0.9919873733333854),
+    ("btagging", None): (0.7679302502239224, 0.9989898577174965, 0.9962558911569414),
+    ("btagging", "paper_vu13p"): (0.7679302502239224, 0.9989898577174965, 1.0001255825942832),
+    ("gw", None): (0.9350401361270927, 0.998688191479161, 0.9927758725158773),
+    ("gw", "paper_vu13p"): (0.9350401361270927, 0.998688191479161, 0.9973498611686317),
+}
+WORKFLOW_TOL = 0.02
+# (c) An LM train step at granite-8b's published width cut to 2 layers,
+# float32, batch 2 x 2048 tokens: run_training for 8 steps with a checkpoint
+# every 4, again killed at step 6 and resumed; both under
+# torch.use_deterministic_algorithms(True), and the two runs' parameters
+# must be bitwise equal.
+LM_TRAIN_CUT = dict(n_layers=2, dtype="float32")
+LM_TRAIN = dict(total_steps=8, checkpoint_every=4, warmup_steps=2, learning_rate=3e-4)
+LM_TRAIN_SHAPE, LM_TRAIN_FAIL_AT = (2, 2048), 6
+
+
+def _attention_grad_case(dev, shape, hkv, causal, window, kv_len, dtype, mode):
+    import torch
+
+    from repro_torch.kernels.flash_attention import mha, mha_ref
+
+    b, h, l, d = shape
+    g = torch.Generator().manual_seed(l * d + h + (kv_len or 0))
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.randn(b, hh, l, d, generator=g).to(dev, tdt).requires_grad_()
+               for hh in (h, hkv, hkv))
+    dout = torch.randn(b, h, l, d, generator=g).to(dev, tdt)
+    kw = dict(causal=causal, window=window, mode=mode, kv_len=kv_len)
+    out = mha(q, k, v, **kw)
+    if "Attention" not in type(out.grad_fn).__name__:
+        raise SmokeError(f"mha under grad did not go through the autograd.Function: "
+                         f"{type(out.grad_fn).__name__}")
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    ref = torch.autograd.grad(mha_ref(q, k, v, **kw), (q, k, v), dout, allow_unused=True)
+    ref = [torch.zeros_like(t) if r is None else r for t, r in zip((q, k, v), ref)]
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for name, gr, rf in zip(("dq", "dk", "dv"), grads, ref):
+        scale = max(1.0, float(rf.float().abs().max()))
+        if mode == "lut" and name != "dv":
+            errs[name] = float(gr.float().abs().max())
+            ok &= errs[name] == 0.0  # the table lookups carry no gradient: exactly 0
+        elif mode == "lut":
+            bound_dv = torch.autograd.grad(mha_ref(q, k, v, **kw), v, dout.abs())[0]  # P^T |dO|
+            errs[name], rows_over, fine = close_enough(
+                gr, rf, 1e-4 * scale, flip_allow=ATT_LUT_STEP * bound_dv.float())
+            errs["dv_rows_over"] = rows_over
+            ok &= fine
+        else:
+            errs[name], _, fine = close_enough(gr, rf, ATT_GRAD_REL[dtype] * scale)
+            ok &= fine
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(q, k, v, **kw), (q, k, v), dout,
+                                           allow_unused=True)
+
+    iters = 5 if b * h * l * l > 1e8 else 10
+    ms = time_ms(fwd_bwd(mha), iters)
+    plain_ms = time_ms(fwd_bwd(mha_ref), iters)
+    return dict(kernel="flash_attention", shape=list(shape), kv_heads=hkv, causal=causal,
+                window=window, kv_len=kv_len, dtype=dtype, mode=mode, max_abs_err=errs,
+                ok=bool(ok), fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain_ms)
+
+
+def _layernorm_grad_case(dev, rows, k, rms, use_lut):
+    import torch
+
+    from repro_torch.kernels.layernorm import layernorm, layernorm_ref
+
+    g = torch.Generator().manual_seed(rows + k + use_lut)
+    x = (torch.randn(rows, k, generator=g) * 3 + 0.5).to(dev).requires_grad_()
+    gamma = (1 + 0.2 * torch.randn(k, generator=g)).to(dev).requires_grad_()
+    beta = None if rms else torch.randn(k, generator=g).to(dev).requires_grad_()
+    dout = torch.randn(rows, k, generator=g).to(dev)
+    ins = [t for t in (x, gamma, beta) if t is not None]
+    kw = dict(use_lut=use_lut, rms=rms, eps=1e-6 if rms else 1e-5)
+    out = layernorm(x, gamma, beta, **kw)
+    if "LayerNorm" not in type(out.grad_fn).__name__:
+        raise SmokeError(f"layernorm under grad did not go through the autograd.Function: "
+                         f"{type(out.grad_fn).__name__}")
+    grads = torch.autograd.grad(out, ins, dout)
+    ref = torch.autograd.grad(layernorm_ref(x, gamma, beta, **kw), ins, dout)
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for name, gr, rf in zip(("dx", "dgamma", "dbeta"), grads, ref):
+        scale = max(1.0, float(rf.abs().max()))
+        flip = LN_LUT_STEP * scale if use_lut and name == "dx" else None
+        errs[name], _, fine = close_enough(gr if gr.ndim > 1 else gr[None],
+                                           rf if rf.ndim > 1 else rf[None],
+                                           LN_GRAD_REL * scale, flip_allow=flip)
+        if use_lut and name != "dx":  # a moved row moves the column sums by its share
+            fine = fine or errs[name] <= LN_LUT_STEP * scale
+        ok &= fine
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(x, gamma, beta, **kw), ins, dout)
+
+    return dict(kernel="layernorm", shape=[rows, k], mode=("rms" if rms else "ln")
+                + ("+lut" if use_lut else ""), max_abs_err=errs, ok=bool(ok),
+                fwd_bwd_ms=time_ms(fwd_bwd(layernorm), 10),
+                plain_fwd_bwd_ms=time_ms(fwd_bwd(layernorm_ref), 10))
+
+
+def _no_backward_raises(dev) -> list[str]:
+    """The kernels without a backward refuse inputs that require grad."""
+    import torch
+
+    from repro_torch.kernels.lut_softmax import lut_softmax
+    from repro_torch.kernels.qmatmul import qmatmul
+    from repro_torch.kernels.ssd_scan import ssd
+
+    x = torch.randn(64, 32, device=dev, requires_grad=True)
+    w = torch.randn(32, 32, device=dev)
+    xdt = torch.randn(1, 64, 2, 16, device=dev, requires_grad=True)
+    a, bm = -torch.rand(1, 64, 2, device=dev), torch.randn(1, 64, 1, 16, device=dev)
+    calls = {"lut_softmax": lambda: lut_softmax(x), "qmatmul": lambda: qmatmul(x, w),
+             "ssd_scan": lambda: ssd(xdt, a, bm, bm, chunk=64)}
+    raised = []
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "has no backward" not in str(e):
+                raise
+            raised.append(name)
+            log(f"[grad] {name} under grad raises: {str(e)[:110]}...")
+        else:
+            raise SmokeError(f"{name} ran under grad: its output would drop the gradient")
+    return raised
+
+
+def _physics_step(cfg, x, y, params, dev):
+    """One of the example's train steps (value_and_grad, then AdamW in
+    place) as a callable, on copies of ``params``."""
+    import torch
+
+    from repro_torch.models import physics
+    from repro_torch.models.params import map_leaves
+    from repro_torch.optim import AdamW
+    from repro_torch.train import value_and_grad
+
+    params = map_leaves(lambda _, t: t.detach().to(dev, copy=True), params)
+    opt = AdamW(schedule=lambda s: 3e-3, weight_decay=0.0)
+    state = opt.init(params)
+    batch = {"x": torch.tensor(x, device=dev), "y": torch.tensor(y, device=dev)}
+
+    def step():
+        (loss, _), grads = value_and_grad(physics.loss_fn, params, cfg, batch, device=dev)
+        opt.update(grads, state, params)
+        return loss
+
+    return step
+
+
+def _track_cpu_steps(cfg, x, y, init, dev) -> dict:
+    """The example's first float training steps on the port's CPU path; at
+    each, the card takes the same step from a copy of the CPU's parameters
+    and AdamW state.  Held: each step's loss within TRAIN_TRACK_TOL, and the
+    parameters after it within TRACK_PARAM_ATOL except where the two
+    gradients differ by more than TRACK_GRAD_NOISE of the CPU's: an entry
+    whose gradient is at the float32 noise floor (the key bias, for one, has
+    an exactly zero gradient in exact arithmetic), where Adam's
+    m / sqrt(v) follows the noise.  Where the gradients agree, Adam's update
+    differs by at most that share of the learning rate."""
+    import torch
+
+    from repro_torch.models import physics
+    from repro_torch.models.params import map_leaves
+    from repro_torch.optim import AdamW
+    from repro_torch.train import value_and_grad
+
+    def copy(tree, device):
+        return map_leaves(lambda _, t: t.detach().to(device, copy=True), tree)
+
+    opt = AdamW(schedule=lambda s: 3e-3, weight_decay=0.0)
+    params = copy(init, "cpu")
+    state = opt.init(params)
+    batches = {d: {"x": torch.tensor(x, device=d), "y": torch.tensor(y, device=d)}
+               for d in ("cpu", dev)}
+    out = {"cpu_losses": [], "loss_rel": [], "params_off": []}
+    for _ in range(TRAIN_TRACK_STEPS):
+        p_dev, s_dev = copy(params, dev), copy(state, dev)
+        (l_dev, _), g_dev = value_and_grad(physics.loss_fn, p_dev, cfg, batches[dev], device=dev)
+        opt.update(g_dev, s_dev, p_dev)
+        (l_cpu, _), g_cpu = value_and_grad(physics.loss_fn, params, cfg, batches["cpu"],
+                                           device="cpu")
+        opt.update(g_cpu, state, params)
+        out["cpu_losses"].append(float(l_cpu))
+        out["loss_rel"].append(abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu)))
+        off, unexplained, total = 0, 0, 0
+        for (_, a), (_, b), (_, gd), (_, g) in zip(_leaves(p_dev), _leaves(params),
+                                                   _leaves(g_dev), _leaves(g_cpu)):
+            moved = (a.cpu() - b).abs() > TRACK_PARAM_ATOL
+            noisy = (gd.cpu() - g).abs() > TRACK_GRAD_NOISE * g.abs()
+            off += int(moved.sum())
+            unexplained += int((moved & ~noisy).sum())
+            total += b.numel()
+        out["params_off"].append(off / total)
+        out["params_off_unexplained"] = out.get("params_off_unexplained", 0) + unexplained
+    if max(out["loss_rel"]) > TRAIN_TRACK_TOL or out["params_off_unexplained"]:
+        raise SmokeError(f"{cfg.name}: a float train step on the card differs from the CPU "
+                         f"path's: loss {out['loss_rel']} (tol {TRAIN_TRACK_TOL}), parameters "
+                         f"off by more than {TRACK_PARAM_ATOL} whose gradients agree to "
+                         f"{TRACK_GRAD_NOISE}: {out['params_off_unexplained']}")
+    return out
+
+
+def _physics_workflow(dev):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import GENERATORS
+    from repro_torch.examples import physics_inference as wf
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import physics
+
+    results = []
+    for name in MODELS:
+        cfg = get_config(name)
+        x, y = GENERATORS[name](TRAIN_EVENTS, seed=0)
+        init = physics.init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        track = _track_cpu_steps(cfg, x, y, init, dev)
+        card = []  # the card's own run, for the free-running divergence (not held)
+        wf.train(cfg, x, y, TRAIN_TRACK_STEPS, params=init, device=dev, losses=card)
+        track["free_running_rel"] = [abs(float(a) - b) / abs(b)
+                                     for a, b in zip(card, track["cpu_losses"])]
+        step = _physics_step(cfg, x, y, init, dev)
+        before = dict(LAUNCHES)
+        step()
+        torch.cuda.synchronize()
+        per_step = {k: LAUNCHES[k] - before.get(k, 0) for k in ("flash_attention", "layernorm")}
+        want = {"flash_attention": cfg.n_layers,
+                "layernorm": 0 if cfg.norm_kind == "none" else 2 * cfg.n_layers + 1}
+        if per_step != want:
+            raise SmokeError(f"{name}: launches per train step {per_step}, expected {want}")
+        ms = median_ms(step, 20)
+        prof = profile_forward(step, iters=5)
+        r = dict(model=name, batch=TRAIN_EVENTS, step_ms=ms, events_per_s=TRAIN_EVENTS / ms * 1e3,
+                 launches_per_step=per_step, profile=prof, track=track, workflows=[])
+        busy = prof["busy_share"]
+        log(f"[train] {name:14s} train step at batch {TRAIN_EVENTS}: median {ms:.3f} ms, "
+            f"{r['events_per_s']:.0f} events/s, launches/step {per_step}, device busy "
+            f"{'not measured' if busy is None else f'{busy:.1%}'}, top {prof['top']}")
+        log(f"[train] {name:14s} {TRAIN_TRACK_STEPS} float steps, each from the CPU run's "
+            f"state: loss vs CPU max {max(track['loss_rel']):.2e} (tol {TRAIN_TRACK_TOL}), "
+            f"parameters off by > {TRACK_PARAM_ATOL} after a step: at most "
+            f"{max(track['params_off']):.2e} of them, each where the gradients differ by more "
+            f"than {TRACK_GRAD_NOISE} of the CPU's; "
+            f"free-running "
+            f"card vs CPU loss by step {[f'{e:.1e}' for e in track['free_running_rel']]}")
+        for policy in (None, "paper_vu13p"):
+            t0 = time.perf_counter()
+            w = wf.workflow(name, policy, device=dev, params=init)
+            ref = JAX_WORKFLOW[(name, policy)]
+            got = (w["auc_float"], w["ratio_ptq"], w["ratio_qat"])
+            off = max(abs(a - b) for a, b in zip(got, ref))
+            w.update(seconds=time.perf_counter() - t0, jax_reference=ref, max_off=off)
+            r["workflows"].append(w)
+            log(f"[train] {name:14s} workflow {w['ptq_policy']}/{w['qat_policy']}: float AUC "
+                f"{got[0]:.4f} (JAX {ref[0]:.4f}), PTQ ratio {got[1]:.4f} ({ref[1]:.4f}), QAT "
+                f"ratio {got[2]:.4f} ({ref[2]:.4f}); largest gap {off:.4f} (tol {WORKFLOW_TOL}); "
+                f"final float loss {w['loss_float']:.4f}; {w['seconds']:.1f} s")
+            if off > WORKFLOW_TOL:
+                raise SmokeError(f"{name}/{policy}: the workflow's AUC / ratios {got} are more "
+                                 f"than {WORKFLOW_TOL} from the JAX package's {ref}")
+        results.append(r)
+    return results
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k], path + (k,))]
+    return [("/".join(path), tree)]
+
+
+def _bitwise_equal(a, b, label):
+    """Raise unless the two trees hold the same bits (compared on a's device)."""
+    import torch
+
+    bits = {4: torch.int32, 2: torch.int16, 1: torch.uint8, 8: torch.int64}
+    for (pa, ta), (pb, tb) in zip(_leaves(a), _leaves(b)):
+        if pa != pb or ta.dtype != tb.dtype or ta.shape != tb.shape:
+            raise SmokeError(f"{label}: {pa} / {pb} differ in name, dtype or shape")
+        view = bits[ta.element_size()]
+        if not torch.equal(ta.view(view), tb.to(ta.device).view(view)):
+            raise SmokeError(f"{label}: {pa} differs")
+
+
+def _lm_train(dev):
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention.autograd import attention_backward
+    from repro_torch.kernels.layernorm.autograd import layernorm_backward
+    from repro_torch.optim import AdamW
+    from repro_torch.train import FailureInjector, make_train_step, run_training
+
+    cfg = dataclasses.replace(get_config("granite-8b"), **LM_TRAIN_CUT)
+    tc = TrainConfig(**LM_TRAIN)
+    b, l = LM_TRAIN_SHAPE
+    ds = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=l, global_batch=b))
+    work = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res_a = run_training(cfg, tc, ds.batch, workdir=str(work / "straight"), log_every=1,
+                             device=dev)
+        straight_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = dict(LAUNCHES)
+        want = {"flash_attention": cfg.n_layers * tc.total_steps,
+                "layernorm": (2 * cfg.n_layers + 1) * tc.total_steps}
+        if {k: launches.get(k, 0) for k in want} != want:
+            raise SmokeError(f"LM train launches {launches}, expected {want}")
+        # the card's checkpoint restored on the CPU: bitwise the card's state
+        t0 = time.perf_counter()
+        on_cpu = Checkpointer(str(work / "straight" / "checkpoints")).restore(res_a.state,
+                                                                            device="cpu")
+        _bitwise_equal(on_cpu, res_a.state, "the card's checkpoint restored on the CPU")
+        restore_s = time.perf_counter() - t0
+        del on_cpu
+        shutil.rmtree(work / "straight")
+        # killed at step 6, resumed from the step-4 checkpoint
+        t0 = time.perf_counter()
+        try:
+            run_training(cfg, tc, ds.batch, workdir=str(work / "faulty"), log_every=1, device=dev,
+                         failure_injector=FailureInjector(fail_at_step=LM_TRAIN_FAIL_AT))
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        else:
+            raise SmokeError("the failure injector did not fire")
+        res_b = run_training(cfg, tc, ds.batch, workdir=str(work / "faulty"), log_every=1,
+                             device=dev)
+        resumed_s = time.perf_counter() - t0
+        if res_b.metrics_history[0]["step"] != tc.checkpoint_every + 1:
+            raise SmokeError(f"the resumed run started at {res_b.metrics_history[0]['step']}")
+        _bitwise_equal(res_b.state, res_a.state, "the resumed run against the straight run")
+        log(f"[train] granite-8b width, {cfg.n_layers} layers, f32, batch {b} x {l}: resumed run "
+            f"(killed at step {LM_TRAIN_FAIL_AT}) bitwise equal to the straight run; the card's "
+            f"checkpoint restored on the CPU bitwise equal ({restore_s:.1f} s); straight run "
+            f"{straight_s:.1f} s, killed + resumed {resumed_s:.1f} s")
+        del res_b
+        # the step alone: time, profile, and the two backwards' share of it
+        opt = AdamW(schedule=lambda s: 3e-4)
+        update = make_train_step(cfg, opt)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(0).items()}
+        state = res_a.state
+        steps_s = [m["step_time_s"] for m in res_a.metrics_history[1:]]
+        step_ms = statistics.median(steps_s) * 1e3
+        prof = profile_forward(lambda: update(state, batch), iters=1)
+        g = torch.Generator().manual_seed(1)
+        hd = cfg.resolved_head_dim
+        q, dout, out = (torch.randn(b, cfg.n_heads, l, hd, generator=g).to(dev) for _ in range(3))
+        k, v = (torch.randn(b, cfg.n_kv_heads, l, hd, generator=g).to(dev) for _ in range(2))
+        att_bwd_ms = time_ms(lambda: attention_backward(q, k, v, out, dout, causal=True), 3)
+        x = torch.randn(b * l, cfg.d_model, generator=g).to(dev)
+        gamma = torch.ones(cfg.d_model, device=dev)
+        ln_bwd_ms = time_ms(lambda: layernorm_backward(x, gamma, x, rms=True, eps=cfg.norm_eps), 5)
+        dev_ms = prof.get("device_ms_per_fwd")
+        shares = {}
+        if dev_ms:
+            shares = {"attention_backward": cfg.n_layers * att_bwd_ms / dev_ms,
+                      "layernorm_backward": (2 * cfg.n_layers + 1) * ln_bwd_ms / dev_ms}
+        r = dict(model="granite-8b", n_layers=cfg.n_layers, dtype="float32", batch=b, seq=l,
+                 step_ms=step_ms, tokens_per_s=b * l / step_ms * 1e3, peak_gb=peak_gb,
+                 profile=prof, attention_backward_ms=att_bwd_ms, layernorm_backward_ms=ln_bwd_ms,
+                 backward_shares=shares, launches=launches, restore_cpu_s=restore_s,
+                 straight_s=straight_s, resumed_s=resumed_s,
+                 losses=[m["loss"] for m in res_a.metrics_history])
+        busy = prof["busy_share"]
+        log(f"[train] granite-8b LM train step ({cfg.n_layers} layers, f32, {b} x {l}): median "
+            f"{step_ms:.1f} ms, {r['tokens_per_s']:.0f} tokens/s, device busy "
+            f"{'not measured' if busy is None else f'{busy:.1%}'}, device ms/step "
+            f"{dev_ms if dev_ms is None else round(dev_ms, 2)}, peak {peak_gb:.1f} GB; losses "
+            f"{[round(x, 4) for x in r['losses']]}")
+        log(f"[train] granite-8b LM step top kernels {prof['top']}; attention backward "
+            f"{att_bwd_ms:.2f} ms x {cfg.n_layers}, layernorm backward {ln_bwd_ms:.3f} ms x "
+            f"{2 * cfg.n_layers + 1}: shares of the step's device time "
+            f"{ {k: round(v, 3) for k, v in shares.items()} }")
+        return r, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_train(dev):
+    """Training: (a) the gradients of the two autograd.Functions on the card
+    and the three kernels that must refuse grad; (b) the physics workflow;
+    (c) the granite-width LM run with its bitwise restart.  Returns (results,
+    launch counts of the windows of (b) and (c))."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+
+    grads = []
+    for shape, hkv, causal, window, kv_len, dtype in TRAIN_ATT_CASES:
+        for mode in ("safe", "lut") if dtype == "float32" else ("safe",):
+            c = _attention_grad_case(dev, shape, hkv, causal, window, kv_len, dtype, mode)
+            grads.append(c)
+            log(f"[grad] attention {shape} kv {hkv} {dtype} {mode} causal {causal} window "
+                f"{window} kv_len {kv_len}: max |d| {c['max_abs_err']}  fwd+bwd "
+                f"{c['fwd_bwd_ms']:.3f} ms (plain {c['plain_fwd_bwd_ms']:.3f})  "
+                f"{'ok' if c['ok'] else 'FAILED'}")
+    for rows, k, rms, use_lut in TRAIN_LN_CASES:
+        c = _layernorm_grad_case(dev, rows, k, rms, use_lut)
+        grads.append(c)
+        log(f"[grad] layernorm ({rows}, {k}) {c['mode']}: max |d| {c['max_abs_err']}  fwd+bwd "
+            f"{c['fwd_bwd_ms']:.3f} ms (plain {c['plain_fwd_bwd_ms']:.3f})  "
+            f"{'ok' if c['ok'] else 'FAILED'}")
+    bad = [c for c in grads if not c["ok"]]
+    if bad:
+        raise SmokeError(f"{len(bad)} gradient checks failed: {bad}")
+    raised = _no_backward_raises(dev)
+    # (b) and (c) train under deterministic algorithms: the same run gives
+    # the same bits on every call (the backward of a gather, for one, would
+    # otherwise add with atomics in no fixed order, and training amplifies
+    # such differences); uninitialised memory is left as it is (filling it
+    # is a debugging aid, not part of determinism)
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        LAUNCHES.clear()  # the training path's window starts here
+        physics = _physics_workflow(dev)
+        physics_counts = dict(LAUNCHES)
+        lm_run, lm_counts = _lm_train(dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    counts = {k: physics_counts.get(k, 0) + lm_counts.get(k, 0)
+              for k in set(physics_counts) | set(lm_counts)}
+    for kname in ("flash_attention", "layernorm"):
+        if counts.get(kname, 0) <= 0:
+            raise SmokeError(f"{kname} was never launched on the training path")
+    log(f"[train] training path launches: {counts}")
+    return dict(grads=grads, no_backward_raises=raised, physics=physics, lm=lm_run), counts
+
+
 # ------------------------------------------------------------------- main --
 
 
 def main() -> int:
+    # phase 8 trains under torch.use_deterministic_algorithms(True), which
+    # needs cuBLAS's fixed workspace configuration from the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError as e:
@@ -1754,21 +2275,32 @@ def main() -> int:
         ).stdout.strip()
         log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
             f"cuda {torch.version.cuda} device {kind}")
-        build_s, sass = phase_build()
-        cases = phase_kernels(dev)
-        models, model_counts = phase_models(dev)
-        mha, mha_counts = phase_mha(dev)
-        softmax_path, softmax_counts = phase_lut_softmax_path(dev)
-        mamba, mamba_counts = phase_mamba(dev)
-        dense, dense_counts = phase_dense(dev)
-        serve, serve_counts = phase_serve(dev)
+        phase_s = {}
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            phase_s[name] = time.perf_counter() - t0
+            log(f"[phase] {name}: {phase_s[name]:.1f} s")
+            return out
+
+        build_s, sass = timed("build", phase_build)
+        cases = timed("kernels", phase_kernels, dev)
+        models, model_counts = timed("models", phase_models, dev)
+        mha, mha_counts = timed("mha", phase_mha, dev)
+        softmax_path, softmax_counts = timed("lut_softmax", phase_lut_softmax_path, dev)
+        mamba, mamba_counts = timed("mamba", phase_mamba, dev)
+        dense, dense_counts = timed("dense", phase_dense, dev)
+        serve, serve_counts = timed("serve", phase_serve, dev)
+        train, train_counts = timed("train", phase_train, dev)
     except Exception:  # noqa: BLE001 - report every failed phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
     # launches: each kernel's count summed over the path windows it runs in
-    windows = (model_counts, mha_counts, softmax_counts, mamba_counts, dense_counts, serve_counts)
+    windows = (model_counts, mha_counts, softmax_counts, mamba_counts, dense_counts, serve_counts,
+               train_counts)
     counts = {k: sum(w.get(k, 0) for w in windows)
               for k in ("flash_attention", "layernorm", "qmatmul", "lut_softmax", "ssd_scan")}
     main_shape = {"flash_attention": ([8192, 4, 100, 8], "safe"),
@@ -1796,13 +2328,15 @@ def main() -> int:
                                "sass_tensor_core_instructions": sass,
                                "kernels": cases, "models": models, "mha": mha,
                                "lut_softmax_path": softmax_path, "mamba": mamba,
-                               "dense": dense, "serve": serve,
+                               "dense": dense, "serve": serve, "train": train,
                                "launches": counts,
                                "launches_by_path": {"models": model_counts, "mha": mha_counts,
                                                     "lut_softmax": softmax_counts,
                                                     "mamba": mamba_counts,
                                                     "dense": dense_counts,
-                                                    "serve": serve_counts},
+                                                    "serve": serve_counts,
+                                                    "train": train_counts},
+                               "phase_seconds": phase_s,
                                "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s; details in {OUT.relative_to(ROOT)}")
     print(json.dumps({"kernels": line}))

@@ -18,6 +18,7 @@ from repro_torch.configs.base import (  # noqa: F401
     MoEConfig,
     ServeConfig,
     SSMConfig,
+    TrainConfig,
 )
 
 _PHYSICS = {

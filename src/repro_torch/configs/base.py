@@ -1,9 +1,9 @@
-"""Config dataclasses (port of ``repro.configs.base``): the model configs
-and ``ServeConfig``.
+"""Config dataclasses (port of ``repro.configs.base``): the model configs,
+``ServeConfig`` and ``TrainConfig``.
 
 Plain dataclasses with the reference's fields and defaults, so a config
-converts field for field.  ``TrainConfig`` waits for ROADMAP queue 1, item
-11; ``ParallelismConfig`` and the dry-run shapes for item 12.
+converts field for field.  ``ParallelismConfig`` and the dry-run shapes
+wait for ROADMAP queue 1, item 12.
 """
 
 from __future__ import annotations
@@ -117,6 +117,26 @@ class ModelConfig:
     def padded_vocab_size(self) -> int:
         """Vocab padded to a multiple of 256 (the reference's TP-friendly size)."""
         return ((self.vocab_size + 255) // 256) * 256
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training loop's knobs (``train.loop.run_training``), field for
+    field the reference's."""
+
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    schedule: Literal["cosine", "wsd", "linear"] = "cosine"
+    decay_fraction: float = 0.1  # WSD decay phase fraction
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    checkpoint_every: int = 200
+    keep_checkpoints: int = 3
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

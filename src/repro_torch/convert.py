@@ -2,7 +2,9 @@
 
 The JAX side is handed over as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), so this module needs no JAX.  Dtypes
-and the stacked ``blocks`` and cache layouts are kept.
+and the stacked ``blocks`` and cache layouts are kept.  A train state
+``{"params", "opt": {"step", "mu", "nu"}}`` converts both ways
+(``train_state_from_numpy`` / ``train_state_to_numpy``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,32 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
 # dense KV slabs, the rolling sliding-window buffer and the paged pools
 _CACHE_LAYOUTS = ({"ssm_state", "conv_state"}, {"k", "v"}, {"k", "v", "slot_pos"},
                   {"k", "v", "page_table"})
+
+
+def train_state_from_numpy(tree, device: str | torch.device = "cuda"):
+    """The JAX package's train state ``{"params", "opt": {"step", "mu",
+    "nu"}}`` as numpy -> the port's (``AdamW``'s state: an int32 scalar
+    step, float32 moments mirroring the parameters)."""
+    if set(tree) != {"params", "opt"} or set(tree["opt"]) != {"step", "mu", "nu"}:
+        raise ValueError(f"a train state is {{'params', 'opt': {{'step', 'mu', 'nu'}}}}, got "
+                         f"{sorted(tree)} / {sorted(tree.get('opt', {}))}")
+    state = params_from_numpy(tree, device)
+    state["opt"]["step"] = state["opt"]["step"].to(torch.int32)
+    return state
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy; bfloat16 (which numpy lacks) comes out as float32, exactly."""
+    t = t.detach().to("cpu", copy=True)
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def train_state_to_numpy(state):
+    """The port's train state (any nesting of tensors) -> the same nesting of
+    numpy arrays, for the JAX package or a comparison."""
+    if isinstance(state, dict):
+        return {k: train_state_to_numpy(v) for k, v in state.items()}
+    return _to_numpy(state)
 
 
 def caches_from_numpy(tree, device: str | torch.device = "cuda"):

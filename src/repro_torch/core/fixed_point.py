@@ -13,6 +13,8 @@ from typing import Literal
 
 import torch
 
+from repro_torch.device import scalar
+
 # Paper, Sec. VI-A: accumulator integer width fixed at 10 bits incl. sign.
 ACCUM_INT_BITS = 10
 
@@ -63,6 +65,13 @@ class FixedPointConfig:
     def n_levels(self) -> int:
         return 2 ** self.total_bits
 
+    def with_frac_bits(self, frac_bits: int) -> "FixedPointConfig":
+        return dataclasses.replace(self, total_bits=self.int_bits + frac_bits)
+
+    def __str__(self) -> str:
+        kind = "ap_fixed" if self.signed else "ap_ufixed"
+        return f"{kind}<{self.total_bits},{self.int_bits}>"
+
 
 def quantize(x: torch.Tensor, cfg: FixedPointConfig) -> torch.Tensor:
     """Round ``x`` onto the ap_fixed grid (returns a float carrier)."""
@@ -78,18 +87,53 @@ def quantize(x: torch.Tensor, cfg: FixedPointConfig) -> torch.Tensor:
     return q * cfg.step
 
 
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, whose gradient is
+    split evenly at a tie (0.5 when x equals a bound), where ``torch.clamp``
+    passes all of it.  ``lo`` and ``hi`` are numbers or tensors."""
+    lo, hi = (b.to(x.device, x.dtype) if isinstance(b, torch.Tensor)
+              else scalar(float(b), x.dtype, str(x.device)) for b in (lo, hi))
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def quantize_ste(x: torch.Tensor, cfg: FixedPointConfig) -> torch.Tensor:
-    """Fake-quantize with a clipped straight-through-estimator gradient.
+    """Fake-quantize with a clipped straight-through-estimator gradient:
+    identity inside the representable range, zero outside, half at its
+    bounds, as the reference's ``jnp.clip``.
 
     The forward value is computed as the reference writes it,
     ``clipped + (quantize(x) - clipped)``, so it matches bit for bit.
     """
-    clipped = torch.clamp(x, cfg.min_value, cfg.max_value)
+    clipped = clip(x, cfg.min_value, cfg.max_value)
     return clipped + (quantize(x, cfg) - clipped).detach()
+
+
+def to_int(x: torch.Tensor, cfg: FixedPointConfig, dtype=torch.int32) -> torch.Tensor:
+    """Integer codes of the fixed-point representation (perf-path bridge)."""
+    return torch.round(quantize(x, cfg) / cfg.step).to(dtype)
+
+
+def from_int(codes: torch.Tensor, cfg: FixedPointConfig, dtype=torch.float32) -> torch.Tensor:
+    return codes.to(dtype) * cfg.step
+
+
+def quantization_error_bound(cfg: FixedPointConfig) -> float:
+    """Max |x - quantize(x)| for in-range x (used by property tests)."""
+    if cfg.round_mode == "nearest":
+        return cfg.step / 2.0
+    return cfg.step
 
 
 def ap_fixed(total_bits: int, int_bits: int, **kw) -> FixedPointConfig:
     return FixedPointConfig(total_bits=total_bits, int_bits=int_bits, **kw)
 
+
+# The paper's per-model optima (Sec. VI-A): engine 6 frac bits (PTQ & QAT),
+# b-tagging 10 (PTQ) / 6 (QAT), GW 6 (PTQ & QAT); 6 integer bits.
+PAPER_OPTIMAL = {
+    "engine_anomaly": {"ptq": ap_fixed(12, 6), "qat": ap_fixed(12, 6)},
+    "btagging": {"ptq": ap_fixed(16, 6), "qat": ap_fixed(12, 6)},
+    "gw": {"ptq": ap_fixed(12, 6), "qat": ap_fixed(12, 6)},
+}
 
 ACCUM_CONFIG = ap_fixed(ACCUM_INT_BITS + 8, ACCUM_INT_BITS)

@@ -40,3 +40,21 @@ def rmsnorm(
     ms = torch.sum(x * x, dim=-1, keepdim=True) / k
     inv_rms = lut.lut_rsqrt(ms) if use_lut else torch.rsqrt(ms + eps)
     return x * inv_rms * gamma
+
+
+def norm(
+    x: torch.Tensor,
+    params: dict,
+    *,
+    kind: str = "layernorm",
+    eps: float = 1e-5,
+    use_lut: bool = False,
+) -> torch.Tensor:
+    """Framework entry point; ``params`` holds 'scale' (+ 'bias' for LN)."""
+    if kind == "layernorm":
+        return layernorm_paper(x, params["scale"], params["bias"], eps=eps, use_lut=use_lut)
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"], eps=eps, use_lut=use_lut)
+    if kind == "none":
+        return x
+    raise ValueError(f"unknown norm kind: {kind}")

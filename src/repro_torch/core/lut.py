@@ -49,6 +49,12 @@ def build_table_np(spec: LutSpec, fn: Callable[[np.ndarray], np.ndarray]) -> np.
     return np.asarray(fn(xs)).astype(np.float32)
 
 
+def build_table(spec: LutSpec, fn: Callable[[np.ndarray], np.ndarray],
+                device: str | torch.device = "cuda") -> torch.Tensor:
+    """The float32 table of ``fn`` over ``spec``'s grid, on ``device``."""
+    return torch.from_numpy(build_table_np(spec, fn)).to(resolve_device(device))
+
+
 def index_constants(spec: LutSpec) -> tuple[float, float]:
     """(offset, step) as float32 values: ``idx = rint((x' - offset) / step)``
     with ``x' = x`` (linear) or ``log2(max(x, 1e-30))`` (log)."""
@@ -70,6 +76,27 @@ def lut_index(x: torch.Tensor, spec: LutSpec) -> torch.Tensor:
 def lut_lookup(x: torch.Tensor, table: torch.Tensor, spec: LutSpec) -> torch.Tensor:
     """Reference lookup (gather)."""
     return table[lut_index(x, spec)]
+
+
+def lut_lookup_onehot(x: torch.Tensor, table: torch.Tensor, spec: LutSpec) -> torch.Tensor:
+    """The lookup as ``one_hot(idx) @ table`` (the reference's matrix-unit
+    form); bit-identical to :func:`lut_lookup`: each row selects one entry."""
+    onehot = torch.nn.functional.one_hot(lut_index(x, spec), spec.size).to(table.dtype)
+    return onehot @ table
+
+
+def lut_max_abs_error(spec: LutSpec, fn: Callable[[np.ndarray], np.ndarray]) -> float:
+    """Worst-case error of the nearest-entry lookup at the grid midpoints,
+    in numpy float64 (bounds the LUT softmax error in property tests)."""
+    if spec.spacing == "log":
+        grid = np.logspace(np.log2(spec.lo), np.log2(spec.hi), spec.size, base=2.0)
+        xs = np.sqrt(grid[:-1] * grid[1:])  # geometric midpoints
+        idx = np.round((np.log2(xs) - np.log2(spec.lo)) / spec.step)
+    else:
+        xs = np.linspace(spec.lo, spec.hi - spec.step, spec.size - 1) + spec.step / 2
+        idx = np.round((xs - spec.lo) / spec.step)
+    idx = np.clip(idx, 0, spec.size - 1).astype(int)
+    return float(np.max(np.abs(build_table_np(spec, fn)[idx] - fn(xs))))
 
 
 # --- the paper's three tables ----------------------------------------------

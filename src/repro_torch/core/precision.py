@@ -356,7 +356,7 @@ def _fake_quant_traced(x, step, lo, hi):
     on = step > 0
     safe = torch.where(on, step, torch.ones_like(step))
     q = torch.clamp(torch.round(x / safe), lo / safe, hi / safe) * safe
-    clipped = torch.where(on, torch.clamp(x, lo, hi), x)
+    clipped = torch.where(on, fxp.clip(x, lo, hi), x)
     q = torch.where(on, q, x)
     return clipped + (q - clipped).detach()
 

@@ -1,13 +1,17 @@
 """int8 tensors and the runtime fake-quant hook (port of ``repro.core.quant``).
 
 ``quantize_pytree_int8`` turns the float matrices of a nested dict into
-``QTensor`` s for the int8 datapath (``kernels/qmatmul``).  PTQ calibration
-and the fixed-point pytree sweeps wait for the training slice.
+``QTensor`` s for the int8 datapath (``kernels/qmatmul``); the fidelity
+path has PTQ calibration (``PTQCalibrator``), the fixed-point tree
+transforms (``quantize_pytree_fixed``, ``fake_quant_pytree``) and the
+bit-width sweep of the AUC-versus-bits figures (``sweep_frac_bits``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Any, Callable
 
 import torch
 
@@ -99,3 +103,81 @@ class QuantConfig:
         if self.mode == "qat" and self.weight_cfg is not None:
             return fxp.quantize_ste(w, self.weight_cfg)
         return w
+
+
+# ---------------------------------------------------------------------------
+# PTQ calibration and the fixed-point tree transforms (fidelity path)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CalibrationStats:
+    """Running activation statistics collected over calibration batches."""
+
+    amax: float = 0.0
+    amin: float = 0.0
+    n: int = 0
+
+    def update(self, x: torch.Tensor) -> "CalibrationStats":
+        return CalibrationStats(
+            amax=max(self.amax, float(torch.max(x))),
+            amin=min(self.amin, float(torch.min(x))),
+            n=self.n + 1,
+        )
+
+    def required_int_bits(self) -> int:
+        """Smallest signed integer width covering the observed range."""
+        bound = max(abs(self.amax), abs(self.amin), 1e-8)
+        return max(1, math.ceil(math.log2(bound) + 1e-12) + 1)
+
+
+class PTQCalibrator:
+    """Collects per-name activation stats and emits FixedPointConfigs:
+    ``observe(name, x)`` over calibration batches, then ``configs()``."""
+
+    def __init__(self, frac_bits: int, max_int_bits: int = fxp.ACCUM_INT_BITS):
+        self.frac_bits = frac_bits
+        self.max_int_bits = max_int_bits
+        self.stats: dict[str, CalibrationStats] = {}
+
+    def observe(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        self.stats[name] = self.stats.get(name, CalibrationStats()).update(x)
+        return x
+
+    def configs(self) -> dict[str, fxp.FixedPointConfig]:
+        out = {}
+        for name, st in self.stats.items():
+            int_bits = min(st.required_int_bits(), self.max_int_bits)
+            out[name] = fxp.ap_fixed(int_bits + self.frac_bits, int_bits)
+        return out
+
+
+def _map_float_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_float_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return fn(tree)
+    return tree
+
+
+def quantize_pytree_fixed(params: Any, cfg: fxp.FixedPointConfig) -> Any:
+    """PTQ: snap every float leaf of a nested dict onto the ap_fixed grid."""
+    return _map_float_leaves(lambda t: fxp.quantize(t, cfg), params)
+
+
+def fake_quant_pytree(params: Any, cfg: fxp.FixedPointConfig) -> Any:
+    """QAT: fake-quant every float leaf with clipped-STE gradients."""
+    return _map_float_leaves(lambda t: fxp.quantize_ste(t, cfg), params)
+
+
+def sweep_frac_bits(
+    apply_fn: Callable[[Any, torch.Tensor], torch.Tensor],
+    params: Any,
+    x: torch.Tensor,
+    int_bits: int,
+    frac_bits_list: list[int],
+) -> dict[int, torch.Tensor]:
+    """PTQ bit-width sweep (the AUC-versus-bits figures): ``apply_fn`` on
+    the params snapped at ``ap_fixed<int_bits + fb, int_bits>`` per fb."""
+    return {fb: apply_fn(quantize_pytree_fixed(params, fxp.ap_fixed(int_bits + fb, int_bits)), x)
+            for fb in frac_bits_list}

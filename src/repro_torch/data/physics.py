@@ -92,3 +92,39 @@ GENERATORS = {
     "btagging": btagging_data,
     "gw": gw_data,
 }
+
+
+def _average_ranks(x: np.ndarray) -> np.ndarray:
+    """1-based ranks with ties averaged (Mann-Whitney midranks)."""
+    order = np.argsort(x, kind="stable")
+    ranks = np.empty(len(x), np.float64)
+    i = 0
+    xs = x[order]
+    while i < len(x):
+        j = i
+        while j + 1 < len(x) and xs[j + 1] == xs[i]:
+            j += 1
+        ranks[order[i : j + 1]] = (i + j) / 2 + 1
+        i = j + 1
+    return ranks
+
+
+def auc_score(y_true: np.ndarray, scores: np.ndarray) -> float:
+    """Binary ROC AUC via the Mann-Whitney rank statistic (midranks for
+    ties)."""
+    y_true = np.asarray(y_true)
+    scores = np.asarray(scores, np.float64)
+    pos_mask = y_true == 1
+    n_pos = int(pos_mask.sum())
+    n_neg = len(y_true) - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    ranks = _average_ranks(scores)
+    r_pos = ranks[pos_mask].sum()
+    return float((r_pos - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def multiclass_auc(y_true: np.ndarray, probs: np.ndarray) -> float:
+    """Macro one-vs-rest AUC (b-tagging has 3 classes)."""
+    aucs = [auc_score((y_true == c).astype(int), probs[:, c]) for c in range(probs.shape[-1])]
+    return float(np.nanmean(aucs))

@@ -6,8 +6,38 @@ tensor it launches the kernel (sources in ``repro_torch/csrc``, built by
 ``kernels.build``) or raises.  Every launch adds one to
 ``LAUNCHES[<kernel>]``; nothing else touches the counts but a caller that
 resets them.
+
+A kernel writes its output through a raw pointer, so autograd cannot see
+through it.  ``flash_attention`` and ``layernorm`` carry gradients through
+a ``torch.autograd.Function`` (their ``autograd.py``: the kernel forward,
+a backward in torch ops).  The other three have no backward yet, and on the
+card they raise under grad (:func:`require_no_grad`) rather than hand back
+an output that silently drops its inputs' gradient.
 """
 
 import collections
 
+import torch
+
 LAUNCHES: collections.Counter = collections.Counter()
+
+# the ROADMAP item (queue 1) that ports each kernel's backward
+BACKWARD_ITEM = {
+    "ssd_scan": "item 10 (the mamba2 and hybrid families' training)",
+    "lut_softmax": "item 9 (the other datapaths)",
+    "qmatmul": "item 9 (the other datapaths)",
+}
+
+
+def require_no_grad(kernel: str, *tensors) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires grad: the
+    kernel ``kernel`` has no backward, so its output would silently drop
+    the gradient of its inputs."""
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"the {kernel} kernel has no backward yet (ROADMAP queue 1, "
+            f"{BACKWARD_ITEM[kernel]}); call it under torch.no_grad() or on "
+            "tensors that do not require grad"
+        )

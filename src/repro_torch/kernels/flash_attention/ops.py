@@ -11,7 +11,9 @@ on the tensor cores, float32 as 3xTF32 on mma.sync:
   TMA, which needs 16-byte aligned q, k, v.
 Any other head_dim up to 128 is zero-padded to the next of those (zeros add
 nothing to q.k and give zero output columns, which are sliced off), with the
-scale kept at 1/sqrt(true head_dim).
+scale kept at 1/sqrt(true head_dim).  Under grad mode, with any of q, k, v
+requiring grad, the launch goes through ``autograd.Attention`` (the kernel
+forward, a backward in torch ops).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import lut
 from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels.flash_attention import autograd
 from repro_torch.kernels.flash_attention.ref import mha_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128)  # all on the tensor cores
@@ -90,7 +93,16 @@ def mha(
         return mha_ref(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"mha runs on cpu or cuda, got {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return autograd.attention(q, k, v, causal=causal, window=window, mode=mode,
+                                  kv_len=kv_len, forward=_kernel)
+    return _kernel(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
 
+
+def _kernel(q, k, v, *, causal, window, mode, kv_len):
+    """One launch of the kernel on CUDA tensors (validated by ``mha``)."""
+    b, hq, lq, d = q.shape
+    _, hkv, lkv, _ = k.shape
     dk = padded_head_dim(d)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v must share float32 or bfloat16, got {q.dtype}, "

@@ -5,7 +5,9 @@ CUDA tensor it launches ``csrc/layernorm.cu`` or raises.  ``x`` is float32,
 bfloat16 or float16 and the output has its dtype; gamma and beta are float32
 or ``x``'s dtype.  With a ``fixed`` output precision the result is then
 snapped onto the ap_fixed grid, a torch op after the kernel as in the JAX
-package.
+package.  Under grad mode, with any of x, gamma, beta requiring grad, the
+launch goes through ``autograd.LayerNorm`` (the kernel forward, a backward
+in torch ops).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.core import lut
 from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels.layernorm import autograd
 from repro_torch.kernels.layernorm.ref import layernorm_ref, snap_output
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -151,7 +154,13 @@ def layernorm(
         raise ValueError(f"gamma/beta must be ({k},), got {tuple(gamma.shape)}, "
                          f"{None if beta is None else tuple(beta.shape)}")
     if x.is_cuda:
-        out = _kernel(x, gamma, beta, use_lut, rms, eps)
+        if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, gamma, beta)
+        ):
+            out = autograd.layernorm(x, gamma, beta, use_lut=use_lut, rms=rms, eps=eps,
+                                     forward=_kernel)
+        else:
+            out = _kernel(x, gamma, beta, use_lut, rms, eps)
         return out if precision is None else snap_output(out, precision)
     if x.device.type == "cpu":
         return layernorm_ref(x, gamma, beta, use_lut=use_lut, rms=rms, eps=eps,

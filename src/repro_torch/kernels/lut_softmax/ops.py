@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core import lut
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, require_no_grad
 from repro_torch.kernels.lut_softmax.ref import lut_softmax_ref
 
 
@@ -69,6 +69,7 @@ def lut_softmax(x: torch.Tensor, *, precision=None) -> torch.Tensor:
     if x.device.type == "cpu":
         out = lut_softmax_ref(x)
     elif x.device.type == "cuda":
+        require_no_grad("lut_softmax", x)
         out = _kernel(x)
     else:
         raise ValueError(f"lut_softmax runs on cpu or cuda, got {x.device}")

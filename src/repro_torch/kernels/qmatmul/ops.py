@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant, reuse
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, require_no_grad
 from repro_torch.kernels.qmatmul.ref import MAX_K, qmatmul_ref
 
 _ALIGN = 16  # bytes: TMA moves rows whose strides are multiples of 16
@@ -85,7 +85,7 @@ def qmatmul_int8(
         return qmatmul_ref(x, w, x_scale, w_scale, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"qmatmul runs on cpu or cuda, got {x.device}")
-
+    require_no_grad("qmatmul", *operands)  # the scales carry the float inputs' gradient
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise ValueError(f"qmatmul kernel takes int8 codes, got {x.dtype}, {w.dtype}")
     if x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32:

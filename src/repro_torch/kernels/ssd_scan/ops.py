@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, require_no_grad
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 MAX_CHUNK, MAX_P, MAX_N = 64, 128, 128
@@ -99,6 +99,7 @@ def ssd_with_state(
     clipped to l, which must be a multiple of it."""
     chunk = _check(xdt, a, bmat, cmat, chunk)
     if xdt.device.type == "cuda":
+        require_no_grad("ssd_scan", xdt, a, bmat, cmat)
         return _kernel(xdt, a, bmat, cmat, chunk)
     if xdt.device.type != "cpu":
         raise ValueError(f"ssd runs on cpu or cuda, got {xdt.device}")

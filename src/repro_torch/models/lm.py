@@ -13,14 +13,19 @@ The reference's scan over the stacked blocks is a Python loop.  ``prefill``
 and ``decode_step`` return new cache tensors and never write into the
 caller's: the new stack is one copy of the caller's, into which each layer
 writes its new rows.  ``in_place=True`` skips that copy and writes into the
-caller's stack (the serving executor, which owns its caches).  ``loss_fn`` waits for training (ROADMAP queue 1,
-item 11); the MoE, hybrid, VLM and audio families for items 9 and 10.
+caller's stack (the serving executor, which owns its caches).  ``loss_fn``
+is the next-token cross entropy of training; ``remat`` recomputes each
+block in the backward (``torch.utils.checkpoint``, non-reentrant).  The
+MoE, hybrid, VLM and audio families wait for items 9 and 10.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils import checkpoint as checkpoint_lib
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import precision as precision_lib
@@ -87,8 +92,35 @@ def _layer(tree, i: int):
     return params_lib.map_leaves(lambda _, t: t[i], tree)
 
 
+REMATS = ("none", "minimal", "full")
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """``remat="minimal"``: keep the outputs of products without batch axes
+    (the dense projections' ``mm``), recompute the rest, as the reference's
+    ``dots_with_no_batch_dims_saveable`` policy."""
+    if op is torch.ops.aten.mm.default:
+        return checkpoint_lib.CheckpointPolicy.MUST_SAVE
+    return checkpoint_lib.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn(h)`` recomputed in the backward per ``remat`` ("minimal" or
+    "full"; the reference's ``jax.checkpoint`` of the scan body)."""
+    context_fn = (checkpoint_lib.noop_context_fn if remat == "full" else
+                  functools.partial(checkpoint_lib.create_selective_checkpoint_contexts,
+                                    _dots_saveable))
+    return lambda h: checkpoint_lib.checkpoint(fn, h, use_reentrant=False,
+                                               context_fn=context_fn)
+
+
 def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: str,
-                caches, kernel, plan: precision_lib.PrecisionPlan, in_place: bool = False):
+                caches, kernel, plan: precision_lib.PrecisionPlan, in_place: bool = False,
+                remat: str = "none"):
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r}; use one of {REMATS}")
+    if remat != "none" and caches is not None:
+        raise ValueError("remat recomputes blocks in the backward: train mode only, no caches")
     uniform_quant = plan.uniform_layer_quant()
     layer_quants = None if uniform_quant is not None else plan.layer_quant_arrays()
     # one copy of the caller's stack (or, in place, the stack itself), whose
@@ -103,6 +135,13 @@ def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: s
     for i in range(cfg.n_layers):  # the reference's scan over the stacked blocks
         quant = uniform_quant if layer_quants is None else layer_quants.layer(i)
         lcache = None if new_layers is None else {k: t[i] for k, t in new_layers.items()}
+        if remat != "none":
+            def block(x, bparams=_layer(params["blocks"], i), quant=quant):
+                return blocks.block_apply(bparams, cfg, x, positions, mode=mode,
+                                          kernel=kernel, quant=quant)[0]
+
+            h = _remat(block, remat)(h)
+            continue
         h, out_lcache, _ = blocks.block_apply(
             _layer(params["blocks"], i), cfg, h, positions, mode=mode, cache=lcache,
             kernel=kernel, quant=quant,
@@ -132,6 +171,7 @@ def forward(
     kernel: dict | None = None,
     device: str | torch.device = "cuda",
     in_place: bool = False,
+    remat: str = "none",
 ):
     """Returns (logits (b, s, padded_vocab), new_caches, aux).
 
@@ -152,7 +192,7 @@ def forward(
     else:
         positions = _as_tensor(positions, dev)
     x, new_caches = _run_blocks(params, cfg, h, positions, mode=mode, caches=caches,
-                                kernel=kernel, plan=plan, in_place=in_place)
+                                kernel=kernel, plan=plan, in_place=in_place, remat=remat)
     x = layers.norm(
         params["final_norm"], x, cfg.norm_kind, cfg.norm_eps,
         use_lut=(kernel or {}).get("norm_lut", False),
@@ -166,6 +206,50 @@ def forward(
         pad = torch.arange(cfg.padded_vocab_size, device=dev) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e9)
     return logits, new_caches, {"text_offset": 0}
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _cross_entropy(logits, labels, mask, tp_safe: bool = False):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    if tp_safe:  # the reference's one-hot contraction (its vocab-sharded form)
+        onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1]).to(logp.dtype)
+        ll = torch.einsum("...v,...v->...", logp, onehot)
+    else:
+        ll = torch.take_along_dim(logp, labels[..., None].long(), dim=-1)[..., 0]
+    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    loss = -torch.sum(ll * mask) / denom
+    acc = torch.sum((torch.argmax(logits, -1) == labels) * mask) / denom
+    return loss, acc
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, *, kernel: dict | None = None,
+            remat: str = "none", device: str | torch.device = "cuda"):
+    """(loss, metrics): the mean next-token cross entropy of ``batch``
+    {"tokens" (b, s), optional "loss_mask" (b, s)} under the mask, with
+    "ce_loss", "accuracy" and "loss" as the reference's.  The encoder
+    labels, the frontends' text offset and the MoE aux losses wait for
+    ROADMAP queue 1, item 9."""
+    if cfg.is_encoder or cfg.frontend is not None or cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder, frontend and MoE losses are not ported yet "
+            "(ROADMAP queue 1, item 9)"
+        )
+    dev = resolve_device(device)
+    tokens = _as_tensor(batch["tokens"], dev)
+    logits, _, aux = forward(params, cfg, {"tokens": tokens}, mode="train", kernel=kernel,
+                             remat=remat, device=dev)
+    if aux.get("text_offset", 0):
+        raise NotImplementedError("a text offset comes with the frontends (ROADMAP queue 1, item 9)")
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(tokens.shape, dtype=torch.float32, device=dev) if mask is None
+            else _as_tensor(mask, dev).float())
+    tp_safe = bool((kernel or {}).get("tp_loss", False))
+    loss, acc = _cross_entropy(logits[:, :-1], tokens[:, 1:], mask[:, 1:], tp_safe)
+    return loss, {"ce_loss": loss, "accuracy": acc, "loss": loss}
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@ Input projection -> learned positional embedding -> N blocks (kernel
 attention + MLP, pre-norm residual, kernel LayerNorm) -> final norm -> mean
 pool -> two dense head layers.  Precision comes from ``cfg.precision`` as in
 the JAX package; parameters are transformed offline with
-``core.precision.apply_plan_to_params``.  ``loss_fn`` waits for the training
-slice (ROADMAP queue 1, item 11).
+``core.precision.apply_plan_to_params``.  ``loss_fn`` is the training
+loss: a stable binary cross entropy on one logit, else the log-softmax
+cross entropy, with the accuracy.
 """
 
 from __future__ import annotations
@@ -95,3 +96,23 @@ def predict_proba(params, cfg: ModelConfig, x, **kw) -> torch.Tensor:
     if cfg.n_classes == 1:
         return torch.sigmoid(logits[..., 0])
     return torch.softmax(logits, dim=-1)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, **kw):
+    """(loss, {"loss", "accuracy"}) of ``batch`` {"x", "y"} (tensors or
+    arrays; y holds int labels), as the reference's."""
+    logits = forward(params, cfg, batch["x"], **kw)
+    y = batch["y"]
+    y = (torch.from_numpy(np.array(y, copy=True)) if isinstance(y, np.ndarray) else y).to(
+        logits.device)
+    if cfg.n_classes == 1:
+        logit = logits[..., 0]
+        # jnp.maximum(logit, 0): torch.maximum splits the gradient at a tie as it does
+        loss = torch.mean(torch.maximum(logit, torch.zeros_like(logit)) - logit * y
+                          + torch.log1p(torch.exp(-torch.abs(logit))))
+        acc = torch.mean(((logit > 0) == (y > 0.5)).float())
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        loss = -torch.mean(torch.take_along_dim(logp, y[:, None].long(), dim=-1))
+        acc = torch.mean((torch.argmax(logits, -1) == y).float())
+    return loss, {"loss": loss, "accuracy": acc}

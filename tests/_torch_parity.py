@@ -1,6 +1,7 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py)."""
 
 import numpy as np
+import pytest
 
 from repro.models import params as jparams
 from repro.models import physics as jphys
@@ -41,3 +42,17 @@ def numpy_params(jcfg, seed):
     """A random physics parameter tree (nested dicts of numpy float32)
     with the JAX package's shapes, including the stacked blocks."""
     return numpy_tree(jphys.param_spec(jcfg), seed)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one thread, restoring the count after.
+    The tier-1 run puts six test processes on the machine's cores; each
+    torch op spread over every core by each of them oversubscribes the CPU
+    (the training tests' small ops ran 10-25x slower that way)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

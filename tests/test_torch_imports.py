@@ -51,7 +51,10 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.core.streaming_mha, repro_torch.core.reuse, repro_torch.data, "
         "repro_torch.kernels.ssd_scan, repro_torch.models.lm, repro_torch.serve.kv_cache, "
         "repro_torch.serve.api, repro_torch.serve.engine, repro_torch.serve.cli, "
-        "repro_torch.launch.serve; "
+        "repro_torch.launch.serve, repro_torch.optim, repro_torch.train, "
+        "repro_torch.checkpoint, repro_torch.data.loader, repro_torch.data.synthetic, "
+        "repro_torch.kernels.flash_attention.autograd, repro_torch.kernels.layernorm.autograd, "
+        "repro_torch.examples.physics_inference, repro_torch.examples.train_lm; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )
