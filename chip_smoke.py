@@ -31,7 +31,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
    prefill attend at (8, 32 q / 8 kv, 2048, 128) bf16, minicpm-2b's at
    (1, 36, 2048, 64), starcoder2-7b's window of 4096 over (1, 36 q / 4 kv,
    8192, 128), and their norms at 8 x 2048 rows (RMSNorm at 4096, LayerNorm
-   with bias at 4608), bf16;
+   with bias at 4608), bf16; phase 9's: granite-moe-3b-a800m's prefill
+   attend at (8, 24 q / 8 kv, 2048, 64) with the LUT softmax in bf16 and in
+   float32 (the int8 KV cache's route), SDPA timed beside it as a yardstick
+   (it computes the exact softmax), and its RMSNorm at 1536;
 3. models -- the main path: the paper's three encoders (engine_anomaly,
    btagging, gw) at their published widths, random seeded weights PTQ'd by
    the precision plan, seeded events from ``repro_torch.data``, under the
@@ -63,9 +66,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
    of 128 tokens and 16 greedy steps held against the port's CPU path
    (logits and tokens) and one 144-token ``forward`` (continuity), with 2
    ``flash_attention`` + 5 ``layernorm`` launches per prefill and 0 + 5 per
-   decode step; (b) granite-8b in bfloat16 at its full published size (36
-   layers, d_model 4096, 32 q / 8 kv heads of 128, d_ff 14336, vocab
-   49152) on seeded random weights drawn on the card: the median time of a
+   decode step; (b) granite-8b in bfloat16 at its published widths (d_model
+   4096, 32 q / 8 kv heads of 128, d_ff 14336, vocab 49152) cut to 18 of
+   its 36 layers (the run's time limit; phases 7 and 9 serve it at 36) on
+   seeded random weights drawn on the card: the median time of a
    prefill of 1 x 2048 (time to first token) and 8 x 2048 tokens and of 32
    greedy decode steps at batch 1 and 8, with the profiler's busy share,
    top kernels, attention and layernorm shares, the device operations per
@@ -111,6 +115,31 @@ Phases, each of which fails the run (exit code 1) when it fails:
    restored on the CPU bitwise equal; the step's time, tokens/s, device
    busy share, top kernels, the attention and layernorm backwards' shares
    and the peak memory.  ``python3 tools/train_phase.py`` runs this phase
+   alone.
+9. int8_moe -- the ``int8_serve`` datapath (int8 per-channel weights, the
+   int8 KV cache in the dense, rolling and paged layouts, the LUT softmax in
+   the engine's prefill, which attends the dequantized cache through the
+   attention kernel's float32 route) and the MoE family: (a) in float32
+   under int8_serve, granite-8b and granite-moe-3b-a800m at their published
+   widths cut to 2 layers and a vocab of 512 and dbrx-132b cut to 1 layer,
+   through the engine (dense, paged) and a direct ``lm`` loop on the card
+   and the port's CPU engine, held to the CPU direct loop by phase 7's
+   margin rule (the MoE models at a capacity factor that drops nothing);
+   one prefill at the published capacity factor on the card and the CPU:
+   the share of int8 KV codes that differ (by at most 1), of router
+   decisions that flip (only at a k-th / (k+1)-th tie within 1e-5), and the
+   dropped shares; (b) granite-moe-3b-a800m bf16 at its 32 layers under its
+   ``serve_policy`` (int8_serve), phase 7's traffic under the dense, paged
+   and paged + prefix-cache layouts, tokens identical but where a request
+   reads a prefix-cache hit (at the published capacity factor an expert's
+   drops make a prompt's KV depend on the tokens batched with it), and
+   identical on every request at a capacity factor of e / k: tokens/s, TTFT,
+   ITL, decode device ms per step beside its weights' bytes floor, the
+   routing / dispatch / combine and expert-GEMM shares, KV bytes, peak
+   memory, the program budget; (c) its ``lm.prefill`` at 1 and 8 x 2048
+   under int8_serve and float, beside the FLOP floor; (d) granite-8b bf16 at
+   36 layers under int8_serve, dense and paged, beside phase 7's float runs
+   of the same build.  ``python3 tools/int8_moe_phase.py`` runs this phase
    alone.
    Each path sets the launch counts to 0 before it and reads them after.
 
@@ -213,13 +242,15 @@ MAMBA_TIME_LEN, MAMBA_TIME_BATCHES, MAMBA_TIME_STEPS = 2048, (1, 8), 32
 # 2 layers and a vocab of 512, the same 2e-4 and margin rule as mamba2-130m;
 # starcoder2-7b runs twice, the second time with a window of 64 so that its
 # rolling buffer (and the kernel's window mask) is exercised by 128 + 16
-# tokens.  bf16 timings (phase 6b): granite-8b at full size.
+# tokens.  bf16 timings (phase 6b): granite-8b at its published widths, 18
+# of its 36 layers (the script's time limit; phases 7 and 9 serve all 36).
 DENSE = ("granite-8b", "minicpm-2b", "starcoder2-7b")
 DENSE_CUT = dict(n_layers=2, vocab_size=512, dtype="float32")
 DENSE_ROLLING_WINDOW = 64
 DENSE_TOL = 2e-4
 DENSE_CHECK = (2, 128, 16)  # batch, prompt tokens, greedy decode steps
 GRANITE_TIME_LEN, GRANITE_TIME_BATCHES, GRANITE_TIME_STEPS = 2048, (1, 8), 32
+GRANITE_TIME_LAYERS = 18
 GRANITE_PROFILE_STEPS = 16  # the decode steps under the profiler
 # The serving engine (phase 7).  (a) float32 check: granite-8b (dense, and
 # paged + prefix cache) and mamba2-130m at their published widths cut as in
@@ -242,6 +273,31 @@ SERVE_REQUESTS, SERVE_LEN, SERVE_NEW = 16, (64, 1536), 32
 SERVE_SHARED, SERVE_SHARED_REQUESTS = 512, 8
 MAMBA_SERVE_SC = dict(max_batch=8, max_seq_len=1024, decode_steps=4)
 MAMBA_SERVE_LEN = (64, 128, 192, 256, 320, 384, 448, 512)  # exact-length: multiples of the chunk
+# int8_serve and the MoE family (phase 9).  (a) float32 check under
+# int8_serve (int8 per-channel weights, the int8 KV cache, the LUT softmax in
+# prefill): granite-8b and granite-moe-3b-a800m at their published widths cut
+# to 2 layers and a vocab of 512, dbrx-132b cut to 1 layer (3.3 B parameters,
+# 13 GB in float32, and a copy on the host for the CPU engine), through the
+# Engine (dense, paged) and a direct lm loop on the card, all held to the
+# port's CPU direct loop by phase 7's margin rule (the MoE models there at a
+# capacity factor of n_experts / top_k, so that nothing is dropped and a
+# token's output does not depend on the tokens batched with it: the direct
+# loop runs one request at batch 1, the engine 4 slots of a padded bucket);
+# one prefill at the published capacity factor: its int8 KV codes
+# on the card and the CPU may differ by 1 (a k/v value a float32 ulp from a
+# rounding tie), and a router decision may flip only where the CPU's k-th and
+# (k+1)-th probabilities lie within 1e-5.  (b) granite-moe-3b-a800m bf16 at
+# its 32 layers under its serve_policy (int8_serve), phase 7's traffic and
+# layouts; (c) its lm.prefill at 1 and 8 x 2048; (d) granite-8b bf16 at 36
+# layers under int8_serve, dense and paged, beside phase 7's float runs.
+INT8_CHECK = (("granite-8b", 2, (40, 50, 64, 12, 20, 33), SERVE_CHECK_NEW),
+              ("granite-moe-3b-a800m", 2, (40, 50, 64, 12, 20, 33), SERVE_CHECK_NEW),
+              ("dbrx-132b", 1, (40, 64, 12, 33), 4))
+INT8_LAYOUTS = ({}, dict(kv_layout="paged", kv_page_size=16))
+INT8_CODES = (2, 64)  # batch, tokens of the prefill whose codes and routes are compared
+ROUTER_TIE = 1e-5
+MOE_SERVE = "granite-moe-3b-a800m"
+MOE_PREFILL_BATCHES, MOE_PREFILL_LEN = (1, 8), 2048
 # kernel names in the profiler, for each kernel's share of device time
 KERNEL_FUNCS = {"attention": ("small_attention_kernel", "tc_attention_kernel"),
                 "layernorm": ("layernorm_kernel",),
@@ -462,8 +518,12 @@ def _sass_functions(listing: str) -> dict[str, dict[str, int]]:
 # ---------------------------------------------------------------- phase 2 --
 
 
-def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32", hkv=None):
-    """``mha`` on q (b, h, l, d) and k, v (b, hkv, l, d): GQA when hkv < h."""
+def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32", hkv=None,
+                    sdpa_yardstick=False):
+    """``mha`` on q (b, h, l, d) and k, v (b, hkv, l, d): GQA when hkv < h.
+    SDPA is timed beside the safe softmax, which it computes; with
+    ``sdpa_yardstick`` beside the LUT softmax too, as a yardstick of the same
+    shape (it computes the exact softmax, not the LUT's)."""
     import torch
     import torch.nn.functional as F
 
@@ -477,16 +537,17 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
     out = mha(q, k, v, causal=causal, window=window, mode=mode)
     ref = mha_ref(q, k, v, causal=causal, window=window, mode=mode)
     torch.cuda.synchronize()
+    flip = None
+    if mode == "lut":
+        vmax = v.float().abs().amax(dim=-2, keepdim=True).repeat_interleave(h // hkv, dim=1)
+        flip = ATT_LUT_STEP * (ref.float().abs() + vmax)
     if dtype == "bfloat16":
-        err, rows_over, ok = close_enough(out, ref, BF16_ATOL, BF16_RTOL)
+        err, rows_over, ok = close_enough(out, ref, BF16_ATOL, BF16_RTOL, flip_allow=flip)
         tol = f"atol {BF16_ATOL} rtol {BF16_RTOL}"
     else:
-        flip = None
-        if mode == "lut":
-            vmax = v.float().abs().amax(dim=-2, keepdim=True)
-            flip = ATT_LUT_STEP * (ref.float().abs() + vmax)
         err, rows_over, ok = close_enough(out, ref, ATT_ATOL[mode], flip_allow=flip)
-        tol = f"atol {ATT_ATOL[mode]}" + (" (+1 table step)" if mode == "lut" else "")
+        tol = f"atol {ATT_ATOL[mode]}"
+    tol += " (+1 table step)" if mode == "lut" else ""
 
     pos = torch.arange(l)
     mask = torch.ones(l, l, dtype=torch.bool)
@@ -506,7 +567,7 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
     plain_ms = time_ms(lambda: mha_ref(q, k, v, causal=causal, window=window, mode=mode),
                        max(3, iters // 5))
     library_ms = sdpa = None
-    if mode == "safe":  # SDPA computes the same function; timed as a yardstick only
+    if mode == "safe" or sdpa_yardstick:  # timed as a yardstick only
         attn_mask = mask.to(dev) if window is not None else None
 
         def sdpa():
@@ -522,6 +583,8 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
                 causal=causal, window=window, dtype=dtype, max_abs_err=err,
                 rows_over_atol=rows_over, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                library_computes=None if sdpa is None else (
+                    "the same function" if mode == "safe" else "the exact softmax"),
                 bound_ms=bound_ms, bound_by=bound_by, bound_peak=peak)
 
 
@@ -757,6 +820,14 @@ def phase_kernels(dev):
     cases.append(_attention_case(dev, (1, 36, 2048, 64), "safe", causal=True, dtype="bfloat16"))
     cases.append(_attention_case(dev, (1, 36, 8192, 128), "safe", causal=True, window=4096,
                                  dtype="bfloat16", hkv=4))
+    # the int8_serve / MoE path's (phase 9): granite-moe-3b-a800m's prefill
+    # attend at 8 x 2048, 24 q / 8 kv heads of 64, LUT softmax, in bf16 and in
+    # float32 (the route under the int8 KV cache), SDPA beside it as a
+    # yardstick; its RMSNorm (d 1536) at 8 x 2048 rows
+    for dtype in ("bfloat16", "float32"):
+        cases.append(_attention_case(dev, (8, 24, 2048, 64), "lut", causal=True, dtype=dtype,
+                                     hkv=8, sdpa_yardstick=True))
+    cases.append(_layernorm_case(dev, 8 * 2048, 1536, True, False, "bfloat16"))
     cases.append(_layernorm_case(dev, 8 * 2048, 4096, True, False, "bfloat16"))
     cases.append(_layernorm_case(dev, 8 * 2048, 4608, False, False, "bfloat16"))
     ln_shapes = [(8192 * 15, 64), (8192 * 100, 32), (4096, 4096)]
@@ -1375,9 +1446,9 @@ def phase_dense(dev):
             f"({check['seconds']:.1f} s)")
     del params, params_cpu
 
-    # bfloat16 timings: granite-8b at its full published size, drawn on the card
+    # bfloat16 timings: granite-8b at its published widths, drawn on the card
     torch.cuda.empty_cache()
-    base = get_config("granite-8b")
+    base = dataclasses.replace(get_config("granite-8b"), n_layers=GRANITE_TIME_LAYERS)
     n_ln = 2 * base.n_layers + 1
     checked = _launch_checker("granite-8b bf16", {
         "prefill": {"flash_attention": base.n_layers, "layernorm": n_ln},
@@ -1446,8 +1517,8 @@ def phase_dense(dev):
                  f"{prof['attention_share']:.1%}, layernorm share {prof['layernorm_share']:.1%}")
         if "seconds" in t:
             dev_t += f"  ({t['seconds']:.1f} s with the prefill)"
-        log(f"[dense] granite-8b bf16 {what}  {t['tokens_per_s']:.1f} tokens/s  peak "
-            f"{t['peak_gb']:.1f} GB  device busy "
+        log(f"[dense] granite-8b bf16 {base.n_layers} layers {what}  {t['tokens_per_s']:.1f} "
+            f"tokens/s  peak {t['peak_gb']:.1f} GB  device busy "
             f"{'not measured' if busy is None else f'{busy:.1%}'}{dev_t}  top {prof['top']}")
     del params
     torch.cuda.empty_cache()
@@ -1477,14 +1548,16 @@ def _serve_prompts(seed, lengths, shared, n_shared, vocab):
     return out
 
 
-def _direct_greedy(cfg, params, prompt, steps, dev):
+def _direct_greedy(cfg, params, prompt, steps, dev, quantized=False):
     """Greedy tokens of ``lm.prefill`` / ``decode_step`` at batch 1 (float32
-    caches of prompt + steps) and each step's top-two logit margin."""
+    caches of prompt + steps, or the int8 caches with ``quantized``) and each
+    step's top-two logit margin."""
     import torch
 
     from repro_torch.models import lm
 
-    caches = lm.init_caches(cfg, 1, len(prompt) + steps, torch.float32, device=dev)
+    caches = lm.init_caches(cfg, 1, len(prompt) + steps, torch.float32, quantized=quantized,
+                            device=dev)
     last, caches = lm.prefill(params, cfg, {"tokens": torch.tensor([prompt], device=dev)},
                               caches, device=dev)
     toks, margins = [], []
@@ -1635,60 +1708,7 @@ def phase_serve(dev):
     torch.cuda.empty_cache()
     base = get_config("granite-8b")
     params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    g = torch.Generator().manual_seed(4)
-    lengths = torch.randint(SERVE_LEN[0], SERVE_LEN[1] + 1, (SERVE_REQUESTS,), generator=g)
-    lengths = [max(int(n), SERVE_SHARED + 64) if i < SERVE_SHARED_REQUESTS else int(n)
-               for i, n in enumerate(lengths)]
-    prompts = _serve_prompts(5, lengths, SERVE_SHARED, SERVE_SHARED_REQUESTS, base.vocab_size)
-    runs, first = [], None
-    n_ln = 2 * base.n_layers + 1
-    for layout in SERVE_LAYOUTS:
-        t0 = time.perf_counter()
-        sc = ServeConfig(**SERVE_SC, **layout)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", RuntimeWarning)
-            eng = Engine(base, params, sc, device=dev)
-        torch.cuda.reset_peak_memory_stats()
-        before = dict(LAUNCHES)
-        (streams, metrics), decodes = _count_decodes(
-            eng.executor, lambda: _run_engine(eng, prompts, SERVE_NEW))
-        grew = {k: LAUNCHES.get(k, 0) - before.get(k, 0) for k in ("flash_attention", "layernorm")}
-        tel = eng.telemetry
-        steps_run = decodes * sc.decode_steps
-        want = {"flash_attention": base.n_layers * tel["prefill_dispatches"],
-                "layernorm": n_ln * (tel["prefill_dispatches"] + steps_run)}
-        label = f"{sc.kv_layout}{' + prefix cache' if sc.kv_prefix_cache else ''}"
-        if grew != want:
-            raise SmokeError(f"[serve] granite-8b {label}: launches {grew}, expected {want} "
-                             f"({tel['prefill_dispatches']} prefill dispatches, {steps_run} "
-                             "decode steps)")
-        budget = len(eng.executor.buckets) + 2
-        if tel["prefill_compiles"] + tel["decode_compiles"] > budget:
-            raise SmokeError(f"[serve] granite-8b {label}: {tel['prefill_compiles']} prefill + "
-                             f"{tel['decode_compiles']} decode shapes > budget {budget}")
-        if any(len(s) != SERVE_NEW for s in streams):
-            raise SmokeError(f"[serve] granite-8b {label}: a request stopped short")
-        if first is None:
-            first = streams
-        elif streams != first:
-            bad = [i for i, (a, b) in enumerate(zip(streams, first)) if a != b]
-            raise SmokeError(f"[serve] granite-8b {label}: token streams differ from the "
-                             f"{SERVE_LAYOUTS[0] or 'dense'} run at requests {bad}")
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        prof = _decode_profile(eng, prompts)
-        run = dict(model="granite-8b", n_layers=base.n_layers, layout=label, **metrics,
-                   prefill_dispatches=tel["prefill_dispatches"], decode_dispatches=decodes,
-                   prefill_compiles=tel["prefill_compiles"],
-                   decode_compiles=tel["decode_compiles"], budget=budget,
-                   prefix_hits=tel["prefix_hits"],
-                   prefix_tokens_shared=tel["prefix_tokens_shared"],
-                   disabled_features=tel["disabled_features"], launches=grew, peak_gb=peak,
-                   kv_bytes=tel["kv_bytes"], decode_profile=prof,
-                   seconds=time.perf_counter() - t0)
-        runs.append(run)
-        log(_serve_line(run))
-        del eng
-        torch.cuda.empty_cache()
+    runs = _serve_layouts(base, params, _serve_traffic(base), SERVE_LAYOUTS, dev, "[serve]")
     del params
     torch.cuda.empty_cache()
 
@@ -1730,22 +1750,435 @@ def phase_serve(dev):
     return dict(check=checks, runs=runs), counts
 
 
-def _serve_line(r) -> str:
-    p = r["decode_profile"]
+def _serve_traffic(cfg):
+    """Phase 7's 16 requests: 64-1536 tokens from a seed, the first 8 sharing
+    a 512-token prefix."""
+    import torch
+
+    g = torch.Generator().manual_seed(4)
+    lengths = torch.randint(SERVE_LEN[0], SERVE_LEN[1] + 1, (SERVE_REQUESTS,), generator=g)
+    lengths = [max(int(n), SERVE_SHARED + 64) if i < SERVE_SHARED_REQUESTS else int(n)
+               for i, n in enumerate(lengths)]
+    return _serve_prompts(5, lengths, SERVE_SHARED, SERVE_SHARED_REQUESTS, cfg.vocab_size)
+
+
+def _checked_engine_run(eng, prompts, max_new, label):
+    """``_run_engine`` with its checks: ``flash_attention`` launched n_layers
+    times per prefill dispatch and never in decode, ``layernorm`` 2 n_layers
+    + 1 per prefill dispatch and decode step, and the program budget
+    ``len(buckets) + 2``.  Returns (streams, metrics, decode dispatches,
+    launches, budget)."""
+    from repro_torch.kernels import LAUNCHES
+
+    cfg, sc = eng.executor.cfg, eng.serve_cfg
+    before = dict(LAUNCHES)
+    (streams, metrics), decodes = _count_decodes(
+        eng.executor, lambda: _run_engine(eng, prompts, max_new))
+    grew = {k: LAUNCHES.get(k, 0) - before.get(k, 0) for k in ("flash_attention", "layernorm")}
+    tel = eng.telemetry
+    steps_run = decodes * sc.decode_steps
+    want = {"flash_attention": cfg.n_layers * tel["prefill_dispatches"],
+            "layernorm": (2 * cfg.n_layers + 1) * (tel["prefill_dispatches"] + steps_run)}
+    if grew != want:
+        raise SmokeError(f"{label}: launches {grew}, expected {want} ({tel['prefill_dispatches']} "
+                         f"prefill dispatches, {steps_run} decode steps)")
+    budget = len(eng.executor.buckets) + 2
+    if tel["prefill_compiles"] + tel["decode_compiles"] > budget:
+        raise SmokeError(f"{label}: {tel['prefill_compiles']} prefill + "
+                         f"{tel['decode_compiles']} decode shapes > budget {budget}")
+    return streams, metrics, decodes, grew, budget
+
+
+def _serve_layouts(base, params, prompts, layouts, dev, tag, policy=None, profile=True,
+                   shared_may_differ=False) -> list[dict]:
+    """``prompts`` x ``SERVE_NEW`` tokens through one ``Engine`` per layout
+    (``SERVE_SC``, ``policy`` or the model's own): the same tokens under
+    every layout, ``flash_attention`` n_layers per prefill dispatch,
+    ``layernorm`` 2 n_layers + 1 per prefill dispatch and decode step, the
+    program budget; then, with ``profile``, one decode dispatch profiled.
+    ``shared_may_differ``: under the prefix cache, the requests that share
+    the prefix (the first ``SERVE_SHARED_REQUESTS``) may differ from the
+    first layout's; they are recorded.  Returns a record per layout."""
+    import torch
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serve.api import Engine
+
+    runs, first = [], None
+    for layout in layouts:
+        t0 = time.perf_counter()
+        sc = ServeConfig(**SERVE_SC, **layout, policy=policy)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            eng = Engine(base, params, sc, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        label = f"{sc.kv_layout}{' + prefix cache' if sc.kv_prefix_cache else ''}"
+        streams, metrics, decodes, grew, budget = _checked_engine_run(
+            eng, prompts, SERVE_NEW, f"{tag} {base.name} {label}")
+        tel = eng.telemetry
+        if any(len(s) != SERVE_NEW for s in streams):
+            raise SmokeError(f"{tag} {base.name} {label}: a request stopped short")
+        bad = [] if first is None else [i for i, (a, b) in enumerate(zip(streams, first))
+                                        if a != b]
+        first = first or streams
+        allowed = (range(SERVE_SHARED_REQUESTS) if shared_may_differ and sc.kv_prefix_cache
+                   else ())
+        if any(i not in allowed for i in bad):
+            raise SmokeError(f"{tag} {base.name} {label}: token streams differ from the "
+                             f"{layouts[0] or 'dense'} run at requests {bad}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = _decode_profile(eng, prompts) if profile else None
+        run = dict(model=base.name, n_layers=base.n_layers, layout=label,
+                   policy=eng.executor.policy.name, **metrics,
+                   prefill_dispatches=tel["prefill_dispatches"], decode_dispatches=decodes,
+                   prefill_compiles=tel["prefill_compiles"],
+                   decode_compiles=tel["decode_compiles"], budget=budget,
+                   prefix_hits=tel["prefix_hits"],
+                   prefix_tokens_shared=tel["prefix_tokens_shared"],
+                   disabled_features=tel["disabled_features"], launches=grew, peak_gb=peak,
+                   kv_bytes=tel["kv_bytes"], decode_profile=prof, differ_from_first=bad,
+                   seconds=time.perf_counter() - t0)
+        runs.append(run)
+        log(_serve_line(run, tag) + (f"  requests differing from the first layout's: {bad}"
+                                     if bad else ""))
+        del eng
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _serve_line(r, tag="[serve]") -> str:
+    p = r["decode_profile"] or dict(busy_share=None, device_ops_per_step=float("nan"),
+                                    gather_share=None, top="not profiled")
     busy = ("not measured" if p["busy_share"] is None else
             f"{p['busy_share']:.1%}, {p['device_ms_per_step']:.2f} device ms/step")
     gather = ("" if p["gather_share"] is None else
               f", row gathers (the paged view) {p['gather_ms_per_layer']:.4f} ms/layer = "
               f"{p['gather_share']:.1%} of decode device time")
     itl = "n/a" if r["itl_ms_p50"] is None else f"{r['itl_ms_p50']:.2f}"
-    return (f"[serve] {r['model']} bf16 {r['n_layers']} layers, {r['layout']}: {r['requests']} "
+    policy = f" {r['policy']}" if "policy" in r else ""
+    return (f"{tag} {r['model']} bf16{policy} {r['n_layers']} layers, {r['layout']}: "
+            f"{r['requests']} "
             f"requests, {r['tokens']} tokens in {r['wall_s']:.2f} s = {r['tokens_per_s']:.1f} "
             f"output tokens/s  TTFT p50 {r['ttft_ms_p50']:.1f} / p95 {r['ttft_ms_p95']:.1f} ms  "
             f"ITL p50 {itl} ms  {r['prefill_dispatches']} prefill + {r['decode_dispatches']} "
             f"decode dispatches, {r['prefill_compiles']} + {r['decode_compiles']} shapes  "
-            f"launches {r['launches']}  peak {r['peak_gb']:.1f} GB  decode dispatch: device "
+            f"launches {r['launches']}  peak {r['peak_gb']:.1f} GB  KV {r['kv_bytes'] / 1e9:.3f} "
+            f"GB  decode dispatch: device "
             f"busy {busy}, {p['device_ops_per_step']:.0f} device ops/step{gather}  "
             f"top {p['top']}  ({r['seconds']:.1f} s)")
+
+
+# ---------------------------------------------------------------- phase 9 --
+
+
+def _record_routes(fn):
+    """Run ``fn`` with ``models.moe.route`` recording each call's (probs,
+    expert ids) on the host; returns (fn's result, the records)."""
+    from repro_torch.models import moe
+
+    real, records = moe.route, []
+
+    def recorded(params, cfg, flat):
+        out = real(params, cfg, flat)
+        records.append((out[1].float().cpu(), out[2].cpu()))
+        return out
+
+    moe.route = recorded
+    try:
+        return fn(), records
+    finally:
+        moe.route = real
+
+
+def _codes_and_routes(cfg, params, params_cpu, dev) -> dict:
+    """One prefill (``lm.forward``) of ``INT8_CODES`` seeded tokens into int8
+    caches on the card and on the CPU (the plan's int8 weights on both): the
+    share of int8 KV codes that differ (each by at most 1) and, for MoE
+    configs, the share of router decisions that flip (each where the CPU's
+    k-th and (k+1)-th probabilities lie within ``ROUTER_TIE``) and the
+    dropped shares of both."""
+    import torch
+
+    from repro_torch.models import lm
+
+    b, n = INT8_CODES
+    toks = torch.randint(0, cfg.vocab_size, (b, n), generator=torch.Generator().manual_seed(7))
+    out = {}
+    for where, p in (("card", params), ("cpu", params_cpu)):
+        caches = lm.init_caches(cfg, b, n, torch.float32, quantized=True,
+                                device="cpu" if where == "cpu" else dev)
+        (_, filled, aux), routes = _record_routes(lambda: lm.forward(
+            p, cfg, {"tokens": toks}, mode="prefill", caches=caches,
+            device=caches["layers"]["k"].device))
+        out[where] = ({k: filled["layers"][k].cpu() for k in ("k", "v")}, routes,
+                      float(aux.get("moe_dropped_frac", 0.0)))
+    (codes, routes, dropped), (codes_cpu, routes_cpu, dropped_cpu) = out["card"], out["cpu"]
+    diff = torch.cat([(codes[k].int() - codes_cpu[k].int()).abs().reshape(-1) for k in codes])
+    if int(diff.max()) > 1:
+        raise SmokeError(f"[int8] {cfg.name}: KV codes differ by {int(diff.max())} > 1")
+    rec = dict(kv_codes=int(diff.numel()), kv_codes_differ_share=float((diff > 0).float().mean()))
+    if cfg.moe is not None:
+        k, flips, decisions = cfg.moe.top_k, 0, 0
+        for (_, ids), (p_cpu, ids_cpu) in zip(routes, routes_cpu):
+            moved = (ids.sort(-1).values != ids_cpu.sort(-1).values).any(-1)
+            top = p_cpu.sort(-1, descending=True).values
+            gap = top[:, k - 1] - top[:, k]
+            if bool((moved & (gap >= ROUTER_TIE)).any()):
+                raise SmokeError(f"[int8] {cfg.name}: a router decision flips where the CPU's "
+                                 f"k-th / (k+1)-th gap is {float(gap[moved].max()):.2e} "
+                                 f">= {ROUTER_TIE}")
+            flips += int(moved.sum())
+            decisions += moved.numel()
+        if len(routes) != cfg.n_layers or decisions == 0:
+            raise SmokeError(f"[int8] {cfg.name}: {len(routes)} router calls in the prefill")
+        if flips == 0 and dropped != dropped_cpu:
+            raise SmokeError(f"[int8] {cfg.name}: dropped share {dropped} on the card, "
+                             f"{dropped_cpu} on the CPU, with the same routes")
+        rec.update(router_decisions=decisions, router_flip_share=flips / decisions,
+                   capacity_factor=cfg.moe.capacity_factor, dropped_share=dropped,
+                   dropped_share_cpu=dropped_cpu)
+    return rec
+
+
+def _int8_check(dev, name, n_layers, lengths, steps) -> dict:
+    """Phase 9a for one model: the card's engines (dense, paged) and a direct
+    ``lm`` loop on the card, under int8_serve, each equal to the port's CPU
+    direct loop but where its top-two margin is under ``DENSE_TOL``; the
+    port's CPU engine too; then the codes and routes of one prefill."""
+    import torch
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.api import Engine
+
+    t0 = time.perf_counter()
+    published = dataclasses.replace(get_config(name), n_layers=n_layers, vocab_size=512,
+                                    dtype="float32", precision="int8_serve")
+    cfg = published
+    if cfg.moe is not None:  # no drops: a token's output is its own
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    prompts = _serve_prompts(3, lengths, 32, len(lengths) // 2, cfg.vocab_size)
+    sc = dict(SERVE_CHECK_SC, policy="int8_serve")
+    # the CPU engine first, from a host copy of the weights; its executor's
+    # int8 weights (the plan's transform) then feed the CPU direct loop
+    eng = Engine(cfg, _to(params, "cpu"), ServeConfig(**sc), device="cpu")
+    streams = {"cpu engine": _run_engine(eng, prompts, steps)[0]}
+    params_cpu = eng.executor.params
+    del eng
+    ref, margins = zip(*(_direct_greedy(cfg, params_cpu, p, steps, "cpu", quantized=True)
+                         for p in prompts))
+    params_q, launches = None, {}
+    for layout in INT8_LAYOUTS:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # prefill-skip needs bit-exact
+            eng = Engine(cfg, params, ServeConfig(**sc, **layout), device=dev)
+        label = eng.executor.kv_layout
+        got, _, _, grew, _ = _checked_engine_run(eng, prompts, steps, f"[int8] {name} {label}")
+        streams[f"card engine, {label}"] = got
+        launches[label] = grew
+        if params_q is None:
+            params_q = eng.executor.params  # the card's int8 weights
+        del eng
+    streams["direct loop on the card"] = [
+        _direct_greedy(cfg, params_q, p, steps, dev, quantized=True)[0] for p in prompts]
+    close = _held_to(f"[int8] {name}", streams, ref, margins, DENSE_TOL)
+    rec = dict(model=name, n_layers=n_layers, d_model=cfg.d_model, requests=len(prompts),
+               new_tokens=steps, close_calls=close, tol=DENSE_TOL,
+               min_cpu_margin=min(min(m) for m in margins), launches=launches,
+               **_codes_and_routes(published, params_q, params_cpu, dev))
+    del params, params_q, params_cpu
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    router = ("" if cfg.moe is None else
+              f" (capacity factor {cfg.moe.capacity_factor:g}); at the published "
+              f"{published.moe.capacity_factor:g} router decisions flipped "
+              f"{rec['router_flip_share']:.4%} of {rec['router_decisions']}, dropped "
+              f"{rec['dropped_share']:.4%} (CPU {rec['dropped_share_cpu']:.4%})")
+    log(f"[int8] float32 check {name} int8_serve: {n_layers} layers d {cfg.d_model}, "
+        f"{len(prompts)} requests x {steps} greedy tokens: {'; '.join(streams)} agree with the "
+        f"CPU direct loop (close calls {close or 'none'}); KV codes card vs CPU differ in "
+        f"{rec['kv_codes_differ_share']:.4%} of {rec['kv_codes']} (each by <= 1){router}; "
+        f"launches {launches} ({rec['seconds']:.1f} s)")
+    return rec
+
+
+def _moe_split_ms(cfg, ffn, t, dev) -> tuple[float | None, float]:
+    """Device ms of one MoE layer (``moe_apply``, profiler) over ``t`` tokens
+    in the weights' dtype, and ms of its expert GEMMs alone (``moe.experts``
+    on the (e, capacity, d) batches; CUDA events over back-to-back calls:
+    the profiler's sums for these three ``bmm``s came back below the
+    bandwidth and FLOP floors in some runs); the rest is routing, dispatch
+    and combine."""
+    import torch
+
+    from repro_torch.models import moe
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    dt = ffn["w_up"].dtype
+    x = torch.randn(1, t, cfg.d_model, generator=g, device=dev).to(dt)
+    xin = torch.randn(cfg.moe.n_experts, moe.capacity(cfg, t), cfg.d_model, generator=g,
+                      device=dev).to(dt)
+    return (device_ms(lambda: moe.moe_apply(ffn, cfg, x), 10),
+            time_ms(lambda: moe.experts(ffn, cfg, xin), 20))
+
+
+def _moe_prefill_floor(cfg, b, n) -> tuple[float, float, str]:
+    """(TFLOP, bound ms, by) of a bf16 ``lm.prefill`` of b x n tokens:
+    projections, causal attention, router, the (e, capacity, d) expert
+    GEMMs and the logits over every position; bytes: the weights once."""
+    t, d, hd = b * n, cfg.d_model, cfg.resolved_head_dim
+    proj = 2 * t * d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    attn = 4 * b * cfg.n_heads * hd * n * (n + 1) / 2
+    m = cfg.moe
+    cap = int(max(1, round(t * m.top_k / m.n_experts * m.capacity_factor)))
+    experts = 2 * m.n_experts * cap * d * m.d_expert * (3 if cfg.gated_mlp else 2)
+    router = 2 * t * d * m.n_experts
+    flops = cfg.n_layers * (proj + attn + experts + router) + 2 * t * d * cfg.padded_vocab_size
+    weights = 2 * (cfg.n_layers * (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                                   + m.n_experts * d * m.d_expert * 3 + d * m.n_experts)
+                   + cfg.padded_vocab_size * d)
+    ms, by = bound(flops, weights, "bfloat16")
+    return flops / 1e12, ms, by
+
+
+def phase_int8_moe(dev, float_runs=None):
+    """int8_serve and the MoE family: (a) the float32 check of granite-8b,
+    granite-moe-3b-a800m (2 layers) and dbrx-132b (1 layer) under int8_serve;
+    (b) granite-moe-3b-a800m bf16 at 32 layers through the engine, three
+    layouts; (c) its ``lm.prefill`` at 1 and 8 x 2048; (d) granite-8b bf16 at
+    36 layers under int8_serve, dense and paged, beside ``float_runs`` (phase
+    7's).  Returns (results, launch counts of the window)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import precision
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_leaves
+
+    LAUNCHES.clear()  # the int8_serve / MoE path's window starts here
+    checks = [_int8_check(dev, *c) for c in INT8_CHECK]
+
+    # (b) granite-moe-3b-a800m bf16, 32 layers, its own serve_policy
+    torch.cuda.empty_cache()
+    base = get_config(MOE_SERVE)
+    params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    prompts = _serve_traffic(base)
+    # at the published capacity factor an expert drops what overflows its
+    # capacity, so a token's hidden state, and a prompt's KV, depend on the
+    # tokens batched with it: a prefix-cache hit reads the KV its first
+    # tenant computed in another batch, and those requests may differ from
+    # the dense run.  Without drops (capacity factor e / k) every request
+    # must agree across the layouts.
+    runs = _serve_layouts(base, params, prompts, SERVE_LAYOUTS, dev, "[int8]",
+                          policy=base.serve_policy, shared_may_differ=True)
+    nodrop = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=base.moe.n_experts / base.moe.top_k))
+    nodrop_runs = _serve_layouts(nodrop, params, prompts, SERVE_LAYOUTS[::2], dev,
+                                 f"[int8] capacity factor {nodrop.moe.capacity_factor:g}:",
+                                 policy=base.serve_policy, profile=False)
+    qcfg = dataclasses.replace(base, precision=base.serve_policy)
+    params_q = precision.apply_plan_to_params(params, precision.resolve_model_plan(qcfg))
+    layer0 = map_leaves(lambda _, t: t[0], params_q["blocks"]["ffn"])
+    weight_bytes = _nbytes(params)
+    decode_floor = weight_bytes / PEAK_BYTES * 1e3
+    moe_ms, gemm_ms = _moe_split_ms(base, layer0, SERVE_SC["max_batch"], dev)
+    for r in runs:
+        step = r["decode_profile"]["device_ms_per_step"]
+        r.update(decode_floor_ms=decode_floor, moe_layer_device_ms=moe_ms,
+                 expert_gemm_device_ms=gemm_ms)
+        if step and moe_ms is not None and gemm_ms is not None:
+            r["moe_dispatch_combine_share"] = base.n_layers * (moe_ms - gemm_ms) / step
+            r["expert_gemm_share"] = base.n_layers * gemm_ms / step
+        log(f"[int8] {base.name} decode step: {step if step is None else round(step, 3)} device "
+            f"ms (floor {decode_floor:.2f} ms: {weight_bytes / 1e9:.2f} GB of weights at 3.35 "
+            f"TB/s); one MoE layer at {SERVE_SC['max_batch']} tokens {moe_ms} ms, its expert "
+            f"GEMMs {gemm_ms} ms: routing, dispatch and combine "
+            f"{r.get('moe_dispatch_combine_share', float('nan')):.1%}, expert GEMMs "
+            f"{r.get('expert_gemm_share', float('nan')):.1%} of the step ({r['layout']})")
+
+    # (c) lm.prefill at 1 and 8 x 2048: as served (int8 weights, int8 caches,
+    # the LUT softmax through the float32 route) and under float (bf16 caches)
+    n_ln = 2 * base.n_layers + 1
+    checked = _launch_checker(f"{base.name} prefill", {
+        "prefill": {"flash_attention": base.n_layers, "layernorm": n_ln}})
+    prefills = []
+    t_gen = torch.Generator(device=dev).manual_seed(2)
+    for policy, p in ((base.serve_policy, params_q), ("float", params)):
+        pcfg = dataclasses.replace(base, precision=policy)
+        quantized = precision.resolve_model_plan(pcfg).int8_kv_cache
+        for bt in MOE_PREFILL_BATCHES:
+            t0 = time.perf_counter()
+            caches = lm.init_caches(pcfg, bt, MOE_PREFILL_LEN, torch.float32 if quantized
+                                    else torch.bfloat16, quantized=quantized, device=dev)
+            tk = torch.randint(0, base.vocab_size, (bt, MOE_PREFILL_LEN), generator=t_gen,
+                               device=dev)
+
+            def prefill():
+                return lm.prefill(p, pcfg, {"tokens": tk}, caches, device=dev)
+
+            torch.cuda.reset_peak_memory_stats()
+            last, _ = checked("prefill", prefill)
+            if not torch.isfinite(last.float()).all():
+                raise SmokeError(f"{base.name} {policy} prefill b{bt}: non-finite logits")
+            del last
+            ms = median_ms(prefill, 5, warmup=1)
+            prof = profile_forward(prefill, iters=2)
+            moe_ms, gemm_ms = _moe_split_ms(
+                base, map_leaves(lambda _, t: t[0], p["blocks"]["ffn"]), bt * MOE_PREFILL_LEN, dev)
+            tflop, floor_ms, floor_by = _moe_prefill_floor(base, bt, MOE_PREFILL_LEN)
+            dev_ms = prof.get("device_ms_per_fwd")
+            rec = dict(policy=policy, batch=bt, tokens=MOE_PREFILL_LEN, median_ms=ms,
+                       tokens_per_s=bt * MOE_PREFILL_LEN / (ms * 1e-3), profile=prof,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9, tflop=tflop,
+                       floor_ms=floor_ms, floor_by=floor_by, moe_layer_device_ms=moe_ms,
+                       expert_gemm_device_ms=gemm_ms, seconds=time.perf_counter() - t0)
+            if dev_ms and gemm_ms is not None and moe_ms is not None:
+                rec["expert_gemm_share"] = base.n_layers * gemm_ms / dev_ms
+                rec["moe_dispatch_combine_share"] = base.n_layers * (moe_ms - gemm_ms) / dev_ms
+            prefills.append(rec)
+            busy = prof["busy_share"]
+            log(f"[int8] {base.name} lm.prefill {bt} x {MOE_PREFILL_LEN} bf16 {policy}: median "
+                f"{ms:.2f} ms ({rec['tokens_per_s']:.0f} tokens/s; floor {floor_ms:.2f} ms by "
+                f"{floor_by}, {tflop:.1f} TFLOP), device ms "
+                f"{'not measured' if dev_ms is None else f'{dev_ms:.2f}'}, busy "
+                f"{'not measured' if busy is None else f'{busy:.1%}'}, expert GEMMs "
+                f"{rec.get('expert_gemm_share', float('nan')):.1%}, routing / dispatch / combine "
+                f"{rec.get('moe_dispatch_combine_share', float('nan')):.1%}, attention "
+                f"{prof.get('attention_share', float('nan')):.1%}, peak {rec['peak_gb']:.1f} GB  "
+                f"top {prof['top']}")
+            del caches
+    del params, params_q, layer0
+    torch.cuda.empty_cache()
+
+    # (d) granite-8b bf16, 36 layers, int8_serve, dense and paged
+    g8 = get_config("granite-8b")
+    params = lm.init_params(g8, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    g8_runs = _serve_layouts(g8, params, _serve_traffic(g8), SERVE_LAYOUTS[:2], dev, "[int8]",
+                             policy="int8_serve")
+    del params
+    torch.cuda.empty_cache()
+    for r in g8_runs:
+        f = next((x for x in float_runs or () if x["model"] == g8.name
+                  and x["layout"] == r["layout"]), None)
+        r["float_run"] = None if f is None else {
+            k: f[k] for k in ("itl_ms_p50", "tokens_per_s", "kv_bytes")} | {
+            "device_ms_per_step": f["decode_profile"]["device_ms_per_step"]}
+        log(f"[int8] granite-8b {r['layout']}: int8_serve ITL p50 {r['itl_ms_p50']:.2f} ms, "
+            f"{r['decode_profile']['device_ms_per_step']} device ms/step, KV "
+            f"{r['kv_bytes'] / 1e9:.3f} GB; float (phase 7, this build): " + (
+                "not run" if f is None else
+                f"ITL p50 {f['itl_ms_p50']:.2f} ms, {f['decode_profile']['device_ms_per_step']} "
+                f"device ms/step, KV {f['kv_bytes'] / 1e9:.3f} GB"))
+    counts = dict(LAUNCHES)  # the int8_serve / MoE path's window ends here
+    for kname in ("flash_attention", "layernorm"):
+        if counts.get(kname, 0) <= 0:
+            raise SmokeError(f"{kname} was never launched on the int8_serve / MoE path")
+    log(f"[int8] int8_serve / MoE path launches: {counts}")
+    return dict(check=checks, moe_runs=runs, moe_nodrop_runs=nodrop_runs, moe_prefill=prefills,
+                granite_8b_runs=g8_runs, moe_weight_bytes=weight_bytes), counts
 
 
 # ---------------------------------------------------------------- phase 8 --
@@ -2293,6 +2726,7 @@ def main() -> int:
         dense, dense_counts = timed("dense", phase_dense, dev)
         serve, serve_counts = timed("serve", phase_serve, dev)
         train, train_counts = timed("train", phase_train, dev)
+        int8, int8_counts = timed("int8_moe", phase_int8_moe, dev, serve["runs"])
     except Exception:  # noqa: BLE001 - report every failed phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2300,7 +2734,7 @@ def main() -> int:
 
     # launches: each kernel's count summed over the path windows it runs in
     windows = (model_counts, mha_counts, softmax_counts, mamba_counts, dense_counts, serve_counts,
-               train_counts)
+               train_counts, int8_counts)
     counts = {k: sum(w.get(k, 0) for w in windows)
               for k in ("flash_attention", "layernorm", "qmatmul", "lut_softmax", "ssd_scan")}
     main_shape = {"flash_attention": ([8192, 4, 100, 8], "safe"),
@@ -2329,13 +2763,15 @@ def main() -> int:
                                "kernels": cases, "models": models, "mha": mha,
                                "lut_softmax_path": softmax_path, "mamba": mamba,
                                "dense": dense, "serve": serve, "train": train,
+                               "int8_moe": int8,
                                "launches": counts,
                                "launches_by_path": {"models": model_counts, "mha": mha_counts,
                                                     "lut_softmax": softmax_counts,
                                                     "mamba": mamba_counts,
                                                     "dense": dense_counts,
                                                     "serve": serve_counts,
-                                                    "train": train_counts},
+                                                    "train": train_counts,
+                                                    "int8_moe": int8_counts},
                                "phase_seconds": phase_s,
                                "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s; details in {OUT.relative_to(ROOT)}")

@@ -1,16 +1,25 @@
 """Config registry: ``get_config(name, reduced=False)`` for the paper's
 physics models and the LM configs ported so far: the dense GQA family
-(``granite-8b``, ``minicpm-2b``, ``starcoder2-7b``) and ``mamba2-130m``.
+(``granite-8b``, ``minicpm-2b``, ``starcoder2-7b``), ``mamba2-130m`` and
+the MoE family (``granite-moe-3b-a800m``, ``dbrx-132b``).
 
 The rest of the LM zoo waits for its slices: ROADMAP queue 1, item 9 (MLA,
-MoE, the VLM and audio frontends) and item 10 (hybrid).
+the VLM and audio frontends) and item 10 (hybrid).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import granite_8b, mamba2_130m, minicpm_2b, physics, starcoder2_7b
+from repro_torch.configs import (
+    dbrx_132b,
+    granite_8b,
+    granite_moe_3b,
+    mamba2_130m,
+    minicpm_2b,
+    physics,
+    starcoder2_7b,
+)
 from repro_torch.configs.base import (  # noqa: F401
     HybridConfig,
     MLAConfig,
@@ -33,6 +42,8 @@ _ARCH_MODULES = {
     "minicpm-2b": minicpm_2b,
     "granite-8b": granite_8b,
     "starcoder2-7b": starcoder2_7b,
+    "dbrx-132b": dbrx_132b,
+    "granite-moe-3b-a800m": granite_moe_3b,
     "mamba2-130m": mamba2_130m,
 }
 
@@ -41,8 +52,6 @@ ARCH_NAMES = list(_ARCH_MODULES)
 # the JAX package's other configs, by the ROADMAP queue 1 item that ports them
 _UNPORTED = {
     "minicpm3-4b": 9,
-    "dbrx-132b": 9,
-    "granite-moe-3b-a800m": 9,
     "zamba2-1.2b": 10,
     "internvl2-1b": 9,
     "hubert-xlarge": 9,

@@ -33,9 +33,11 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
 
 
 # the stacked per-layer cache trees that convert: the ssm family's state, the
-# dense KV slabs, the rolling sliding-window buffer and the paged pools
-_CACHE_LAYOUTS = ({"ssm_state", "conv_state"}, {"k", "v"}, {"k", "v", "slot_pos"},
-                  {"k", "v", "page_table"})
+# dense KV slabs, the rolling sliding-window buffer and the paged pools, each
+# of the last three also as the int8 KV cache (codes plus k/v scales)
+_KV_LAYOUTS = ({"k", "v"}, {"k", "v", "slot_pos"}, {"k", "v", "page_table"})
+_CACHE_LAYOUTS = ({"ssm_state", "conv_state"}, *_KV_LAYOUTS,
+                  *(kv | {"k_scale", "v_scale"} for kv in _KV_LAYOUTS))
 
 
 def train_state_from_numpy(tree, device: str | torch.device = "cuda"):
@@ -70,9 +72,10 @@ def caches_from_numpy(tree, device: str | torch.device = "cuda"):
     ``{"layers": {...}}`` with a leading layer axis: the ``ssm`` family's
     ``ssm_state`` and ``conv_state`` (float32), or the dense family's ``k``
     and ``v`` slabs (B, Hkv, L, D), plus the int32 ``slot_pos`` of a rolling
-    buffer, or the paged ``k`` / ``v`` pools and the int32 ``page_table``.
-    The int8 KV, MLA latent and hybrid caches wait for ROADMAP queue 1,
-    items 9 and 10."""
+    buffer, or the paged ``k`` / ``v`` pools and the int32 ``page_table``;
+    each KV layout also as the int8 cache, int8 ``k`` / ``v`` codes with
+    float32 ``k_scale`` / ``v_scale``.  The MLA latent and hybrid caches
+    wait for ROADMAP queue 1, items 9 and 10."""
     if set(tree) != {"layers"} or set(tree["layers"]) not in _CACHE_LAYOUTS:
         raise NotImplementedError(
             f"only the ssm family's, the dense and the paged KV caches convert so far, "

@@ -226,8 +226,19 @@ class PrecisionPlan:
     accum: Precision
 
     @property
+    def int8_weights(self) -> bool:
+        return any(
+            s.weights.kind == "int8"
+            for s in (*self.layers, self.embed, self.logits, self.shared)
+        )
+
+    @property
     def int8_kv_cache(self) -> bool:
         return self.kv_cache.kind == "int8"
+
+    @property
+    def lut_softmax(self) -> bool:
+        return self.softmax_mode() == "lut"
 
     def softmax_mode(self) -> str:
         """Attention softmax mode; must be uniform across layers."""

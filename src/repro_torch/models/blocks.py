@@ -1,8 +1,9 @@
-"""Pre-norm residual blocks: the dense transformer kind and the Mamba2 kind
-(``ssm`` family).
+"""Pre-norm residual blocks: the dense transformer kind, the MoE kind (the
+dense kind with ``moe.moe_apply`` as its feed-forward, whose router aux
+comes back with the block) and the Mamba2 kind (``ssm`` family).
 
-MoE blocks and the hybrid family (Mamba2 with the shared attention block)
-come with ROADMAP queue 1, items 9 and 10.
+The hybrid family (Mamba2 with the shared attention block) comes with
+ROADMAP queue 1, item 10.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, mlp, ssm
+from repro_torch.models import attention, layers, mlp, moe, ssm
 
 
 def block_kind(cfg: ModelConfig) -> str:
@@ -23,8 +24,6 @@ def block_kind(cfg: ModelConfig) -> str:
 
 def _require_ported(cfg: ModelConfig) -> str:
     kind = block_kind(cfg)
-    if kind == "moe":
-        raise NotImplementedError("moe blocks are not ported yet (ROADMAP queue 1, item 9)")
     if cfg.family == "hybrid":
         raise NotImplementedError(
             "hybrid blocks (Mamba2 + shared attention) are not ported yet "
@@ -44,7 +43,7 @@ def block_spec(cfg: ModelConfig, dtype=torch.float32):
         "ln1": layers.norm_spec(cfg.d_model, cfg.norm_kind, dtype),
         "attn": attention.attention_spec(cfg, dtype),
         "ln2": layers.norm_spec(cfg.d_model, cfg.norm_kind, dtype),
-        "ffn": mlp.mlp_spec(cfg, dtype),
+        "ffn": moe.moe_spec(cfg, dtype) if kind == "moe" else mlp.mlp_spec(cfg, dtype),
     }
 
 
@@ -75,5 +74,9 @@ def block_apply(
     )
     x = x + rs * attn_out
     h = layers.norm(params["ln2"], x, cfg.norm_kind, cfg.norm_eps, use_lut=norm_lut)
-    x = x + rs * mlp.mlp_apply(params["ffn"], cfg, h, quant=quant)
-    return x, new_cache, {}
+    aux = {}
+    if kind == "moe":
+        ffn_out, aux = moe.moe_apply(params["ffn"], cfg, h)
+    else:
+        ffn_out = mlp.mlp_apply(params["ffn"], cfg, h, quant=quant)
+    return x + rs * ffn_out, new_cache, aux

@@ -1,6 +1,6 @@
 """Causal LM orchestrator (port of ``repro.models.lm``) for the families
-ported so far: ``dense`` (granite-8b, minicpm-2b, starcoder2-7b) and ``ssm``
-(mamba2-130m).
+ported so far: ``dense`` (granite-8b, minicpm-2b, starcoder2-7b), ``moe``
+(granite-moe-3b-a800m, dbrx-132b) and ``ssm`` (mamba2-130m).
 
 Entry points
 ------------
@@ -15,8 +15,10 @@ caller's: the new stack is one copy of the caller's, into which each layer
 writes its new rows.  ``in_place=True`` skips that copy and writes into the
 caller's stack (the serving executor, which owns its caches).  ``loss_fn``
 is the next-token cross entropy of training; ``remat`` recomputes each
-block in the backward (``torch.utils.checkpoint``, non-reentrant).  The
-MoE, hybrid, VLM and audio families wait for items 9 and 10.
+block in the backward (``torch.utils.checkpoint``, non-reentrant).
+``forward``'s aux sums the MoE blocks' router aux over the layers, as the
+reference's scan carries it.  The hybrid, VLM and audio families and the MoE
+aux losses in ``loss_fn`` wait for ROADMAP queue 1, items 9 and 10.
 """
 
 from __future__ import annotations
@@ -88,6 +90,13 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return layers.embed(params["embed"], batch["tokens"]) * cfg.emb_scale
 
 
+def _aux_init(cfg: ModelConfig, dev: torch.device) -> dict:
+    if cfg.moe is None:
+        return {}
+    return {k: torch.zeros((), dtype=torch.float32, device=dev)
+            for k in ("moe_aux_loss", "moe_z_loss", "moe_dropped_frac")}
+
+
 def _layer(tree, i: int):
     return params_lib.map_leaves(lambda _, t: t[i], tree)
 
@@ -132,26 +141,29 @@ def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: s
         new_layers = caches["layers"]
     else:
         new_layers = {k: t.clone() for k, t in caches["layers"].items()}
+    aux = _aux_init(cfg, h.device)
     for i in range(cfg.n_layers):  # the reference's scan over the stacked blocks
         quant = uniform_quant if layer_quants is None else layer_quants.layer(i)
         lcache = None if new_layers is None else {k: t[i] for k, t in new_layers.items()}
         if remat != "none":
             def block(x, bparams=_layer(params["blocks"], i), quant=quant):
-                return blocks.block_apply(bparams, cfg, x, positions, mode=mode,
-                                          kernel=kernel, quant=quant)[0]
+                out, _, l_aux = blocks.block_apply(bparams, cfg, x, positions, mode=mode,
+                                                   kernel=kernel, quant=quant)
+                return out, l_aux
 
-            h = _remat(block, remat)(h)
-            continue
-        h, out_lcache, _ = blocks.block_apply(
-            _layer(params["blocks"], i), cfg, h, positions, mode=mode, cache=lcache,
-            kernel=kernel, quant=quant,
-        )
-        for k, t in (out_lcache or {}).items():
-            if t is not lcache[k]:
-                lcache[k].copy_(t)
+            h, l_aux = _remat(block, remat)(h)
+        else:
+            h, out_lcache, l_aux = blocks.block_apply(
+                _layer(params["blocks"], i), cfg, h, positions, mode=mode, cache=lcache,
+                kernel=kernel, quant=quant,
+            )
+            for k, t in (out_lcache or {}).items():
+                if t is not lcache[k]:
+                    lcache[k].copy_(t)
+        aux = {k: v + l_aux[k] for k, v in aux.items()}
     if new_layers is None:
-        return h, None
-    return h, caches if in_place else {"layers": new_layers}
+        return h, None, aux
+    return h, caches if in_place else {"layers": new_layers}, aux
 
 
 def _as_tensor(x, dev: torch.device) -> torch.Tensor:
@@ -173,7 +185,8 @@ def forward(
     in_place: bool = False,
     remat: str = "none",
 ):
-    """Returns (logits (b, s, padded_vocab), new_caches, aux).
+    """Returns (logits (b, s, padded_vocab), new_caches, aux); aux holds
+    ``text_offset`` and, for MoE configs, the router aux summed over layers.
 
     ``batch["tokens"]``: (b, s) token ids, tensor or array.  positions: (s,)
     for train/prefill (defaults to arange), (b,) global positions of the new
@@ -191,8 +204,8 @@ def forward(
         positions = torch.arange(h.shape[1], dtype=torch.int32, device=dev)
     else:
         positions = _as_tensor(positions, dev)
-    x, new_caches = _run_blocks(params, cfg, h, positions, mode=mode, caches=caches,
-                                kernel=kernel, plan=plan, in_place=in_place, remat=remat)
+    x, new_caches, aux = _run_blocks(params, cfg, h, positions, mode=mode, caches=caches,
+                                     kernel=kernel, plan=plan, in_place=in_place, remat=remat)
     x = layers.norm(
         params["final_norm"], x, cfg.norm_kind, cfg.norm_eps,
         use_lut=(kernel or {}).get("norm_lut", False),
@@ -205,7 +218,7 @@ def forward(
     if cfg.padded_vocab_size > cfg.vocab_size:  # mask the vocab padding
         pad = torch.arange(cfg.padded_vocab_size, device=dev) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e9)
-    return logits, new_caches, {"text_offset": 0}
+    return logits, new_caches, {**aux, "text_offset": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -231,11 +244,16 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, kernel: dict | None = None
     """(loss, metrics): the mean next-token cross entropy of ``batch``
     {"tokens" (b, s), optional "loss_mask" (b, s)} under the mask, with
     "ce_loss", "accuracy" and "loss" as the reference's.  The encoder
-    labels, the frontends' text offset and the MoE aux losses wait for
-    ROADMAP queue 1, item 9."""
-    if cfg.is_encoder or cfg.frontend is not None or cfg.moe is not None:
+    labels and the frontends' text offset wait for ROADMAP queue 1, item 9;
+    the MoE aux losses (training the MoE family) for item 11's follow-ups."""
+    if cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the encoder, frontend and MoE losses are not ported yet "
+            f"{cfg.name}: lm.loss_fn's MoE aux losses are not ported yet (ROADMAP queue 1, "
+            "item 11: lm.loss_fn's MoE aux losses and training granite-moe-3b)"
+        )
+    if cfg.is_encoder or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder and frontend losses are not ported yet "
             "(ROADMAP queue 1, item 9)"
         )
     dev = resolve_device(device)

@@ -167,20 +167,23 @@ class ModelExecutor:
             and cfg.attn_kind in ("gqa", "mla")
             and cfg.family not in ("ssm", "hybrid")
         )
-        if self.quant_cache:
+        if self.plan.int8_kv_cache and self.plan.kv_cache.bits != 8:
             raise NotImplementedError(
-                f"policy {policy.name!r} needs the int8 KV cache, which is not ported "
-                "yet (ROADMAP queue 1, item 9)"
+                "the KV cache implements 8-bit per-token quantization only; "
+                f"policy {policy.name!r} asks for {self.plan.kv_cache.bits}-bit"
             )
-        # float32 caches whatever the weights' type, as the reference's
-        self.cache_mgr = kv_cache.CacheManager(cfg, sc, quantized=False, dtype=torch.float32,
-                                               device=self.device)
+        # float32 caches whatever the weights' type, as the reference's; under
+        # an int8 KV policy int8 codes plus float32 per-(token, head) scales
+        self.cache_mgr = kv_cache.CacheManager(cfg, sc, quantized=self.quant_cache,
+                                               dtype=torch.float32, device=self.device)
         self.kv_layout = self.cache_mgr.layout
         self.caches = self.cache_mgr.init_device_caches()
         self.slots = [Slot() for _ in range(sc.max_batch)]
         # decode-path forward bitwise the prefill-path forward: float GQA,
         # exact softmax, and a prefill attend that is the plain version
-        # (the CPU); on CUDA the prefill attends through the kernel
+        # (the CPU); on CUDA the prefill attends through the kernel.  False
+        # under int8 KV and under the LUT softmax (decode's softmax is
+        # exact), as the reference's
         self.bit_exact = (
             cfg.attn_kind == "gqa"
             and not self.quant_cache
@@ -259,7 +262,7 @@ class ModelExecutor:
         else:
             scratch_len = self.serve_cfg.max_seq_len
         small = kv_cache.init_caches(self.cfg, nb, scratch_len, dtype=torch.float32,
-                                     device=self.device)
+                                     quantized=self.quant_cache, device=self.device)
         logits, filled, _ = lm.forward(self.params, self.cfg, {"tokens": tokens},
                                        mode="prefill", caches=small, kernel=self.kernel,
                                        device=self.device, in_place=True)

@@ -11,6 +11,10 @@ Per layer:
   physical page ids per slot.  Page 0 is the reserved trash page:
   unallocated table entries point at it, so pad and retired-slot writes
   land there and are never read back (reads are masked by position);
+- the int8 KV cache (``int8_serve``): ``k`` / ``v`` as int8 codes in every
+  layout above, with float32 ``k_scale`` / ``v_scale`` of their shape
+  without the feature axis, one per (token, kv head); the paged scale pools
+  (num_pages, Hkv, page_size) are head-major like ``k`` / ``v``;
 - the ``ssm`` family's Mamba2 cache (``ssm_state`` (b, h, p, n) and
   ``conv_state`` (b, width - 1, conv_dim)), float32 of a fixed size whatever
   the model's type.
@@ -33,8 +37,8 @@ registered pages, copy-on-write (``flush_copies`` applies the queued page
 copies on the device) and ``check_invariants``.
 
 Not ported yet: the host-memory victim tier (``kv_host_pages``; ROADMAP
-queue 1, item 8, step 9), int8 KV and MLA latent caches (item 9), hybrid
-caches (item 10).
+queue 1, item 8, step 9), the MLA latent caches (item 9), hybrid caches
+(item 10).
 """
 
 from __future__ import annotations
@@ -49,7 +53,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 
 #: cache leaves with a sequence axis: name -> axis index from the right
-SEQ_AXIS_FROM_RIGHT = {"k": 2, "v": 2}
+SEQ_AXIS_FROM_RIGHT = {"k": 2, "v": 2, "k_scale": 1, "v_scale": 1}
+
+#: pool leaves whose page axis is followed by a head axis (page, head, off, ...)
+_HEAD_MAJOR_POOLS = ("k", "v", "k_scale", "v_scale")
 
 #: reserved physical page id: write sink for pad scatters, never read
 TRASH_PAGE = 0
@@ -73,26 +80,36 @@ def attention_cache_spec(
     num_pages: int | None = None,
 ) -> dict:
     """Per-layer attention cache ``{name: (shape, dtype)}``; stacked by the
-    caller."""
+    caller.  ``quantized``: int8 k/v codes plus float32 per-(token, head)
+    scales."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown kv layout {layout!r}; use one of {LAYOUTS}")
     if cfg.attn_kind == "mla":
         raise NotImplementedError("MLA latent caches are not ported yet (ROADMAP queue 1, item 9)")
-    if quantized:
-        raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP queue 1, item 9)")
     if layout == "paged":
-        return _paged_attention_cache_spec(cfg, max_len, dtype, batch, page_size, num_pages)
+        return _paged_attention_cache_spec(cfg, max_len, dtype, quantized, batch, page_size,
+                                           num_pages)
     if cfg.attn_kind == "none":
         return {}
     length, extra = max_len, {}
     if cfg.sliding_window is not None and cfg.sliding_window < max_len:
         length = cfg.sliding_window
         extra["slot_pos"] = ((batch, length), torch.int32)
-    kv = ((batch, cfg.n_kv_heads, length, cfg.resolved_head_dim), dtype)
-    return {"k": kv, "v": kv, **extra}
+    rows = (batch, cfg.n_kv_heads, length)
+    return {**_kv_leaves(rows, cfg.resolved_head_dim, dtype, quantized), **extra}
 
 
-def _paged_attention_cache_spec(cfg, max_len, dtype, batch, page_size, num_pages):
+def _kv_leaves(rows: tuple, head_dim: int, dtype, quantized: bool) -> dict:
+    """k / v of shape ``rows + (head_dim,)``, and with ``quantized`` int8
+    codes and their float32 ``k_scale`` / ``v_scale`` of shape ``rows``."""
+    kv = (rows + (head_dim,), torch.int8 if quantized else dtype)
+    spec = {"k": kv, "v": kv}
+    if quantized:
+        spec["k_scale"] = spec["v_scale"] = (rows, torch.float32)
+    return spec
+
+
+def _paged_attention_cache_spec(cfg, max_len, dtype, quantized, batch, page_size, num_pages):
     if page_size is None or num_pages is None:
         raise ValueError("paged layout requires page_size and num_pages")
     if max_len % page_size != 0:
@@ -107,9 +124,9 @@ def _paged_attention_cache_spec(cfg, max_len, dtype, batch, page_size, num_pages
         )
     if cfg.sliding_window is not None and cfg.sliding_window < max_len:
         raise ValueError("paged layout does not support rolling sliding-window buffers")
-    pool = ((num_pages, cfg.n_kv_heads, page_size, cfg.resolved_head_dim), dtype)
-    return {"k": pool, "v": pool,
-            "page_table": ((batch, max_len // page_size), torch.int32)}
+    pools = _kv_leaves((num_pages, cfg.n_kv_heads, page_size), cfg.resolved_head_dim, dtype,
+                       quantized)
+    return {**pools, "page_table": ((batch, max_len // page_size), torch.int32)}
 
 
 def _zero_leaf(name: str, shape: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -191,10 +208,10 @@ def paged_decode_write(cache: dict, updates: dict[str, torch.Tensor],
     """Scatter one token per slot into its physical page, in place.
 
     ``updates``: leaf name -> per-slot values with the seq axis removed
-    (k/v: (B, Hkv, D)).  ``positions``: (B,) global write positions.
-    Retired slots have all-trash page tables, so their writes land in the
-    trash page and never alias live data."""
-    ps = cache["k"].shape[2]  # every pool is (num_pages, Hkv, page_size, D)
+    (k/v: (B, Hkv, D); scales: (B, Hkv)).  ``positions``: (B,) global write
+    positions.  Retired slots have all-trash page tables, so their writes
+    land in the trash page and never alias live data."""
+    ps = cache["k"].shape[2]  # every pool is (num_pages, Hkv, page_size[, D])
     pos = positions.long()
     phys = cache["page_table"].gather(1, (pos // ps)[:, None])[:, 0].long()
     off = pos % ps
@@ -206,7 +223,8 @@ def paged_decode_write(cache: dict, updates: dict[str, torch.Tensor],
 
 def paged_decode_view(cache: dict) -> dict[str, torch.Tensor]:
     """Gather each slot's pages into a contiguous logical view: k/v
-    (B, Hkv, L, D) with ``L = pages_per_slot * page_size``, so the attention
+    (B, Hkv, L, D) and scales (B, Hkv, L) with ``L = pages_per_slot *
+    page_size``, so the attention
     math is the dense layout's (unallocated entries read the trash page and
     are masked by position, like dense positions past the write head).
     One ``index_select`` per leaf over (page, head) rows of page_size x D

@@ -11,6 +11,7 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro_torch.configs import ARCH_NAMES, PHYSICS_NAMES, get_config  # noqa: E402
 
 DENSE = ["granite-8b", "minicpm-2b", "starcoder2-7b"]
+MOE = ["granite-moe-3b-a800m", "dbrx-132b"]
 
 
 @pytest.mark.parametrize("name", ["engine_anomaly", "btagging", "gw"])
@@ -25,13 +26,13 @@ def test_physics_config_fields_equal(name):
 
 def test_registry_names_and_unported():
     assert PHYSICS_NAMES == ["engine_anomaly", "btagging", "gw"]
-    assert sorted(ARCH_NAMES) == sorted(DENSE + ["mamba2-130m"])
-    for name in DENSE:
+    assert sorted(ARCH_NAMES) == sorted(DENSE + MOE + ["mamba2-130m"])
+    for name in DENSE + MOE:
         for reduced in (False, True):
             ref, ours = jax_get_config(name, reduced), get_config(name, reduced)
             assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        get_config("granite-moe-3b-a800m")
+        get_config("minicpm3-4b")  # MLA
     with pytest.raises(NotImplementedError, match="queue 1, item 10"):
         get_config("zamba2-1.2b")
     with pytest.raises(KeyError, match="unknown arch"):

@@ -187,9 +187,13 @@ def test_unported_attention_paths_raise():
     cache = kv_cache.init_attention_cache(tcfg, 1, 4, torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         attention.gqa_apply(pt, tcfg, x, torch.zeros(1, 1, 2), mode="extend", cache=cache)
+    # the int8 KV cache is ported (tests/test_torch_int8_kv.py); MLA is not
+    qcache = kv_cache.init_attention_cache(tcfg, 1, 4, torch.float32, quantized=True,
+                                           device="cpu")
+    attention.gqa_apply(pt, tcfg, x, mode="prefill", cache=qcache)
+    assert qcache["k"].dtype == torch.int8 and bool((qcache["k_scale"][:, :, :2] > 0).all())
     with pytest.raises(NotImplementedError, match="item 9"):
-        attention.gqa_apply(pt, tcfg, x, mode="prefill",
-                            cache=dict(cache, k_scale=torch.zeros(1, 2, 4)))
+        attention.attention_spec(dataclasses.replace(tcfg, attn_kind="mla"))
     with pytest.raises(ValueError, match="positions"):
         attention.gqa_apply(pt, tcfg, x[:, :1], mode="decode", cache=cache)
 

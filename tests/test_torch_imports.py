@@ -54,7 +54,8 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.launch.serve, repro_torch.optim, repro_torch.train, "
         "repro_torch.checkpoint, repro_torch.data.loader, repro_torch.data.synthetic, "
         "repro_torch.kernels.flash_attention.autograd, repro_torch.kernels.layernorm.autograd, "
-        "repro_torch.examples.physics_inference, repro_torch.examples.train_lm; "
+        "repro_torch.examples.physics_inference, repro_torch.examples.train_lm, "
+        "repro_torch.models.moe, repro_torch.configs.granite_moe_3b, repro_torch.configs.dbrx_132b; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

@@ -10,7 +10,14 @@ The requests mix prompt lengths across the prefill buckets, share a
   chunked prefill (over a pool that forces preemption);
 - reduced starcoder2-7b with its window of 8 (rolling buffer, exact-length
   prefill);
-- reduced mamba2-130m (SSM state, exact-length prefill, dense fallback).
+- reduced mamba2-130m (SSM state, exact-length prefill, dense fallback);
+- under ``int8_serve`` (int8 weights, the int8 KV cache, the LUT softmax in
+  prefill): reduced granite-8b and granite-moe-3b-a800m, dense and paged,
+  as ``tests/test_kv_cache.py::test_dense_paged_token_identical``'s
+  ``("granite-8b", "int8_serve")`` case, and granite-8b paged + prefix cache
+  + preemption + chunked prefill, where prefill-skip, preemption-resume and
+  chunking are gated off as the reference gates them without its
+  cache-extending program.
 Telemetry (program counts, dispatches, preemptions, prefill tokens saved,
 prefix hits, disabled features) is equal too, and the program budget
 ``prefill_compiles + decode_compiles <= len(buckets) + 2`` holds.
@@ -72,7 +79,7 @@ def _one_torch_thread():
 def models():
     """{arch: (JAX config, JAX params, port config, port params)}."""
     out = {}
-    for arch in ("granite-8b", "starcoder2-7b", "mamba2-130m"):
+    for arch in ("granite-8b", "starcoder2-7b", "mamba2-130m", "granite-moe-3b-a800m"):
         jcfg = jax_get_config(arch, reduced=True)
         raw = numpy_tree(jlm.param_spec(jcfg), 0)
         out[arch] = (jcfg, jax.tree.map(jnp.asarray, raw), get_config(arch, reduced=True),
@@ -95,11 +102,11 @@ def _prompts(arch):
     return prompts
 
 
-def _reference(models, arch, sc_kw, sampling):
+def _reference(models, arch, sc_kw, sampling, **ref_kw):
     jcfg, jparams, _, _ = models[arch]
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        eng = JEngine(jcfg, jparams, JServeConfig(**BASE, **sc_kw))
+        eng = JEngine(jcfg, jparams, JServeConfig(**BASE, **sc_kw, **ref_kw))
     handles = [eng.submit(p, JSamplingParams(**s)) for p, s in zip(_prompts(arch), sampling)]
     res = eng.generate()
     return ([res[h.uid].generated for h in handles], [eng.finish_reason(h) for h in handles],
@@ -146,6 +153,63 @@ def test_greedy_streams_match_reference(models, sampling, case):
     assert tel["decode_compiles"] == 1
     if "preempt" in case:
         assert tel["preemptions"] > 0 and tel["prefill_tokens_saved"] > 0
+
+
+INT8_CASES = {
+    "granite-dense": ("granite-8b", {}),
+    "granite-paged": ("granite-8b", dict(kv_layout="paged", kv_page_size=8)),
+    "granite-moe-dense": ("granite-moe-3b-a800m", {}),
+    "granite-moe-paged": ("granite-moe-3b-a800m", dict(kv_layout="paged", kv_page_size=8)),
+    # a prefix-cache hit reads its first tenant's KV, which the MoE's drops
+    # make depend on the tokens batched with it: the same on both sides
+    "granite-moe-paged-prefix": ("granite-moe-3b-a800m", dict(kv_layout="paged", kv_page_size=8,
+                                                              kv_prefix_cache=True)),
+    "granite-paged-prefix-preempt-chunk": CASES["granite-paged-prefix-preempt-chunk"],
+}
+
+
+@pytest.mark.parametrize("case", list(INT8_CASES))
+def test_int8_serve_streams_match_reference(models, sampling, case):
+    """``ServeConfig(policy="int8_serve")``: the greedy streams, finish
+    reasons, telemetry and warnings equal the JAX engine's, whose
+    cache-extending program (ROADMAP queue 1, item 8, step 5) is switched
+    off to match the port's; the caches are int8, ``bit_exact`` is False as
+    the reference's, and the program budget holds."""
+    arch, sc_kw = INT8_CASES[case]
+    sc_kw = dict(sc_kw, policy="int8_serve")
+    ref_tokens, ref_reasons, ref_tel, ref_warn = _reference(models, arch, sc_kw, sampling[arch],
+                                                            cache_extend=False)
+    tokens, reasons, tel, warn, eng = _ours(models, arch, sc_kw, sampling[arch])
+    assert tokens == ref_tokens
+    assert reasons == ref_reasons and "length" in reasons
+    assert {k: tel[k] for k in TEL_KEYS} == {k: ref_tel[k] for k in TEL_KEYS}
+    assert warn == ref_warn
+    ex = eng.executor
+    assert ex.quant_cache and not ex.bit_exact and ex.kernel["softmax_mode"] == "lut"
+    assert ex.caches["layers"]["k"].dtype == torch.int8
+    assert tel["prefill_compiles"] + tel["decode_compiles"] <= len(ex.buckets) + 2
+    assert tel["decode_compiles"] == 1
+    if "preempt" in case:  # gated off: no skip, no resume replay, no chunking
+        assert tel["prefill_tokens_saved"] == 0 and "prefill_chunk" in str(warn)
+
+
+def test_int8_serve_caps_match_reference(models):
+    """``bit_exact`` and ``cache_extend`` as the reference's: bit_exact False
+    under int8 KV and the LUT softmax; the reference's cache_extend is True
+    on its jnp path and False without the program, the port's False until
+    item 8, step 5."""
+    for arch in ("granite-8b", "granite-moe-3b-a800m"):
+        jcfg, jparams, cfg, params = models[arch]
+        for kw in ({}, dict(kv_layout="paged", kv_page_size=8, kv_prefix_cache=True)):
+            sc = dict(BASE, policy="int8_serve", **kw)
+            with warnings.catch_warnings():  # prefill-skip off, as tested above
+                warnings.simplefilter("ignore", RuntimeWarning)
+                ours = Engine(cfg, params, ServeConfig(**sc), device="cpu").executor.caps
+                ref = JEngine(jcfg, jparams, JServeConfig(**sc)).executor.caps
+                off = JEngine(jcfg, jparams, JServeConfig(**sc, cache_extend=False)).executor.caps
+            assert not ours.bit_exact and not ref.bit_exact and ref.cache_extend
+            assert dataclasses.asdict(ours) == dataclasses.asdict(off)
+            assert dataclasses.asdict(ours) == dict(dataclasses.asdict(ref), cache_extend=False)
 
 
 def test_cpu_prefill_logits_are_bitwise_the_decode_paths(models):
@@ -277,10 +341,13 @@ def test_caches_are_written_in_place_with_one_copy_back_per_decode(models, monke
     (dict(speculative=True), "item 8, step 8"),
     (dict(shard_decode=True), "item 8, shard_decode"),
     (dict(kv_layout="paged", kv_prefix_cache=True, kv_host_pages=8), "item 8, step 9"),
-    (dict(policy="int8_serve"), "item 9"),
+    # int8_serve is ported; its MLA latent caches are not (minicpm3-4b)
+    (dict(policy="int8_serve", arch_kw=dict(attn_kind="mla")), "item 9"),
 ])
 def test_unported_features_raise(models, kw, match):
     _, _, cfg, params = models["granite-8b"]
+    kw = dict(kw)
+    cfg = dataclasses.replace(cfg, **kw.pop("arch_kw", {}))
     with pytest.raises(NotImplementedError, match=match):
         Engine(cfg, params, ServeConfig(**BASE, **kw), device="cpu")
 

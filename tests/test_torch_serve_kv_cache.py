@@ -100,9 +100,18 @@ def test_paged_spec_rejects_unpageable():
     ssm = get_config("mamba2-130m", reduced=True)
     with pytest.raises(ValueError, match="position-addressed"):
         kvc.attention_cache_spec(ssm, 2, 64, layout="paged", page_size=16, num_pages=9)
+    # the quantized paged spec is ported: the reference's, scale pools
+    # head-major; the MLA latent pools are not
+    ours = kvc.attention_cache_spec(get_config(ARCH, reduced=True), 2, 64, quantized=True,
+                                    layout="paged", page_size=16, num_pages=9)
+    ref = jkv.attention_cache_spec(jax_get_config(ARCH, reduced=True), 2, 64, quantized=True,
+                                   layout="paged", page_size=16, num_pages=9)
+    assert {k: (shape, str(dt).removeprefix("torch.")) for k, (shape, dt) in ours.items()} == {
+        k: (s.shape, str(s.dtype)) for k, s in ref.items()}
     with pytest.raises(NotImplementedError, match="item 9"):
-        kvc.attention_cache_spec(get_config(ARCH, reduced=True), 2, 64, quantized=True,
-                                 layout="paged", page_size=16, num_pages=9)
+        kvc.attention_cache_spec(dataclasses.replace(get_config(ARCH, reduced=True),
+                                                     attn_kind="mla"),
+                                 2, 64, quantized=True, layout="paged", page_size=16, num_pages=9)
 
 
 # ------------------------------------------------------------ device ops ---
