@@ -34,7 +34,13 @@ Phases, each of which fails the run (exit code 1) when it fails:
    with bias at 4608), bf16; phase 9's: granite-moe-3b-a800m's prefill
    attend at (8, 24 q / 8 kv, 2048, 64) with the LUT softmax in bf16 and in
    float32 (the int8 KV cache's route), SDPA timed beside it as a yardstick
-   (it computes the exact softmax), and its RMSNorm at 1536;
+   (it computes the exact softmax), and its RMSNorm at 1536; phase 10's:
+   minicpm3-4b's prefill attend at (8, 40, 2048, 96) causal (q/k head_dim
+   96, run padded to 128; V 64 zero-padded to 96 as the model pads it) in
+   bf16 with the safe softmax and in float32 with the LUT softmax (the int8
+   latent's route), the bound counting the work the function needs and the
+   padded kernel's beside it, and its q_norm / kv_norm RMSNorms at 768 and
+   256 over 8 x 2048 rows, bf16;
 3. models -- the main path: the paper's three encoders (engine_anomaly,
    btagging, gw) at their published widths, random seeded weights PTQ'd by
    the precision plan, seeded events from ``repro_torch.data``, under the
@@ -67,8 +73,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    (logits and tokens) and one 144-token ``forward`` (continuity), with 2
    ``flash_attention`` + 5 ``layernorm`` launches per prefill and 0 + 5 per
    decode step; (b) granite-8b in bfloat16 at its published widths (d_model
-   4096, 32 q / 8 kv heads of 128, d_ff 14336, vocab 49152) cut to 18 of
-   its 36 layers (the run's time limit; phases 7 and 9 serve it at 36) on
+   4096, 32 q / 8 kv heads of 128, d_ff 14336, vocab 49152) cut to 9 of
+   its 36 layers (the run's time limit; phases 7 and 9 serve it at 18) on
    seeded random weights drawn on the card: the median time of a
    prefill of 1 x 2048 (time to first token) and 8 x 2048 tokens and of 32
    greedy decode steps at batch 1 and 8, with the profiler's busy share,
@@ -81,7 +87,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    engine's streams, the port's CPU engine's and a direct ``lm.prefill`` /
    ``decode_step`` loop on the card each equal the CPU direct loop, a step
    differing only where its top-two margin is under 2e-4; (b) granite-8b in
-   bfloat16 at full size, ``max_batch`` 8, ``max_seq_len`` 2048, buckets
+   bfloat16 at its published widths and 18 of its 36 layers (the run's time
+   limit), ``max_batch`` 8, ``max_seq_len`` 2048, buckets
    256-2048, 4 decode steps per dispatch, 16 seeded requests of 64-1536
    tokens (8 sharing a 512-token prefix) x 32 new tokens under the dense,
    paged and paged + prefix-cache layouts: identical tokens across the
@@ -114,7 +121,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    runs' parameters and moments bitwise equal, the card's checkpoint
    restored on the CPU bitwise equal; the step's time, tokens/s, device
    busy share, top kernels, the attention and layernorm backwards' shares
-   and the peak memory.  ``python3 tools/train_phase.py`` runs this phase
+   and the peak memory.  ``python3 tools/phase.py train`` runs this phase
    alone.
 9. int8_moe -- the ``int8_serve`` datapath (int8 per-channel weights, the
    int8 KV cache in the dense, rolling and paged layouts, the LUT softmax in
@@ -128,7 +135,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    one prefill at the published capacity factor on the card and the CPU:
    the share of int8 KV codes that differ (by at most 1), of router
    decisions that flip (only at a k-th / (k+1)-th tie within 1e-5), and the
-   dropped shares; (b) granite-moe-3b-a800m bf16 at its 32 layers under its
+   dropped shares; (b) granite-moe-3b-a800m bf16 at 16 of its 32 layers (the
+   run's time limit) under its
    ``serve_policy`` (int8_serve), phase 7's traffic under the dense, paged
    and paged + prefix-cache layouts, tokens identical but where a request
    reads a prefix-cache hit (at the published capacity factor an expert's
@@ -138,9 +146,31 @@ Phases, each of which fails the run (exit code 1) when it fails:
    routing / dispatch / combine and expert-GEMM shares, KV bytes, peak
    memory, the program budget; (c) its ``lm.prefill`` at 1 and 8 x 2048
    under int8_serve and float, beside the FLOP floor; (d) granite-8b bf16 at
-   36 layers under int8_serve, dense and paged, beside phase 7's float runs
-   of the same build.  ``python3 tools/int8_moe_phase.py`` runs this phase
+   18 layers under int8_serve, dense and paged, beside phase 7's float runs
+   of the same build.  ``python3 tools/phase.py int8_moe`` runs this phase
    alone.
+10. mla -- multi-head latent attention, minicpm3-4b (``attention.mla_apply``
+   and the packed latent caches): (a) in float32 at its published widths cut
+   to 2 layers and a vocab of 512, under ``float`` and under its
+   ``serve_policy`` (int8_serve: int8 weights, the int8 latent with a
+   float32 scale per token, the LUT softmax in prefill), the card's engines
+   (dense, paged), direct ``lm`` loops on the card with the materialized and
+   the absorbed decode and the port's CPU engine, held to the CPU direct
+   loop by phase 7's margin rule; the absorbed decode's logits within 2e-4
+   of the materialized ones on the card; under int8_serve one prefill's
+   int8 latent codes card vs CPU differ by at most 1 in at most 0.1 % of
+   them; (b) bf16 at all 62 layers under int8_serve, phase 7's traffic under
+   the dense, paged and paged + prefix-cache layouts with identical tokens,
+   ``flash_attention`` n_layers per prefill dispatch and none in decode,
+   ``layernorm`` 4 n_layers + 1 per prefill dispatch and decode step: TTFT,
+   ITL, tokens/s, decode device ms per step beside the materialized decode's
+   float32 floor, device operations per step, busy share, latent cache
+   bytes beside float32 latents and a float32 GQA cache of the same heads,
+   peak memory; then the dense layout with the absorbed decode (its ITL,
+   device ms per step, and the share of its tokens equal to the
+   materialized run's); (c) ``lm.prefill`` at 1 and 8 x 2048 under
+   int8_serve and float, beside its FLOP floor, with the attention kernel's
+   share.  ``python3 tools/phase.py mla`` runs this phase alone.
    Each path sets the launch counts to 0 before it and reads them after.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
@@ -154,6 +184,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -243,23 +274,24 @@ MAMBA_TIME_LEN, MAMBA_TIME_BATCHES, MAMBA_TIME_STEPS = 2048, (1, 8), 32
 # starcoder2-7b runs twice, the second time with a window of 64 so that its
 # rolling buffer (and the kernel's window mask) is exercised by 128 + 16
 # tokens.  bf16 timings (phase 6b): granite-8b at its published widths, 18
-# of its 36 layers (the script's time limit; phases 7 and 9 serve all 36).
+# of its 36 layers (the script's time limit; phases 7 and 9 serve 18 too).
 DENSE = ("granite-8b", "minicpm-2b", "starcoder2-7b")
 DENSE_CUT = dict(n_layers=2, vocab_size=512, dtype="float32")
 DENSE_ROLLING_WINDOW = 64
 DENSE_TOL = 2e-4
 DENSE_CHECK = (2, 128, 16)  # batch, prompt tokens, greedy decode steps
 GRANITE_TIME_LEN, GRANITE_TIME_BATCHES, GRANITE_TIME_STEPS = 2048, (1, 8), 32
-GRANITE_TIME_LAYERS = 18
+GRANITE_TIME_LAYERS = 9  # of 36: halved in PR 23 and again in PR 24 for the run's time limit
 GRANITE_PROFILE_STEPS = 16  # the decode steps under the profiler
 # The serving engine (phase 7).  (a) float32 check: granite-8b (dense, and
 # paged + prefix cache) and mamba2-130m at their published widths cut as in
 # phase 6a, 6 requests (the first 3 sharing a 32-token prefix; lengths <= 64
 # or multiples of 64, mamba2's chunk) x 8 greedy tokens, held to the same
-# 2e-4 margin rule against the CPU direct loop.  (b) granite-8b bf16 at full
-# size: 16 requests of 64-1536 tokens from a seed, 8 sharing a 512-token
-# prefix, 32 new tokens each, under three layouts that must give identical
-# tokens.  (c) mamba2-130m bf16 at full depth, 8 requests.
+# 2e-4 margin rule against the CPU direct loop.  (b) granite-8b bf16 at its
+# published widths, GRANITE_SERVE_LAYERS of its layers: 16 requests of
+# 64-1536 tokens from a seed, 8 sharing a 512-token prefix, 32 new tokens
+# each, under three layouts that must give identical tokens.  (c)
+# mamba2-130m bf16 at full depth, 8 requests.
 SERVE_CHECK = (("granite-8b", ({}, dict(kv_layout="paged", kv_page_size=16,
                                          kv_prefix_cache=True)), (40, 50, 64, 12, 20, 33)),
                ("mamba2-130m", ({},), (40, 48, 64, 12, 20, 33)))
@@ -287,9 +319,10 @@ MAMBA_SERVE_LEN = (64, 128, 192, 256, 320, 384, 448, 512)  # exact-length: multi
 # on the card and the CPU may differ by 1 (a k/v value a float32 ulp from a
 # rounding tie), and a router decision may flip only where the CPU's k-th and
 # (k+1)-th probabilities lie within 1e-5.  (b) granite-moe-3b-a800m bf16 at
-# its 32 layers under its serve_policy (int8_serve), phase 7's traffic and
-# layouts; (c) its lm.prefill at 1 and 8 x 2048; (d) granite-8b bf16 at 36
-# layers under int8_serve, dense and paged, beside phase 7's float runs.
+# MOE_SERVE_LAYERS of its 32 layers under its serve_policy (int8_serve), phase
+# 7's traffic and layouts; (c) its lm.prefill at 1 and 8 x 2048; (d)
+# granite-8b bf16 at GRANITE_SERVE_LAYERS under int8_serve, dense and paged,
+# beside phase 7's float runs.
 INT8_CHECK = (("granite-8b", 2, (40, 50, 64, 12, 20, 33), SERVE_CHECK_NEW),
               ("granite-moe-3b-a800m", 2, (40, 50, 64, 12, 20, 33), SERVE_CHECK_NEW),
               ("dbrx-132b", 1, (40, 64, 12, 33), 4))
@@ -298,6 +331,28 @@ INT8_CODES = (2, 64)  # batch, tokens of the prefill whose codes and routes are 
 ROUTER_TIE = 1e-5
 MOE_SERVE = "granite-moe-3b-a800m"
 MOE_PREFILL_BATCHES, MOE_PREFILL_LEN = (1, 8), 2048
+# The full-width serving runs of phases 7b, 9b-9d cut in depth for the run's
+# time limit (PR 24, to make room for phase 10): granite-8b 18 of 36 layers,
+# granite-moe-3b-a800m 16 of 32.
+GRANITE_SERVE_LAYERS, MOE_SERVE_LAYERS = 18, 16
+# MLA, minicpm3-4b (phase 10).  (a) float32 check at the published widths cut
+# to 2 layers and a vocab of 512, under float and under its serve_policy
+# (int8_serve: int8 weights, the int8 latent cache, the LUT softmax in
+# prefill): the card's engines (dense, paged) and direct lm loops with the
+# materialized and the absorbed decode, and the port's CPU engine, held to
+# the CPU direct loop by phase 7's margin rule; under int8_serve one
+# prefill's int8 latent codes card vs CPU differ by at most 1 in at most
+# 0.1 % of the codes; the absorbed decode's logits within 2e-4 of the
+# materialized ones on the card (tests/test_models_smoke.py's bound).  (b)
+# bf16 at all 62 layers under int8_serve, phase 7's traffic and layouts, then
+# the dense layout again with the absorbed decode; (c) lm.prefill at 1 and 8
+# x 2048 under int8_serve and float.
+MLA = "minicpm3-4b"
+MLA_CHECK_LENGTHS = (40, 50, 64, 12, 20, 33)
+MLA_CODES_SHARE = 1e-3
+MLA_ABSORB_TOL = 2e-4
+MLA_ATTENTION = (8, 40, 2048, 96)  # the prefill attend: batch, heads, tokens, q/k head_dim
+MLA_PREFILL_BATCHES, MLA_PREFILL_LEN = (1, 8), 2048
 # kernel names in the profiler, for each kernel's share of device time
 KERNEL_FUNCS = {"attention": ("small_attention_kernel", "tc_attention_kernel"),
                 "layernorm": ("layernorm_kernel",),
@@ -378,43 +433,61 @@ def device_ms(fn, iters: int = 20) -> float | None:
 
 
 def _kernel_label(key: str) -> str:
-    return key.removeprefix("void ").replace("(anonymous namespace)::", "")[:48]
+    """A kernel's name cut to 48 characters; a PyTorch elementwise kernel is
+    named by the operation it was instantiated for (its functor or the
+    ``*_kernel_cuda`` that launched it), which its name holds only far past
+    that cut."""
+    label = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    if "elementwise_kernel" in label:
+        ops = [m for m in re.findall(r"\w*(?:Functor\w*|_kernel_cuda|_kernel_impl)\b", label)
+               if m not in ("BinaryFunctor", "AUnaryFunctor", "BUnaryFunctor")]
+        if ops:
+            return f"elementwise {ops[0]}"[:48]
+    return label[:48]
 
 
 def profile_forward(fn, iters: int = 5) -> dict:
-    """Device-busy share and the top kernels by device time over ``iters``
-    calls under ``torch.profiler`` (the profiler's own host cost included in
-    the wall time, so the busy share is a lower bound)."""
+    """Device-busy share, the top kernels by device time and the device
+    operations (kernels, copies, fills) per call over ``iters`` calls under
+    ``torch.profiler``, tracing the device only: recording the host's
+    operations as well slows the traced calls and the reading of the trace.
+    The profiler's own host cost is in the wall time, so the busy share is a
+    lower bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host ops also carry their kernels' time: count kernels only
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us, e.key))
-    busy_us = sum(us for us, _ in rows)
-    if busy_us <= 0:
+    for _ in range(2):  # a trace now and then comes back empty: one more try
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows, ops = [], 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ops += e.count
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0.0)
+            if dev_us > 0:
+                rows.append((dev_us, e.key))
+        busy_us = sum(us for us, _ in rows)
+        if busy_us > 0:
+            break
+    else:
         return {"busy_share": None, "top": "not measured (no device time in the trace)"}
     rows.sort(reverse=True)
-    top = [(_kernel_label(k), round(us / busy_us, 3)) for us, k in rows[:4]]
+    top = [(_kernel_label(k), round(us / busy_us, 3)) for us, k in rows[:6]]
     ssd_us = sum(us for us, k in rows if any(name in k for name in SSD_PASSES))
     shares = {f"{kname}_share": sum(us for us, k in rows if any(f in k for f in funcs)) / busy_us
               for kname, funcs in KERNEL_FUNCS.items()}
     return {"busy_share": busy_us / wall_us, "device_ms_per_fwd": busy_us / iters / 1e3,
-            "top": top, "ssd_scan_share": ssd_us / busy_us, **shares}
+            "device_ops_per_fwd": ops / iters, "top": top, "ssd_scan_share": ssd_us / busy_us,
+            **shares}
 
 
 def bound(flops: float, nbytes: float, dtype: str = "float32") -> tuple[float, str]:
@@ -519,21 +592,28 @@ def _sass_functions(listing: str) -> dict[str, dict[str, int]]:
 
 
 def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32", hkv=None,
-                    sdpa_yardstick=False):
+                    sdpa_yardstick=False, v_dim=None):
     """``mha`` on q (b, h, l, d) and k, v (b, hkv, l, d): GQA when hkv < h.
     SDPA is timed beside the safe softmax, which it computes; with
     ``sdpa_yardstick`` beside the LUT softmax too, as a yardstick of the same
-    shape (it computes the exact softmax, not the LUT's)."""
+    shape (it computes the exact softmax, not the LUT's).  ``v_dim``: V's
+    true head_dim, zero-padded to d by the caller (MLA: q/k at 96, V at 64);
+    the bound then counts the work the function needs (QK^T at d, P.V and
+    the output at v_dim), and ``padded_bound_ms`` the padded kernel's (both
+    products at the head_dim it runs, 128 for 96)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import mha, mha_ref
+    from repro_torch.kernels.flash_attention.ops import padded_head_dim
 
     b, h, l, d = shape
     hkv = h if hkv is None else hkv
+    dv = d if v_dim is None else v_dim
     g = torch.Generator().manual_seed(l * d + h)
     tdt = getattr(torch, dtype)
     q, k, v = (torch.randn(b, hh, l, d, generator=g).to(dev, tdt) for hh in (h, hkv, hkv))
+    v[..., dv:] = 0
     out = mha(q, k, v, causal=causal, window=window, mode=mode)
     ref = mha_ref(q, k, v, causal=causal, window=window, mode=mode)
     torch.cuda.synchronize()
@@ -556,11 +636,13 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
     if window is not None:
         mask &= pos[:, None] - pos[None, :] < window
     pairs = int(mask.sum())
-    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v read, out written
+    # q, k, v read, out written (v and out at their true head_dim)
+    nbytes = (q.numel() + k.numel() + (k.numel() + q.numel()) * dv // d) * q.element_size()
     if mode == "lut":
         nbytes += (1024 + 4096) * 4
     peak = "tf32x3" if dtype == "float32" else dtype  # every head_dim on the tensor cores
-    bound_ms, bound_by = bound(4.0 * b * h * pairs * d, nbytes, peak)
+    bound_ms, bound_by = bound(2.0 * b * h * pairs * (d + dv), nbytes, peak)
+    padded_bound_ms = bound(4.0 * b * h * pairs * padded_head_dim(d), nbytes, peak)[0]
 
     iters = 20 if b * h * l * l * d > 1e8 else 50
     ms = time_ms(lambda: mha(q, k, v, causal=causal, window=window, mode=mode), iters)
@@ -580,12 +662,13 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
     dev_ms = device_ms(lambda: mha(q, k, v, causal=causal, window=window, mode=mode))
     lib_dev_ms = None if sdpa is None else device_ms(sdpa)
     return dict(kernel="flash_attention", shape=list(shape), kv_heads=hkv, mode=mode,
-                causal=causal, window=window, dtype=dtype, max_abs_err=err,
+                causal=causal, window=window, dtype=dtype, v_dim=dv, max_abs_err=err,
                 rows_over_atol=rows_over, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms,
                 library_computes=None if sdpa is None else (
                     "the same function" if mode == "safe" else "the exact softmax"),
-                bound_ms=bound_ms, bound_by=bound_by, bound_peak=peak)
+                bound_ms=bound_ms, bound_by=bound_by, bound_peak=peak,
+                padded_bound_ms=padded_bound_ms)
 
 
 def _ulp(ref):
@@ -820,16 +903,10 @@ def phase_kernels(dev):
     cases.append(_attention_case(dev, (1, 36, 2048, 64), "safe", causal=True, dtype="bfloat16"))
     cases.append(_attention_case(dev, (1, 36, 8192, 128), "safe", causal=True, window=4096,
                                  dtype="bfloat16", hkv=4))
-    # the int8_serve / MoE path's (phase 9): granite-moe-3b-a800m's prefill
-    # attend at 8 x 2048, 24 q / 8 kv heads of 64, LUT softmax, in bf16 and in
-    # float32 (the route under the int8 KV cache), SDPA beside it as a
-    # yardstick; its RMSNorm (d 1536) at 8 x 2048 rows
-    for dtype in ("bfloat16", "float32"):
-        cases.append(_attention_case(dev, (8, 24, 2048, 64), "lut", causal=True, dtype=dtype,
-                                     hkv=8, sdpa_yardstick=True))
-    cases.append(_layernorm_case(dev, 8 * 2048, 1536, True, False, "bfloat16"))
     cases.append(_layernorm_case(dev, 8 * 2048, 4096, True, False, "bfloat16"))
     cases.append(_layernorm_case(dev, 8 * 2048, 4608, False, False, "bfloat16"))
+    cases += _int8_moe_kernel_cases(dev)  # phase 9's shapes
+    cases += _mla_kernel_cases(dev)  # phase 10's
     ln_shapes = [(8192 * 15, 64), (8192 * 100, 32), (4096, 4096)]
     for rows, k in ln_shapes:
         for rms in (False, True):
@@ -875,6 +952,37 @@ def phase_kernels(dev):
     for dtype in ("float32", "bfloat16"):  # mamba2-130m's prefill at 2048 tokens
         for b in MAMBA_TIME_BATCHES:
             cases.append(_ssd_case(dev, b, 2048, 24, 64, 128, 1, 64, dtype=dtype))
+    _report_cases(cases)
+    return cases
+
+
+def _int8_moe_kernel_cases(dev) -> list[dict]:
+    """The int8_serve / MoE path's kernel cases (phase 9): granite-moe-3b-a800m's
+    prefill attend at 8 x 2048, 24 q / 8 kv heads of 64, LUT softmax, in bf16
+    and in float32 (the route under the int8 KV cache), SDPA beside it as a
+    yardstick; its RMSNorm (d 1536) at 8 x 2048 rows."""
+    cases = [_attention_case(dev, (8, 24, 2048, 64), "lut", causal=True, dtype=dtype, hkv=8,
+                             sdpa_yardstick=True) for dtype in ("bfloat16", "float32")]
+    return cases + [_layernorm_case(dev, 8 * 2048, 1536, True, False, "bfloat16")]
+
+
+def _mla_kernel_cases(dev) -> list[dict]:
+    """The MLA path's kernel cases (phase 10): minicpm3-4b's prefill attend at
+    8 x 2048, 40 heads at a q/k head_dim of 96 (padded to 128 by the wrapper),
+    V 64 zero-padded to 96 as the model pads it, causal: bf16 safe (float) and
+    float32 LUT (int8_serve's dequantized latent); its q_norm (768) and
+    kv_norm (256) RMSNorms at 8 x 2048 rows."""
+    cases = [_attention_case(dev, MLA_ATTENTION, "safe", causal=True, dtype="bfloat16",
+                             v_dim=64),
+             _attention_case(dev, MLA_ATTENTION, "lut", causal=True, dtype="float32",
+                             sdpa_yardstick=True, v_dim=64)]
+    return cases + [_layernorm_case(dev, 8 * 2048, k, True, False, "bfloat16")
+                    for k in (768, 256)]
+
+
+def _report_cases(cases):
+    """Log one line per kernel case (and the ssd_scan passes' shares); raise
+    if any case disagrees with its plain version."""
     for c in cases:
         lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         dev_t = ""
@@ -884,6 +992,8 @@ def phase_kernels(dev):
                      f"{'n/a' if lib_dev is None else f'{lib_dev:.4f}'}")
         kv = f" kv {c['kv_heads']}" if c.get("kv_heads", c["shape"][1]) != c["shape"][1] else ""
         mode = c["mode"] + (f" {c['route']}" if "route" in c else "")
+        if c.get("padded_bound_ms") is not None:
+            dev_t += f" | padded bound {c['padded_bound_ms']:.4f}"
         log(f"[kernel] {c['kernel']:15s} {str(c['shape']) + kv:22s} {mode:6s} "
             f"causal={c.get('causal', '-')!s:5s} window={c.get('window', '-')!s:4s} "
             f"{c.get('dtype', 'float32'):8s} err {c['max_abs_err']:.2e} ({c['tol']}; "
@@ -901,7 +1011,6 @@ def phase_kernels(dev):
     if bad:
         raise SmokeError(f"{len(bad)} kernel checks out of tolerance: "
                          + "; ".join(f"{c['kernel']} {c['shape']} {c['mode']}" for c in bad))
-    return cases
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -1548,10 +1657,11 @@ def _serve_prompts(seed, lengths, shared, n_shared, vocab):
     return out
 
 
-def _direct_greedy(cfg, params, prompt, steps, dev, quantized=False):
+def _direct_greedy(cfg, params, prompt, steps, dev, quantized=False, kernel=None):
     """Greedy tokens of ``lm.prefill`` / ``decode_step`` at batch 1 (float32
     caches of prompt + steps, or the int8 caches with ``quantized``) and each
-    step's top-two logit margin."""
+    step's top-two logit margin; ``kernel`` reaches both (MLA's
+    ``mla_absorb``)."""
     import torch
 
     from repro_torch.models import lm
@@ -1559,7 +1669,7 @@ def _direct_greedy(cfg, params, prompt, steps, dev, quantized=False):
     caches = lm.init_caches(cfg, 1, len(prompt) + steps, torch.float32, quantized=quantized,
                             device=dev)
     last, caches = lm.prefill(params, cfg, {"tokens": torch.tensor([prompt], device=dev)},
-                              caches, device=dev)
+                              caches, kernel=kernel, device=dev)
     toks, margins = [], []
     for k in range(steps):
         top2 = last[0].float().topk(2).values
@@ -1567,7 +1677,7 @@ def _direct_greedy(cfg, params, prompt, steps, dev, quantized=False):
         tok = last.argmax(-1, keepdim=True)
         toks.append(int(tok))
         pos = torch.full((1,), len(prompt) + k, dtype=torch.int32, device=dev)
-        last, caches = lm.decode_step(params, cfg, tok, pos, caches, device=dev)
+        last, caches = lm.decode_step(params, cfg, tok, pos, caches, kernel=kernel, device=dev)
     return toks, margins
 
 
@@ -1637,17 +1747,17 @@ def _decode_profile(eng, prompts):
     import torch
 
     sc = eng.serve_cfg
-    for p in prompts[:sc.max_batch]:
-        eng.submit(p, max_new_tokens=8 * sc.decode_steps)
+    handles = [eng.submit(p, max_new_tokens=8 * sc.decode_steps)
+               for p in prompts[:sc.max_batch]]
     while len(eng.scheduler.queue) or not all(s.active for s in eng.executor.slots):
         eng.step()
-    eng.step()
     torch.cuda.synchronize()
-    prof = profile_forward(eng.step, iters=1)
-    ops = _device_ops(eng.step) / sc.decode_steps
+    prof = profile_forward(eng.step, iters=1)  # its warm-up call is the first pure decode
+    ops = prof.get("device_ops_per_fwd", float("nan")) / sc.decode_steps
     dev_ms = prof.get("device_ms_per_fwd")
     share = prof.get("gather_share")
-    eng.generate()  # drain
+    for h in handles:  # free the slots (decoding the rest would only cost time)
+        eng.cancel(h)
     return dict(busy_share=prof["busy_share"], device_ms_per_dispatch=dev_ms,
                 device_ms_per_step=None if dev_ms is None else dev_ms / sc.decode_steps,
                 device_ops_per_step=ops, top=prof["top"], gather_share=share,
@@ -1659,7 +1769,7 @@ def phase_serve(dev):
     """The serving engine (``serve.api.Engine``) on the card: (a) the
     float32 check of granite-8b and mamba2-130m at their published widths,
     2 layers, against the port's CPU engine and a direct ``lm`` greedy loop;
-    (b) granite-8b bf16 at 36 layers under the dense, paged and paged +
+    (b) granite-8b bf16 at 18 layers under the dense, paged and paged +
     prefix-cache layouts; (c) mamba2-130m bf16 at full depth.  Returns
     (results, launch counts of the window)."""
     import torch
@@ -1704,13 +1814,8 @@ def phase_serve(dev):
             f"({time.perf_counter() - t0:.1f} s)")
         del params, params_cpu, eng
 
-    # (b) granite-8b bf16, 36 layers, three layouts
-    torch.cuda.empty_cache()
-    base = get_config("granite-8b")
-    params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    runs = _serve_layouts(base, params, _serve_traffic(base), SERVE_LAYOUTS, dev, "[serve]")
-    del params
-    torch.cuda.empty_cache()
+    # (b) granite-8b bf16, three layouts
+    runs = _granite_serve_runs(dev)
 
     # (c) mamba2-130m bf16 at full depth: exact-length prefill, dense state
     mbase = get_config(MAMBA)
@@ -1750,6 +1855,24 @@ def phase_serve(dev):
     return dict(check=checks, runs=runs), counts
 
 
+def _granite_serve_runs(dev, layouts=SERVE_LAYOUTS) -> list[dict]:
+    """Phase 7b: granite-8b bf16 at ``GRANITE_SERVE_LAYERS`` of its 36 layers
+    (the script's time limit) under float, phase 7's traffic through the
+    engine in each of ``layouts``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    torch.cuda.empty_cache()
+    base = dataclasses.replace(get_config("granite-8b"), n_layers=GRANITE_SERVE_LAYERS)
+    params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    runs = _serve_layouts(base, params, _serve_traffic(base), layouts, dev, "[serve]")
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
 def _serve_traffic(cfg):
     """Phase 7's 16 requests: 64-1536 tokens from a seed, the first 8 sharing
     a 512-token prefix."""
@@ -1762,12 +1885,18 @@ def _serve_traffic(cfg):
     return _serve_prompts(5, lengths, SERVE_SHARED, SERVE_SHARED_REQUESTS, cfg.vocab_size)
 
 
+def _norms_per_layer(cfg) -> int:
+    """RMSNorm / LayerNorm launches per block: ln1 and ln2, and MLA's q_norm
+    and kv_norm."""
+    return 4 if cfg.attn_kind == "mla" else 2
+
+
 def _checked_engine_run(eng, prompts, max_new, label):
     """``_run_engine`` with its checks: ``flash_attention`` launched n_layers
     times per prefill dispatch and never in decode, ``layernorm`` 2 n_layers
-    + 1 per prefill dispatch and decode step, and the program budget
-    ``len(buckets) + 2``.  Returns (streams, metrics, decode dispatches,
-    launches, budget)."""
+    + 1 (MLA: 4 n_layers + 1) per prefill dispatch and decode step, and the
+    program budget ``len(buckets) + 2``.  Returns (streams, metrics, decode
+    dispatches, launches, budget)."""
     from repro_torch.kernels import LAUNCHES
 
     cfg, sc = eng.executor.cfg, eng.serve_cfg
@@ -1778,7 +1907,8 @@ def _checked_engine_run(eng, prompts, max_new, label):
     tel = eng.telemetry
     steps_run = decodes * sc.decode_steps
     want = {"flash_attention": cfg.n_layers * tel["prefill_dispatches"],
-            "layernorm": (2 * cfg.n_layers + 1) * (tel["prefill_dispatches"] + steps_run)}
+            "layernorm": (_norms_per_layer(cfg) * cfg.n_layers + 1)
+            * (tel["prefill_dispatches"] + steps_run)}
     if grew != want:
         raise SmokeError(f"{label}: launches {grew}, expected {want} ({tel['prefill_dispatches']} "
                          f"prefill dispatches, {steps_run} decode steps)")
@@ -1790,15 +1920,18 @@ def _checked_engine_run(eng, prompts, max_new, label):
 
 
 def _serve_layouts(base, params, prompts, layouts, dev, tag, policy=None, profile=True,
-                   shared_may_differ=False) -> list[dict]:
+                   shared_may_differ=False, kernel=None, keep_streams=False) -> list[dict]:
     """``prompts`` x ``SERVE_NEW`` tokens through one ``Engine`` per layout
-    (``SERVE_SC``, ``policy`` or the model's own): the same tokens under
-    every layout, ``flash_attention`` n_layers per prefill dispatch,
-    ``layernorm`` 2 n_layers + 1 per prefill dispatch and decode step, the
-    program budget; then, with ``profile``, one decode dispatch profiled.
-    ``shared_may_differ``: under the prefix cache, the requests that share
-    the prefix (the first ``SERVE_SHARED_REQUESTS``) may differ from the
-    first layout's; they are recorded.  Returns a record per layout."""
+    (``SERVE_SC``, ``policy`` or the model's own, ``kernel`` knobs): the
+    same tokens under every layout, ``flash_attention`` n_layers per prefill
+    dispatch, ``layernorm`` 2 n_layers + 1 (MLA 4 n_layers + 1) per prefill
+    dispatch and decode step, the program budget; then, with ``profile``,
+    one decode dispatch profiled (``profile="first"``: under the first
+    layout only).  ``shared_may_differ``: under the prefix
+    cache, the requests that share the prefix (the first
+    ``SERVE_SHARED_REQUESTS``) may differ from the first layout's; they are
+    recorded.  Returns a record per layout (with its token streams under
+    ``keep_streams``)."""
     import torch
 
     from repro_torch.configs import ServeConfig
@@ -1810,7 +1943,7 @@ def _serve_layouts(base, params, prompts, layouts, dev, tag, policy=None, profil
         sc = ServeConfig(**SERVE_SC, **layout, policy=policy)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
-            eng = Engine(base, params, sc, device=dev)
+            eng = Engine(base, params, sc, kernel=kernel, device=dev)
         torch.cuda.reset_peak_memory_stats()
         label = f"{sc.kv_layout}{' + prefix cache' if sc.kv_prefix_cache else ''}"
         streams, metrics, decodes, grew, budget = _checked_engine_run(
@@ -1827,7 +1960,8 @@ def _serve_layouts(base, params, prompts, layouts, dev, tag, policy=None, profil
             raise SmokeError(f"{tag} {base.name} {label}: token streams differ from the "
                              f"{layouts[0] or 'dense'} run at requests {bad}")
         peak = torch.cuda.max_memory_allocated() / 1e9
-        prof = _decode_profile(eng, prompts) if profile else None
+        prof = (_decode_profile(eng, prompts)
+                if profile is True or (profile == "first" and not runs) else None)
         run = dict(model=base.name, n_layers=base.n_layers, layout=label,
                    policy=eng.executor.policy.name, **metrics,
                    prefill_dispatches=tel["prefill_dispatches"], decode_dispatches=decodes,
@@ -1838,6 +1972,8 @@ def _serve_layouts(base, params, prompts, layouts, dev, tag, policy=None, profil
                    disabled_features=tel["disabled_features"], launches=grew, peak_gb=peak,
                    kv_bytes=tel["kv_bytes"], decode_profile=prof, differ_from_first=bad,
                    seconds=time.perf_counter() - t0)
+        if keep_streams:
+            run["streams"] = streams
         runs.append(run)
         log(_serve_line(run, tag) + (f"  requests differing from the first layout's: {bad}"
                                      if bad else ""))
@@ -1893,7 +2029,8 @@ def _record_routes(fn):
 def _codes_and_routes(cfg, params, params_cpu, dev) -> dict:
     """One prefill (``lm.forward``) of ``INT8_CODES`` seeded tokens into int8
     caches on the card and on the CPU (the plan's int8 weights on both): the
-    share of int8 KV codes that differ (each by at most 1) and, for MoE
+    share of int8 KV codes (k / v, or MLA's latent) that differ (each by at
+    most 1) and, for MoE
     configs, the share of router decisions that flip (each where the CPU's
     k-th and (k+1)-th probabilities lie within ``ROUTER_TIE``) and the
     dropped shares of both."""
@@ -1909,9 +2046,9 @@ def _codes_and_routes(cfg, params, params_cpu, dev) -> dict:
                                 device="cpu" if where == "cpu" else dev)
         (_, filled, aux), routes = _record_routes(lambda: lm.forward(
             p, cfg, {"tokens": toks}, mode="prefill", caches=caches,
-            device=caches["layers"]["k"].device))
-        out[where] = ({k: filled["layers"][k].cpu() for k in ("k", "v")}, routes,
-                      float(aux.get("moe_dropped_frac", 0.0)))
+            device=next(iter(caches["layers"].values())).device))
+        out[where] = ({k: t.cpu() for k, t in filled["layers"].items() if t.dtype == torch.int8},
+                      routes, float(aux.get("moe_dropped_frac", 0.0)))
     (codes, routes, dropped), (codes_cpu, routes_cpu, dropped_cpu) = out["card"], out["cpu"]
     diff = torch.cat([(codes[k].int() - codes_cpu[k].int()).abs().reshape(-1) for k in codes])
     if int(diff.max()) > 1:
@@ -1940,34 +2077,35 @@ def _codes_and_routes(cfg, params, params_cpu, dev) -> dict:
     return rec
 
 
-def _int8_check(dev, name, n_layers, lengths, steps) -> dict:
-    """Phase 9a for one model: the card's engines (dense, paged) and a direct
-    ``lm`` loop on the card, under int8_serve, each equal to the port's CPU
+def _policy_check(dev, cfg, lengths, steps, tag, loops=None, codes_cfg=None,
+                  extra=None) -> dict:
+    """The float32 check of one model under its policy (phases 9a and 10a):
+    the card's engines (dense, paged) and a direct ``lm`` loop on the card
+    per entry of ``loops`` (label: kernel dict), each equal to the port's CPU
     direct loop but where its top-two margin is under ``DENSE_TOL``; the
-    port's CPU engine too; then the codes and routes of one prefill."""
+    port's CPU engine too; under an int8 KV cache, then the codes (and
+    routes) of one prefill of ``codes_cfg`` (default ``cfg``).
+    ``extra(params)``, given the card's weights under the plan, returns more
+    of the record."""
     import torch
 
-    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.configs import ServeConfig
+    from repro_torch.core import precision
     from repro_torch.models import lm
     from repro_torch.serve.api import Engine
 
     t0 = time.perf_counter()
-    published = dataclasses.replace(get_config(name), n_layers=n_layers, vocab_size=512,
-                                    dtype="float32", precision="int8_serve")
-    cfg = published
-    if cfg.moe is not None:  # no drops: a token's output is its own
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    quantized = precision.resolve_model_plan(cfg).int8_kv_cache
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     prompts = _serve_prompts(3, lengths, 32, len(lengths) // 2, cfg.vocab_size)
-    sc = dict(SERVE_CHECK_SC, policy="int8_serve")
+    sc = dict(SERVE_CHECK_SC, policy=cfg.precision)
     # the CPU engine first, from a host copy of the weights; its executor's
-    # int8 weights (the plan's transform) then feed the CPU direct loop
+    # weights (the plan's transform) then feed the CPU direct loop
     eng = Engine(cfg, _to(params, "cpu"), ServeConfig(**sc), device="cpu")
     streams = {"cpu engine": _run_engine(eng, prompts, steps)[0]}
     params_cpu = eng.executor.params
     del eng
-    ref, margins = zip(*(_direct_greedy(cfg, params_cpu, p, steps, "cpu", quantized=True)
+    ref, margins = zip(*(_direct_greedy(cfg, params_cpu, p, steps, "cpu", quantized)
                          for p in prompts))
     params_q, launches = None, {}
     for layout in INT8_LAYOUTS:
@@ -1975,32 +2113,56 @@ def _int8_check(dev, name, n_layers, lengths, steps) -> dict:
             warnings.simplefilter("ignore", RuntimeWarning)  # prefill-skip needs bit-exact
             eng = Engine(cfg, params, ServeConfig(**sc, **layout), device=dev)
         label = eng.executor.kv_layout
-        got, _, _, grew, _ = _checked_engine_run(eng, prompts, steps, f"[int8] {name} {label}")
+        got, _, _, grew, _ = _checked_engine_run(eng, prompts, steps,
+                                                 f"{tag} {cfg.name} {cfg.precision} {label}")
         streams[f"card engine, {label}"] = got
         launches[label] = grew
         if params_q is None:
-            params_q = eng.executor.params  # the card's int8 weights
+            params_q = eng.executor.params  # the card's weights under the plan
         del eng
-    streams["direct loop on the card"] = [
-        _direct_greedy(cfg, params_q, p, steps, dev, quantized=True)[0] for p in prompts]
-    close = _held_to(f"[int8] {name}", streams, ref, margins, DENSE_TOL)
-    rec = dict(model=name, n_layers=n_layers, d_model=cfg.d_model, requests=len(prompts),
-               new_tokens=steps, close_calls=close, tol=DENSE_TOL,
-               min_cpu_margin=min(min(m) for m in margins), launches=launches,
-               **_codes_and_routes(published, params_q, params_cpu, dev))
+    for label, kernel in (loops or {"direct loop on the card": None}).items():
+        streams[label] = [_direct_greedy(cfg, params_q, p, steps, dev, quantized, kernel)[0]
+                          for p in prompts]
+    close = _held_to(f"{tag} {cfg.name}", streams, ref, margins, DENSE_TOL)
+    rec = dict(model=cfg.name, policy=cfg.precision, n_layers=cfg.n_layers,
+               d_model=cfg.d_model, requests=len(prompts), new_tokens=steps, close_calls=close,
+               tol=DENSE_TOL, min_cpu_margin=min(min(m) for m in margins), launches=launches)
+    codes = ""
+    if quantized:
+        rec.update(_codes_and_routes(codes_cfg or cfg, params_q, params_cpu, dev))
+        codes = (f"; KV codes card vs CPU differ in {rec['kv_codes_differ_share']:.4%} of "
+                 f"{rec['kv_codes']} (each by <= 1)")
+    if extra is not None:
+        rec.update(extra(params_q))
     del params, params_q, params_cpu
     torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t0
-    router = ("" if cfg.moe is None else
-              f" (capacity factor {cfg.moe.capacity_factor:g}); at the published "
-              f"{published.moe.capacity_factor:g} router decisions flipped "
-              f"{rec['router_flip_share']:.4%} of {rec['router_decisions']}, dropped "
-              f"{rec['dropped_share']:.4%} (CPU {rec['dropped_share_cpu']:.4%})")
-    log(f"[int8] float32 check {name} int8_serve: {n_layers} layers d {cfg.d_model}, "
-        f"{len(prompts)} requests x {steps} greedy tokens: {'; '.join(streams)} agree with the "
-        f"CPU direct loop (close calls {close or 'none'}); KV codes card vs CPU differ in "
-        f"{rec['kv_codes_differ_share']:.4%} of {rec['kv_codes']} (each by <= 1){router}; "
-        f"launches {launches} ({rec['seconds']:.1f} s)")
+    log(f"{tag} float32 check {cfg.name} {cfg.precision}: {cfg.n_layers} layers d "
+        f"{cfg.d_model}, {len(prompts)} requests x {steps} greedy tokens: {'; '.join(streams)} "
+        f"agree with the CPU direct loop (close calls {close or 'none'}){codes}; launches "
+        f"{launches} ({rec['seconds']:.1f} s)")
+    return rec
+
+
+def _int8_check(dev, name, n_layers, lengths, steps) -> dict:
+    """Phase 9a for one model under int8_serve (``_policy_check``).  A MoE
+    config runs at capacity factor e / k, so that no token is dropped and a
+    token's output is its own; its codes and routes are taken at the
+    published capacity factor."""
+    from repro_torch.configs import get_config
+
+    published = dataclasses.replace(get_config(name), n_layers=n_layers, vocab_size=512,
+                                    dtype="float32", precision="int8_serve")
+    cfg = published
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    rec = _policy_check(dev, cfg, lengths, steps, "[int8]", codes_cfg=published)
+    if cfg.moe is not None:
+        log(f"[int8] {name}: checked at capacity factor {cfg.moe.capacity_factor:g}; at the "
+            f"published {published.moe.capacity_factor:g} router decisions flipped "
+            f"{rec['router_flip_share']:.4%} of {rec['router_decisions']}, dropped "
+            f"{rec['dropped_share']:.4%} (CPU {rec['dropped_share_cpu']:.4%})")
     return rec
 
 
@@ -2046,9 +2208,9 @@ def _moe_prefill_floor(cfg, b, n) -> tuple[float, float, str]:
 def phase_int8_moe(dev, float_runs=None):
     """int8_serve and the MoE family: (a) the float32 check of granite-8b,
     granite-moe-3b-a800m (2 layers) and dbrx-132b (1 layer) under int8_serve;
-    (b) granite-moe-3b-a800m bf16 at 32 layers through the engine, three
+    (b) granite-moe-3b-a800m bf16 at 16 layers through the engine, three
     layouts; (c) its ``lm.prefill`` at 1 and 8 x 2048; (d) granite-8b bf16 at
-    36 layers under int8_serve, dense and paged, beside ``float_runs`` (phase
+    18 layers under int8_serve, dense and paged, beside ``float_runs`` (phase
     7's).  Returns (results, launch counts of the window)."""
     import torch
 
@@ -2061,9 +2223,10 @@ def phase_int8_moe(dev, float_runs=None):
     LAUNCHES.clear()  # the int8_serve / MoE path's window starts here
     checks = [_int8_check(dev, *c) for c in INT8_CHECK]
 
-    # (b) granite-moe-3b-a800m bf16, 32 layers, its own serve_policy
+    # (b) granite-moe-3b-a800m bf16, 16 of its 32 layers (the script's time
+    # limit), its own serve_policy
     torch.cuda.empty_cache()
-    base = get_config(MOE_SERVE)
+    base = dataclasses.replace(get_config(MOE_SERVE), n_layers=MOE_SERVE_LAYERS)
     params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     prompts = _serve_traffic(base)
     # at the published capacity factor an expert drops what overflows its
@@ -2153,8 +2316,8 @@ def phase_int8_moe(dev, float_runs=None):
     del params, params_q, layer0
     torch.cuda.empty_cache()
 
-    # (d) granite-8b bf16, 36 layers, int8_serve, dense and paged
-    g8 = get_config("granite-8b")
+    # (d) granite-8b bf16, 18 layers as phase 7b, int8_serve, dense and paged
+    g8 = dataclasses.replace(get_config("granite-8b"), n_layers=GRANITE_SERVE_LAYERS)
     params = lm.init_params(g8, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     g8_runs = _serve_layouts(g8, params, _serve_traffic(g8), SERVE_LAYOUTS[:2], dev, "[int8]",
                              policy="int8_serve")
@@ -2179,6 +2342,214 @@ def phase_int8_moe(dev, float_runs=None):
     log(f"[int8] int8_serve / MoE path launches: {counts}")
     return dict(check=checks, moe_runs=runs, moe_nodrop_runs=nodrop_runs, moe_prefill=prefills,
                 granite_8b_runs=g8_runs, moe_weight_bytes=weight_bytes), counts
+
+
+# --------------------------------------------------------------- phase 10 --
+
+
+def _mla_absorb_diff(cfg, params, dev, quantized) -> float:
+    """Max |logits| difference of one decode step after a 2 x 64 prefill,
+    absorbed against materialized, on ``dev``."""
+    import torch
+
+    from repro_torch.models import lm
+
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=torch.Generator().manual_seed(9))
+    toks = toks.to(dev)
+    pos = torch.full((2,), 64, dtype=torch.int32, device=dev)
+    outs = []
+    for absorb in (False, True):
+        kernel = {"mla_absorb": absorb}
+        caches = lm.init_caches(cfg, 2, 65, torch.float32, quantized, device=dev)
+        _, caches = lm.prefill(params, cfg, {"tokens": toks[:, :64]}, caches, kernel=kernel,
+                               device=dev)
+        last, _ = lm.decode_step(params, cfg, toks[:, 64:], pos, caches, kernel=kernel,
+                                 device=dev)
+        outs.append(last.float())
+    return float((outs[0] - outs[1]).abs().max())
+
+
+def _mla_check(dev, policy) -> dict:
+    """Phase 10a under one policy (``_policy_check``): minicpm3-4b at its
+    published widths, 2 layers, vocab 512, float32, with direct loops on the
+    card for the materialized and the absorbed decode; then the absorbed
+    decode's logits within ``MLA_ABSORB_TOL`` of the materialized ones on the
+    card, and under int8_serve the latent codes card vs CPU differing in at
+    most ``MLA_CODES_SHARE``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import precision
+
+    cfg = dataclasses.replace(get_config(MLA), **DENSE_CUT, precision=policy)
+    quantized = precision.resolve_model_plan(cfg).int8_kv_cache
+    loops = {f"direct loop on the card, {'absorbed' if a else 'materialized'}": {"mla_absorb": a}
+             for a in (False, True)}
+    rec = _policy_check(dev, cfg, MLA_CHECK_LENGTHS, SERVE_CHECK_NEW, "[mla]", loops=loops,
+                        extra=lambda p: {"absorb_max_abs_diff":
+                                         _mla_absorb_diff(cfg, p, dev, quantized)})
+    diff = rec["absorb_max_abs_diff"]
+    if not diff <= MLA_ABSORB_TOL:
+        raise SmokeError(f"[mla] {policy}: absorbed decode logits differ from the materialized "
+                         f"ones by {diff:.2e} > {MLA_ABSORB_TOL}")
+    if quantized and rec["kv_codes_differ_share"] > MLA_CODES_SHARE:
+        raise SmokeError(f"[mla] {policy}: latent codes card vs CPU differ in "
+                         f"{rec['kv_codes_differ_share']:.4%} > {MLA_CODES_SHARE:.1%}")
+    log(f"[mla] {policy}: absorbed vs materialized logits {diff:.2e} (<= {MLA_ABSORB_TOL})")
+    return rec
+
+
+def _mla_flops(cfg, t, pairs) -> dict[str, float]:
+    """FLOP of one MLA forward over ``t`` tokens with ``pairs`` (query, key)
+    pairs attended in all, by the type the work runs in under int8_serve:
+    the latent's K / V projections in float32 (the dequantized latent), the
+    attend as the function needs it (QK^T at q/k head_dim, P.V at v_head_dim)
+    in float32 on the tensor cores, the rest in the weights' type; logits
+    over every position."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    per_token = (d * m.q_lora_rank + m.q_lora_rank * h * qk + d * (m.kv_lora_rank
+                 + m.qk_rope_head_dim) + h * m.v_head_dim * d
+                 + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff)
+    return {"weights": 2.0 * t * (cfg.n_layers * per_token + d * cfg.padded_vocab_size),
+            "latent": 2.0 * t * cfg.n_layers * m.kv_lora_rank * h * (m.qk_nope_head_dim
+                                                                      + m.v_head_dim),
+            "attend": 2.0 * cfg.n_layers * h * pairs * (qk + m.v_head_dim)}
+
+
+def _mla_prefill_floor(cfg, b, n, int8_kv) -> tuple[float, float, str]:
+    """(TFLOP, bound ms, by) of ``lm.prefill`` of b x n tokens: each part of
+    ``_mla_flops`` at the peak of the type it runs in (under int8_serve the
+    latent projections in float32, the attend in 3xTF32; under float all in
+    bf16); bytes: the bf16 weights once."""
+    from repro_torch.models import lm
+
+    f = _mla_flops(cfg, b * n, b * n * (n + 1) / 2)
+    peaks = ({"weights": "bfloat16", "latent": "float32", "attend": "tf32x3"} if int8_kv
+             else dict.fromkeys(f, "bfloat16"))
+    t_ops = sum(f[k] / PEAK_FLOPS[peaks[k]] for k in f)
+    t_bytes = 2 * lm.count_params(cfg) / PEAK_BYTES
+    return (sum(f.values()) / 1e12, max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def phase_mla(dev):
+    """MLA, minicpm3-4b: (a) the float32 check under float and int8_serve;
+    (b) bf16 at all 62 layers under int8_serve through the engine, three
+    layouts, then dense with the absorbed decode; (c) ``lm.prefill`` at 1 and
+    8 x 2048 under int8_serve and float.  Returns (results, launch counts of
+    the window)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import precision
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+
+    LAUNCHES.clear()  # the MLA path's window starts here
+    checks = [_mla_check(dev, policy) for policy in ("float", "int8_serve")]
+
+    # (b) bf16, all 62 layers, its own serve_policy (int8_serve)
+    torch.cuda.empty_cache()
+    base = get_config(MLA)
+    params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    weight_bytes = _nbytes(params)
+    prompts = _serve_traffic(base)
+    # one decode dispatch profiled under the dense layout (the paged ones add
+    # the gather, 0.3 % of decode device time in this PR's first chip call):
+    # each profile costs ~20 s of the phase's budget
+    runs = _serve_layouts(base, params, prompts, SERVE_LAYOUTS, dev, "[mla]",
+                          policy=base.serve_policy, profile="first", keep_streams=True)
+    absorbed = _serve_layouts(base, params, prompts, SERVE_LAYOUTS[:1], dev,
+                              "[mla] absorbed decode:", policy=base.serve_policy,
+                              kernel={"mla_absorb": True}, keep_streams=True)[0]
+    m, b, length = base.mla, SERVE_SC["max_batch"], SERVE_SC["max_seq_len"]
+    # the materialized decode's floor: K and V of every slot's whole latent
+    # view re-projected per layer and step, in float32 off the tensor cores
+    materialize_tflop = (2.0 * b * length * m.kv_lora_rank * base.n_heads
+                         * (m.qk_nope_head_dim + m.v_head_dim) * base.n_layers / 1e12)
+    materialize_floor = materialize_tflop * 1e12 / PEAK_FLOPS["float32"] * 1e3
+    tokens_per_slot = base.n_layers * b * length
+    latent_f32 = tokens_per_slot * (m.kv_lora_rank + m.qk_rope_head_dim) * 4
+    gqa_f32 = tokens_per_slot * 2 * base.n_heads * m.v_head_dim * 4
+    dense = runs[0]
+    pairs = [(x, y) for s, t in zip(dense["streams"], absorbed["streams"]) for x, y in zip(s, t)]
+    absorbed["equal_token_share"] = sum(x == y for x, y in pairs) / len(pairs)
+    absorbed["requests_identical"] = sum(s == t for s, t in zip(dense["streams"],
+                                                                absorbed["streams"]))
+    for r in runs + [absorbed]:
+        step = (r["decode_profile"] or {}).get("device_ms_per_step")
+        r.update(materialize_tflop_per_step=materialize_tflop,
+                 materialize_floor_ms=materialize_floor, latent_f32_bytes=latent_f32,
+                 gqa_f32_bytes=gqa_f32)
+        log(f"[mla] {base.name} {r['layout']}{' absorbed' if r is absorbed else ''}: decode "
+            f"{'not profiled' if step is None else round(step, 3)} device ms/step "
+            f"(materialization floor "
+            f"{materialize_floor:.2f} ms: {materialize_tflop:.2f} TFLOP in float32 at 67 "
+            f"TFLOP/s); latent cache {r['kv_bytes'] / 1e9:.3f} GB = "
+            f"{r['kv_bytes'] / latent_f32:.1%} of float32 latents ({latent_f32 / 1e9:.3f} GB), "
+            f"{r['kv_bytes'] / gqa_f32:.2%} of a float32 40 x 64 GQA cache "
+            f"({gqa_f32 / 1e9:.2f} GB)")
+    log(f"[mla] absorbed decode, dense: ITL p50 {absorbed['itl_ms_p50']:.2f} ms (materialized "
+        f"{dense['itl_ms_p50']:.2f}), {absorbed['equal_token_share']:.1%} of tokens and "
+        f"{absorbed['requests_identical']} of {len(prompts)} requests equal to the "
+        f"materialized run's")
+    for r in runs + [absorbed]:
+        del r["streams"]
+
+    # (c) lm.prefill at 1 and 8 x 2048: as served (int8 weights, the int8
+    # latent, the LUT softmax through the float32 route) and under float
+    n_ln = 4 * base.n_layers + 1
+    checked = _launch_checker(f"{base.name} prefill", {
+        "prefill": {"flash_attention": base.n_layers, "layernorm": n_ln}})
+    qcfg = dataclasses.replace(base, precision=base.serve_policy)
+    params_q = precision.apply_plan_to_params(params, precision.resolve_model_plan(qcfg))
+    prefills = []
+    t_gen = torch.Generator(device=dev).manual_seed(2)
+    for policy, p in ((base.serve_policy, params_q), ("float", params)):
+        pcfg = dataclasses.replace(base, precision=policy)
+        quantized = precision.resolve_model_plan(pcfg).int8_kv_cache
+        for bt in MLA_PREFILL_BATCHES:
+            t0 = time.perf_counter()
+            caches = lm.init_caches(pcfg, bt, MLA_PREFILL_LEN, torch.float32 if quantized
+                                    else torch.bfloat16, quantized=quantized, device=dev)
+            tk = torch.randint(0, base.vocab_size, (bt, MLA_PREFILL_LEN), generator=t_gen,
+                               device=dev)
+
+            def prefill():
+                return lm.prefill(p, pcfg, {"tokens": tk}, caches, device=dev)
+
+            torch.cuda.reset_peak_memory_stats()
+            last, _ = checked("prefill", prefill)
+            if not torch.isfinite(last.float()).all():
+                raise SmokeError(f"{base.name} {policy} prefill b{bt}: non-finite logits")
+            del last  # the checked call was the warm-up
+            ms = median_ms(prefill, 3, warmup=0)
+            prof = profile_forward(prefill, iters=1)
+            tflop, floor_ms, floor_by = _mla_prefill_floor(base, bt, MLA_PREFILL_LEN, quantized)
+            dev_ms = prof.get("device_ms_per_fwd")
+            rec = dict(policy=policy, batch=bt, tokens=MLA_PREFILL_LEN, median_ms=ms,
+                       tokens_per_s=bt * MLA_PREFILL_LEN / (ms * 1e-3), profile=prof,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9, tflop=tflop,
+                       floor_ms=floor_ms, floor_by=floor_by, seconds=time.perf_counter() - t0)
+            prefills.append(rec)
+            busy = prof["busy_share"]
+            log(f"[mla] {base.name} lm.prefill {bt} x {MLA_PREFILL_LEN} bf16 {policy}: median "
+                f"{ms:.2f} ms ({rec['tokens_per_s']:.0f} tokens/s; floor {floor_ms:.2f} ms by "
+                f"{floor_by}, {tflop:.1f} TFLOP), device ms "
+                f"{'not measured' if dev_ms is None else f'{dev_ms:.2f}'}, busy "
+                f"{'not measured' if busy is None else f'{busy:.1%}'}, attention "
+                f"{prof.get('attention_share', float('nan')):.1%}, layernorm "
+                f"{prof.get('layernorm_share', float('nan')):.1%}, peak {rec['peak_gb']:.1f} GB  "
+                f"top {prof['top']}")
+            del caches
+    del params, params_q
+    torch.cuda.empty_cache()
+    counts = dict(LAUNCHES)  # the MLA path's window ends here
+    for kname in ("flash_attention", "layernorm"):
+        if counts.get(kname, 0) <= 0:
+            raise SmokeError(f"{kname} was never launched on the MLA path")
+    log(f"[mla] MLA path launches: {counts}")
+    return dict(check=checks, runs=runs, absorbed_run=absorbed, prefill=prefills,
+                weight_bytes=weight_bytes), counts
 
 
 # ---------------------------------------------------------------- phase 8 --
@@ -2676,6 +3047,29 @@ def phase_train(dev):
     return dict(grads=grads, no_backward_raises=raised, physics=physics, lm=lm_run), counts
 
 
+def _workflow_seed_spread(dev, seeds) -> dict:
+    """The float / PTQ / QAT physics workflow of each encoder from ``seeds``
+    more init seeds (1 .. seeds), under the paper-optimal policies and
+    paper_vu13p: how far the AUCs move with the init alone."""
+    from repro_torch.examples import physics_inference as wf
+
+    spread = {}
+    for name in MODELS:
+        for policy in (None, "paper_vu13p"):
+            rows = [(w["auc_float"], w["ratio_ptq"], w["ratio_qat"]) for w in (
+                wf.workflow(name, policy, device=dev, seed=seed) for seed in range(1, seeds + 1))]
+            if not rows:
+                continue
+            cols = list(zip(*rows))
+            r = spread[f"{name}/{policy}"] = {
+                "values": rows, "mean": [statistics.fmean(c) for c in cols],
+                "stdev": [statistics.stdev(c) if len(c) > 1 else 0.0 for c in cols]}
+            log(f"[seeds] {name:14s} {policy or 'paper-optimal':13s} seeds 1-{seeds}: float AUC "
+                f"/ PTQ ratio / QAT ratio mean {[round(m, 4) for m in r['mean']]} stdev "
+                f"{[round(x, 4) for x in r['stdev']]}")
+    return spread
+
+
 # ------------------------------------------------------------------- main --
 
 
@@ -2727,6 +3121,7 @@ def main() -> int:
         serve, serve_counts = timed("serve", phase_serve, dev)
         train, train_counts = timed("train", phase_train, dev)
         int8, int8_counts = timed("int8_moe", phase_int8_moe, dev, serve["runs"])
+        mla, mla_counts = timed("mla", phase_mla, dev)
     except Exception:  # noqa: BLE001 - report every failed phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2734,7 +3129,7 @@ def main() -> int:
 
     # launches: each kernel's count summed over the path windows it runs in
     windows = (model_counts, mha_counts, softmax_counts, mamba_counts, dense_counts, serve_counts,
-               train_counts, int8_counts)
+               train_counts, int8_counts, mla_counts)
     counts = {k: sum(w.get(k, 0) for w in windows)
               for k in ("flash_attention", "layernorm", "qmatmul", "lut_softmax", "ssd_scan")}
     main_shape = {"flash_attention": ([8192, 4, 100, 8], "safe"),
@@ -2763,7 +3158,7 @@ def main() -> int:
                                "kernels": cases, "models": models, "mha": mha,
                                "lut_softmax_path": softmax_path, "mamba": mamba,
                                "dense": dense, "serve": serve, "train": train,
-                               "int8_moe": int8,
+                               "int8_moe": int8, "mla": mla,
                                "launches": counts,
                                "launches_by_path": {"models": model_counts, "mha": mha_counts,
                                                     "lut_softmax": softmax_counts,
@@ -2771,7 +3166,8 @@ def main() -> int:
                                                     "dense": dense_counts,
                                                     "serve": serve_counts,
                                                     "train": train_counts,
-                                                    "int8_moe": int8_counts},
+                                                    "int8_moe": int8_counts,
+                                                    "mla": mla_counts},
                                "phase_seconds": phase_s,
                                "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s; details in {OUT.relative_to(ROOT)}")

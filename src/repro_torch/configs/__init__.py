@@ -1,10 +1,12 @@
 """Config registry: ``get_config(name, reduced=False)`` for the paper's
 physics models and the LM configs ported so far: the dense GQA family
-(``granite-8b``, ``minicpm-2b``, ``starcoder2-7b``), ``mamba2-130m`` and
-the MoE family (``granite-moe-3b-a800m``, ``dbrx-132b``).
+(``granite-8b``, ``minicpm-2b``, ``starcoder2-7b``), the MLA model
+``minicpm3-4b``, ``mamba2-130m`` and the MoE family
+(``granite-moe-3b-a800m``, ``dbrx-132b``).
 
-The rest of the LM zoo waits for its slices: ROADMAP queue 1, item 9 (MLA,
-the VLM and audio frontends) and item 10 (hybrid).
+The rest of the LM zoo waits for its slices: ROADMAP queue 1, items 9.2-9.3
+(the VLM and audio frontends: ``internvl2-1b``, ``hubert-xlarge``) and
+item 10 (hybrid: ``zamba2-1.2b``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from repro_torch.configs import (
     granite_8b,
     granite_moe_3b,
     mamba2_130m,
+    minicpm3_4b,
     minicpm_2b,
     physics,
     starcoder2_7b,
@@ -40,6 +43,7 @@ PHYSICS_NAMES = list(_PHYSICS)
 
 _ARCH_MODULES = {
     "minicpm-2b": minicpm_2b,
+    "minicpm3-4b": minicpm3_4b,
     "granite-8b": granite_8b,
     "starcoder2-7b": starcoder2_7b,
     "dbrx-132b": dbrx_132b,
@@ -51,7 +55,6 @@ ARCH_NAMES = list(_ARCH_MODULES)
 
 # the JAX package's other configs, by the ROADMAP queue 1 item that ports them
 _UNPORTED = {
-    "minicpm3-4b": 9,
     "zamba2-1.2b": 10,
     "internvl2-1b": 9,
     "hubert-xlarge": 9,

@@ -1,6 +1,7 @@
-"""GQA/MHA attention (port of ``repro.models.attention``): ``train`` over a
-whole sequence, ``prefill`` over a dense KV cache or a rolling
-sliding-window buffer, ``decode`` over those or a paged cache
+"""Attention (port of ``repro.models.attention``): GQA/MHA, and MLA
+(multi-head latent attention, minicpm3-4b); ``train`` over a whole
+sequence, ``prefill`` over a dense KV cache (or, GQA, a rolling
+sliding-window buffer), ``decode`` over those or a paged cache
 (``serve.kv_cache``).
 
 Train and prefill attend through the fused attention kernel (``mha``); the
@@ -12,13 +13,24 @@ A cache that carries ``k_scale`` / ``v_scale`` is the int8 KV cache
 (``int8_serve``): k/v are stored as per-(token, head) symmetric int8 codes
 (``_kv_quantize``) with float32 scales; prefill attends the cache's own
 dequantized representation (float32, through the kernel's float32 route),
-so the values it scores are those decode reads back.  Not ported yet:
-``mode="extend"`` (ROADMAP queue 1, item 8, step 5) and MLA (item 9).
+so the values it scores are those decode reads back.
+
+MLA caches one packed latent per token, ``kv_lora_rank`` values of the
+normed ``ckv`` and the ``qk_rope_head_dim`` values of the rotated ``k_rope``
+shared by every head (``latent``; int8 codes with one float32
+``latent_scale`` per token under ``int8_serve``).  Train and prefill
+materialize per-head K and V from it and attend through ``mha`` at a q/k
+head_dim of nope + rope, V zero-padded to it; decode materializes K and V
+from the float32 latent view (the paper-faithful default) or, with
+``kernel["mla_absorb"]``, folds ``wk_b`` / ``wv_b`` into the query and the
+output and attends the latent itself.  Not ported yet: ``mode="extend"``
+(ROADMAP queue 1, item 8, step 5), for GQA and MLA alike.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import scalar
@@ -40,12 +52,27 @@ def gqa_spec(cfg: ModelConfig, dtype=torch.float32):
     }
 
 
+def mla_spec(cfg: ModelConfig, dtype=torch.float32):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": layers.dense_spec(d, m.q_lora_rank, axes=("embed", "q_lora"), dtype=dtype),
+        "q_norm": layers.norm_spec(m.q_lora_rank, "rmsnorm", dtype),
+        "wq_b": layers.dense_spec(m.q_lora_rank, h * qk, axes=("q_lora", "heads"), dtype=dtype),
+        "wkv_a": layers.dense_spec(d, m.kv_lora_rank + m.qk_rope_head_dim,
+                                   axes=("embed", "kv_lora"), dtype=dtype),
+        "kv_norm": layers.norm_spec(m.kv_lora_rank, "rmsnorm", dtype),
+        "wk_b": layers.dense_spec(m.kv_lora_rank, h * m.qk_nope_head_dim,
+                                  axes=("kv_lora", "heads"), dtype=dtype),
+        "wv_b": layers.dense_spec(m.kv_lora_rank, h * m.v_head_dim, axes=("kv_lora", "heads"),
+                                  dtype=dtype),
+        "wo": layers.dense_spec(h * m.v_head_dim, d, axes=("heads", "embed"), dtype=dtype),
+    }
+
+
 def attention_spec(cfg: ModelConfig, dtype=torch.float32):
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(
-            f"attn_kind {cfg.attn_kind!r} is not ported yet (ROADMAP queue 1, item 9)"
-        )
-    return gqa_spec(cfg, dtype)
+    return mla_spec(cfg, dtype) if cfg.attn_kind == "mla" else gqa_spec(cfg, dtype)
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
@@ -58,7 +85,14 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _check_cache(cache, mode: str) -> None:
+def _check_mode(mode: str, cache, fn: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown attention mode {mode!r}; use one of {MODES}")
+    if mode == "extend":
+        raise NotImplementedError(
+            f"{fn} mode='extend' (the cache-extending prefill) is not ported yet "
+            "(ROADMAP queue 1, item 8, step 5)"
+        )
     if kv_cache_lib.is_paged(cache) and mode != "decode":
         raise ValueError(
             "a paged cache takes decode writes only: prefill fills a dense scratch "
@@ -67,11 +101,13 @@ def _check_cache(cache, mode: str) -> None:
 
 
 def _kv_quantize(x: torch.Tensor):
-    """(b, h, s, d) -> (int8 codes, float32 scales (b, h, s)): per-token-head
-    symmetric int8, the paper's fixed-point datapath applied to the KV
-    cache.  The scale is divided by a device scalar (CUDA's division by a
-    Python number is a reciprocal multiply); rounding is half to even, as
-    ``jnp.round``."""
+    """(..., d) -> (int8 codes, float32 scales (...)): symmetric int8 over
+    the last axis, the paper's fixed-point datapath applied to the KV cache:
+    per (token, head) for GQA's (b, h, s, d), per token for MLA's latent
+    (b, s, width), whose inline quantizer in the reference is this one's
+    arithmetic.  The scale is divided by a device scalar (CUDA's division
+    by a Python number is a reciprocal multiply); rounding is half to even,
+    as ``jnp.round``."""
     amax = torch.amax(torch.abs(x), dim=-1)
     scale = torch.clamp_min(amax, 1e-8) / scalar(127.0, amax.dtype, str(amax.device))
     codes = torch.clamp(torch.round(x / scale[..., None]), -128, 127).to(torch.int8)
@@ -164,15 +200,7 @@ def gqa_apply(
     return it (``models.lm`` hands each layer its slice of one copy of the
     caller's caches); without one, every mode attends causally over ``x``
     alone, as the reference's."""
-    if mode not in MODES:
-        raise ValueError(f"unknown attention mode {mode!r}; use one of {MODES}")
-    if mode == "extend":
-        raise NotImplementedError(
-            "gqa_apply mode='extend' (the cache-extending prefill) is not ported yet "
-            "(ROADMAP queue 1, item 8, step 5)"
-        )
-    if cache is not None:
-        _check_cache(cache, mode)
+    _check_mode(mode, cache, "gqa_apply")
     kernel = kernel or {}
     qc = cfg.quant if quant is None else quant
     hd = cfg.resolved_head_dim
@@ -224,9 +252,135 @@ def gqa_apply(
     return layers.dense(params["wo"], _merge_heads(out), qc), cache
 
 
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with ``jnp.einsum``'s promotion: the narrower
+    operand goes up (a bfloat16 weight or query against the float32
+    latent)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def _mla_decode_attend(params, cfg: ModelConfig, q_nope, q_rope, view, pos, quant, absorb):
+    """One query position per sequence (q_nope (b, h, 1, nope), q_rope
+    (b, h, 1, rope)) against the whole latent view (b, L, width), float or
+    int8 codes with their (b, L) scales, in float32 as the reference (the
+    weights and the query promoted, never the latent cast down); returns
+    (b, h, 1, v_head_dim) in float32.  Materialized (the default): per-head
+    K and V from the latent through ``wk_b`` / ``wv_b``, every step.
+    Absorbed: ``wk_b`` folded into the query and ``wv_b`` applied to the
+    latent-space output."""
+    m, h = cfg.mla, cfg.n_heads
+    r, nope, vd = m.kv_lora_rank, m.qk_nope_head_dim, m.v_head_dim
+    lat = view["latent"].float()
+    if "latent_scale" in view:
+        lat = lat * view["latent_scale"][..., None]
+    b, length, _ = lat.shape
+    ckv_all, krope_all = lat[..., :r], lat[..., r:]
+    valid = torch.arange(length, device=pos.device)[None, :] <= pos[:, None]
+    scale = 1.0 / ((nope + m.qk_rope_head_dim) ** 0.5)
+    rope_scores = _einsum("bhsd,bLd->bhsL", q_rope, krope_all)
+    if absorb:
+        q_lat = _einsum("bhsn,rhn->bhsr", q_nope, params["wk_b"]["kernel"].reshape(r, h, nope))
+        scores = (_einsum("bhsr,bLr->bhsL", q_lat, ckv_all) + rope_scores) * scale
+    else:
+        k_nope = layers.dense(params["wk_b"], ckv_all, quant).reshape(b, length, h, nope)
+        scores = (_einsum("bhsn,bLhn->bhsL", q_nope, k_nope) + rope_scores) * scale
+    probs = torch.softmax(torch.where(valid[:, None, None, :], scores, -1e30), dim=-1)
+    if absorb:
+        o_lat = _einsum("bhsL,bLr->bhsr", probs, ckv_all)
+        return _einsum("bhsr,rhv->bhsv", o_lat, params["wv_b"]["kernel"].reshape(r, h, vd))
+    vv = layers.dense(params["wv_b"], ckv_all, quant).reshape(b, length, h, vd)
+    return _einsum("bhsL,bLhv->bhsv", probs, vv)
+
+
+def mla_apply(
+    params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, S, D)
+    positions: torch.Tensor | None = None,  # (S,) train/prefill, (B,) decode
+    *,
+    mode: str = "train",
+    cache=None,
+    kernel: dict | None = None,
+    quant=None,  # per-layer runtime hook from the precision plan
+):
+    """Multi-head latent attention (DeepSeek-V2 / MiniCPM3); returns (out,
+    cache) like the reference.  With a cache, prefill and decode write the
+    new latent rows (int8 codes and their per-token scales under an int8
+    cache) into ``cache``'s tensors in place and return it.
+    ``kernel["mla_absorb"]`` picks the absorbed decode."""
+    _check_mode(mode, cache, "mla_apply")
+    kernel = kernel or {}
+    absorb = kernel.get("mla_absorb", False)
+    m = cfg.mla
+    qc = cfg.quant if quant is None else quant
+    b, s, _ = x.shape
+    h, r = cfg.n_heads, m.kv_lora_rank
+    nope, vd = m.qk_nope_head_dim, m.v_head_dim
+    qk = nope + m.qk_rope_head_dim
+    if positions is None:
+        if mode == "decode":
+            raise ValueError("decode requires explicit per-sequence positions")
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    rope_pos = positions[:, None, None] if mode == "decode" else positions
+
+    # query path: wq_a -> q_norm -> wq_b, RoPE on the last qk_rope dims
+    cq = layers.norm(params["q_norm"], layers.dense(params["wq_a"], x, qc), "rmsnorm",
+                     cfg.norm_eps)
+    q = layers.dense(params["wq_b"], cq, qc).reshape(b, s, h, qk).transpose(1, 2)
+    q_nope = q[..., :nope]  # (b, h, s, nope)
+    q_rope = layers.apply_rope(q[..., nope:], rope_pos, cfg.rope_theta)  # (b, h, s, rope)
+
+    # latent path: wkv_a -> (kv_norm(ckv), RoPE(k_rope) shared by the heads)
+    kv_a = layers.dense(params["wkv_a"], x, qc)
+    ckv = layers.norm(params["kv_norm"], kv_a[..., :r], "rmsnorm", cfg.norm_eps)
+    k_rope = layers.apply_rope(kv_a[..., r:][:, None], rope_pos, cfg.rope_theta)[:, 0]
+    latent = torch.cat([ckv, k_rope], dim=-1)  # (b, s, r + rope)
+
+    if cache is not None and mode != "train":
+        if "latent_scale" in cache:  # int8 codes + one float32 scale per token
+            codes, l_scale = _kv_quantize(latent)
+            rows = {"latent": codes, "latent_scale": l_scale}
+        else:
+            rows = {"latent": latent.to(cache["latent"].dtype)}
+        if mode == "prefill":
+            for name, t in rows.items():
+                cache[name][:, :s] = t
+        elif kv_cache_lib.is_paged(cache):  # decode into its page, attend the gathered view
+            kv_cache_lib.paged_decode_write(cache, {n: t[:, 0] for n, t in rows.items()},
+                                            positions)
+        else:  # decode: one token per sequence at its global position (B,)
+            bi = torch.arange(b, device=positions.device)
+            for name, t in rows.items():
+                cache[name][bi, positions.long()] = t[:, 0]
+        if mode == "decode":
+            view = (kv_cache_lib.paged_decode_view(cache) if kv_cache_lib.is_paged(cache)
+                    else cache)
+            out = _mla_decode_attend(params, cfg, q_nope, q_rope, view, positions, qc, absorb)
+            out = _merge_heads(out).to(x.dtype)  # decode math runs f32; restore carry dtype
+            return layers.dense(params["wo"], out, qc), cache
+        if "latent_scale" in cache:
+            # attend the cache's own representation (the int8 round trip), so
+            # prefill scores the values decode reads back
+            lat_att = _dequantize(codes, l_scale)
+            ckv, k_rope = lat_att[..., :r], lat_att[..., r:]
+
+    # train / prefill: materialize per-head K / V, attend through the kernel
+    k_nope = layers.dense(params["wk_b"], ckv, qc).reshape(b, s, h, nope)
+    vv = layers.dense(params["wv_b"], ckv, qc).reshape(b, s, h, vd)
+    # fresh contiguous tensors, as the kernel needs (k_rope is broadcast)
+    k_full = torch.cat([k_nope.transpose(1, 2),
+                        k_rope[:, None].expand(b, h, s, k_rope.shape[-1])], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    v_heads = F.pad(vv.transpose(1, 2), (0, qk - vd))  # V padded to the q/k head_dim
+    # an int8 latent attends in float32: q goes up with k / v, the output
+    # comes back to q's dtype
+    out = mha(q_full.to(k_full.dtype), k_full, v_heads, causal=not cfg.is_encoder,
+              mode=kernel.get("softmax_mode", "safe")).to(q_full.dtype)
+    return layers.dense(params["wo"], _merge_heads(out[..., :vd]), qc), cache
+
+
 def attention_apply(params, cfg, x, positions=None, **kw):
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(
-            f"attn_kind {cfg.attn_kind!r} is not ported yet (ROADMAP queue 1, item 9)"
-        )
+    if cfg.attn_kind == "mla":
+        return mla_apply(params, cfg, x, positions, **kw)
     return gqa_apply(params, cfg, x, positions, **kw)

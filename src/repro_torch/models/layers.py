@@ -26,11 +26,16 @@ def dense_spec(
 
 def dense(params, x: torch.Tensor, quant_cfg=None) -> torch.Tensor:
     """x @ kernel (+ bias), kernel laid out (d_in, d_out), with the
-    precision plan's fake-quant hooks."""
+    precision plan's fake-quant hooks.  Mixed operand types promote as
+    ``jnp.einsum`` promotes them: a bfloat16 kernel against float32 ``x``
+    goes up to float32 (MLA's projections of the float32 latent)."""
     w = params["kernel"]
     if quant_cfg is not None:
         w = quant_cfg.maybe_fake_quant_weight(w)
         x = quant_cfg.maybe_fake_quant_act(x)
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     y = torch.matmul(x, w)
     if "bias" in params:
         y = y + params["bias"]

@@ -1,5 +1,6 @@
 """Causal LM orchestrator (port of ``repro.models.lm``) for the families
-ported so far: ``dense`` (granite-8b, minicpm-2b, starcoder2-7b), ``moe``
+ported so far: ``dense`` (granite-8b, minicpm-2b, starcoder2-7b; minicpm3-4b
+with MLA, whose ``kernel["mla_absorb"]`` picks the absorbed decode), ``moe``
 (granite-moe-3b-a800m, dbrx-132b) and ``ssm`` (mamba2-130m).
 
 Entry points

@@ -182,6 +182,7 @@ class ModelExecutor:
         # decode-path forward bitwise the prefill-path forward: float GQA,
         # exact softmax, and a prefill attend that is the plain version
         # (the CPU); on CUDA the prefill attends through the kernel.  False
+        # for MLA (K / V re-materialized from the latent in another order),
         # under int8 KV and under the LUT softmax (decode's softmax is
         # exact), as the reference's
         self.bit_exact = (

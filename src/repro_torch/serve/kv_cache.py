@@ -15,6 +15,10 @@ Per layer:
   layout above, with float32 ``k_scale`` / ``v_scale`` of their shape
   without the feature axis, one per (token, kv head); the paged scale pools
   (num_pages, Hkv, page_size) are head-major like ``k`` / ``v``;
+- MLA (minicpm3-4b): one packed ``latent`` (B, L, kv_lora + rope) shared by
+  every head, paged as pools (num_pages, page_size, width) with no head
+  axis; under ``int8_serve`` int8 codes with one float32 ``latent_scale``
+  per token, (B, L) or (num_pages, page_size);
 - the ``ssm`` family's Mamba2 cache (``ssm_state`` (b, h, p, n) and
   ``conv_state`` (b, width - 1, conv_dim)), float32 of a fixed size whatever
   the model's type.
@@ -23,7 +27,8 @@ Stacked on a leading layer axis: ``{"layers": {name: (n_layers, ...)}}``.
 The device ops write into the caches they are handed, in place, and return
 them: ``paged_decode_write`` (one token per slot into its page),
 ``paged_decode_view`` (each slot's pages gathered into a dense (B, Hkv, L, D)
-view, so decode attends exactly as over a dense slab), ``mask_cache_tail``
+or, for the latent, (B, L, width) view, so decode attends exactly as over a
+dense slab), ``mask_cache_tail``
 (zero each row past its prompt length), ``insert_prefill_dense`` /
 ``insert_prefill_paged`` (a prefill's dense scratch into its slots; pad rows,
 slot index ``max_batch``, are dropped by the dense scatter and go to the
@@ -37,8 +42,7 @@ registered pages, copy-on-write (``flush_copies`` applies the queued page
 copies on the device) and ``check_invariants``.
 
 Not ported yet: the host-memory victim tier (``kv_host_pages``; ROADMAP
-queue 1, item 8, step 9), the MLA latent caches (item 9), hybrid caches
-(item 10).
+queue 1, item 8, step 9) and the hybrid caches (item 10).
 """
 
 from __future__ import annotations
@@ -53,7 +57,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 
 #: cache leaves with a sequence axis: name -> axis index from the right
-SEQ_AXIS_FROM_RIGHT = {"k": 2, "v": 2, "k_scale": 1, "v_scale": 1}
+SEQ_AXIS_FROM_RIGHT = {
+    "k": 2, "v": 2, "latent": 2,  # (..., cache_len, feature)
+    "k_scale": 1, "v_scale": 1, "latent_scale": 1,  # (..., cache_len)
+}
 
 #: pool leaves whose page axis is followed by a head axis (page, head, off, ...)
 _HEAD_MAJOR_POOLS = ("k", "v", "k_scale", "v_scale")
@@ -81,16 +88,16 @@ def attention_cache_spec(
 ) -> dict:
     """Per-layer attention cache ``{name: (shape, dtype)}``; stacked by the
     caller.  ``quantized``: int8 k/v codes plus float32 per-(token, head)
-    scales."""
+    scales; for MLA, int8 latent codes plus one float32 scale per token."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown kv layout {layout!r}; use one of {LAYOUTS}")
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError("MLA latent caches are not ported yet (ROADMAP queue 1, item 9)")
     if layout == "paged":
         return _paged_attention_cache_spec(cfg, max_len, dtype, quantized, batch, page_size,
                                            num_pages)
     if cfg.attn_kind == "none":
         return {}
+    if cfg.attn_kind == "mla":
+        return _latent_leaves(cfg, (batch, max_len), dtype, quantized)
     length, extra = max_len, {}
     if cfg.sliding_window is not None and cfg.sliding_window < max_len:
         length = cfg.sliding_window
@@ -109,6 +116,18 @@ def _kv_leaves(rows: tuple, head_dim: int, dtype, quantized: bool) -> dict:
     return spec
 
 
+def _latent_leaves(cfg: ModelConfig, rows: tuple, dtype, quantized: bool) -> dict:
+    """MLA's packed ``latent`` of shape ``rows + (kv_lora + rope,)``, and
+    with ``quantized`` int8 codes and their float32 ``latent_scale`` of
+    shape ``rows``."""
+    m = cfg.mla
+    spec = {"latent": (rows + (m.kv_lora_rank + m.qk_rope_head_dim,),
+                       torch.int8 if quantized else dtype)}
+    if quantized:
+        spec["latent_scale"] = (rows, torch.float32)
+    return spec
+
+
 def _paged_attention_cache_spec(cfg, max_len, dtype, quantized, batch, page_size, num_pages):
     if page_size is None or num_pages is None:
         raise ValueError("paged layout requires page_size and num_pages")
@@ -117,15 +136,18 @@ def _paged_attention_cache_spec(cfg, max_len, dtype, quantized, batch, page_size
             f"paged layout requires max_seq_len ({max_len}) to be a whole "
             f"number of pages (kv_page_size={page_size})"
         )
-    if cfg.attn_kind != "gqa" or cfg.family in ("ssm", "hybrid"):
+    if cfg.attn_kind not in ("gqa", "mla") or cfg.family in ("ssm", "hybrid"):
         raise ValueError(
             f"paged layout supports position-addressed GQA/MLA caches only "
             f"(got attn_kind={cfg.attn_kind!r}, family={cfg.family!r})"
         )
     if cfg.sliding_window is not None and cfg.sliding_window < max_len:
         raise ValueError("paged layout does not support rolling sliding-window buffers")
-    pools = _kv_leaves((num_pages, cfg.n_kv_heads, page_size), cfg.resolved_head_dim, dtype,
-                       quantized)
+    if cfg.attn_kind == "mla":
+        pools = _latent_leaves(cfg, (num_pages, page_size), dtype, quantized)
+    else:
+        pools = _kv_leaves((num_pages, cfg.n_kv_heads, page_size), cfg.resolved_head_dim, dtype,
+                           quantized)
     return {**pools, "page_table": ((batch, max_len // page_size), torch.int32)}
 
 
@@ -203,45 +225,59 @@ def is_paged(cache: dict | None) -> bool:
     return cache is not None and "page_table" in cache
 
 
+def _pool_page_size(name: str, pool: torch.Tensor) -> int:
+    return pool.shape[2] if name in _HEAD_MAJOR_POOLS else pool.shape[1]
+
+
 def paged_decode_write(cache: dict, updates: dict[str, torch.Tensor],
                        positions: torch.Tensor) -> dict:
     """Scatter one token per slot into its physical page, in place.
 
     ``updates``: leaf name -> per-slot values with the seq axis removed
-    (k/v: (B, Hkv, D); scales: (B, Hkv)).  ``positions``: (B,) global write
-    positions.  Retired slots have all-trash page tables, so their writes
-    land in the trash page and never alias live data."""
-    ps = cache["k"].shape[2]  # every pool is (num_pages, Hkv, page_size[, D])
+    (k/v: (B, Hkv, D); scales: (B, Hkv); latent: (B, width); latent_scale:
+    (B,)).  ``positions``: (B,) global write positions.  Retired slots have
+    all-trash page tables, so their writes land in the trash page and never
+    alias live data."""
+    first = next(iter(updates))
+    ps = _pool_page_size(first, cache[first])  # one page size for every pool
     pos = positions.long()
     phys = cache["page_table"].gather(1, (pos // ps)[:, None])[:, 0].long()
     off = pos % ps
     for name, val in updates.items():
         pool = cache[name]
-        pool[phys, :, off] = val.to(pool.dtype)
+        if name in _HEAD_MAJOR_POOLS:
+            pool[phys, :, off] = val.to(pool.dtype)
+        else:
+            pool[phys, off] = val.to(pool.dtype)
     return cache
 
 
 def paged_decode_view(cache: dict) -> dict[str, torch.Tensor]:
     """Gather each slot's pages into a contiguous logical view: k/v
-    (B, Hkv, L, D) and scales (B, Hkv, L) with ``L = pages_per_slot *
-    page_size``, so the attention
-    math is the dense layout's (unallocated entries read the trash page and
-    are masked by position, like dense positions past the write head).
-    One ``index_select`` per leaf over (page, head) rows of page_size x D
-    elements, in (slot, head, page) order, so the result is contiguous."""
+    (B, Hkv, L, D) and scales (B, Hkv, L), latent (B, L, width) and
+    latent_scale (B, L), with ``L = pages_per_slot * page_size``, so the
+    attention math is the dense layout's (unallocated entries read the trash
+    page and are masked by position, like dense positions past the write
+    head).  One ``index_select`` per leaf: over (page, head) rows of
+    page_size x D elements in (slot, head, page) order for the head-major
+    pools, over whole pages in (slot, page) order for the latent pools, so
+    the result is contiguous."""
     table = cache["page_table"].long()  # (B, n_pages)
     b, n_pages = table.shape
-    pool = cache["k"]
-    heads = pool.shape[1]
-    rows = (table[:, None, :] * heads
-            + torch.arange(heads, device=table.device)[None, :, None]).reshape(-1)
+    if "k" in cache:  # head-major pools: (page, head) rows
+        heads = cache["k"].shape[1]
+        rows = (table[:, None, :] * heads
+                + torch.arange(heads, device=table.device)[None, :, None]).reshape(-1)
+        lead = (b, heads)
+    else:  # the latent pools: whole pages
+        rows, lead = table.reshape(-1), (b,)
     out = {}
     for name, pool in cache.items():
         if name == "page_table":
             continue
-        p, h, ps = pool.shape[:3]
-        g = pool.reshape(p * h, -1).index_select(0, rows)
-        out[name] = g.view(b, h, n_pages * ps, *pool.shape[3:])
+        src = pool.flatten(0, len(lead) - 1)  # (pages[ x heads], page_size[, D])
+        g = src.reshape(src.shape[0], -1).index_select(0, rows)
+        out[name] = g.view(*lead, n_pages * src.shape[1], *src.shape[2:])
     return out
 
 
@@ -320,7 +356,7 @@ def insert_prefill_paged(big: dict, filled: dict, slots, page_size: int,
         axis = small.ndim - SEQ_AXIS_FROM_RIGHT[name]
         n_pages = small.shape[axis] // page_size
         paged = small.reshape(small.shape[:axis] + (n_pages, page_size) + small.shape[axis + 1:])
-        pages = paged.movedim(axis, 2)  # (L, N, n_pages, Hkv, ps, D)
+        pages = paged.movedim(axis, 2)  # (L, N, n_pages, Hkv, ps, D) or (L, N, n_pages, ps, W)
         pool[:, rows[:, :n_pages]] = pages.to(pool.dtype)
     return big
 

@@ -1,5 +1,5 @@
-"""The port's configs (physics, mamba2-130m and the dense GQA family) equal
-the JAX package's field for field."""
+"""The port's configs (physics, mamba2-130m, the dense GQA family, the MoE
+family and minicpm3-4b) equal the JAX package's field for field."""
 
 import dataclasses
 
@@ -26,13 +26,15 @@ def test_physics_config_fields_equal(name):
 
 def test_registry_names_and_unported():
     assert PHYSICS_NAMES == ["engine_anomaly", "btagging", "gw"]
-    assert sorted(ARCH_NAMES) == sorted(DENSE + MOE + ["mamba2-130m"])
-    for name in DENSE + MOE:
+    assert sorted(ARCH_NAMES) == sorted(DENSE + MOE + ["mamba2-130m", "minicpm3-4b"])
+    for name in DENSE + MOE + ["minicpm3-4b"]:
         for reduced in (False, True):
             ref, ours = jax_get_config(name, reduced), get_config(name, reduced)
             assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        get_config("minicpm3-4b")  # MLA
+        get_config("internvl2-1b")  # the patch frontend
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        get_config("hubert-xlarge", reduced=True)  # the audio encoder
     with pytest.raises(NotImplementedError, match="queue 1, item 10"):
         get_config("zamba2-1.2b")
     with pytest.raises(KeyError, match="unknown arch"):
@@ -56,6 +58,24 @@ def test_dense_config_fields_equal(name, reduced):
     if name == "starcoder2-7b":
         assert ours.sliding_window == (8 if reduced else 4096) and ours.rope_theta == 1e6
         assert not ours.tie_embeddings and ours.attn_bias and ours.mlp_bias
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_minicpm3_4b_config_fields_equal(reduced):
+    """The MLA model, field for field, with its latent widths."""
+    ref, ours = jax_get_config("minicpm3-4b", reduced), get_config("minicpm3-4b", reduced)
+    assert [f.name for f in dataclasses.fields(ours)] == [
+        f.name for f in dataclasses.fields(ref)
+    ]
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ours.attn_kind == "mla" and ours.serve_policy == "int8_serve"
+    assert ours.dtype == ("float32" if reduced else "bfloat16")
+    assert ours.padded_vocab_size == ref.padded_vocab_size
+    if not reduced:
+        m = ours.mla
+        assert (ours.n_layers, ours.d_model, ours.n_heads, ours.d_ff) == (62, 2560, 40, 6400)
+        assert (m.q_lora_rank, m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim,
+                m.v_head_dim) == (768, 256, 64, 32, 64)
 
 
 @pytest.mark.parametrize("reduced", [False, True])

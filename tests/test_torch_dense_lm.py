@@ -187,13 +187,14 @@ def test_unported_attention_paths_raise():
     cache = kv_cache.init_attention_cache(tcfg, 1, 4, torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         attention.gqa_apply(pt, tcfg, x, torch.zeros(1, 1, 2), mode="extend", cache=cache)
-    # the int8 KV cache is ported (tests/test_torch_int8_kv.py); MLA is not
+    # the int8 KV cache and MLA are ported (tests/test_torch_int8_kv.py,
+    # tests/test_torch_mla.py); the patch and audio frontends are not
     qcache = kv_cache.init_attention_cache(tcfg, 1, 4, torch.float32, quantized=True,
                                            device="cpu")
     attention.gqa_apply(pt, tcfg, x, mode="prefill", cache=qcache)
     assert qcache["k"].dtype == torch.int8 and bool((qcache["k_scale"][:, :, :2] > 0).all())
     with pytest.raises(NotImplementedError, match="item 9"):
-        attention.attention_spec(dataclasses.replace(tcfg, attn_kind="mla"))
+        lm.param_spec(dataclasses.replace(tcfg, frontend="patch", frontend_dim=32))
     with pytest.raises(ValueError, match="positions"):
         attention.gqa_apply(pt, tcfg, x[:, :1], mode="decode", cache=cache)
 

@@ -1,8 +1,12 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+tools that run its phases or time its kernels (every ``tools/*.py`` but
+``physics_workflow_reference.py``, which runs the JAX package) import
 neither ``jax`` nor anything of ``repro``, and the entry points never fall
 back to the CPU on their own."""
 
 import ast
+import importlib.util
+import inspect
 import os
 import subprocess
 import sys
@@ -17,7 +21,14 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import physics  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    p for p in sorted((ROOT / "tools").glob("*.py")) if p.name != "physics_workflow_reference.py"]
+
+
+PHASE_TOOL = ROOT / "tools" / "phase.py"
+PHASE_NAMES = next(
+    ast.literal_eval(node.value) for node in ast.parse(PHASE_TOOL.read_text()).body
+    if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", None) == "PHASES")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -55,7 +66,8 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.checkpoint, repro_torch.data.loader, repro_torch.data.synthetic, "
         "repro_torch.kernels.flash_attention.autograd, repro_torch.kernels.layernorm.autograd, "
         "repro_torch.examples.physics_inference, repro_torch.examples.train_lm, "
-        "repro_torch.models.moe, repro_torch.configs.granite_moe_3b, repro_torch.configs.dbrx_132b; "
+        "repro_torch.models.moe, repro_torch.configs.granite_moe_3b, repro_torch.configs.dbrx_132b, "
+        "repro_torch.configs.minicpm3_4b, repro_torch.models.attention; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )
@@ -75,6 +87,27 @@ def test_default_device_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy({"w": x.numpy()})
     assert physics.forward(params, cfg, x, device="cpu").shape == (1, 1)
+
+
+def test_mla_entry_points_default_to_the_card(monkeypatch):
+    """minicpm3-4b's caches, params and forward default to the card: without
+    CUDA they raise unless asked for the CPU."""
+    from repro_torch.models import lm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("minicpm3-4b", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_caches(cfg, 1, 8, quantized=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(cfg, torch.Generator().manual_seed(0))
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.zeros(1, 4, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.forward(params, cfg, {"tokens": tokens})
+    caches = lm.init_caches(cfg, 1, 8, torch.float32, True, device="cpu")
+    last, caches = lm.prefill(params, cfg, {"tokens": tokens}, caches, device="cpu")
+    assert last.shape == (1, cfg.padded_vocab_size)
+    assert caches["layers"]["latent"].dtype == torch.int8
 
 
 @pytest.mark.parametrize("helper", ["exp_table", "inv_table", "rsqrt_table", "params_init"])
@@ -104,3 +137,28 @@ def test_import_turns_tf32_off():
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
+
+
+@pytest.mark.parametrize("name", PHASE_NAMES)
+def test_phase_tool_names_a_phase(name):
+    """Each name ``tools/phase.py`` takes is a phase of ``chip_smoke.py``
+    that runs on one device argument."""
+    spec = importlib.util.spec_from_file_location("_chip_smoke_under_test", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    params = list(inspect.signature(getattr(cs, f"phase_{name}")).parameters.values())
+    assert params[0].name == "dev"
+    assert all(p.default is not p.empty for p in params[1:])
+
+
+@pytest.mark.parametrize("argv, said", [
+    (["mla", "--kernels"], "no CUDA device"),
+    (["mla", "--seeds", "2"], "--seeds belongs to train"),
+    (["serve", "--kernels"], "no kernel cases"),
+])
+def test_phase_tool_stops_without_a_card_or_on_a_wrong_option(argv, said):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, str(PHASE_TOOL), *argv], capture_output=True, text=True,
+                       env=env, timeout=120)
+    assert r.returncode == 2 and said in r.stderr, (r.returncode, r.stderr[-2000:])
+    assert not r.stdout

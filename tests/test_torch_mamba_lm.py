@@ -306,16 +306,17 @@ def test_unported_families_raise():
     mamba = get_config("mamba2-130m", reduced=True)
     with pytest.raises(NotImplementedError, match="item 10"):
         blocks.block_spec(dataclasses.replace(mamba, family="hybrid"))
-    # the moe block and the int8 KV cache are ported (tests/test_torch_moe.py,
-    # tests/test_torch_int8_kv.py); the MLA latent caches are not
+    # the moe block, the int8 KV cache and the MLA latent caches are ported
+    # (tests/test_torch_moe.py, tests/test_torch_int8_kv.py,
+    # tests/test_torch_mla.py); the hybrid caches are not, in either layout
     moe = dataclasses.replace(get_config("gw"), moe=MoEConfig(4, 2, 16))
     assert blocks.block_kind(moe) == "moe"
     assert set(blocks.block_spec(moe)["ffn"]) == {"router", "w_up", "w_down"}
     quantized = kv_cache.abstract_caches(get_config("granite-8b"), 1, 16, quantized=True)
     assert quantized["layers"]["k"][1] == torch.int8
     assert quantized["layers"]["k_scale"] == ((36, 1, 8, 16), torch.float32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        kv_cache.abstract_caches(dataclasses.replace(get_config("granite-8b"), attn_kind="mla"),
+    with pytest.raises(NotImplementedError, match="item 10"):
+        kv_cache.abstract_caches(dataclasses.replace(get_config("granite-8b"), family="hybrid"),
                                  1, 16, quantized=True)
     with pytest.raises(ValueError, match="rolling sliding-window"):
         kv_cache.abstract_caches(get_config("starcoder2-7b"), 1, 8192, layout="paged",

@@ -4,9 +4,10 @@
 - The shared flags build the ServeConfig the reference's CLI builds from
   the same arguments, field for field.
 - The launcher answers ``--requests 4`` on the CPU at a reduced config and
-  exits 0, and serves granite-moe-3b-a800m under its own ``serve_policy``
-  (``--policy auto``: int8_serve); without ``--device cpu`` on a host without CUDA it raises as
-  ``resolve_device`` does; ``--replicas`` above 1 and the flags of later
+  exits 0, and serves granite-moe-3b-a800m and minicpm3-4b (MLA) under
+  their own ``serve_policy`` (``--policy auto``: int8_serve); without
+  ``--device cpu`` on a host without CUDA it raises as ``resolve_device``
+  does; ``--replicas`` above 1 and the flags of later
   slices raise ``NotImplementedError``.
 """
 
@@ -58,20 +59,31 @@ def test_launcher_serves_on_the_cpu():
     assert "device=cpu" in out and "layout=paged" in out
 
 
-@pytest.mark.parametrize("layout", ["dense", "paged"])
-def test_launcher_serves_the_moe_family_under_its_own_policy(layout, capsys):
-    """``--arch granite-moe-3b-a800m --policy auto``: the config's own
-    ``serve_policy``, int8_serve (int8 weights and KV cache, LUT softmax),
-    as the reference's CLI resolves it; the launcher serves on the CPU."""
+def _serves_under_its_own_policy(arch, layout, capsys):
+    """``--arch ARCH --policy auto``: the config's own ``serve_policy``,
+    int8_serve, as the reference's CLI resolves it; the launcher serves on
+    the CPU."""
     argv = ["--policy", "auto", "--kv-layout", layout, "--kv-page-size", "8"]
-    ours = cli.config_from_args(_parse(cli, argv), get_config("granite-moe-3b-a800m", True))
-    ref = jcli.config_from_args(_parse(jcli, argv), jax_get_config("granite-moe-3b-a800m", True))
+    ours = cli.config_from_args(_parse(cli, argv), get_config(arch, True))
+    ref = jcli.config_from_args(_parse(jcli, argv), jax_get_config(arch, True))
     assert ours.policy == ref.policy == "int8_serve"
-    launch.main(["--device", "cpu", "--arch", "granite-moe-3b-a800m", "--requests", "3",
+    launch.main(["--device", "cpu", "--arch", arch, "--requests", "3",
                  "--max-new", "4", *argv])
     out = capsys.readouterr().out
     assert "3 requests, 12 tokens" in out and "policy=int8_serve" in out
     assert f"layout={layout}" in out
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_launcher_serves_the_moe_family_under_its_own_policy(layout, capsys):
+    """granite-moe-3b-a800m: int8 weights and KV cache, LUT softmax."""
+    _serves_under_its_own_policy("granite-moe-3b-a800m", layout, capsys)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_launcher_serves_minicpm3_4b_under_its_own_policy(layout, capsys):
+    """minicpm3-4b (MLA): int8 weights, the int8 latent cache, LUT softmax."""
+    _serves_under_its_own_policy("minicpm3-4b", layout, capsys)
 
 
 def test_launcher_defaults_to_the_card(monkeypatch):

@@ -17,7 +17,11 @@ The requests mix prompt lengths across the prefill buckets, share a
   ``("granite-8b", "int8_serve")`` case, and granite-8b paged + prefix cache
   + preemption + chunked prefill, where prefill-skip, preemption-resume and
   chunking are gated off as the reference gates them without its
-  cache-extending program.
+  cache-extending program;
+- reduced minicpm3-4b (MLA, the packed latent caches) under ``float`` and
+  ``int8_serve`` (int8 latent codes with per-token scales), dense, paged and
+  paged + prefix cache, where ``bit_exact`` is False on both sides (as the
+  reference's for MLA) and prefix hits are storage-only.
 Telemetry (program counts, dispatches, preemptions, prefill tokens saved,
 prefix hits, disabled features) is equal too, and the program budget
 ``prefill_compiles + decode_compiles <= len(buckets) + 2`` holds.
@@ -79,7 +83,8 @@ def _one_torch_thread():
 def models():
     """{arch: (JAX config, JAX params, port config, port params)}."""
     out = {}
-    for arch in ("granite-8b", "starcoder2-7b", "mamba2-130m", "granite-moe-3b-a800m"):
+    for arch in ("granite-8b", "starcoder2-7b", "mamba2-130m", "granite-moe-3b-a800m",
+                 "minicpm3-4b"):
         jcfg = jax_get_config(arch, reduced=True)
         raw = numpy_tree(jlm.param_spec(jcfg), 0)
         out[arch] = (jcfg, jax.tree.map(jnp.asarray, raw), get_config(arch, reduced=True),
@@ -193,12 +198,50 @@ def test_int8_serve_streams_match_reference(models, sampling, case):
         assert tel["prefill_tokens_saved"] == 0 and "prefill_chunk" in str(warn)
 
 
+MLA_LAYOUTS = {
+    "dense": {},
+    "paged": dict(kv_layout="paged", kv_page_size=8),
+    "paged-prefix": dict(kv_layout="paged", kv_page_size=8, kv_prefix_cache=True),
+}
+
+
+@pytest.mark.parametrize("layout", list(MLA_LAYOUTS))
+@pytest.mark.parametrize("policy", ["float", "int8_serve"])
+def test_mla_streams_match_reference(models, sampling, policy, layout):
+    """minicpm3-4b through the engine, configured as
+    ``test_int8_serve_streams_match_reference``: the greedy streams, finish
+    reasons, telemetry and warnings equal the JAX engine's (its
+    cache-extending program off); the caches are the packed latent (int8
+    codes and per-token scales under int8_serve), ``bit_exact`` is False as
+    the reference's for MLA, and the program budget holds."""
+    sc_kw = dict(MLA_LAYOUTS[layout], policy=policy)
+    arch = "minicpm3-4b"
+    ref_tokens, ref_reasons, ref_tel, ref_warn = _reference(models, arch, sc_kw, sampling[arch],
+                                                            cache_extend=False)
+    tokens, reasons, tel, warn, eng = _ours(models, arch, sc_kw, sampling[arch])
+    assert tokens == ref_tokens
+    assert reasons == ref_reasons and "length" in reasons
+    assert {k: tel[k] for k in TEL_KEYS} == {k: ref_tel[k] for k in TEL_KEYS}
+    assert warn == ref_warn
+    ex = eng.executor
+    assert not ex.bit_exact and ex.quant_cache == (policy == "int8_serve")
+    want = {"latent"} | ({"latent_scale"} if ex.quant_cache else set()) | (
+        {"page_table"} if "paged" in layout else set())
+    assert set(ex.caches["layers"]) == want
+    assert ex.caches["layers"]["latent"].dtype == (torch.int8 if ex.quant_cache
+                                                   else torch.float32)
+    assert tel["prefill_compiles"] + tel["decode_compiles"] <= len(ex.buckets) + 2
+    assert tel["decode_compiles"] == 1
+    if "prefix" in layout:  # storage-only hits: shared pages, no tokens saved
+        assert tel["prefix_hits"] > 0 and tel["prefill_tokens_saved"] == 0
+
+
 def test_int8_serve_caps_match_reference(models):
     """``bit_exact`` and ``cache_extend`` as the reference's: bit_exact False
     under int8 KV and the LUT softmax; the reference's cache_extend is True
     on its jnp path and False without the program, the port's False until
-    item 8, step 5."""
-    for arch in ("granite-8b", "granite-moe-3b-a800m"):
+    item 8, step 5.  minicpm3-4b (MLA) under its own policy too."""
+    for arch in ("granite-8b", "granite-moe-3b-a800m", "minicpm3-4b"):
         jcfg, jparams, cfg, params = models[arch]
         for kw in ({}, dict(kv_layout="paged", kv_page_size=8, kv_prefix_cache=True)):
             sc = dict(BASE, policy="int8_serve", **kw)
@@ -341,8 +384,9 @@ def test_caches_are_written_in_place_with_one_copy_back_per_decode(models, monke
     (dict(speculative=True), "item 8, step 8"),
     (dict(shard_decode=True), "item 8, shard_decode"),
     (dict(kv_layout="paged", kv_prefix_cache=True, kv_host_pages=8), "item 8, step 9"),
-    # int8_serve is ported; its MLA latent caches are not (minicpm3-4b)
-    (dict(policy="int8_serve", arch_kw=dict(attn_kind="mla")), "item 9"),
+    # int8_serve and its MLA latent caches are ported (minicpm3-4b); the
+    # hybrid family's caches are not
+    (dict(policy="int8_serve", arch_kw=dict(family="hybrid")), "item 10"),
 ])
 def test_unported_features_raise(models, kw, match):
     _, _, cfg, params = models["granite-8b"]

@@ -11,6 +11,10 @@ kv_cache``) against the JAX package's (``repro.serve.kv_cache``).
   page tables, refcounts, prefix indices, pending copies, ``stats()`` and,
   after each flush, equal device pools; ``check_invariants`` holds after
   every op.
+- The same device ops over MLA's latent pools (num_pages, page_size,
+  width) and their per-token scale pools, which have no head axis; the
+  manager's copy-on-write over them, float and int8, with
+  ``check_invariants``.
 - The manager-level tests of ``tests/test_prefix_cache.py`` and
   ``tests/test_kv_cache.py`` that do not need the victim tier, ported: the
   random-trace invariant property, the checker catching corruption, CoW
@@ -40,6 +44,7 @@ from repro_torch.serve import kv_cache as kvc  # noqa: E402
 from repro_torch.serve.kv_cache import CacheManager  # noqa: E402
 
 ARCH = "granite-8b"
+MLA = "minicpm3-4b"
 
 
 def _t(a):
@@ -65,13 +70,15 @@ def _equal(ours, ref, skip_trash=False):
         np.testing.assert_array_equal(a, b, err_msg=k)
 
 
-def _manager(pkg, **kw):
+def _manager(pkg, arch=ARCH, quantized=False, **kw):
     base = dict(max_batch=4, max_seq_len=32, kv_layout="paged", kv_page_size=4,
                 kv_pages=18, kv_prefix_cache=True)
     base.update(kw)
     if pkg == "jax":
-        return jkv.CacheManager(jax_get_config(ARCH, reduced=True), JServeConfig(**base))
-    return CacheManager(get_config(ARCH, reduced=True), ServeConfig(**base), device="cpu")
+        return jkv.CacheManager(jax_get_config(arch, reduced=True), JServeConfig(**base),
+                                quantized=quantized)
+    return CacheManager(get_config(arch, reduced=True), ServeConfig(**base),
+                        quantized=quantized, device="cpu")
 
 
 # ---------------------------------------------------------------- specs ---
@@ -101,17 +108,18 @@ def test_paged_spec_rejects_unpageable():
     with pytest.raises(ValueError, match="position-addressed"):
         kvc.attention_cache_spec(ssm, 2, 64, layout="paged", page_size=16, num_pages=9)
     # the quantized paged spec is ported: the reference's, scale pools
-    # head-major; the MLA latent pools are not
+    # head-major (the MLA latent pools: tests/test_torch_mla.py); the hybrid
+    # caches are not ported
     ours = kvc.attention_cache_spec(get_config(ARCH, reduced=True), 2, 64, quantized=True,
                                     layout="paged", page_size=16, num_pages=9)
     ref = jkv.attention_cache_spec(jax_get_config(ARCH, reduced=True), 2, 64, quantized=True,
                                    layout="paged", page_size=16, num_pages=9)
     assert {k: (shape, str(dt).removeprefix("torch.")) for k, (shape, dt) in ours.items()} == {
         k: (s.shape, str(s.dtype)) for k, s in ref.items()}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        kvc.attention_cache_spec(dataclasses.replace(get_config(ARCH, reduced=True),
-                                                     attn_kind="mla"),
-                                 2, 64, quantized=True, layout="paged", page_size=16, num_pages=9)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        kvc.abstract_caches(dataclasses.replace(get_config(ARCH, reduced=True),
+                                                family="hybrid"),
+                            2, 64, quantized=True, layout="paged", page_size=16, num_pages=9)
 
 
 # ------------------------------------------------------------ device ops ---
@@ -223,6 +231,123 @@ def test_insert_prefill_paged_matches_reference(shared):
         {"layers": {k: jnp.asarray(v) for k, v in small["layers"].items()}},
         jnp.asarray(slots), ps, None if sh is None else jnp.asarray(sh))
     _equal(ours, ref, skip_trash=True)
+
+
+def _latent_layer(rng, b=3, ps=4, pages=10, per_slot=4, width=24):
+    """An int8 latent pool with its per-token scale pool, and a table like
+    ``_paged_layer``'s."""
+    table = _paged_layer(rng, b=b, ps=ps, pages=pages, per_slot=per_slot)["page_table"]
+    return {"latent": rng.integers(-128, 128, (pages, ps, width)).astype(np.int8),
+            "latent_scale": rng.uniform(0.01, 1.0, (pages, ps)).astype(np.float32),
+            "page_table": table}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_latent_paged_decode_write_and_view_match_reference(seed):
+    """One token per slot into the latent pools (no head axis), then the
+    gathered (B, L, width) / (B, L) views, against the reference."""
+    rng = np.random.default_rng(seed)
+    layer = _latent_layer(rng)
+    b, width = 3, layer["latent"].shape[-1]
+    upd = {"latent": rng.integers(-128, 128, (b, width)).astype(np.int8),
+           "latent_scale": rng.uniform(0.01, 1.0, (b,)).astype(np.float32)}
+    positions = np.array([rng.integers(0, 12), rng.integers(0, 8), 5], np.int32)
+    ours = kvc.paged_decode_write({k: _t(v) for k, v in layer.items()},
+                                  {k: _t(v) for k, v in upd.items()}, _t(positions))
+    ref = jkv.paged_decode_write({k: jnp.asarray(v) for k, v in layer.items()},
+                                 {k: jnp.asarray(v) for k, v in upd.items()},
+                                 jnp.asarray(positions))
+    _equal(ours, ref)
+    view = kvc.paged_decode_view(ours)
+    assert view["latent"].shape == (b, 16, width) and view["latent_scale"].shape == (b, 16)
+    assert all(t.is_contiguous() for t in view.values())
+    _equal(view, jkv.paged_decode_view(ref))
+
+
+def _latent_filled(rng, n_layers=2, n=4, length=16, width=24):
+    return {"layers": {
+        "latent": rng.integers(-128, 128, (n_layers, n, length, width)).astype(np.int8),
+        "latent_scale": rng.uniform(0.01, 1.0, (n_layers, n, length)).astype(np.float32)}}
+
+
+@pytest.mark.parametrize("shared", [None, [1, 0, 2]])
+def test_latent_mask_and_insert_match_reference(shared):
+    """``mask_cache_tail`` zeroes latent codes and scales past each length;
+    ``insert_prefill_dense`` / ``_paged`` scatter both into slots and pages
+    (a pad row dropped, shared prefix pages left alone)."""
+    rng = np.random.default_rng(6)
+    filled = _latent_filled(rng, n=3, length=12)
+    lengths = np.array([12, 5, 0], np.int32)
+    ours = kvc.mask_cache_tail({"layers": {k: _t(v) for k, v in filled["layers"].items()}},
+                               _t(lengths))
+    ref = jkv.mask_cache_tail({"layers": {k: jnp.asarray(v)
+                                          for k, v in filled["layers"].items()}},
+                              jnp.asarray(lengths))
+    _equal(ours, ref)
+    slots = np.array([0, 3, 2], np.int32)  # 3 = max_batch: a pad row
+    big = _latent_filled(rng, n=3, length=12)
+    got = kvc.insert_prefill_dense({"layers": {k: _t(v) for k, v in big["layers"].items()}},
+                                   {"layers": {k: _t(v) for k, v in filled["layers"].items()}},
+                                   slots)
+    want = jkv.insert_prefill_dense(
+        {"layers": {k: jnp.asarray(v) for k, v in big["layers"].items()}},
+        {"layers": {k: jnp.asarray(v) for k, v in filled["layers"].items()}},
+        jnp.asarray(slots))
+    _equal(got, want)
+    n_layers, b, ps, pages, per_slot = 2, 3, 4, 14, 4
+    table = np.zeros((b, per_slot), np.int32)
+    table[0] = [3, 5, 7, 0]
+    table[1, :2] = [1, 2]
+    table[2] = [9, 10, 11, 12]
+    pools = {"latent": rng.integers(-128, 128, (n_layers, pages, ps, 24)).astype(np.int8),
+             "latent_scale": rng.uniform(0.01, 1.0, (n_layers, pages, ps)).astype(np.float32),
+             "page_table": np.broadcast_to(table, (n_layers, b, per_slot))}
+    sh = None if shared is None else np.array(shared, np.int32)
+    got = kvc.insert_prefill_paged({"layers": {k: _t(v) for k, v in pools.items()}},
+                                   {"layers": {k: _t(v) for k, v in filled["layers"].items()}},
+                                   slots, ps, None if sh is None else _t(sh))
+    want = jkv.insert_prefill_paged(
+        {"layers": {k: jnp.asarray(v) for k, v in pools.items()}},
+        {"layers": {k: jnp.asarray(v) for k, v in filled["layers"].items()}},
+        jnp.asarray(slots), ps, None if sh is None else jnp.asarray(sh))
+    _equal(got, want, skip_trash=True)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+def test_latent_copy_on_write_flush_matches_reference(quantized):
+    """minicpm3-4b's managers (latent pools, float or int8 with the scale
+    pool): a full-coverage prefix hit whose first write lands in the shared
+    page copies the same page on both sides, ``flush_copies`` copies every
+    latent leaf of every layer, and the invariants hold."""
+    ours, ref = _manager("torch", MLA, quantized), _manager("jax", MLA, quantized)
+    rng = np.random.default_rng(10)
+    spec = ref._abstract()["layers"]
+    pools = {n: (rng.integers(-128, 128, s.shape).astype(np.int8) if s.dtype == jnp.int8 else
+                 rng.normal(size=s.shape).astype(np.float32))
+             for n, s in spec.items() if n != "page_table"}
+    assert set(pools) == ({"latent", "latent_scale"} if quantized else {"latent"})
+    tcaches = ours.init_device_caches()
+    for n, v in pools.items():
+        tcaches["layers"][n].copy_(_t(v))
+    jcaches = {"layers": {**ref.init_device_caches()["layers"],
+                          **{n: jnp.asarray(v) for n, v in pools.items()}}}
+    prompt = [1, 2, 0, 1, 2, 2, 0, 1]  # two full pages
+    for mgr in (ours, ref):
+        mgr.admit(0, prompt, 12)
+        match = mgr.match_prefix(prompt)
+        assert match.tokens == 8
+        mgr.admit(1, prompt, 12, match=match, lazy_tail=True, write_from=7)
+        mgr.ensure(1, 10, write_from=7)
+    assert ours._pending_copies == ref._pending_copies and len(ours._pending_copies) == 1
+    (src, dst), = ours._pending_copies
+    ours.flush_copies(ours.write_table(tcaches))
+    jcaches = ref.write_table(ref.flush_copies(jcaches))
+    _equal(tcaches, jcaches)
+    for n in pools:
+        assert torch.equal(tcaches["layers"][n][:, dst], tcaches["layers"][n][:, src]), n
+    assert ours.kv_bytes == ref.kv_bytes
+    _assert_same_state(ours, ref)
+    ours.check_invariants()
 
 
 # ------------------------------------------------- the manager vs reference ---
