@@ -36,11 +36,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
    float32 (the int8 KV cache's route), SDPA timed beside it as a yardstick
    (it computes the exact softmax), and its RMSNorm at 1536; phase 10's:
    minicpm3-4b's prefill attend at (8, 40, 2048, 96) causal (q/k head_dim
-   96, run padded to 128; V 64 zero-padded to 96 as the model pads it) in
+   96, V 64: the kernel's native (96, 64) instance, nothing padded) in
    bf16 with the safe softmax and in float32 with the LUT softmax (the int8
-   latent's route), the bound counting the work the function needs and the
-   padded kernel's beside it, and its q_norm / kv_norm RMSNorms at 768 and
-   256 over 8 x 2048 rows, bf16;
+   latent's route), and its q_norm / kv_norm RMSNorms at 768 and 256 over
+   8 x 2048 rows, bf16;
 3. models -- the main path: the paper's three encoders (engine_anomaly,
    btagging, gw) at their published widths, random seeded weights PTQ'd by
    the precision plan, seeded events from ``repro_torch.data``, under the
@@ -490,6 +489,19 @@ def profile_forward(fn, iters: int = 5) -> dict:
             **shares}
 
 
+def pad_ops(fn) -> dict[str, int]:
+    """The zero-pad operators (``aten::constant_pad_nd``, ``aten::pad``) one
+    call of ``fn`` runs, by name, from a trace of the host's operators."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key in ("aten::constant_pad_nd", "aten::pad")}
+
+
 def bound(flops: float, nbytes: float, dtype: str = "float32") -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
@@ -544,6 +556,14 @@ def phase_build():
             if not small or not all(c["HMMA"] for c in small.values()):
                 raise SmokeError("a head_dim 8-32 attention instance has no mma.sync (HMMA) "
                                  f"instructions: { {f[-60:]: c for f, c in small.items()} }")
+            # every tensor-core instance, bf16 and float32 (3xTF32), on wgmma
+            tc = {f: c["HGMMA"] for f, c in funcs.items() if "tc_attention_kernel" in f}
+            sass["flash_attention_tensor_core"] = tc
+            log(f"[build] flash_attention: {len(tc)} tensor-core instances, HGMMA per instance "
+                f"{sorted(tc.values())}")
+            if not tc or not all(tc.values()):
+                raise SmokeError("a tensor-core attention instance has no wgmma (HGMMA) "
+                                 f"instructions: { {f[-60:]: n for f, n in tc.items()} }")
         if name == "qmatmul":
             wide = {f: c["IGMMA"] for f, c in funcs.items() if "qmatmul_wgmma_kernel" in f}
             stream = {f: c["IMMA"] for f, c in funcs.items() if "qmatmul_stream_kernel" in f}
@@ -593,27 +613,27 @@ def _sass_functions(listing: str) -> dict[str, dict[str, int]]:
 
 def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32", hkv=None,
                     sdpa_yardstick=False, v_dim=None):
-    """``mha`` on q (b, h, l, d) and k, v (b, hkv, l, d): GQA when hkv < h.
-    SDPA is timed beside the safe softmax, which it computes; with
+    """``mha`` on q, k (b, h / hkv, l, d) and v (b, hkv, l, v_dim): GQA when
+    hkv < h; ``v_dim`` is V's own head_dim (MLA: q/k at 96, V at 64), d by
+    default.  SDPA is timed beside the safe softmax, which it computes; with
     ``sdpa_yardstick`` beside the LUT softmax too, as a yardstick of the same
-    shape (it computes the exact softmax, not the LUT's).  ``v_dim``: V's
-    true head_dim, zero-padded to d by the caller (MLA: q/k at 96, V at 64);
-    the bound then counts the work the function needs (QK^T at d, P.V and
-    the output at v_dim), and ``padded_bound_ms`` the padded kernel's (both
-    products at the head_dim it runs, 128 for 96)."""
+    shape (it computes the exact softmax, not the LUT's).  The bound counts
+    the work the function needs (QK^T at d, P.V and the output at v_dim);
+    ``padded_bound_ms``, where the kernel zero-pads the head_dims (12, 14,
+    80), the padded work's."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import mha, mha_ref
-    from repro_torch.kernels.flash_attention.ops import padded_head_dim
+    from repro_torch.kernels.flash_attention.ops import kernel_head_dims
 
     b, h, l, d = shape
     hkv = h if hkv is None else hkv
     dv = d if v_dim is None else v_dim
     g = torch.Generator().manual_seed(l * d + h)
     tdt = getattr(torch, dtype)
-    q, k, v = (torch.randn(b, hh, l, d, generator=g).to(dev, tdt) for hh in (h, hkv, hkv))
-    v[..., dv:] = 0
+    q, k, v = (torch.randn(b, hh, l, dd, generator=g).to(dev, tdt)
+               for hh, dd in ((h, d), (hkv, d), (hkv, dv)))
     out = mha(q, k, v, causal=causal, window=window, mode=mode)
     ref = mha_ref(q, k, v, causal=causal, window=window, mode=mode)
     torch.cuda.synchronize()
@@ -636,13 +656,15 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
     if window is not None:
         mask &= pos[:, None] - pos[None, :] < window
     pairs = int(mask.sum())
-    # q, k, v read, out written (v and out at their true head_dim)
-    nbytes = (q.numel() + k.numel() + (k.numel() + q.numel()) * dv // d) * q.element_size()
+    # q, k, v read, out written
+    nbytes = (q.numel() + k.numel() + v.numel() + q.numel() * dv // d) * q.element_size()
     if mode == "lut":
         nbytes += (1024 + 4096) * 4
     peak = "tf32x3" if dtype == "float32" else dtype  # every head_dim on the tensor cores
     bound_ms, bound_by = bound(2.0 * b * h * pairs * (d + dv), nbytes, peak)
-    padded_bound_ms = bound(4.0 * b * h * pairs * padded_head_dim(d), nbytes, peak)[0]
+    dk, dvk = kernel_head_dims(d, dv)
+    padded_bound_ms = (None if (dk, dvk) == (d, dv)
+                       else bound(2.0 * b * h * pairs * (dk + dvk), nbytes, peak)[0])
 
     iters = 20 if b * h * l * l * d > 1e8 else 50
     ms = time_ms(lambda: mha(q, k, v, causal=causal, window=window, mode=mode), iters)
@@ -968,10 +990,10 @@ def _int8_moe_kernel_cases(dev) -> list[dict]:
 
 def _mla_kernel_cases(dev) -> list[dict]:
     """The MLA path's kernel cases (phase 10): minicpm3-4b's prefill attend at
-    8 x 2048, 40 heads at a q/k head_dim of 96 (padded to 128 by the wrapper),
-    V 64 zero-padded to 96 as the model pads it, causal: bf16 safe (float) and
-    float32 LUT (int8_serve's dequantized latent); its q_norm (768) and
-    kv_norm (256) RMSNorms at 8 x 2048 rows."""
+    8 x 2048, 40 heads at a q/k head_dim of 96 and V at 64, the kernel's
+    native (96, 64) instance, causal: bf16 safe (float) and float32 LUT
+    (int8_serve's dequantized latent); its q_norm (768) and kv_norm (256)
+    RMSNorms at 8 x 2048 rows."""
     cases = [_attention_case(dev, MLA_ATTENTION, "safe", causal=True, dtype="bfloat16",
                              v_dim=64),
              _attention_case(dev, MLA_ATTENTION, "lut", causal=True, dtype="float32",
@@ -2524,6 +2546,10 @@ def phase_mla(dev):
             del last  # the checked call was the warm-up
             ms = median_ms(prefill, 3, warmup=0)
             prof = profile_forward(prefill, iters=1)
+            # the attend runs at q/k 96, V 64 natively: no pad copy around it
+            prof["pad_ops"] = pad_ops(prefill) if bt == MLA_PREFILL_BATCHES[0] else None
+            if prof["pad_ops"]:
+                raise SmokeError(f"{base.name} {policy} prefill pads: {prof['pad_ops']}")
             tflop, floor_ms, floor_by = _mla_prefill_floor(base, bt, MLA_PREFILL_LEN, quantized)
             dev_ms = prof.get("device_ms_per_fwd")
             rec = dict(policy=policy, batch=bt, tokens=MLA_PREFILL_LEN, median_ms=ms,
@@ -2538,7 +2564,8 @@ def phase_mla(dev):
                 f"{'not measured' if dev_ms is None else f'{dev_ms:.2f}'}, busy "
                 f"{'not measured' if busy is None else f'{busy:.1%}'}, attention "
                 f"{prof.get('attention_share', float('nan')):.1%}, layernorm "
-                f"{prof.get('layernorm_share', float('nan')):.1%}, peak {rec['peak_gb']:.1f} GB  "
+                f"{prof.get('layernorm_share', float('nan')):.1%}, peak {rec['peak_gb']:.1f} GB, "
+                f"pad ops {'not traced' if prof['pad_ops'] is None else prof['pad_ops']}  "
                 f"top {prof['top']}")
             del caches
     del params, params_q
@@ -2566,13 +2593,14 @@ def phase_mla(dev):
 # differently shaped products, which may move a table entry at a tie).
 # Norms: 1e-5 of max(1, max |grad|); with the LUT, rows whose variance sits at
 # a 1/sqrt-table tie may move by one table step (0.3 %), on under 1 % of rows.
-TRAIN_ATT_CASES = (  # (b, h, l, d), kv heads, causal, window, kv_len, dtype
-    ((1024, 4, 100, 8), 4, False, None, None, "float32"),  # gw
-    ((1024, 8, 15, 8), 8, False, None, None, "float32"),  # btagging
-    ((1024, 2, 50, 8), 2, False, None, None, "float32"),  # engine_anomaly
-    ((2, 32, 256, 128), 8, True, None, None, "float32"),
-    ((2, 32, 256, 128), 8, True, None, None, "bfloat16"),
-    ((2, 8, 256, 64), 2, True, 64, 200, "float32"),
+TRAIN_ATT_CASES = (  # (b, h, l, d), kv heads, causal, window, kv_len, dtype, V head_dim
+    ((1024, 4, 100, 8), 4, False, None, None, "float32", None),  # gw
+    ((1024, 8, 15, 8), 8, False, None, None, "float32", None),  # btagging
+    ((1024, 2, 50, 8), 2, False, None, None, "float32", None),  # engine_anomaly
+    ((2, 32, 256, 128), 8, True, None, None, "float32", None),
+    ((2, 32, 256, 128), 8, True, None, None, "bfloat16", None),
+    ((2, 8, 256, 64), 2, True, 64, 200, "float32", None),
+    ((2, 8, 256, 96), 8, True, None, None, "float32", 64),  # MLA's q/k 96, V 64
 )
 TRAIN_LN_CASES = (  # rows, width, RMSNorm, LUT
     (102400, 32, False, False), (102400, 32, False, True),  # gw
@@ -2619,17 +2647,18 @@ LM_TRAIN = dict(total_steps=8, checkpoint_every=4, warmup_steps=2, learning_rate
 LM_TRAIN_SHAPE, LM_TRAIN_FAIL_AT = (2, 2048), 6
 
 
-def _attention_grad_case(dev, shape, hkv, causal, window, kv_len, dtype, mode):
+def _attention_grad_case(dev, shape, hkv, causal, window, kv_len, dtype, mode, v_dim=None):
     import torch
 
     from repro_torch.kernels.flash_attention import mha, mha_ref
 
     b, h, l, d = shape
+    dv = d if v_dim is None else v_dim
     g = torch.Generator().manual_seed(l * d + h + (kv_len or 0))
     tdt = getattr(torch, dtype)
-    q, k, v = (torch.randn(b, hh, l, d, generator=g).to(dev, tdt).requires_grad_()
-               for hh in (h, hkv, hkv))
-    dout = torch.randn(b, h, l, d, generator=g).to(dev, tdt)
+    q, k, v = (torch.randn(b, hh, l, dd, generator=g).to(dev, tdt).requires_grad_()
+               for hh, dd in ((h, d), (hkv, d), (hkv, dv)))
+    dout = torch.randn(b, h, l, dv, generator=g).to(dev, tdt)
     kw = dict(causal=causal, window=window, mode=mode, kv_len=kv_len)
     out = mha(q, k, v, **kw)
     if "Attention" not in type(out.grad_fn).__name__:
@@ -2662,9 +2691,9 @@ def _attention_grad_case(dev, shape, hkv, causal, window, kv_len, dtype, mode):
     iters = 5 if b * h * l * l > 1e8 else 10
     ms = time_ms(fwd_bwd(mha), iters)
     plain_ms = time_ms(fwd_bwd(mha_ref), iters)
-    return dict(kernel="flash_attention", shape=list(shape), kv_heads=hkv, causal=causal,
-                window=window, kv_len=kv_len, dtype=dtype, mode=mode, max_abs_err=errs,
-                ok=bool(ok), fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain_ms)
+    return dict(kernel="flash_attention", shape=list(shape), kv_heads=hkv, v_dim=dv,
+                causal=causal, window=window, kv_len=kv_len, dtype=dtype, mode=mode,
+                max_abs_err=errs, ok=bool(ok), fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain_ms)
 
 
 def _layernorm_grad_case(dev, rows, k, rms, use_lut):
@@ -3005,12 +3034,12 @@ def phase_train(dev):
     from repro_torch.kernels import LAUNCHES
 
     grads = []
-    for shape, hkv, causal, window, kv_len, dtype in TRAIN_ATT_CASES:
+    for shape, hkv, causal, window, kv_len, dtype, v_dim in TRAIN_ATT_CASES:
         for mode in ("safe", "lut") if dtype == "float32" else ("safe",):
-            c = _attention_grad_case(dev, shape, hkv, causal, window, kv_len, dtype, mode)
+            c = _attention_grad_case(dev, shape, hkv, causal, window, kv_len, dtype, mode, v_dim)
             grads.append(c)
-            log(f"[grad] attention {shape} kv {hkv} {dtype} {mode} causal {causal} window "
-                f"{window} kv_len {kv_len}: max |d| {c['max_abs_err']}  fwd+bwd "
+            log(f"[grad] attention {shape} V {c['v_dim']} kv {hkv} {dtype} {mode} causal "
+                f"{causal} window {window} kv_len {kv_len}: max |d| {c['max_abs_err']}  fwd+bwd "
                 f"{c['fwd_bwd_ms']:.3f} ms (plain {c['plain_fwd_bwd_ms']:.3f})  "
                 f"{'ok' if c['ok'] else 'FAILED'}")
     for rows, k, rms, use_lut in TRAIN_LN_CASES:

@@ -13,19 +13,19 @@
 // arithmetic is on the tensor cores (at gw, 10.5 GFLOP of float32 work is
 // 0.157 ms on the CUDA cores' 67 TFLOP/s, above the 0.125 ms bytes bound;
 // 0.064 ms as three TF32 products at 495 / 3 = 165 TFLOP/s).  The LM-like
-// shapes (D = 64, 128; L = 1024, 2048) are bound by operations: 989 TFLOP/s
-// in bf16, 165 TFLOP/s of float32 work done as 3xTF32.  Both kernels keep
-// every score and output element in the m16n8 accumulator fragment layout
-// of mma (thread lane: rows lane/4 and lane/4 + 8, columns 2 (lane % 4) +
-// {0, 1} of each 8-wide block), and run float32 as 3xTF32 on
-// mma.sync.m16n8k8.tf32: each operand is split into big, its nearest TF32
-// value, and small, the TF32 rest (kernel 2: cvt.rna.tf32 twice; kernel 1:
-// Veltkamp's split), and the float32 accumulator takes small*big +
-// big*small + big*big.  One TF32 product keeps 10 mantissa bits
-// (1e-3 off against the 2e-5 tolerance at every shape tried); three keep
-// float32's accuracy.  In the P V product the k order of an 8-key step is
-// permuted (k index t <-> key 2t, t + 4 <-> key 2t + 1) so the score
-// fragment is the A fragment with no shuffle.  Two kernels, by head_dim:
+// shapes (D = 64, 96, 128; L = 1024, 2048) are bound by operations: 989
+// TFLOP/s in bf16, 165 TFLOP/s of float32 work done as 3xTF32.  Both kernels
+// keep every score and output element in the m16n8 accumulator fragment
+// layout of mma (thread lane: rows lane/4 and lane/4 + 8, columns 2 (lane %
+// 4) + {0, 1} of each 8-wide block; wgmma's m64 accumulators are four such
+// warp slices), and run float32 as 3xTF32: each operand is split into big,
+// a TF32 value, and small, the rest read as TF32, and the float32
+// accumulator takes small*big + big*small + big*big (kernel 1 adds
+// small*small in Q K^T).  One TF32 product keeps 10 mantissa bits (1e-3 off
+// against the 2e-5 tolerance at every shape tried); three keep float32's
+// accuracy.  In the P V product the k order of an 8-key step is permuted (k
+// index t <-> key 2t, t + 4 <-> key 2t + 1) so the score fragment is the A
+// fragment with no shuffle.  Two kernels, by head_dim:
 //
 // 1. D = 8, 16, 32 (the physics encoders; head_dims 12 and 14 padded to
 //    16): small_attention_kernel.  A work item is (batch * head, 16 query
@@ -62,43 +62,57 @@
 //    memory.  Integer division by runtime sizes goes through a
 //    multiply-high (FastDiv).
 //
-// 2. D = 64, 128 (LM heads; the streaming MHA at granite-8b's width):
-//    tc_attention_kernel.  A block owns 64 query rows and holds one or two
-//    consumer warpgroups (4 warps, 128 threads each); warp w of a warpgroup
-//    owns rows 16w .. 16w + 15:
-//    - bf16: S = Q K^T is wgmma.mma_async m64n64k16 with Q and K both read
-//      from shared memory, K-major (D contiguous), 128-byte swizzled.  The
-//      online softmax runs on the accumulator fragments (a row's max is
-//      combined over the 4 threads that share it with two shuffles; its sum
-//      only once, at the end).  P is rounded to bf16 in registers and is
-//      the register A operand of P V (m64nDk16); the V tile (keys x D, D
-//      contiguous) is the shared-memory B operand with the transpose bit.
-//      S of the next tile and P V of this one are issued back to back, and
-//      the next tile's softmax runs while P V is on the tensor cores.
-//    - float32: 3xTF32 on mma.sync for Q K^T and P V, not on wgmma: TF32 wgmma takes only K-major operands, so V
-//      would have to be written back transposed into shared memory each
-//      tile, and the split operands would have to be stored there too;
-//      mma.sync takes its fragments from registers, split on the way in.
-//      This route is bound by the splits and fragment loads on the CUDA
-//      cores (about 4 instructions per mma), not by the tensor cores.
-//    K/V tiles (64 keys in bf16, 32 in float32) come through a ring of two
-//    stages per warpgroup in dynamic shared memory, filled by TMA
-//    (cp.async.bulk.tensor, 3-D maps over (D, L, batch * heads), 128-byte
-//    swizzle) and tracked by mbarriers: the copy of a warpgroup's next tile
-//    is in flight while it computes this one.  Reads past L are TMA's zero
-//    fill, so no length need be a multiple of a tile.  The swizzle also
-//    makes the float32 fragment loads free of bank conflicts.  A block walks
-//    only the key tiles its rows can see; element masks are evaluated only
-//    on tiles that cross the diagonal, the window edge or the end of
-//    kv_len.  Grid balance: the grid is 1-D with the longest causal query
-//    tiles first, and under a causal mask a call takes as long as its
-//    longest block.  At (1, 8, 1024, D) the 128 blocks (8 heads x 16 query
-//    tiles) leave 4 of 132 SMs idle and the last tile walks all 16 key
-//    tiles of 64, so a block there takes two warpgroups that split its key
-//    tiles (tile j to warpgroup j % 2) and merge their rows' (max, sum,
-//    output) through shared memory at the end: the longest walk halves.  A
-//    bf16 grid with more blocks than SMs takes one warpgroup, whose smaller
-//    ring fits two blocks per SM; float32 always takes two.
+// 2. (q/k, V) head_dims (64, 64), (96, 64) and (128, 128) (LM heads, MLA's
+//    prefill attend at q/k 96 and V 64, the streaming MHA at granite-8b's
+//    width): tc_attention_kernel<T, DQK, DV, G>.  A block owns 64 query rows
+//    and holds G = 1 or 2 consumer warpgroups (4 warps, 128 threads each)
+//    that split its key tiles (tile j to warpgroup j % G) and merge their
+//    rows' (max, sum, output) through shared memory at the end; warp w of a
+//    warpgroup owns rows 16w .. 16w + 15.  Q and K are K-major (DQK
+//    contiguous) and V keeps its own head_dim: all three come by TMA
+//    straight from the unpadded tensors (cp.async.bulk.tensor, 3-D maps over
+//    (head_dim, L, batch * heads), 128-byte swizzle; at 96 in bf16 the
+//    second 64-column box is half past the tensor's edge, TMA's zero fill,
+//    which no product reads), K/V tiles through a ring of two stages per
+//    warpgroup tracked by mbarriers, the copy of a warpgroup's next tile in
+//    flight while it computes this one.  Reads past L are zero fill, so no
+//    length need be a multiple of a tile.
+//    - bf16 (64-key tiles): S = Q K^T is wgmma m64n64k16, DQK / 16 k-steps
+//      (6 at 96: no zero column multiplied), Q and K read from shared
+//      memory.  The online softmax runs on the accumulator fragments (a
+//      row's max over the 4 threads that share it with two shuffles, in
+//      log2 units with scale log2(e) folded into one FMA per score, then
+//      ex2; its sum only once, at the end).  P is rounded to bf16 in
+//      registers as the A operand of P V (m64nDVk16), the V tile the
+//      shared-memory B operand with the transpose bit.  S of the next tile
+//      and P V of this one are issued back to back, and the next tile's
+//      softmax runs while P V is on the tensor cores.  G = 2 where the grid
+//      leaves SMs idle (the longest causal walk halves), else G = 1, whose
+//      69 KB at (96, 64) fits three blocks on an SM.
+//    - float32: 3xTF32 on wgmma m64nNk8.  TF32 wgmma reads only K-major
+//      operands from shared memory, and reads each 32-bit operand truncated
+//      to TF32, so the halves are made once and kept there: Q's by each
+//      block (Veltkamp's split, the big half in place), K's by the
+//      warpgroup per tile (Veltkamp, in place), V's per tile transposed to
+//      V^T (DV rows x keys, keys contiguous, the permuted k order; the raw
+//      value is its own big half, the small half x - trunc(x)); P's in
+//      registers (Veltkamp) as the A operand.  S takes 3 DQK / 8 wgmma,
+//      P V 3 per 8 keys.  One warpgroup, 64-key tiles at (64, 64) and
+//      (96, 64) (189 KB of shared memory at (96, 64)), 32-key tiles at
+//      (128, 128); two warpgroups of 32-key tiles measured 3 % slower.
+//      Bound by the CUDA-core work around the products (the softmax, the
+//      splits, the transpose) more than by the tensor cores.  It replaced
+//      3xTF32 on mma.sync with operands split on every fragment load, 2x
+//      slower at the LM shapes (PERF.md).
+//    A block walks only the key tiles its rows can see; element masks are
+//    evaluated only on tiles that cross the diagonal, the window edge or the
+//    end of kv_len.  Grid order: 1-D, heads in groups whose K/V fills at
+//    most a quarter of L2 (the host's heads_per_group), a group's blocks
+//    consecutive with its longest causal query tiles first and its heads
+//    fastest, so the blocks in flight share a few heads' K/V in L2 and
+//    under a causal mask (a call takes as long as its longest block) the
+//    long walks still start first.  At minicpm3-4b's (8, 40, 2048, 96 / 64)
+//    bf16 the heads-fastest order measured 1.40x slower (PERF.md).
 //
 // Both kernels: GQA maps query head h to key/value head h / (Hq / Hkv) by
 // index; K/V are never repeated in memory.  LUT mode: exp from the
@@ -107,9 +121,9 @@
 // reciprocal from the 4096-entry log table at the end.
 //
 // The kernels allocate nothing and launch on the caller's stream; the C
-// entry returns cudaGetLastError() (or cudaErrorInvalidValue when a tensor
-// map cannot be encoded: at D = 64 / 128 a pointer that is not 16-byte
-// aligned).
+// entry returns cudaGetLastError() (or cudaErrorInvalidValue for a (q/k, V)
+// pair without an instance, or when a tensor map cannot be encoded: on the
+// tensor-core kernel a pointer that is not 16-byte aligned).
 
 #include <algorithm>
 #include <cuda.h>
@@ -132,25 +146,44 @@ constexpr int kInvSize = 4096;
 constexpr int kTcRows = 64;  // query rows per block
 constexpr float kLog2e = 1.4426950408889634f;
 
-// G consumer warpgroups per block share its 64 query rows and split the key
-// tiles between them (tile j to warpgroup j % G); two ring stages each.
-template <typename T, int D, int G>
+// Q/K head_dim DQK, V head_dim DV.  G consumer warpgroups per block share its
+// 64 query rows and split the key tiles between them (tile j to warpgroup
+// j % G); two ring stages each.  float32 runs one warpgroup and keeps,
+// beside the ring, the TF32 halves its wgmma products read: Q's small half,
+// one K tile's small half and one V tile transposed (V^T, DV rows x kBN
+// keys, keys contiguous in boxes of 32) as big and small halves.  Every
+// buffer starts on a 1024-byte swizzle period.
+template <typename T, int DQK, int DV, int G>
 struct TcTile {
     static constexpr int kThreads = 128 * G;
     static constexpr int kStages = 2 * G;  // the bf16 loop waits for tile j + G before it
                                            // releases tile j: two stages per warpgroup
     static constexpr bool kBf16 = sizeof(T) == 2;
-    static constexpr int kBN = kBf16 ? 64 : 32;       // keys per K/V tile
+    static_assert(kBf16 || G == 1, "float32 runs one warpgroup per block");
+    // keys per K/V tile: 64, or 32 where float32's buffers would not fit at 64
+    static constexpr int kBN = kBf16 || DQK + DV <= 192 ? 64 : 32;
     static constexpr int kNB = kBN / 8;               // 8-key blocks per tile
     static constexpr int kBoxCols = 128 / sizeof(T);  // columns of one 128-byte swizzled box
-    static constexpr int kBoxes = D / kBoxCols;
-    static constexpr int kQBytes = kTcRows * D * sizeof(T);
-    static constexpr int kKVBytes = kBN * D * sizeof(T);  // one K (or V) tile
-    static constexpr int kExpBytes = kExpSize * 4;
-    static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes + kExpBytes;
-    static_assert((D / 2 + 4) * 128 * 4 <= 2 * kStages * kKVBytes, "merge fits in the ring");
+    // Q/K boxes: bf16 at 96 takes two, the second half past the tensor's
+    // edge (TMA's zero fill; the products never read it)
+    static constexpr int kQKBoxes = (DQK + kBoxCols - 1) / kBoxCols;
+    static constexpr int kVBoxes = DV / kBoxCols;
+    static_assert(DV % kBoxCols == 0 && DV <= DQK, "V at whole boxes, at most q/k's head_dim");
+    static constexpr int kQBytes = kTcRows * kQKBoxes * 128;
+    static constexpr int kKBytes = kBN * kQKBoxes * 128;  // one K tile
+    static constexpr int kVBytes = kBN * kVBoxes * 128;   // one V tile
+    static constexpr int kStageBytes = kKBytes + kVBytes;
+    static constexpr int kVtBytes = kBf16 ? 0 : DV * kBN * 4;  // one half of V^T
+    static constexpr int kQsOffset = kQBytes;
+    static constexpr int kRingOffset = kQsOffset + (kBf16 ? 0 : kQBytes);
+    static constexpr int kKsOffset = kRingOffset + kStages * kStageBytes;
+    static constexpr int kVtOffset = kKsOffset + (kBf16 ? 0 : kKBytes);  // big, then small
+    static constexpr int kExpOffset = kVtOffset + 2 * kVtBytes;
+    static constexpr int kBarOffset = kExpOffset + kExpSize * 4;
+    static_assert((DV / 2 + 4) * 128 * 4 <= kStages * kStageBytes, "merge fits in the ring");
     // + 1024 for aligning the base to the 1024-byte swizzle period
     static constexpr int kSmemBytes = kBarOffset + 8 * (1 + kStages) + 1024;
+    static_assert(kSmemBytes <= 232448, "fits an SM's shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -283,16 +316,70 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// TF32 wgmma (m64nNk8): the tensor cores read the top 19 bits of each
+// 32-bit operand, so a float32 value is read truncated to TF32.  TF32 takes
+// only K-major operands (no transpose bit).
+#define REPRO_ACC8(d, i)                                                                 \
+    "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),        \
+        "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define REPRO_REGS16 \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define REPRO_REGS32 REPRO_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31"
+#define REPRO_REGS64 REPRO_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
+    "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+    "%58, %59, %60, %61, %62, %63"
+
+// D (64 x N, float32) (+)= A B, A (64 x 8) and B (8 x N) both K-major in
+// shared memory; N = 32 or 64 (the keys of an S tile).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                              int scale_d) {
+    if constexpr (N == 64) {
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" REPRO_REGS32
+                     "}, %32, %33, p, 1, 1;\n}\n"
+                     : REPRO_ACC8(d, 0), REPRO_ACC8(d, 8), REPRO_ACC8(d, 16), REPRO_ACC8(d, 24)
+                     : "l"(da), "l"(db), "r"(scale_d));
+    } else {
+        static_assert(N == 32, "S tiles of 32 or 64 keys");
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" REPRO_REGS16
+                     "}, %16, %17, p, 1, 1;\n}\n"
+                     : REPRO_ACC8(d, 0), REPRO_ACC8(d, 8)
+                     : "l"(da), "l"(db), "r"(scale_d));
+    }
+}
+
+// D (64 x N) += A B: A (64 x 8 TF32) from registers in the mma.m16n8k8
+// layout, B (8 x N) K-major in shared memory; N = 64 or 128 (V's head_dim).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t db) {
+    if constexpr (N == 64) {
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" REPRO_REGS32
+                     "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+                     : REPRO_ACC8(d, 0), REPRO_ACC8(d, 8), REPRO_ACC8(d, 16), REPRO_ACC8(d, 24)
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    } else {
+        static_assert(N == 128, "V head_dims of 64 or 128");
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" REPRO_REGS64
+                     "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+                     : REPRO_ACC8(d, 0), REPRO_ACC8(d, 8), REPRO_ACC8(d, 16), REPRO_ACC8(d, 24),
+                       REPRO_ACC8(d, 32), REPRO_ACC8(d, 40), REPRO_ACC8(d, 48), REPRO_ACC8(d, 56)
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    }
+}
+#undef REPRO_REGS64
+#undef REPRO_REGS32
+#undef REPRO_REGS16
+#undef REPRO_ACC8
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
     return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// big = rna(x) and small = rna(x - big) in TF32 (10 mantissa bits).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-    const float rest = x - __uint_as_float(big);
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
 }
 
 __device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4], uint32_t b0,
@@ -364,64 +451,6 @@ __device__ __forceinline__ void issue_pv_bf16(float (&o)[D / 2], const uint32_t 
             wgmma_rs_m64n128(o, a[kk], desc);
         } else {
             wgmma_rs_m64n64(o, a[kk], desc);
-        }
-    }
-}
-
-// S (64 x 32 keys) = Q K^T in 3xTF32; warp rows r0 and r0 + 8.  Even and
-// odd 8-column steps go to two accumulators (8 independent mma chains, not
-// 4).  The step loop is unrolled fully at D = 64 and by 2 at D = 128, which
-// keeps that path under 255 registers without spills.
-template <int D>
-__device__ __forceinline__ void scores_f32(float (&s)[16], const float* sq, const float* sk,
-                                           int r0, int g, int tig) {
-    constexpr int kUnroll = D <= 64 ? D / 16 : 2;
-    float s1[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] = s1[i] = 0.0f;
-#pragma unroll kUnroll
-    for (int kp = 0; kp < D / 16; ++kp) {
-        __syncwarp();  // bounds how far the loads of later steps are hoisted
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            float* acc = half ? s1 : s;
-            const int c0 = 16 * kp + 8 * half + tig, c1 = c0 + 4;
-            uint32_t ab[4], as[4];
-            split_tf32(sq[swz_f32<kTcRows>(r0, c0)], ab[0], as[0]);
-            split_tf32(sq[swz_f32<kTcRows>(r0 + 8, c0)], ab[1], as[1]);
-            split_tf32(sq[swz_f32<kTcRows>(r0, c1)], ab[2], as[2]);
-            split_tf32(sq[swz_f32<kTcRows>(r0 + 8, c1)], ab[3], as[3]);
-#pragma unroll
-            for (int nb = 0; nb < 4; ++nb) {
-                uint32_t bb0, bs0, bb1, bs1;
-                split_tf32(sk[swz_f32<32>(8 * nb + g, c0)], bb0, bs0);
-                split_tf32(sk[swz_f32<32>(8 * nb + g, c1)], bb1, bs1);
-                mma_3xtf32(&acc[4 * nb], ab, as, bb0, bb1, bs0, bs1);
-            }
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] += s1[i];
-}
-
-// O (64 x D) += P V in 3xTF32.  The k index t of an 8-key step is key 2t
-// for t < 4 and key 2(t - 4) + 1 above, so P's fragment is the A operand.
-template <int D>
-__device__ __forceinline__ void pv_f32(float (&o)[D / 2], const float (&p)[16], const float* sv,
-                                       int g, int tig) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-        uint32_t ab[4], as[4];
-        split_tf32(p[4 * kk + 0], ab[0], as[0]);
-        split_tf32(p[4 * kk + 2], ab[1], as[1]);
-        split_tf32(p[4 * kk + 1], ab[2], as[2]);
-        split_tf32(p[4 * kk + 3], ab[3], as[3]);
-#pragma unroll
-        for (int nb = 0; nb < D / 8; ++nb) {
-            uint32_t bb0, bs0, bb1, bs1;
-            split_tf32(sv[swz_f32<32>(8 * kk + 2 * tig, 8 * nb + g)], bb0, bs0);
-            split_tf32(sv[swz_f32<32>(8 * kk + 2 * tig + 1, 8 * nb + g)], bb1, bs1);
-            mma_3xtf32(&o[4 * nb], ab, as, bb0, bb1, bs0, bs1);
         }
     }
 }
@@ -937,29 +966,161 @@ small_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait<0>();
 }
 
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(TcTile<T, D, G>::kThreads)
+// ------------------------------------------------------------------------
+// float32 on wgmma (tensor-core path): 3xTF32 with each operand split once
+// into TF32 halves in shared memory (Q once per block, K and V once per tile)
+// or in registers (P).  Q, K and P take Veltkamp's split (split_fast: the
+// big half to nearest, the small half read truncated, 2^-23 |x| at most).
+// The tensor cores read a 32-bit operand truncated to TF32, so V's raw
+// values are its own big half and the small half is the exact rest
+// x - trunc(x) (read truncated: 2^-21 |x| at most, on the output only).
+
+__device__ __forceinline__ float small_trunc(float x) {
+    return __fsub_rn(x, __uint_as_float(__float_as_uint(x) & 0xffffe000u));
+}
+
+// Q's halves, once per block: the big half in place, the small half at qs.
+template <int BYTES>
+__device__ __forceinline__ void split_q_smem(float* q, float* qs, int tid) {
+    float4* q4 = reinterpret_cast<float4*>(q);
+    float4* s4 = reinterpret_cast<float4*>(qs);
+    for (int i = tid; i < BYTES / 16; i += 128) {
+        float x[4] = {q4[i].x, q4[i].y, q4[i].z, q4[i].w};
+        uint32_t b[4], sm[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) split_fast(x[r], b[r], sm[r]);
+        q4[i] = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]), __uint_as_float(b[2]),
+                            __uint_as_float(b[3]));
+        s4[i] = make_float4(__uint_as_float(sm[0]), __uint_as_float(sm[1]),
+                            __uint_as_float(sm[2]), __uint_as_float(sm[3]));
+    }
+}
+
+// A K tile's halves: Veltkamp's big half in place, the small half at ks, in
+// the tile's own (swizzled) layout.  Rounding the big half (rather than
+// reading K truncated) keeps the scores within 2^-23 of their float32
+// value, so that the LUT softmax's table indices move at ties only.
+template <int BYTES>
+__device__ __forceinline__ void split_k_smem(float* k, float* ks, int tid) {
+    float4* k4 = reinterpret_cast<float4*>(k);
+    float4* s4 = reinterpret_cast<float4*>(ks);
+#pragma unroll 2
+    for (int i = tid; i < BYTES / 16; i += 128) {
+        float x[4] = {k4[i].x, k4[i].y, k4[i].z, k4[i].w};
+        uint32_t b[4], sm[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) split_fast(x[r], b[r], sm[r]);
+        k4[i] = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]), __uint_as_float(b[2]),
+                            __uint_as_float(b[3]));
+        s4[i] = make_float4(__uint_as_float(sm[0]), __uint_as_float(sm[1]),
+                            __uint_as_float(sm[2]), __uint_as_float(sm[3]));
+    }
+}
+
+// V^T's big and small halves (DV rows x BN keys, keys contiguous in boxes of
+// 32, 128-byte swizzled: the K-major B operand of P V) from a V tile (BN
+// keys x DV, boxes of 32 columns).  The keys of each 8-key block are
+// permuted (k index t <-> key 2t, t + 4 <-> key 2t + 1), so P's accumulator
+// fragment is its A fragment.  A thread takes (row n, 4 k indices); a
+// warp's lanes take 32 consecutive n, so its loads read one 128-byte row and
+// each 8-lane phase of its 16-byte stores falls in 8 different bank groups.
+template <int DV, int BN>
+__device__ __forceinline__ void transpose_v_smem(const float* v, float* vtb, float* vts, int tid) {
+#pragma unroll 4
+    for (int i = tid; i < DV * BN / 4; i += 128) {
+        const int n = i % DV, c = i / DV;         // k indices 4c .. 4c + 3
+        const int key0 = 8 * (c >> 1) + (c & 1);  // their keys: key0, + 2, + 4, + 6
+        float x[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) x[t] = v[swz_f32<BN>(key0 + 2 * t, n)];
+        const int o = swz_f32<DV>(n, 4 * c);
+        *reinterpret_cast<float4*>(vtb + o) = make_float4(x[0], x[1], x[2], x[3]);
+        *reinterpret_cast<float4*>(vts + o) = make_float4(small_trunc(x[0]), small_trunc(x[1]),
+                                                          small_trunc(x[2]), small_trunc(x[3]));
+    }
+}
+
+// Issues S (64 x BN keys) = Q K^T as three TF32 products per k8 step
+// (small * big, big * small, big * big), every operand K-major in shared
+// memory (4 k8 steps per 128-byte box).
+template <int DQK, int BN>
+__device__ __forceinline__ void issue_scores_f32(float (&s)[BN / 2], uint32_t q, uint32_t qs,
+                                                 uint32_t k, uint32_t ks) {
+#pragma unroll
+    for (int st = 0; st < DQK / 8; ++st) {
+        const uint32_t qo = (st / 4) * (kTcRows * 128) + (st % 4) * 32;
+        const uint32_t ko = (st / 4) * (BN * 128) + (st % 4) * 32;
+        wgmma_ss_tf32<BN>(s, sw128_desc(qs + qo, 0), sw128_desc(k + ko, 0), st > 0);
+        wgmma_ss_tf32<BN>(s, sw128_desc(q + qo, 0), sw128_desc(ks + ko, 0), 1);
+        wgmma_ss_tf32<BN>(s, sw128_desc(q + qo, 0), sw128_desc(k + ko, 0), 1);
+    }
+}
+
+// P's TF32 halves as wgmma A fragments (Veltkamp), in the permuted k order:
+// k8 step kk holds key block kk, p[4 kk .. 4 kk + 3].
+template <int NB>
+__device__ __forceinline__ void split_p(uint32_t (&pb)[NB][4], uint32_t (&ps)[NB][4],
+                                        const float (&p)[NB * 4]) {
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+        split_fast(p[4 * kk + 0], pb[kk][0], ps[kk][0]);
+        split_fast(p[4 * kk + 2], pb[kk][1], ps[kk][1]);
+        split_fast(p[4 * kk + 1], pb[kk][2], ps[kk][2]);
+        split_fast(p[4 * kk + 3], pb[kk][3], ps[kk][3]);
+    }
+}
+
+// Issues O (64 x DV) += P V as three TF32 products per 8-key step: P from
+// registers, V^T's halves from shared memory.
+template <int DV, int NB>
+__device__ __forceinline__ void issue_pv_f32(float (&o)[DV / 2], const uint32_t (&pb)[NB][4],
+                                             const uint32_t (&ps)[NB][4], uint32_t vtb,
+                                             uint32_t vts) {
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+        const uint32_t off = (kk / 4) * (DV * 128) + (kk % 4) * 32;
+        wgmma_rs_tf32<DV>(o, ps[kk], sw128_desc(vtb + off, 0));
+        wgmma_rs_tf32<DV>(o, pb[kk], sw128_desc(vts + off, 0));
+        wgmma_rs_tf32<DV>(o, pb[kk], sw128_desc(vtb + off, 0));
+    }
+}
+
+template <int NB>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[NB][4]) {
+#pragma unroll
+    for (int i = 0; i < NB * 4; ++i) asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
+}
+
+template <typename T, int DQK, int DV, int G>
+__global__ void __launch_bounds__(TcTile<T, DQK, DV, G>::kThreads)
 tc_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, T* __restrict__ out,
                     const float* __restrict__ exp_tab, const float* __restrict__ inv_tab,
                     int BHq, int Hq, int Hkv, int Lq, int Lkv, int kv_len, int causal,
                     int window, int lut_mode, float scale, float exp_off, float exp_step,
-                    float inv_off, float inv_step) {
-    using C = TcTile<T, D, G>;
+                    float inv_off, float inv_step, int heads_per_group) {
+    using C = TcTile<T, DQK, DV, G>;
     constexpr int kStages = C::kStages;
     extern __shared__ uint8_t smem_raw[];
     uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-    float* s_exp = reinterpret_cast<float*>(smem + C::kQBytes + 2 * kStages * C::kKVBytes);
+    float* s_exp = reinterpret_cast<float*>(smem + C::kExpOffset);
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);  // Q, then one per stage
-    auto stage_k = [&](int st) { return smem + C::kQBytes + st * 2 * C::kKVBytes; };
-    auto stage_v = [&](int st) { return stage_k(st) + C::kKVBytes; };
+    auto stage_k = [&](int st) { return smem + C::kRingOffset + st * C::kStageBytes; };
+    auto stage_v = [&](int st) { return stage_k(st) + C::kKBytes; };
 
     const int tid = threadIdx.x, wg = tid / 128, wtid = tid % 128;
     const int warp = wtid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
     const int r0 = 16 * warp + g;  // this thread's rows of the tile: r0 and r0 + 8
     const int nqt = (Lq + kTcRows - 1) / kTcRows;
-    const int bh = blockIdx.x % BHq;
-    const int q0 = (nqt - 1 - blockIdx.x / BHq) * kTcRows;  // longest causal tiles first
+    // Grid order: heads in groups whose K/V fits in a share of L2 (the host
+    // picks heads_per_group), a group's blocks consecutive, so the blocks in
+    // flight share a few heads' K/V tiles in L2; within a group the longest
+    // causal query tiles first, heads fastest.
+    const int per_group = heads_per_group * nqt;
+    const int grp = blockIdx.x / per_group, in_grp = blockIdx.x - grp * per_group;
+    const int heads = min(heads_per_group, BHq - grp * heads_per_group);
+    const int bh = grp * heads_per_group + in_grp % heads;
+    const int q0 = (nqt - 1 - in_grp / heads) * kTcRows;
     const int hkv = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
 
     // Keys any row of this block can attend to.
@@ -971,11 +1132,14 @@ tc_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
     auto issue = [&](int tile) {  // K and V of one tile into its stage
         const int st = tile % kStages, t0 = kv_lo + tile * C::kBN;
-        mbar_expect_tx(&bars[1 + st], 2 * C::kKVBytes);
+        mbar_expect_tx(&bars[1 + st], C::kStageBytes);
 #pragma unroll
-        for (int bx = 0; bx < C::kBoxes; ++bx) {
+        for (int bx = 0; bx < C::kQKBoxes; ++bx) {
             tma_load_3d(stage_k(st) + bx * C::kBN * 128, &tk, bx * C::kBoxCols, t0, hkv,
                         &bars[1 + st]);
+        }
+#pragma unroll
+        for (int bx = 0; bx < C::kVBoxes; ++bx) {
             tma_load_3d(stage_v(st) + bx * C::kBN * 128, &tv, bx * C::kBoxCols, t0, hkv,
                         &bars[1 + st]);
         }
@@ -992,64 +1156,65 @@ tc_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     if (tid == 0) {
         mbar_expect_tx(&bars[0], C::kQBytes);
 #pragma unroll
-        for (int bx = 0; bx < C::kBoxes; ++bx) {
+        for (int bx = 0; bx < C::kQKBoxes; ++bx) {
             tma_load_3d(smem + bx * kTcRows * 128, &tq, bx * C::kBoxCols, q0, bh, &bars[0]);
         }
         for (int t = 0; t < min(kStages, n_tiles); ++t) issue(t);
     }
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
     mbar_wait(&bars[0], 0);
 
-    // Scales and masks one tile's scores (s: element i is key block i / 4, row
-    // r0 + 8 ((i / 2) % 2), key 2 tig + i % 2 of the block) and turns them into
-    // weights in place.  alpha rescales the rows' earlier sums (1 in lut mode).
+    // Masks one tile's scores (s: element i is key block i / 4, row r0 + 8
+    // ((i / 2) % 2), key 2 tig + i % 2 of the block) and turns them into
+    // weights in place.  alpha rescales the rows' earlier sums (1 in lut
+    // mode).  safe: the running max m in log2 units (scale log2(e) folded
+    // into one FMA per score, then ex2); lut: the table index without a
+    // division (lut.cuh: lut_index_linear_fast).
+    const float sc = scale * kLog2e, exp_inv_step = 1.0f / exp_step;
     auto softmax = [&](float (&s)[C::kNB * 4], int t0, float (&alpha)[2]) {
         // element masks only on tiles at the end of the keys, the diagonal or the window edge
-        const bool edge = t0 + C::kBN > kv_hi || (causal && t0 + C::kBN - 1 > q0) ||
-                          (window > 0 && q_last - t0 >= window);
+        if (t0 + C::kBN > kv_hi || (causal && t0 + C::kBN - 1 > q0) ||
+            (window > 0 && q_last - t0 >= window)) {
 #pragma unroll
-        for (int i = 0; i < C::kNB * 4; ++i) {
-            float x = s[i] * scale;
-            if (edge) {
+            for (int i = 0; i < C::kNB * 4; ++i) {
                 const int qi = q0 + r0 + 8 * ((i >> 1) & 1);
                 const int kpos = t0 + 8 * (i >> 2) + 2 * tig + (i & 1);
                 const bool ok = kpos < kv_hi && (!causal || kpos <= qi) &&
                                 (window <= 0 || qi - kpos < window);
-                if (!ok) x = -INFINITY;
+                if (!ok) s[i] = -INFINITY;
             }
-            s[i] = x;
         }
         if (lut_mode) {  // no max subtraction: weights straight from the table
             alpha[0] = alpha[1] = 1.0f;
 #pragma unroll
             for (int i = 0; i < C::kNB * 4; ++i) {
-                s[i] = s[i] == -INFINITY
-                           ? 0.0f
-                           : s_exp[lut_index_linear(s[i], exp_off, exp_step, kExpSize)];
+                const float w = s_exp[lut_index_linear_fast(s[i] * scale, exp_off, exp_step,
+                                                             exp_inv_step, kExpSize)];
+                s[i] = s[i] == -INFINITY ? 0.0f : w;
                 l[(i >> 1) & 1] += s[i];
             }
             return;
         }
-        float mt[2] = {-INFINITY, -INFINITY}, mu[2];
+        float mt[2] = {-INFINITY, -INFINITY}, mu[2];  // sc > 0: max(s sc) = sc max(s)
 #pragma unroll
         for (int i = 0; i < C::kNB * 4; ++i) mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], s[i]);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {  // the 4 threads of a row: lanes 4 g .. 4 g + 3
             mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
             mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
-            const float m_new = fmaxf(m[h], mt[h]);
+            const float m_new = fmaxf(m[h], mt[h] * sc);
             mu[h] = m_new == -INFINITY ? 0.0f : m_new;  // a row with nothing visible yet
-            alpha[h] = exp2f((m[h] - mu[h]) * kLog2e);  // 0 on the first visible tile
+            alpha[h] = ex2_approx(m[h] - mu[h]);        // 0 on the first visible tile
             m[h] = m_new;
             l[h] *= alpha[h];
         }
 #pragma unroll
         for (int i = 0; i < C::kNB * 4; ++i) {
-            s[i] = exp2f((s[i] - mu[(i >> 1) & 1]) * kLog2e);
+            s[i] = ex2_approx(fmaf(s[i], sc, -mu[(i >> 1) & 1]));
             l[(i >> 1) & 1] += s[i];
         }
     };
@@ -1067,7 +1232,7 @@ tc_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         int j = wg;
         if (j < n_tiles) {
             mbar_wait(&bars[1 + j % kStages], (j / kStages) & 1);
-            scores_bf16<D>(s, smem_u32(smem), smem_u32(stage_k(j % kStages)));
+            scores_bf16<DQK>(s, smem_u32(smem), smem_u32(stage_k(j % kStages)));
             softmax(s, kv_lo + j * C::kBN, alpha);
         }
         // Steady state; the last tile is peeled off so that no wgmma is issued
@@ -1078,9 +1243,9 @@ tc_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
             mbar_wait(&bars[1 + next % kStages], (next / kStages) & 1);
             fence_regs(o);
             wgmma_fence();
-            issue_scores_bf16<D>(s, smem_u32(smem), smem_u32(stage_k(next % kStages)));
+            issue_scores_bf16<DQK>(s, smem_u32(smem), smem_u32(stage_k(next % kStages)));
             wgmma_commit();
-            issue_pv_bf16<D>(o, pa, smem_u32(stage_v(j % kStages)));
+            issue_pv_bf16<DV>(o, pa, smem_u32(stage_v(j % kStages)));
             wgmma_commit();
             wgmma_wait<1>();
             fence_regs(s);
@@ -1090,13 +1255,13 @@ tc_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
             fence_regs(pa);
             release(j);
 #pragma unroll
-            for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+            for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
         }
         if (j < n_tiles) {
             pack_p(pa, s);
             fence_regs(o);
             wgmma_fence();
-            issue_pv_bf16<D>(o, pa, smem_u32(stage_v(j % kStages)));
+            issue_pv_bf16<DV>(o, pa, smem_u32(stage_v(j % kStages)));
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs(o);
@@ -1104,30 +1269,102 @@ tc_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
             release(j);
         }
     } else {
-        for (int j = wg; j < n_tiles; j += G) {  // warpgroup wg takes tiles wg, wg + G, ...
-            const int st = j % kStages;
-            mbar_wait(&bars[1 + st], (j / kStages) & 1);
-            scores_f32<D>(s, reinterpret_cast<const float*>(smem),
-                          reinterpret_cast<const float*>(stage_k(st)), r0, g, tig);
-            softmax(s, kv_lo + j * C::kBN, alpha);
+        // float32: 3xTF32 on wgmma, one warpgroup.  Per tile j: P(j)'s halves
+        // in registers, V(j)^T's and K(j + 1)'s halves into shared memory
+        // (which frees stage j for tile j + 2's copy), then S(j + 1) and
+        // O += P(j) V(j) issued back to back, and the softmax of tile j + 1 on
+        // the CUDA cores while P(j) V(j) is on the tensor cores.
+        constexpr int kNB = C::kNB;
+        float* ks_f = reinterpret_cast<float*>(smem + C::kKsOffset);
+        float* vtb_f = reinterpret_cast<float*>(smem + C::kVtOffset);
+        float* vts_f = vtb_f + C::kVtBytes / 4;
+        const uint32_t q_a = smem_u32(smem), qs_a = smem_u32(smem + C::kQsOffset);
+        const uint32_t ks_a = smem_u32(ks_f), vtb_a = smem_u32(vtb_f), vts_a = smem_u32(vts_f);
+        auto to_async = [&] {  // the block's shared-memory writes, visible to wgmma
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            __syncthreads();
+        };
+        auto split_k = [&](int j) {
+            mbar_wait(&bars[1 + j % kStages], (j / kStages) & 1);
+            split_k_smem<C::kKBytes>(reinterpret_cast<float*>(stage_k(j % kStages)), ks_f, tid);
+        };
+        auto transpose_v = [&](int j) {
+            transpose_v_smem<DV, C::kBN>(reinterpret_cast<const float*>(stage_v(j % kStages)),
+                                         vtb_f, vts_f, tid);
+        };
+        auto scale_o = [&] {
 #pragma unroll
-            for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-            pv_f32<D>(o, s, reinterpret_cast<const float*>(stage_v(st)), g, tig);
-            release(j);
+            for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        };
+        split_q_smem<C::kQBytes>(reinterpret_cast<float*>(smem),
+                                 reinterpret_cast<float*>(smem + C::kQsOffset), tid);
+        if (n_tiles > 0) split_k(0);
+        to_async();
+        uint32_t pb[kNB][4], ps[kNB][4];
+        if (n_tiles > 0) {
+            fence_regs(s);
+            wgmma_fence();
+            issue_scores_f32<DQK, C::kBN>(s, q_a, qs_a, smem_u32(stage_k(0)), ks_a);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(s);
+            softmax(s, kv_lo, alpha);
+        }
+        // Steady state; the last tile is peeled off (no wgmma under a condition).
+        int j = 0;
+        for (; j + 1 < n_tiles; ++j) {
+            scale_o();
+            split_p(pb, ps, s);
+            transpose_v(j);
+            split_k(j + 1);
+            to_async();
+            if (tid == 0 && j + kStages < n_tiles) issue(j + kStages);  // stage j is free
+            fence_regs(o);
+            fence_regs(pb);
+            fence_regs(ps);
+            wgmma_fence();
+            issue_scores_f32<DQK, C::kBN>(s, q_a, qs_a, smem_u32(stage_k((j + 1) % kStages)),
+                                          ks_a);
+            wgmma_commit();
+            issue_pv_f32<DV, kNB>(o, pb, ps, vtb_a, vts_a);
+            wgmma_commit();
+            wgmma_wait<1>();
+            fence_regs(s);
+            softmax(s, kv_lo + (j + 1) * C::kBN, alpha);
+            wgmma_wait<0>();
+            fence_regs(o);
+            fence_regs(pb);
+            fence_regs(ps);
+        }
+        if (j < n_tiles) {
+            scale_o();
+            split_p(pb, ps, s);
+            transpose_v(j);
+            to_async();
+            fence_regs(o);
+            fence_regs(pb);
+            fence_regs(ps);
+            wgmma_fence();
+            issue_pv_f32<DV, kNB>(o, pb, ps, vtb_a, vts_a);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(o);
+            fence_regs(pb);
+            fence_regs(ps);
         }
     }
 
     // Merge warpgroup 1's rows into warpgroup 0's through the idle ring.
     if constexpr (G == 2) {
         __syncthreads();
-        float* xch = reinterpret_cast<float*>(smem + C::kQBytes);  // [D / 2 + 4][128]
+        float* xch = reinterpret_cast<float*>(smem + C::kRingOffset);  // [DV / 2 + 4][128]
         if (wg == 1) {
 #pragma unroll
-            for (int i = 0; i < D / 2; ++i) xch[i * 128 + wtid] = o[i];
+            for (int i = 0; i < DV / 2; ++i) xch[i * 128 + wtid] = o[i];
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-                xch[(D / 2 + h) * 128 + wtid] = m[h];
-                xch[(D / 2 + 2 + h) * 128 + wtid] = l[h];
+                xch[(DV / 2 + h) * 128 + wtid] = m[h];
+                xch[(DV / 2 + 2 + h) * 128 + wtid] = l[h];
             }
         }
         __syncthreads();
@@ -1135,17 +1372,18 @@ tc_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         float a0[2] = {1.0f, 1.0f}, a1[2] = {1.0f, 1.0f};  // lut: plain sums
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-            const float m1 = xch[(D / 2 + h) * 128 + wtid], l1 = xch[(D / 2 + 2 + h) * 128 + wtid];
+            const float m1 = xch[(DV / 2 + h) * 128 + wtid];
+            const float l1 = xch[(DV / 2 + 2 + h) * 128 + wtid];
             if (!lut_mode) {
-                const float mm = fmaxf(m[h], m1);
+                const float mm = fmaxf(m[h], m1);  // log2 units
                 const float mu = mm == -INFINITY ? 0.0f : mm;
-                a0[h] = exp2f((m[h] - mu) * kLog2e);
-                a1[h] = exp2f((m1 - mu) * kLog2e);
+                a0[h] = ex2_approx(m[h] - mu);
+                a1[h] = ex2_approx(m1 - mu);
             }
             l[h] = l[h] * a0[h] + l1 * a1[h];
         }
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) {
+        for (int i = 0; i < DV / 2; ++i) {
             o[i] = o[i] * a0[(i >> 1) & 1] + xch[i * 128 + wtid] * a1[(i >> 1) & 1];
         }
     }
@@ -1163,9 +1401,9 @@ tc_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
             inv = lut_mode ? __ldg(&inv_tab[lut_index_log(l[h], inv_off, inv_step, kInvSize)])
                            : 1.0f / l[h];
         }
-        T* op = out + (static_cast<long long>(bh) * Lq + qi) * D + 2 * tig;
+        T* op = out + (static_cast<long long>(bh) * Lq + qi) * DV + 2 * tig;
 #pragma unroll
-        for (int nb = 0; nb < D / 8; ++nb) {
+        for (int nb = 0; nb < DV / 8; ++nb) {
             store_pair(op + 8 * nb, o[4 * nb + 2 * h] * inv, o[4 * nb + 2 * h + 1] * inv);
         }
     }
@@ -1191,16 +1429,17 @@ EncodeTiledFn encode_tiled() {
     return fn;
 }
 
-// (D, L, heads) map of a contiguous (B, H, L, D) tensor; boxes of 128 bytes x rows x 1,
-// 128-byte swizzle, zeros past every edge.
-template <typename T, int D>
-bool encode_map(CUtensorMap* map, const void* base, int L, int heads, int rows) {
-    constexpr cuuint32_t kBoxCols = TcTile<T, D, 1>::kBoxCols;
+// (cols, L, heads) map of a contiguous (B, H, L, cols) tensor; boxes of 128
+// bytes x rows x 1, 128-byte swizzle, zeros past every edge (a box that
+// reaches past cols reads nothing there).
+template <typename T>
+bool encode_map(CUtensorMap* map, const void* base, int cols, int L, int heads, int rows) {
+    constexpr cuuint32_t kBoxCols = 128 / sizeof(T);
     const EncodeTiledFn encode = encode_tiled();
     if (encode == nullptr) return false;
-    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(L),
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(L),
                                 static_cast<cuuint64_t>(heads)};
-    const cuuint64_t strides[2] = {D * sizeof(T), static_cast<cuuint64_t>(L) * D * sizeof(T)};
+    const cuuint64_t strides[2] = {cols * sizeof(T), static_cast<cuuint64_t>(L) * cols * sizeof(T)};
     const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(rows), 1};
     const cuuint32_t elem[3] = {1, 1, 1};
     const CUtensorMapDataType type =
@@ -1304,92 +1543,117 @@ cudaError_t launch_small(const void* q, const void* k, const void* v, void* out,
 #undef REPRO_FA_SMALL
 }
 
-template <typename T, int D, int G>
-cudaError_t launch_tc_groups(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                             int dev, int blocks, void* out, const float* exp_tab,
+template <typename T, int DQK, int DV, int G>
+cudaError_t launch_tc_groups(const void* q, const void* k, const void* v, int dev, int blocks,
+                             int heads_per_group, void* out, const float* exp_tab,
                              const float* inv_tab, int B, int Hq, int Hkv, int Lq, int Lkv,
                              int kv_len, int causal, int window, int lut_mode, float scale,
                              float exp_off, float exp_step, float inv_off, float inv_step,
                              cudaStream_t stream) {
-    using C = TcTile<T, D, G>;
+    using C = TcTile<T, DQK, DV, G>;
+    CUtensorMap tq, tk, tv;  // K/V boxes of this instance's kBN keys
+    if (!encode_map<T>(&tq, q, DQK, Lq, B * Hq, kTcRows) ||
+        !encode_map<T>(&tk, k, DQK, Lkv, B * Hkv, C::kBN) ||
+        !encode_map<T>(&tv, v, DV, Lkv, B * Hkv, C::kBN)) {
+        return cudaErrorInvalidValue;
+    }
     static bool opted_in[kMaxDevices] = {};
     if (!opted_in[dev]) {
         const cudaError_t err = cudaFuncSetAttribute(
-            tc_attention_kernel<T, D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            tc_attention_kernel<T, DQK, DV, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             C::kSmemBytes);
         if (err != cudaSuccess) return err;
         opted_in[dev] = true;
     }
-    tc_attention_kernel<T, D, G><<<blocks, C::kThreads, C::kSmemBytes, stream>>>(
+    tc_attention_kernel<T, DQK, DV, G><<<blocks, C::kThreads, C::kSmemBytes, stream>>>(
         tq, tk, tv, static_cast<T*>(out), exp_tab, inv_tab, B * Hq, Hq, Hkv, Lq, Lkv, kv_len,
-        causal, window, lut_mode, scale, exp_off, exp_step, inv_off, inv_step);
+        causal, window, lut_mode, scale, exp_off, exp_step, inv_off, inv_step, heads_per_group);
     return cudaGetLastError();
 }
 
-template <typename T, int D>
+// L2 bytes of the current device, once per device.
+int l2_bytes(int dev) {
+    static int bytes[kMaxDevices] = {};
+    if (bytes[dev] == 0) cudaDeviceGetAttribute(&bytes[dev], cudaDevAttrL2CacheSize, dev);
+    return bytes[dev];
+}
+
+template <typename T, int DQK, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       const float* exp_tab, const float* inv_tab, int B, int Hq, int Hkv, int Lq,
                       int Lkv, int kv_len, int causal, int window, int lut_mode, float scale,
                       float exp_off, float exp_step, float inv_off, float inv_step,
                       cudaStream_t stream) {
-    constexpr int kBN = TcTile<T, D, 1>::kBN;
-    CUtensorMap tq, tk, tv;
-    if (!encode_map<T, D>(&tq, q, Lq, B * Hq, kTcRows) ||
-        !encode_map<T, D>(&tk, k, Lkv, B * Hkv, kBN) ||
-        !encode_map<T, D>(&tv, v, Lkv, B * Hkv, kBN)) {
-        return cudaErrorInvalidValue;
-    }
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-    // Two warpgroups per block halve the longest block's key walk.  In bf16
-    // a grid that fills the SMs takes one instead, whose smaller ring fits
-    // two blocks on an SM; float32 gains from the second warpgroup's latency
-    // hiding at every size (measured on an H100).
     const int blocks = B * Hq * ((Lq + kTcRows - 1) / kTcRows);
-    const bool two_groups = sizeof(T) == 4 || blocks <= sm_count(dev);
-#define REPRO_FA_TC(G)                                                                       \
-    launch_tc_groups<T, D, G>(tq, tk, tv, dev, blocks, out, exp_tab, inv_tab, B, Hq, Hkv, Lq, \
-                              Lkv, kv_len, causal, window, lut_mode, scale, exp_off, exp_step, \
-                              inv_off, inv_step, stream)
-    err = two_groups ? REPRO_FA_TC(2) : REPRO_FA_TC(1);
+    // Heads per group of the grid order: as many key/value heads as fill a
+    // quarter of L2 (at least one), with all the query heads that read them.
+    const long long kv_head_bytes = 1LL * Lkv * (DQK + DV) * sizeof(T);
+    const long long kv_per_group = std::max(1LL, l2_bytes(dev) / 4 / kv_head_bytes);
+    const int heads_per_group =
+        static_cast<int>(std::min<long long>(1LL * B * Hq, kv_per_group * (Hq / Hkv)));
+#define REPRO_FA_TC(G)                                                                         \
+    launch_tc_groups<T, DQK, DV, G>(q, k, v, dev, blocks, heads_per_group, out, exp_tab,       \
+                                    inv_tab, B, Hq, Hkv, Lq, Lkv, kv_len, causal, window,      \
+                                    lut_mode, scale, exp_off, exp_step, inv_off, inv_step,     \
+                                    stream)
+    if constexpr (sizeof(T) == 4) {
+        // float32: one warpgroup (two of 32-key tiles measured 3 % slower at
+        // the LM shapes, PERF.md)
+        err = REPRO_FA_TC(1);
+    } else {
+        // bf16: two warpgroups per block halve the longest block's key walk
+        // where the grid does not fill the SMs; else one, whose smaller ring
+        // fits more blocks on an SM
+        err = blocks <= sm_count(dev) ? REPRO_FA_TC(2) : REPRO_FA_TC(1);
+    }
 #undef REPRO_FA_TC
     return err;
 }
 
+// The instances by (q/k head_dim, V head_dim): 8, 16, 32 on the small-head
+// kernel, (64, 64), (96, 64) and (128, 128) on the tensor-core one.
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
+cudaError_t dispatch_d(int D, int DV, const void* q, const void* k, const void* v, void* out,
                        const float* exp_tab, const float* inv_tab, int B, int Hq,
                        int Hkv, int Lq, int Lkv, int kv_len, int causal, int window,
                        int lut_mode, float scale, float exp_off, float exp_step,
                        float inv_off, float inv_step, cudaStream_t stream) {
-#define REPRO_FA_CASE(DIM, LAUNCH)                                                      \
-    case DIM:                                                                           \
-        return LAUNCH<T, DIM>(q, k, v, out, exp_tab, inv_tab, B, Hq, Hkv, Lq, Lkv,      \
-                              kv_len, causal, window, lut_mode, scale, exp_off,         \
-                              exp_step, inv_off, inv_step, stream);
+#define REPRO_FA_CALL(LAUNCH)                                                     \
+    LAUNCH(q, k, v, out, exp_tab, inv_tab, B, Hq, Hkv, Lq, Lkv, kv_len, causal,   \
+           window, lut_mode, scale, exp_off, exp_step, inv_off, inv_step, stream)
+    if (D == 96 && DV == 64) return REPRO_FA_CALL((launch_tc<T, 96, 64>));
+    if (D != DV) return cudaErrorInvalidValue;
     switch (D) {
-        REPRO_FA_CASE(8, launch_small)
-        REPRO_FA_CASE(16, launch_small)
-        REPRO_FA_CASE(32, launch_small)
-        REPRO_FA_CASE(64, launch_tc)
-        REPRO_FA_CASE(128, launch_tc)
+        case 8:
+            return REPRO_FA_CALL((launch_small<T, 8>));
+        case 16:
+            return REPRO_FA_CALL((launch_small<T, 16>));
+        case 32:
+            return REPRO_FA_CALL((launch_small<T, 32>));
+        case 64:
+            return REPRO_FA_CALL((launch_tc<T, 64, 64>));
+        case 128:
+            return REPRO_FA_CALL((launch_tc<T, 128, 128>));
         default:
             return cudaErrorInvalidValue;
     }
-#undef REPRO_FA_CASE
+#undef REPRO_FA_CALL
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// q (B, Hq, Lq, D), k/v (B, Hkv, Lkv, D), out (B, Hq, Lq, D), all contiguous,
-// dtype 0 = float32, 1 = bfloat16.  window <= 0 means no sliding window.
+// q (B, Hq, Lq, D), k (B, Hkv, Lkv, D), v (B, Hkv, Lkv, DV), out (B, Hq, Lq,
+// DV), all contiguous, dtype 0 = float32, 1 = bfloat16.  window <= 0 means
+// no sliding window.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* out, const float* exp_tab,
                                      const float* inv_tab, int B, int Hq, int Hkv,
-                                     int Lq, int Lkv, int D, int kv_len, int causal,
+                                     int Lq, int Lkv, int D, int DV, int kv_len, int causal,
                                      int window, int lut_mode, int dtype, float scale,
                                      float exp_off, float exp_step, float inv_off,
                                      float inv_step, void* stream) {
@@ -1401,11 +1665,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (dtype == 0) {
-        err = dispatch_d<float>(D, q, k, v, out, exp_tab, inv_tab, B, Hq, Hkv, Lq, Lkv,
+        err = dispatch_d<float>(D, DV, q, k, v, out, exp_tab, inv_tab, B, Hq, Hkv, Lq, Lkv,
                                 kv_len, causal, window, lut_mode, scale, exp_off,
                                 exp_step, inv_off, inv_step, s);
     } else if (dtype == 1) {
-        err = dispatch_d<__nv_bfloat16>(D, q, k, v, out, exp_tab, inv_tab, B, Hq, Hkv,
+        err = dispatch_d<__nv_bfloat16>(D, DV, q, k, v, out, exp_tab, inv_tab, B, Hq, Hkv,
                                         Lq, Lkv, kv_len, causal, window, lut_mode, scale,
                                         exp_off, exp_step, inv_off, inv_step, s);
     } else {

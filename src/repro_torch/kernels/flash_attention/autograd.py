@@ -18,10 +18,11 @@ which :func:`attention_backward` reproduces:
 
 GQA: the query heads of one kv head are stacked along the rows, (B, Hkv,
 G·Lq, D), so the products with Q and dS sum dK and dV over the group without
-repeating K and V.  The masks (causal, window, ``kv_len`` padding) are the
-plain version's.  Inputs of any head_dim come in unpadded: the kernel's
-zero-padding happens inside the forward and the gradients come out at the
-true head_dim.  The backward builds the full (G·Lq, Lkv) score matrix per
+repeating K and V.  V, the output and its cotangent may have their own
+head_dim Dv (MLA); the scale is Q's, 1/√D.  The masks (causal, window,
+``kv_len`` padding) are the plain version's.  Inputs of any head_dim come
+in unpadded: the kernel's zero-padding happens inside the forward and the
+gradients come out at the true head_dim.  The backward builds the full (G·Lq, Lkv) score matrix per
 (batch, kv head) in float32; it does not call the plain forward ``mha_ref``.
 """
 
@@ -49,9 +50,9 @@ def _mask(lq: int, lkv: int, *, causal: bool, window: int | None, kv_len: int,
 def attention_backward(
     q: torch.Tensor,  # (B, Hq, Lq, D)
     k: torch.Tensor,  # (B, Hkv, Lkv, D)
-    v: torch.Tensor,  # (B, Hkv, Lkv, D)
-    out: torch.Tensor,  # (B, Hq, Lq, D): the forward's output
-    dout: torch.Tensor,  # (B, Hq, Lq, D)
+    v: torch.Tensor,  # (B, Hkv, Lkv, Dv)
+    out: torch.Tensor,  # (B, Hq, Lq, Dv): the forward's output
+    dout: torch.Tensor,  # (B, Hq, Lq, Dv)
     *,
     causal: bool = False,
     window: int | None = None,
@@ -61,7 +62,7 @@ def attention_backward(
     """(dQ, dK, dV) of ``mha`` at (q, k, v) for the output cotangent
     ``dout``, each in its input's dtype, computed in float32."""
     b, hq, lq, d = q.shape
-    hkv, lkv = k.shape[1], k.shape[2]
+    hkv, lkv, d_v = k.shape[1], k.shape[2], v.shape[3]
     g = hq // hkv
     scale = 1.0 / (d ** 0.5)
     kv_len = lkv if kv_len is None else kv_len
@@ -69,7 +70,7 @@ def attention_backward(
                  device=q.device).repeat(g, 1)  # (G·Lq, Lkv)
     qg = q.float().reshape(b, hkv, g * lq, d)
     kf, vf = k.float(), v.float()
-    dog = dout.float().reshape(b, hkv, g * lq, d)
+    dog = dout.float().reshape(b, hkv, g * lq, d_v)
     s = torch.matmul(qg, kf.transpose(-1, -2)) * scale
     if mode == "safe":
         p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
@@ -82,7 +83,7 @@ def attention_backward(
     dv = torch.matmul(p.transpose(-1, -2), dog)
     if mode == "lut":  # the table lookups carry no gradient
         return torch.zeros_like(q), torch.zeros_like(k), dv.to(v.dtype)
-    delta = torch.sum(dog * out.float().reshape(b, hkv, g * lq, d), dim=-1, keepdim=True)
+    delta = torch.sum(dog * out.float().reshape(b, hkv, g * lq, d_v), dim=-1, keepdim=True)
     ds = torch.matmul(dog, vf.transpose(-1, -2))
     ds = torch.where(mask, p * (ds - delta), 0.0)
     del p

@@ -2,18 +2,27 @@
 
 On a CPU tensor it runs the plain version (``ref.mha_ref``); on a CUDA
 tensor it launches the hand-written kernel (``csrc/flash_attention.cu``) or
-raises.  GQA is mapped by head index inside the kernel.  Every head_dim runs
-on the tensor cores, float32 as 3xTF32 on mma.sync:
+raises.  GQA is mapped by head index inside the kernel.  V may have its own
+head_dim ``dv <= d`` (MLA: q/k 96, V 64); the output has V's.  Every
+head_dim runs on the tensor cores:
 - 8, 16 and 32: one warp per 16 query rows, heads packed into blocks, K/V
-  staged once per head and block by cp.async (bf16 on mma.sync too); any
-  contiguous q, k, v (4- or 2-byte copies when one is not 16-byte aligned);
-- 64 and 128: 64 query rows per block, bf16 on wgmma, K/V tiles copied by
-  TMA, which needs 16-byte aligned q, k, v.
-Any other head_dim up to 128 is zero-padded to the next of those (zeros add
-nothing to q.k and give zero output columns, which are sliced off), with the
-scale kept at 1/sqrt(true head_dim).  Under grad mode, with any of q, k, v
-requiring grad, the launch goes through ``autograd.Attention`` (the kernel
-forward, a backward in torch ops).
+  staged once per head and block by cp.async, float32 as 3xTF32 on
+  mma.sync (bf16 on mma.sync too); any contiguous q, k, v (4- or 2-byte
+  copies when one is not 16-byte aligned);
+- (q/k, V) = (64, 64), (96, 64) and (128, 128): 64 query rows per block,
+  bf16 on wgmma, float32 as 3xTF32 on wgmma (each operand split once into
+  TF32 halves, V transposed per tile), K/V tiles copied by TMA straight
+  from the unpadded tensors (which needs 16-byte aligned q, k, v), the grid
+  ordered so the blocks in flight share a few heads' K/V in L2.  At MLA's
+  (96, 64) the bf16 route is bound by the softmax and bf16 conversions
+  around the products, the float32 route by the splits and the transpose
+  on the CUDA cores (PERF.md).
+Any other head_dim up to 128 with ``dv == d`` is zero-padded to the next
+square instance (zeros add nothing to q.k and give zero output columns,
+which are sliced off), with the scale kept at 1/sqrt(true head_dim); any
+other (d, dv) pair raises.  Under grad mode, with any of q, k, v requiring
+grad, the launch goes through ``autograd.Attention`` (the kernel forward, a
+backward in torch ops).
 """
 
 from __future__ import annotations
@@ -29,8 +38,8 @@ from repro_torch.kernels import LAUNCHES, build
 from repro_torch.kernels.flash_attention import autograd
 from repro_torch.kernels.flash_attention.ref import mha_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128)  # all on the tensor cores
-TMA_DIMS = (64, 128)  # K/V by TMA: q, k, v must be 16-byte aligned
+INSTANCES = ((8, 8), (16, 16), (32, 32), (64, 64), (96, 64), (128, 128))  # (q/k, V)
+TMA_DIMS = (64, 96, 128)  # K/V by TMA: q, k, v must be 16-byte aligned
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"safe": 0, "lut": 1}
 
@@ -40,7 +49,7 @@ def _lib():
     fn = build.library("flash_attention").repro_flash_attention
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_float] * 5
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_float] * 5
         + [ctypes.c_void_p]
     )
     return fn
@@ -55,32 +64,41 @@ def _tables(device: torch.device) -> tuple:
             *lut.index_constants(lut.INV_SPEC))
 
 
-def padded_head_dim(d: int) -> int:
-    """The head_dim the kernel runs for a true head_dim ``d``: the smallest
-    of ``HEAD_DIMS`` that holds it."""
-    for hd in HEAD_DIMS:
-        if hd >= d:
-            return hd
-    raise ValueError(f"head_dim {d} is above the kernel's largest, {HEAD_DIMS[-1]}")
+def kernel_head_dims(d: int, dv: int | None = None) -> tuple[int, int]:
+    """The (q/k, V) head_dims the kernel runs for true ones ``(d, dv)``: the
+    pair itself where an instance takes it; a square pair (``dv == d``, the
+    default) zero-padded to the smallest square instance that holds it; any
+    other pair raises."""
+    dv = d if dv is None else dv
+    if (d, dv) in INSTANCES:
+        return d, dv
+    if dv == d:
+        for hd, hv in INSTANCES:
+            if hd == hv >= d:
+                return hd, hv
+        raise ValueError(f"head_dim {d} is above the kernel's largest, {INSTANCES[-1][0]}")
+    raise ValueError(f"no kernel instance for q/k head_dim {d} with V head_dim {dv} "
+                     f"(instances: {INSTANCES})")
 
 
 def mha(
     q: torch.Tensor,  # (B, Hq, Lq, D)
     k: torch.Tensor,  # (B, Hkv, Lkv, D)
-    v: torch.Tensor,  # (B, Hkv, Lkv, D)
+    v: torch.Tensor,  # (B, Hkv, Lkv, Dv), Dv <= D
     *,
     causal: bool = False,
     window: int | None = None,
     mode: str = "safe",
     kv_len: int | None = None,  # true (unpadded) kv length; keys past it are masked
-) -> torch.Tensor:
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"mha wants q (B,Hq,Lq,D), k = v (B,Hkv,Lkv,D); got "
+) -> torch.Tensor:  # (B, Hq, Lq, Dv)
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"mha wants q (B,Hq,Lq,D), k (B,Hkv,Lkv,D), v (B,Hkv,Lkv,Dv); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, hq, lq, d = q.shape
     _, hkv, lkv, _ = k.shape
-    if k.shape[0] != b or k.shape[3] != d or hq % hkv != 0:
-        raise ValueError(f"incompatible q {tuple(q.shape)} and k/v {tuple(k.shape)}")
+    if k.shape[0] != b or k.shape[3] != d or hq % hkv != 0 or v.shape[3] > d:
+        raise ValueError(f"incompatible q {tuple(q.shape)}, k {tuple(k.shape)} and "
+                         f"v {tuple(v.shape)}")
     if mode not in _MODES:
         raise ValueError(f"unknown softmax mode {mode!r}")
     kv_len = lkv if kv_len is None else kv_len
@@ -103,25 +121,26 @@ def _kernel(q, k, v, *, causal, window, mode, kv_len):
     """One launch of the kernel on CUDA tensors (validated by ``mha``)."""
     b, hq, lq, d = q.shape
     _, hkv, lkv, _ = k.shape
-    dk = padded_head_dim(d)
+    dv = v.shape[3]
+    dk, dvk = kernel_head_dims(d, dv)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v must share float32 or bfloat16, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("mha kernel needs contiguous q, k, v")
-    if dk != d:  # fresh, contiguous and aligned
+    if dk != d:  # a square head_dim between instances: fresh, contiguous and aligned
         q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
     if dk in TMA_DIMS and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("mha kernel at head_dim 64/128 needs 16-byte aligned q, k, v (TMA)")
-    out = torch.empty_like(q)
+        raise ValueError("mha kernel at head_dim 64/96/128 needs 16-byte aligned q, k, v (TMA)")
+    out = q.new_empty((b, hq, lq, dvk))
     exp_ptr, inv_ptr, exp_off, exp_step, inv_off, inv_step = _tables(q.device)
     err = _lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), exp_ptr, inv_ptr,
-        b, hq, hkv, lq, lkv, dk, kv_len, int(causal),
+        b, hq, hkv, lq, lkv, dk, dvk, kv_len, int(causal),
         0 if window is None else window, _MODES[mode], _DTYPES[q.dtype],
         1.0 / (d ** 0.5), exp_off, exp_step, inv_off, inv_step,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out if dk == d else out[..., :d].contiguous()
+    return out if dvk == dv else out[..., :dv].contiguous()

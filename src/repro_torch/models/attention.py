@@ -30,7 +30,6 @@ output and attends the latent itself.  Not ported yet: ``mode="extend"``
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import scalar
@@ -372,12 +371,12 @@ def mla_apply(
     k_full = torch.cat([k_nope.transpose(1, 2),
                         k_rope[:, None].expand(b, h, s, k_rope.shape[-1])], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
-    v_heads = F.pad(vv.transpose(1, 2), (0, qk - vd))  # V padded to the q/k head_dim
+    v_heads = vv.transpose(1, 2).contiguous()  # V at its own head_dim, (b, h, s, vd)
     # an int8 latent attends in float32: q goes up with k / v, the output
     # comes back to q's dtype
     out = mha(q_full.to(k_full.dtype), k_full, v_heads, causal=not cfg.is_encoder,
               mode=kernel.get("softmax_mode", "safe")).to(q_full.dtype)
-    return layers.dense(params["wo"], _merge_heads(out[..., :vd]), qc), cache
+    return layers.dense(params["wo"], _merge_heads(out), qc), cache
 
 
 def attention_apply(params, cfg, x, positions=None, **kw):

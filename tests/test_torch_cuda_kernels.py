@@ -318,6 +318,60 @@ def test_attention_pads_other_head_dims(dev, d, dtype, mode, causal):
     _assert_attention_close(out, ref, v, dtype, mode, 2)
 
 
+def _assert_mla_close(out, ref, v, dtype, mode, group):
+    """bf16: atol 1e-2 + rtol 8e-3; float32: 2e-5 (safe), 1e-4 (lut).  lut:
+    rows where the other float order moves a table entry (at most 1.6 % of
+    |v_j - out|) on under 1 % of the rows."""
+    err = (out.float() - ref.float()).abs()
+    limit = (1e-2 + 8e-3 * ref.float().abs() if dtype == torch.bfloat16
+             else torch.full_like(err, 2e-5 if mode == "safe" else 1e-4))
+    if mode == "safe":
+        assert (err <= limit).all(), float(err.max())
+        return
+    vmax = torch.repeat_interleave(v.float().abs().amax(dim=-2, keepdim=True), group, dim=1)
+    assert (err <= limit + 0.016 * (ref.float().abs() + vmax)).all()
+    assert (err > limit).any(dim=-1).float().mean() <= 0.01
+
+
+@pytest.mark.parametrize("dtype,mode", [(torch.float32, "safe"), (torch.float32, "lut"),
+                                        (torch.bfloat16, "safe"), (torch.bfloat16, "lut")])
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None), (True, 256)])
+@pytest.mark.parametrize("hq,hkv", [(40, 40), (8, 2)])
+@pytest.mark.parametrize("length,kv_len", [(77, None), (1000, None), (1000, 768), (1000, 769)])
+def test_attention_native_v_head_dim(dev, dtype, mode, causal, window, hq, hkv, length, kv_len):
+    """MLA's (q/k 96, V 64) instance: one launch at the unpadded shapes, the
+    output at V's head_dim; kv_len on a 64-key tile edge and one past it
+    (within the window of every row: a row that sees no key is 0 in the
+    kernel and a uniform average in the plain version)."""
+    g = torch.Generator(device="cpu").manual_seed(length + hq + (kv_len or 0))
+    q = torch.randn(2, hq, length, 96, generator=g).to(dev, dtype)
+    k = torch.randn(2, hkv, length, 96, generator=g).to(dev, dtype)
+    v = torch.randn(2, hkv, length, 64, generator=g).to(dev, dtype)
+    before = LAUNCHES["flash_attention"]
+    out = mha(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == (2, hq, length, 64) and out.is_contiguous()
+    ref = mha_ref(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+    _assert_mla_close(out, ref, v, dtype, mode, hq // hkv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("what", ["q", "k", "v"])
+def test_attention_native_v_head_dim_rejects_unaligned_and_unknown_pairs(dev, dtype, what):
+    """TMA needs 16-byte aligned tensors: a contiguous view one element off
+    is refused, as is a (q/k, V) pair no instance takes."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    shapes = {"q": (1, 4, 70, 96), "k": (1, 4, 70, 96), "v": (1, 4, 70, 64)}
+    t = {n: torch.randn(*sh, generator=g).to(dev, dtype) for n, sh in shapes.items()}
+    flat = torch.randn(t[what].numel() + 1, generator=g).to(dev, dtype)
+    t[what] = flat[1:].view(shapes[what])
+    with pytest.raises(ValueError, match="aligned"):
+        mha(t["q"], t["k"], t["v"], causal=True)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        mha(t["q"].clone(), t["k"].clone(), t["v"][..., :32].contiguous())
+
+
 def _codes(g, m, k, n):
     x = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)
     w = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)

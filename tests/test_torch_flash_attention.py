@@ -14,7 +14,7 @@ from repro.kernels.flash_attention import attention_ref as jax_attention_ref  # 
 from repro.kernels.flash_attention import mha as jax_mha  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.flash_attention import mha, mha_ref  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import padded_head_dim  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import kernel_head_dims  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 
 # safe: both sides sum in float32 in different orders (2e-5, as the JAX
@@ -129,32 +129,79 @@ def test_lm_head_dims_gqa(d, mode, window, use_pallas):
     assert_close(ours, ref, mode)
 
 
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
-    from zero, as cvt.rna.tf32.f32 does."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+# MLA's prefill attend (minicpm3-4b): q/k head_dim 96, V 64.  The reference
+# zero-pads V to 96 for its fused kernel and slices the output back to 64
+# (src/repro/models/attention.py, mla_apply); the port runs V at 64.
+MLA_D, MLA_DV = 96, 64
+
+
+def _v_padded(v: np.ndarray) -> np.ndarray:
+    return np.pad(v, ((0, 0), (0, 0), (0, 0), (0, MLA_D - v.shape[-1])))
+
+
+@pytest.mark.parametrize("mode", ["safe", "lut"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_v_head_dim_of_its_own_against_jax_v_padded(mode, causal, hq, hkv, use_pallas):
+    """``mha`` at q/k 96 and V 64 equals the JAX ``mha`` (jnp path and
+    Pallas kernel) with V zero-padded to 96 and the output sliced to 64."""
+    q, k, v = _qkv(1, hq, hkv, 80, 80, MLA_D, seed=hq + hkv)
+    v = v[..., :MLA_DV].copy()
+    ref = jax_mha(*(jnp.asarray(t) for t in (q, k, _v_padded(v))), causal=causal, mode=mode,
+                  use_pallas=use_pallas, interpret=True)[..., :MLA_DV]
+    ours = mha(*(torch.from_numpy(t) for t in (q, k, v)), causal=causal, mode=mode)
+    assert ours.shape == (1, hq, 80, MLA_DV)
+    assert_close(ours.numpy(), np.asarray(ref), mode)
+
+
+@pytest.mark.parametrize("mode", ["safe", "lut"])
+def test_v_head_dim_of_its_own_with_kv_len(mode):
+    q, k, v = _qkv(1, 4, 2, 40, 48, MLA_D, seed=5)
+    v = v[..., :MLA_DV].copy()
+    k_rep, v_rep = (jnp.repeat(jnp.asarray(t), 2, 1) for t in (k, _v_padded(v)))
+    ref = jax_attention_ref(jnp.asarray(q), k_rep, v_rep, scale=1 / MLA_D ** 0.5, mode=mode,
+                            kv_len=37, causal=True)[..., :MLA_DV]
+    ours = mha(*(torch.from_numpy(t) for t in (q, k, v)), mode=mode, kv_len=37, causal=True)
+    assert_close(ours.numpy(), np.asarray(ref), mode)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """float32 truncated to TF32 (10 mantissa bits), as the tensor cores
+    read a 32-bit operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _veltkamp(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = big + small, big rounded to the nearest 11 significant bits by
+    Veltkamp's split (2^13 + 1), small the exact rest (csrc split_fast)."""
+    t = x * 8193.0
+    big = t - (t - x)
+    return big, x - big
 
 
 def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
-    """a @ b as the card's float32 attention path forms it: big = tf32(x),
-    small = tf32(x - big); three products (small*big + big*small +
+    """a @ b as the card's float32 attention forms it on the tensor cores:
+    a (Q or P) split by Veltkamp's method, b (K or V) into its raw value,
+    which the tensor cores read truncated to TF32, and the exact rest; every
+    small half read truncated.  Three products (small*big + big*small +
     big*big) or, for comparison, big*big alone.  Every product of two TF32
     values is exact in float32."""
-    ab, bb = _tf32(a), _tf32(b)
+    ab, as_ = _veltkamp(a)
+    bb = _tf32_trunc(b)
     if products == 1:
         return ab @ bb
-    as_, bs = _tf32(a - ab), _tf32(b - bb)
-    return as_ @ bb + ab @ bs + ab @ bb
+    return _tf32_trunc(as_) @ bb + ab @ _tf32_trunc(b - bb) + ab @ bb
 
 
-# (B, H, L, D, causal): the head_dim 64 / 128 path at (1, 2, 512, D) causal;
-# head_dim 8 / 16 / 32 at the physics shapes (unmasked) and at (1, 8, 1024,
-# 16) causal
-TF32_CASES = {"64": (1, 2, 512, 64, True), "128": (1, 2, 512, 128, True)}
-TF32_CASES.update({f"{b}x{h}x{l}x{d}": (b, h, l, d, False)
+# (B, H, L, D, causal, V head_dim): the tensor-core path at (1, 2, 512, D)
+# causal, MLA's q/k 96 with V 64 among them; head_dim 8 / 16 / 32 at the
+# physics shapes (unmasked) and at (1, 8, 1024, 16) causal
+TF32_CASES = {"64": (1, 2, 512, 64, True, 64), "128": (1, 2, 512, 128, True, 128),
+              "96x64": (1, 2, 512, MLA_D, True, MLA_DV)}
+TF32_CASES.update({f"{b}x{h}x{l}x{d}": (b, h, l, d, False, d)
                    for b, h, l, _ in PHYSICS_SHAPES for d in (8, 16, 32)})
-TF32_CASES["1x8x1024x16-causal"] = (1, 8, 1024, 16, True)
+TF32_CASES["1x8x1024x16-causal"] = (1, 8, 1024, 16, True, 16)
 
 
 @pytest.mark.parametrize("case", list(TF32_CASES.values()), ids=list(TF32_CASES))
@@ -162,8 +209,9 @@ def test_float32_path_needs_three_tf32_products(case):
     """The kernel's TF32 split emulated in plain torch: three TF32 products
     stay within the float32 tolerance (2e-5) of the plain version, one does
     not (10 mantissa bits move the output by ~1e-3)."""
-    b, h, l, d, causal = case
+    b, h, l, d, causal, dv = case
     q, k, v = (torch.from_numpy(t) for t in _qkv(b, h, h, l, l, d, seed=11))
+    v = v[..., :dv].contiguous()
     ref = mha_ref(q, k, v, causal=causal)
     mask = torch.ones(l, l, dtype=torch.bool)
     if causal:
@@ -243,18 +291,33 @@ def test_head_dims_outside_the_kernels(d, mode, use_pallas):
 @pytest.mark.parametrize("mode", ["safe", "lut"])
 def test_zero_padded_head_dim_gives_the_same_attention(d, mode):
     """What ``mha`` runs on the card for such a D: q, k, v zero-padded to the
-    next kernel head_dim, the scale at 1/sqrt(true D), the output sliced
-    back to D."""
+    next square instance, the scale at 1/sqrt(true D), the output sliced
+    back to D.  At 96, MLA's pair (q/k 96, V 64) runs natively, nothing
+    padded, and equals the reference's form (V zero-padded to 96, the output
+    sliced to 64)."""
+    dv = MLA_DV if d == MLA_D else d
     q, k, v = (torch.from_numpy(t) for t in _qkv(1, 4, 4, 64, 64, d, seed=d + 1))
-    dk = padded_head_dim(d)
-    assert dk == {12: 16, 14: 16, 80: 128, 96: 128}[d]
-    padded = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
-    out = attention_ref(*padded, scale=1.0 / d ** 0.5, causal=True, mode=mode)[..., :d]
-    assert_close(out.numpy(), mha_ref(q, k, v, causal=True, mode=mode).numpy(), mode)
+    v = v[..., :dv].contiguous()
+    dk, dvk = kernel_head_dims(d, dv)
+    assert (dk, dvk) == {12: (16, 16), 14: (16, 16), 80: (128, 128), 96: (96, 64)}[d]
+    padded = [torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k)]
+    padded.append(torch.nn.functional.pad(v, (0, dvk - dv)))
+    out = attention_ref(*padded, scale=1.0 / d ** 0.5, causal=True, mode=mode)[..., :dv]
+    plain = mha_ref(q, k, v, causal=True, mode=mode)
+    assert_close(out.numpy(), plain.numpy(), mode)
+    if dv != d:
+        v_padded = torch.nn.functional.pad(v, (0, d - dv))
+        ref_form = attention_ref(q, k, v_padded, scale=1.0 / d ** 0.5, causal=True,
+                                 mode=mode)[..., :dv]
+        assert_close(plain.numpy(), ref_form.numpy(), mode)
 
 
 def test_padded_head_dim_bounds():
-    assert [padded_head_dim(d) for d in (1, 8, 9, 32, 33, 64, 65, 128)] == [
-        8, 8, 16, 32, 64, 64, 128, 128]
+    assert [kernel_head_dims(d)[0] for d in (1, 8, 9, 32, 33, 64, 65, 96, 128)] == [
+        8, 8, 16, 32, 64, 64, 128, 128, 128]
+    assert kernel_head_dims(MLA_D, MLA_DV) == (96, 64)  # native: nothing padded
     with pytest.raises(ValueError, match="head_dim 192"):
-        padded_head_dim(192)
+        kernel_head_dims(192)
+    for d, dv in ((96, 32), (64, 32), (80, 64)):  # no instance takes these pairs
+        with pytest.raises(ValueError, match="no kernel instance"):
+            kernel_head_dims(d, dv)

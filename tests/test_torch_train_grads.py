@@ -216,6 +216,38 @@ def test_attention_function_backward_matches_autograd_and_jax(case):
         assert torch.any(grads[2] != 0)
 
 
+# (b, hq, hkv, l, d, dv, causal, window, kv_len, mode): V at a head_dim of its
+# own, as MLA's prefill attend (q/k 96, V 64)
+ATT_DV_CASES = [
+    (2, 4, 2, 12, 96, 64, True, None, None, "safe"),  # GQA, causal
+    (1, 4, 4, 16, 96, 64, False, 5, 11, "safe"),  # window, kv_len
+    (1, 4, 2, 16, 96, 64, True, None, 13, "lut"),
+]
+
+
+@pytest.mark.parametrize("case", ATT_DV_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_attention_function_backward_at_a_v_head_dim_of_its_own(case):
+    """``attention_backward`` and ``Attention`` with dv != d: the gradients
+    equal torch autograd through the plain version within 1e-5 max(1, max
+    |g|)."""
+    b, hq, hkv, l, d, dv, causal, window, kv_len, mode = case
+    qn, kn, vn, don = _qkv(b, hq, hkv, l, d, seed=d + dv + l)
+    vn, don = vn[..., :dv].copy(), don[..., :dv].copy()
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in (qn, kn, vn))
+    kw = dict(causal=causal, window=window, mode=mode, kv_len=kv_len)
+    out = fa_grad.attention(q, k, v, forward=_mha_plain, **kw)
+    assert out.shape == (b, hq, l, dv)
+    grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(don))
+    ref = torch.autograd.grad(mha_ref(q, k, v, **kw), (q, k, v), torch.from_numpy(don),
+                              allow_unused=True)
+    ref = [torch.zeros_like(t) if r is None else r for t, r in zip((q, k, v), ref)]
+    for name, g, r in zip("qkv", grads, ref):
+        assert g.shape == r.shape
+        scale = max(1.0, float(r.abs().max()))
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5 * scale, msg=f"d{name} vs autograd")
+    assert torch.any(grads[2] != 0)
+
+
 def test_attention_backward_needs_no_plain_forward(monkeypatch):
     """The backward rebuilds P from its formula; it never calls ``mha_ref``."""
     qn, kn, vn, don = _qkv(1, 2, 1, 8, 8, seed=0)
