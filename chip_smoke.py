@@ -39,7 +39,14 @@ Phases, each of which fails the run (exit code 1) when it fails:
    96, V 64: the kernel's native (96, 64) instance, nothing padded) in
    bf16 with the safe softmax and in float32 with the LUT softmax (the int8
    latent's route), and its q_norm / kv_norm RMSNorms at 768 and 256 over
-   8 x 2048 rows, bf16;
+   8 x 2048 rows, bf16; phase 11's: zamba2-1.2b's shared block attending
+   at (8, 32, 2048, 128) causal (bf16 safe and LUT, float32 LUT) and its SSD
+   scan at (8, 2048, 64 heads, P 64, N 64, chunk 64) in float32 and bf16,
+   hubert-xlarge's (8, 16, 512, 80) both ways and internvl2-1b's (8, 14 q / 2
+   kv, 512, 64) causal (bf16, and float32 LUT), rows that see no key (a
+   window of 256 ending before kv_len 640, which give the mean of V) on the
+   head_dim 16, 64 and 128 routes, and the RMSNorms at 2048, 4096 and 896 and
+   the LayerNorm at 1280, bf16;
 3. models -- the main path: the paper's three encoders (engine_anomaly,
    btagging, gw) at their published widths, random seeded weights PTQ'd by
    the precision plan, seeded events from ``repro_torch.data``, under the
@@ -73,7 +80,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``flash_attention`` + 5 ``layernorm`` launches per prefill and 0 + 5 per
    decode step; (b) granite-8b in bfloat16 at its published widths (d_model
    4096, 32 q / 8 kv heads of 128, d_ff 14336, vocab 49152) cut to 9 of
-   its 36 layers (the run's time limit; phases 7 and 9 serve it at 18) on
+   its 36 layers (the run's time limit; phases 7 and 9 serve it at 9 too) on
    seeded random weights drawn on the card: the median time of a
    prefill of 1 x 2048 (time to first token) and 8 x 2048 tokens and of 32
    greedy decode steps at batch 1 and 8, with the profiler's busy share,
@@ -86,7 +93,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    engine's streams, the port's CPU engine's and a direct ``lm.prefill`` /
    ``decode_step`` loop on the card each equal the CPU direct loop, a step
    differing only where its top-two margin is under 2e-4; (b) granite-8b in
-   bfloat16 at its published widths and 18 of its 36 layers (the run's time
+   bfloat16 at its published widths and 9 of its 36 layers (the run's time
    limit), ``max_batch`` 8, ``max_seq_len`` 2048, buckets
    256-2048, 4 decode steps per dispatch, 16 seeded requests of 64-1536
    tokens (8 sharing a 512-token prefix) x 32 new tokens under the dense,
@@ -114,7 +121,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    QAT steps under the paper-optimal policies and ``paper_vu13p``, whose
    float AUC and AUC ratios must be within 0.02 of the JAX package's run of
    ``examples/physics_inference.py``; (c) ``train.run_training`` on
-   granite-8b's published width cut to 2 layers, float32, 2 x 2048 tokens,
+   granite-8b's published width cut to 1 layer, float32, 2 x 2048 tokens,
    8 steps with a checkpoint at step 4, then again killed at step 6 and
    resumed (b and c run under ``torch.use_deterministic_algorithms(True)``): the two
    runs' parameters and moments bitwise equal, the card's checkpoint
@@ -134,7 +141,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    one prefill at the published capacity factor on the card and the CPU:
    the share of int8 KV codes that differ (by at most 1), of router
    decisions that flip (only at a k-th / (k+1)-th tie within 1e-5), and the
-   dropped shares; (b) granite-moe-3b-a800m bf16 at 16 of its 32 layers (the
+   dropped shares; (b) granite-moe-3b-a800m bf16 at 8 of its 32 layers (the
    run's time limit) under its
    ``serve_policy`` (int8_serve), phase 7's traffic under the dense, paged
    and paged + prefix-cache layouts, tokens identical but where a request
@@ -145,7 +152,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    routing / dispatch / combine and expert-GEMM shares, KV bytes, peak
    memory, the program budget; (c) its ``lm.prefill`` at 1 and 8 x 2048
    under int8_serve and float, beside the FLOP floor; (d) granite-8b bf16 at
-   18 layers under int8_serve, dense and paged, beside phase 7's float runs
+   9 layers under int8_serve, dense and paged, beside phase 7's float runs
    of the same build.  ``python3 tools/phase.py int8_moe`` runs this phase
    alone.
 10. mla -- multi-head latent attention, minicpm3-4b (``attention.mla_apply``
@@ -158,7 +165,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    loop by phase 7's margin rule; the absorbed decode's logits within 2e-4
    of the materialized ones on the card; under int8_serve one prefill's
    int8 latent codes card vs CPU differ by at most 1 in at most 0.1 % of
-   them; (b) bf16 at all 62 layers under int8_serve, phase 7's traffic under
+   them; (b) bf16 at 31 of its 62 layers (the run's time limit) under
+   int8_serve, phase 7's traffic under
    the dense, paged and paged + prefix-cache layouts with identical tokens,
    ``flash_attention`` n_layers per prefill dispatch and none in decode,
    ``layernorm`` 4 n_layers + 1 per prefill dispatch and decode step: TTFT,
@@ -170,6 +178,28 @@ Phases, each of which fails the run (exit code 1) when it fails:
    materialized run's); (c) ``lm.prefill`` at 1 and 8 x 2048 under
    int8_serve and float, beside its FLOP floor, with the attention kernel's
    share.  ``python3 tools/phase.py mla`` runs this phase alone.
+11. families -- the hybrid family (zamba2-1.2b: Mamba2 blocks and the
+   weight-shared attention block over concat(x, x_embed)) and the modality
+   frontends (hubert-xlarge's frame embeddings, internvl2-1b's patch
+   embeddings, both the reference's stubs): (a) in float32 at the published
+   widths, zamba2-1.2b cut to 7 layers (two applications of the shared
+   block) and a vocab of 512 through the card's engines (dense, and paged,
+   which falls back to dense with identical tokens), a direct ``lm`` loop on
+   the card and the port's CPU engine, held to the CPU direct loop by phase
+   7's margin rule; hubert-xlarge cut to 2 layers, its logits on the card
+   within 2e-4 of the CPU's; internvl2-1b cut to 2 layers, 256 patches and
+   64 tokens then 16 greedy steps against the CPU path and one forward;
+   (b) zamba2-1.2b bf16 at all 38 layers under int8_serve and float, 16
+   exact-length requests of 64-512 tokens x 32 new tokens, dense and paged:
+   identical tokens, ``ssd_scan`` once per layer and ``flash_attention``
+   once per shared application per prefill dispatch and neither in decode,
+   the programs (one per prompt length, one decode), TTFT, ITL, tokens/s,
+   one decode dispatch profiled, the Mamba2 state's and the 7 shared K/V
+   caches' bytes; (c) hubert-xlarge (48 layers) ``lm.forward`` on 1 and 8 x
+   512 frames with its pad copies' share of device time (head_dim 80 runs
+   padded to 128), internvl2-1b (24 layers) ``lm.prefill`` of 1 and 8 x
+   (256 + 256) tokens and 32 greedy decode steps, bf16, under float and
+   int8_serve.  ``python3 tools/phase.py families`` runs this phase alone.
    Each path sets the launch counts to 0 before it and reads them after.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
@@ -330,10 +360,10 @@ INT8_CODES = (2, 64)  # batch, tokens of the prefill whose codes and routes are 
 ROUTER_TIE = 1e-5
 MOE_SERVE = "granite-moe-3b-a800m"
 MOE_PREFILL_BATCHES, MOE_PREFILL_LEN = (1, 8), 2048
-# The full-width serving runs of phases 7b, 9b-9d cut in depth for the run's
-# time limit (PR 24, to make room for phase 10): granite-8b 18 of 36 layers,
-# granite-moe-3b-a800m 16 of 32.
-GRANITE_SERVE_LAYERS, MOE_SERVE_LAYERS = 18, 16
+# The full-width serving runs of phases 7b, 9b-9d and 10b-10c cut in depth for
+# the run's time limit, to make room for phases 10 and 11: granite-8b 9 of
+# 36 layers, granite-moe-3b-a800m 8 of 32, minicpm3-4b 31 of 62.
+GRANITE_SERVE_LAYERS, MOE_SERVE_LAYERS, MLA_SERVE_LAYERS = 9, 8, 31
 # MLA, minicpm3-4b (phase 10).  (a) float32 check at the published widths cut
 # to 2 layers and a vocab of 512, under float and under its serve_policy
 # (int8_serve: int8 weights, the int8 latent cache, the LUT softmax in
@@ -343,7 +373,8 @@ GRANITE_SERVE_LAYERS, MOE_SERVE_LAYERS = 18, 16
 # prefill's int8 latent codes card vs CPU differ by at most 1 in at most
 # 0.1 % of the codes; the absorbed decode's logits within 2e-4 of the
 # materialized ones on the card (tests/test_models_smoke.py's bound).  (b)
-# bf16 at all 62 layers under int8_serve, phase 7's traffic and layouts, then
+# bf16 at MLA_SERVE_LAYERS of its 62 layers under int8_serve, phase 7's
+# traffic and layouts, then
 # the dense layout again with the absorbed decode; (c) lm.prefill at 1 and 8
 # x 2048 under int8_serve and float.
 MLA = "minicpm3-4b"
@@ -352,6 +383,31 @@ MLA_CODES_SHARE = 1e-3
 MLA_ABSORB_TOL = 2e-4
 MLA_ATTENTION = (8, 40, 2048, 96)  # the prefill attend: batch, heads, tokens, q/k head_dim
 MLA_PREFILL_BATCHES, MLA_PREFILL_LEN = (1, 8), 2048
+# The hybrid family and the modality frontends (phase 11).  (a) float32
+# checks at the published widths: zamba2-1.2b cut to 7 layers (the shared
+# block at layers 0 and 6) and a vocab of 512 through the engine, held to the
+# CPU direct loop by phase 7's margin rule, prompts of at most its chunk
+# (64); hubert-xlarge cut to 2 layers, 2 x 256 frames, logits card vs CPU
+# within 2e-4 (tests/test_ssm.py's and phase 6's bound); internvl2-1b cut to
+# 2 layers and a vocab of 512, 2 x (256 patches + 64 tokens) and 16 greedy
+# steps, the margin rule.  (b) zamba2-1.2b bf16 at all 38 layers, phase 7c's
+# exact-length traffic twice over (16 requests of 64-512 tokens) x 32 new
+# tokens, under int8_serve and float, dense and paged (which falls back to
+# dense).  (c) hubert-xlarge (48 layers) on 1 and 8 x 512 frames (10 s of
+# audio at 50 frames/s) and internvl2-1b (24 layers) on 1 and 8 x (256 image
+# + 256 text) tokens then 32 greedy decode steps, bf16, under float and
+# int8_serve.  Weights random from the seed; the frontends' frame and patch
+# embeddings random too (the reference's stubs).
+HYBRID, AUDIO, VLM = "zamba2-1.2b", "hubert-xlarge", "internvl2-1b"
+HYBRID_CHECK_LAYERS, FRONTEND_CHECK_LAYERS = 7, 2
+HYBRID_CHECK_LENGTHS = (40, 48, 64, 12, 20, 33)  # exact-length prefill: <= the chunk
+AUDIO_CHECK, AUDIO_TOL = (2, 256), 2e-4  # batch, frames
+VLM_CHECK = (2, 64, 16)  # batch, text tokens after the patches, greedy steps
+HYBRID_SERVE_SC = MAMBA_SERVE_SC
+HYBRID_SERVE_LEN = MAMBA_SERVE_LEN * 2
+HYBRID_LAYOUTS = ({}, dict(kv_layout="paged", kv_page_size=16))
+FRONTEND_BATCHES, AUDIO_FRAMES, VLM_TEXT, VLM_DECODE_STEPS = (1, 8), 512, 256, 32
+FAMILY_ATTENTION_ROWS = (8, 2048)  # zamba2's shared block and scan in phase 2: batch, tokens
 # kernel names in the profiler, for each kernel's share of device time
 KERNEL_FUNCS = {"attention": ("small_attention_kernel", "tc_attention_kernel"),
                 "layernorm": ("layernorm_kernel",),
@@ -612,10 +668,12 @@ def _sass_functions(listing: str) -> dict[str, dict[str, int]]:
 
 
 def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32", hkv=None,
-                    sdpa_yardstick=False, v_dim=None):
+                    sdpa_yardstick=False, v_dim=None, kv_len=None):
     """``mha`` on q, k (b, h / hkv, l, d) and v (b, hkv, l, v_dim): GQA when
     hkv < h; ``v_dim`` is V's own head_dim (MLA: q/k at 96, V at 64), d by
-    default.  SDPA is timed beside the safe softmax, which it computes; with
+    default; keys past ``kv_len`` masked (with a window that ends before it,
+    the rows that see no key give the mean of V in safe mode, as the plain
+    version).  SDPA is timed beside the safe softmax, which it computes; with
     ``sdpa_yardstick`` beside the LUT softmax too, as a yardstick of the same
     shape (it computes the exact softmax, not the LUT's).  The bound counts
     the work the function needs (QK^T at d, P.V and the output at v_dim);
@@ -634,9 +692,13 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
     tdt = getattr(torch, dtype)
     q, k, v = (torch.randn(b, hh, l, dd, generator=g).to(dev, tdt)
                for hh, dd in ((h, d), (hkv, d), (hkv, dv)))
-    out = mha(q, k, v, causal=causal, window=window, mode=mode)
-    ref = mha_ref(q, k, v, causal=causal, window=window, mode=mode)
+    kw = dict(causal=causal, window=window, mode=mode, kv_len=kv_len)
+    out = mha(q, k, v, **kw)
+    ref = mha_ref(q, k, v, **kw)
     torch.cuda.synchronize()
+    keyless = 0
+    if kv_len is not None and window is not None:
+        keyless = max(0, l - (kv_len + window - 1))  # rows that see no key
     flip = None
     if mode == "lut":
         vmax = v.float().abs().amax(dim=-2, keepdim=True).repeat_interleave(h // hkv, dim=1)
@@ -655,6 +717,8 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
         mask &= pos[None, :] <= pos[:, None]
     if window is not None:
         mask &= pos[:, None] - pos[None, :] < window
+    if kv_len is not None:
+        mask &= pos[None, :] < kv_len
     pairs = int(mask.sum())
     # q, k, v read, out written
     nbytes = (q.numel() + k.numel() + v.numel() + q.numel() * dv // d) * q.element_size()
@@ -667,12 +731,11 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
                        else bound(2.0 * b * h * pairs * (dk + dvk), nbytes, peak)[0])
 
     iters = 20 if b * h * l * l * d > 1e8 else 50
-    ms = time_ms(lambda: mha(q, k, v, causal=causal, window=window, mode=mode), iters)
-    plain_ms = time_ms(lambda: mha_ref(q, k, v, causal=causal, window=window, mode=mode),
-                       max(3, iters // 5))
+    ms = time_ms(lambda: mha(q, k, v, **kw), iters)
+    plain_ms = time_ms(lambda: mha_ref(q, k, v, **kw), max(3, iters // 5))
     library_ms = sdpa = None
     if mode == "safe" or sdpa_yardstick:  # timed as a yardstick only
-        attn_mask = mask.to(dev) if window is not None else None
+        attn_mask = mask.to(dev) if window is not None or kv_len is not None else None
 
         def sdpa():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
@@ -681,14 +744,18 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
 
         library_ms = time_ms(sdpa, iters)
     # small calls are bound by the host's launch cost: device time beside it
-    dev_ms = device_ms(lambda: mha(q, k, v, causal=causal, window=window, mode=mode))
+    dev_ms = device_ms(lambda: mha(q, k, v, **kw))
     lib_dev_ms = None if sdpa is None else device_ms(sdpa)
+    computes = None if sdpa is None else (
+        "the exact softmax" if mode != "safe" else
+        "the same function but on rows that see no key (NaN)" if keyless else
+        "the same function")
     return dict(kernel="flash_attention", shape=list(shape), kv_heads=hkv, mode=mode,
-                causal=causal, window=window, dtype=dtype, v_dim=dv, max_abs_err=err,
+                causal=causal, window=window, kv_len=kv_len, keyless_rows=keyless,
+                dtype=dtype, v_dim=dv, max_abs_err=err,
                 rows_over_atol=rows_over, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms,
-                library_computes=None if sdpa is None else (
-                    "the same function" if mode == "safe" else "the exact softmax"),
+                library_computes=computes,
                 bound_ms=bound_ms, bound_by=bound_by, bound_peak=peak,
                 padded_bound_ms=padded_bound_ms)
 
@@ -929,6 +996,7 @@ def phase_kernels(dev):
     cases.append(_layernorm_case(dev, 8 * 2048, 4608, False, False, "bfloat16"))
     cases += _int8_moe_kernel_cases(dev)  # phase 9's shapes
     cases += _mla_kernel_cases(dev)  # phase 10's
+    cases += _families_kernel_cases(dev)  # phase 11's
     ln_shapes = [(8192 * 15, 64), (8192 * 100, 32), (4096, 4096)]
     for rows, k in ln_shapes:
         for rms in (False, True):
@@ -1016,6 +1084,8 @@ def _report_cases(cases):
         mode = c["mode"] + (f" {c['route']}" if "route" in c else "")
         if c.get("padded_bound_ms") is not None:
             dev_t += f" | padded bound {c['padded_bound_ms']:.4f}"
+        if c.get("kv_len") is not None:
+            kv += f" kv_len {c['kv_len']} ({c['keyless_rows']} rows see no key)"
         log(f"[kernel] {c['kernel']:15s} {str(c['shape']) + kv:22s} {mode:6s} "
             f"causal={c.get('causal', '-')!s:5s} window={c.get('window', '-')!s:4s} "
             f"{c.get('dtype', 'float32'):8s} err {c['max_abs_err']:.2e} ({c['tol']}; "
@@ -1347,45 +1417,51 @@ def _launch_checker(label, per_call):
     return checked
 
 
-def _greedy_check(label, cfg, params, params_cpu, prompt, steps, checked, tol) -> dict:
+def _greedy_check(label, cfg, params, params_cpu, prompt, steps, checked, tol,
+                  patches=None) -> dict:
     """Greedy decode on the card from ``prompt`` (float32 caches of prompt +
-    ``steps`` tokens), held against the port's CPU path on the same weights
-    fed the card's tokens (logits within ``tol``; a token may differ only
-    where the CPU path's top-two margin is below ``tol``) and against one
-    ``forward`` over the whole sequence (continuity).  ``checked(kind, fn)``
-    runs a prefill or decode call and checks its launches.  Raises on a
-    failure; returns the check's record."""
+    ``steps`` tokens; a VLM's ``patches`` before it), held against the
+    port's CPU path on the same weights fed the card's tokens (logits within
+    ``tol``; a token may differ only where the CPU path's top-two margin is
+    below ``tol``) and against one ``forward`` over the whole sequence
+    (continuity).  ``checked(kind, fn)`` runs a prefill or decode call and
+    checks its launches.  Raises on a failure; returns the check's
+    record."""
     import torch
 
     from repro_torch.models import lm
 
     dev = params["embed"]["table"].device
     b, s0 = prompt.shape
-    max_len = s0 + steps
+    off = 0 if patches is None else patches.shape[1]  # the image prefix
+    image = {} if patches is None else {"patches": patches.to(dev)}
+    max_len = off + s0 + steps
     caches = lm.init_caches(cfg, b, max_len, torch.float32, device=dev)
     last, caches = checked("prefill", lambda: lm.prefill(
-        params, cfg, {"tokens": prompt.to(dev)}, caches, device=dev))
+        params, cfg, {"tokens": prompt.to(dev), **image}, caches, device=dev))
     card, toks = [last.cpu()], []
     for k in range(steps):
         tok = last.argmax(-1, keepdim=True)
         toks.append(tok.cpu())
-        pos = torch.full((b,), s0 + k, dtype=torch.int32, device=dev)
+        pos = torch.full((b,), off + s0 + k, dtype=torch.int32, device=dev)
         last, caches = checked("decode", lambda: lm.decode_step(
             params, cfg, tok, pos, caches, device=dev))
         card.append(last.cpu())
     card = torch.stack(card, 1)  # (b, steps + 1, V): positions s0 - 1 .. s0 + steps - 1
     seq = torch.cat([prompt, *toks], dim=1)
     full, _, _ = checked("prefill", lambda: lm.forward(
-        params, cfg, {"tokens": seq.to(dev)}, device=dev))
-    cont_err = float((full[:, s0 - 1:].cpu() - card).abs().max())
+        params, cfg, {"tokens": seq.to(dev), **image}, device=dev))
+    cont_err = float((full[:, off + s0 - 1:].cpu() - card).abs().max())
     # ... and the port's CPU path on the same weights, fed the card's tokens
-    c_last, c_caches = lm.prefill(params_cpu, cfg, {"tokens": prompt},
+    image = {} if patches is None else {"patches": patches.cpu()}
+    c_last, c_caches = lm.prefill(params_cpu, cfg, {"tokens": prompt, **image},
                                   lm.init_caches(cfg, b, max_len, torch.float32, device="cpu"),
                                   device="cpu")
     cpu = [c_last]
     for k in range(steps):
         c_last, c_caches = lm.decode_step(params_cpu, cfg, toks[k],
-                                          torch.full((b,), s0 + k), c_caches, device="cpu")
+                                          torch.full((b,), off + s0 + k), c_caches,
+                                          device="cpu")
         cpu.append(c_last)
     cpu = torch.stack(cpu, 1)
     cpu_err = float((card - cpu).abs().max())
@@ -1402,7 +1478,7 @@ def _greedy_check(label, cfg, params, params_cpu, prompt, steps, checked, tol) -
     if cpu_err > tol or cont_err > tol:
         raise SmokeError(f"{label} float32: |card - cpu| {cpu_err:.3e}, |decode - forward| "
                          f"{cont_err:.3e} (tol {tol})")
-    return dict(batch=b, prompt=s0, steps=steps, max_abs_err_vs_cpu=cpu_err,
+    return dict(batch=b, prompt=s0, image_tokens=off, steps=steps, max_abs_err_vs_cpu=cpu_err,
                 max_abs_err_decode_vs_forward=cont_err, tol=tol,
                 greedy_differs_at_close_calls=close_calls,
                 min_cpu_top2_margin=float(margins.min()))
@@ -1791,7 +1867,7 @@ def phase_serve(dev):
     """The serving engine (``serve.api.Engine``) on the card: (a) the
     float32 check of granite-8b and mamba2-130m at their published widths,
     2 layers, against the port's CPU engine and a direct ``lm`` greedy loop;
-    (b) granite-8b bf16 at 18 layers under the dense, paged and paged +
+    (b) granite-8b bf16 at 9 layers under the dense, paged and paged +
     prefix-cache layouts; (c) mamba2-130m bf16 at full depth.  Returns
     (results, launch counts of the window)."""
     import torch
@@ -1907,34 +1983,53 @@ def _serve_traffic(cfg):
     return _serve_prompts(5, lengths, SERVE_SHARED, SERVE_SHARED_REQUESTS, cfg.vocab_size)
 
 
-def _norms_per_layer(cfg) -> int:
-    """RMSNorm / LayerNorm launches per block: ln1 and ln2, and MLA's q_norm
-    and kv_norm."""
-    return 4 if cfg.attn_kind == "mla" else 2
+def _launches_per_call(cfg) -> dict:
+    """The kernel launches of one prefill (or train forward) and of one
+    decode step of ``cfg`` through ``models.lm``.  Attention blocks:
+    ``flash_attention`` once per layer per prefill, never in decode;
+    ``layernorm`` for ln1 and ln2 (MLA: and q_norm, kv_norm) per layer, plus
+    the final norm, in both.  The ssm and hybrid families: ``ssd_scan`` once
+    per Mamba2 layer per prefill, never in decode; the hybrid's shared block
+    ``flash_attention`` once per application per prefill; ``layernorm`` ln1
+    and the gate norm per Mamba2 layer, ln1 and ln2 per application, plus
+    the final norm."""
+    from repro_torch.models import lm
+
+    if cfg.family in ("ssm", "hybrid"):
+        apps = lm.n_shared_apps(cfg)
+        n_ln = 2 * cfg.n_layers + 2 * apps + 1
+        return {"prefill": {"ssd_scan": cfg.n_layers, "flash_attention": apps, "layernorm": n_ln},
+                "decode": {"ssd_scan": 0, "flash_attention": 0, "layernorm": n_ln}}
+    n_ln = (4 if cfg.attn_kind == "mla" else 2) * cfg.n_layers + 1
+    return {"prefill": {"flash_attention": cfg.n_layers, "layernorm": n_ln},
+            "decode": {"flash_attention": 0, "layernorm": n_ln}}
 
 
 def _checked_engine_run(eng, prompts, max_new, label):
-    """``_run_engine`` with its checks: ``flash_attention`` launched n_layers
-    times per prefill dispatch and never in decode, ``layernorm`` 2 n_layers
-    + 1 (MLA: 4 n_layers + 1) per prefill dispatch and decode step, and the
-    program budget ``len(buckets) + 2``.  Returns (streams, metrics, decode
-    dispatches, launches, budget)."""
+    """``_run_engine`` with its checks: each kernel's launches per prefill
+    dispatch and decode step (``_launches_per_call``: none of attention or
+    the SSD scan in decode), and the program budget: ``len(buckets) + 2``
+    with bucketed prefill; with the exact-length prefill of the ssm and
+    hybrid families, one program per distinct prompt length and one decode
+    program, as the reference compiles them.  Returns (streams, metrics,
+    decode dispatches, launches, budget)."""
     from repro_torch.kernels import LAUNCHES
 
     cfg, sc = eng.executor.cfg, eng.serve_cfg
+    per = _launches_per_call(cfg)
     before = dict(LAUNCHES)
     (streams, metrics), decodes = _count_decodes(
         eng.executor, lambda: _run_engine(eng, prompts, max_new))
-    grew = {k: LAUNCHES.get(k, 0) - before.get(k, 0) for k in ("flash_attention", "layernorm")}
+    grew = {k: LAUNCHES.get(k, 0) - before.get(k, 0) for k in per["prefill"]}
     tel = eng.telemetry
     steps_run = decodes * sc.decode_steps
-    want = {"flash_attention": cfg.n_layers * tel["prefill_dispatches"],
-            "layernorm": (_norms_per_layer(cfg) * cfg.n_layers + 1)
-            * (tel["prefill_dispatches"] + steps_run)}
+    want = {k: per["prefill"][k] * tel["prefill_dispatches"] + per["decode"][k] * steps_run
+            for k in per["prefill"]}
     if grew != want:
         raise SmokeError(f"{label}: launches {grew}, expected {want} ({tel['prefill_dispatches']} "
                          f"prefill dispatches, {steps_run} decode steps)")
-    budget = len(eng.executor.buckets) + 2
+    budget = (len(eng.executor.buckets) + 2 if eng.executor.bucketable
+              else len({len(p) for p in prompts}) + 1)
     if tel["prefill_compiles"] + tel["decode_compiles"] > budget:
         raise SmokeError(f"{label}: {tel['prefill_compiles']} prefill + "
                          f"{tel['decode_compiles']} decode shapes > budget {budget}")
@@ -1942,12 +2037,13 @@ def _checked_engine_run(eng, prompts, max_new, label):
 
 
 def _serve_layouts(base, params, prompts, layouts, dev, tag, policy=None, profile=True,
-                   shared_may_differ=False, kernel=None, keep_streams=False) -> list[dict]:
+                   shared_may_differ=False, kernel=None, keep_streams=False,
+                   sc_kw=SERVE_SC) -> list[dict]:
     """``prompts`` x ``SERVE_NEW`` tokens through one ``Engine`` per layout
-    (``SERVE_SC``, ``policy`` or the model's own, ``kernel`` knobs): the
-    same tokens under every layout, ``flash_attention`` n_layers per prefill
-    dispatch, ``layernorm`` 2 n_layers + 1 (MLA 4 n_layers + 1) per prefill
-    dispatch and decode step, the program budget; then, with ``profile``,
+    (``sc_kw``, ``policy`` or the model's own, ``kernel`` knobs): the same
+    tokens under every layout (a layout the family cannot take falls back to
+    dense), the launches of ``_checked_engine_run`` per prefill dispatch and
+    decode step, the program budget; then, with ``profile``,
     one decode dispatch profiled (``profile="first"``: under the first
     layout only).  ``shared_may_differ``: under the prefix
     cache, the requests that share the prefix (the first
@@ -1962,12 +2058,14 @@ def _serve_layouts(base, params, prompts, layouts, dev, tag, policy=None, profil
     runs, first = [], None
     for layout in layouts:
         t0 = time.perf_counter()
-        sc = ServeConfig(**SERVE_SC, **layout, policy=policy)
+        sc = ServeConfig(**sc_kw, **layout, policy=policy)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
             eng = Engine(base, params, sc, kernel=kernel, device=dev)
         torch.cuda.reset_peak_memory_stats()
         label = f"{sc.kv_layout}{' + prefix cache' if sc.kv_prefix_cache else ''}"
+        if eng.executor.kv_layout != sc.kv_layout:
+            label += f" (falls back to {eng.executor.kv_layout})"
         streams, metrics, decodes, grew, budget = _checked_engine_run(
             eng, prompts, SERVE_NEW, f"{tag} {base.name} {label}")
         tel = eng.telemetry
@@ -2117,7 +2215,10 @@ def _policy_check(dev, cfg, lengths, steps, tag, loops=None, codes_cfg=None,
     from repro_torch.serve.api import Engine
 
     t0 = time.perf_counter()
-    quantized = precision.resolve_model_plan(cfg).int8_kv_cache
+    # the int8 KV cache of the plan, where the family takes one (the
+    # executor's rule: never the ssm or hybrid state)
+    quantized = (precision.resolve_model_plan(cfg).int8_kv_cache
+                 and cfg.family not in ("ssm", "hybrid"))
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     prompts = _serve_prompts(3, lengths, 32, len(lengths) // 2, cfg.vocab_size)
     sc = dict(SERVE_CHECK_SC, policy=cfg.precision)
@@ -2135,8 +2236,12 @@ def _policy_check(dev, cfg, lengths, steps, tag, loops=None, codes_cfg=None,
             warnings.simplefilter("ignore", RuntimeWarning)  # prefill-skip needs bit-exact
             eng = Engine(cfg, params, ServeConfig(**sc, **layout), device=dev)
         label = eng.executor.kv_layout
+        if layout and label == "dense":  # a layout the family cannot take: dense, same tokens
+            label = f"dense (asked {layout['kv_layout']})"
         got, _, _, grew, _ = _checked_engine_run(eng, prompts, steps,
                                                  f"{tag} {cfg.name} {cfg.precision} {label}")
+        if "asked" in label and got != streams["card engine, dense"]:
+            raise SmokeError(f"{tag} {cfg.name}: the {label} engine's tokens differ from dense")
         streams[f"card engine, {label}"] = got
         launches[label] = grew
         if params_q is None:
@@ -2230,9 +2335,9 @@ def _moe_prefill_floor(cfg, b, n) -> tuple[float, float, str]:
 def phase_int8_moe(dev, float_runs=None):
     """int8_serve and the MoE family: (a) the float32 check of granite-8b,
     granite-moe-3b-a800m (2 layers) and dbrx-132b (1 layer) under int8_serve;
-    (b) granite-moe-3b-a800m bf16 at 16 layers through the engine, three
+    (b) granite-moe-3b-a800m bf16 at 8 layers through the engine, three
     layouts; (c) its ``lm.prefill`` at 1 and 8 x 2048; (d) granite-8b bf16 at
-    18 layers under int8_serve, dense and paged, beside ``float_runs`` (phase
+    9 layers under int8_serve, dense and paged, beside ``float_runs`` (phase
     7's).  Returns (results, launch counts of the window)."""
     import torch
 
@@ -2245,7 +2350,7 @@ def phase_int8_moe(dev, float_runs=None):
     LAUNCHES.clear()  # the int8_serve / MoE path's window starts here
     checks = [_int8_check(dev, *c) for c in INT8_CHECK]
 
-    # (b) granite-moe-3b-a800m bf16, 16 of its 32 layers (the script's time
+    # (b) granite-moe-3b-a800m bf16, 8 of its 32 layers (the script's time
     # limit), its own serve_policy
     torch.cuda.empty_cache()
     base = dataclasses.replace(get_config(MOE_SERVE), n_layers=MOE_SERVE_LAYERS)
@@ -2338,7 +2443,7 @@ def phase_int8_moe(dev, float_runs=None):
     del params, params_q, layer0
     torch.cuda.empty_cache()
 
-    # (d) granite-8b bf16, 18 layers as phase 7b, int8_serve, dense and paged
+    # (d) granite-8b bf16, 9 layers as phase 7b, int8_serve, dense and paged
     g8 = dataclasses.replace(get_config("granite-8b"), n_layers=GRANITE_SERVE_LAYERS)
     params = lm.init_params(g8, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     g8_runs = _serve_layouts(g8, params, _serve_traffic(g8), SERVE_LAYOUTS[:2], dev, "[int8]",
@@ -2455,7 +2560,7 @@ def _mla_prefill_floor(cfg, b, n, int8_kv) -> tuple[float, float, str]:
 
 def phase_mla(dev):
     """MLA, minicpm3-4b: (a) the float32 check under float and int8_serve;
-    (b) bf16 at all 62 layers under int8_serve through the engine, three
+    (b) bf16 at 31 of its 62 layers under int8_serve through the engine, three
     layouts, then dense with the absorbed decode; (c) ``lm.prefill`` at 1 and
     8 x 2048 under int8_serve and float.  Returns (results, launch counts of
     the window)."""
@@ -2469,9 +2574,9 @@ def phase_mla(dev):
     LAUNCHES.clear()  # the MLA path's window starts here
     checks = [_mla_check(dev, policy) for policy in ("float", "int8_serve")]
 
-    # (b) bf16, all 62 layers, its own serve_policy (int8_serve)
+    # (b) bf16, MLA_SERVE_LAYERS of its 62 layers, its own serve_policy (int8_serve)
     torch.cuda.empty_cache()
-    base = get_config(MLA)
+    base = dataclasses.replace(get_config(MLA), n_layers=MLA_SERVE_LAYERS)
     params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     weight_bytes = _nbytes(params)
     prompts = _serve_traffic(base)
@@ -2579,6 +2684,290 @@ def phase_mla(dev):
                 weight_bytes=weight_bytes), counts
 
 
+# --------------------------------------------------------------- phase 11 --
+
+
+def _families_kernel_cases(dev) -> list[dict]:
+    """The kernel cases of phase 11's path: zamba2-1.2b's shared block
+    attends (8, 32 / 32, 2048, 128) causal (bf16 safe and LUT, and the
+    float32 LUT route) and its 38 Mamba2 layers scan (8, 2048, 64 heads of
+    P 64, N 64, chunk 64); hubert-xlarge attends (8, 16, 512, 80) both ways
+    (head_dim 80 padded to 128); internvl2-1b (8, 14 / 2, 512, 64) causal
+    (bf16, and its int8 KV cache's float32 LUT route); rows that see no key
+    (a window of 256 ending before kv_len 640) on the head_dim 8-32, (64, 64)
+    and (128, 128) routes; the norms: RMSNorm over 2048 and 4096 (zamba2's
+    blocks and its shared block), LayerNorm over 1280 (hubert), RMSNorm over
+    896 (internvl2), bf16."""
+    b, l = FAMILY_ATTENTION_ROWS
+    cases = [_attention_case(dev, (b, 32, l, 128), mode, causal=True, dtype=dtype,
+                             sdpa_yardstick=True)
+             for dtype, mode in (("bfloat16", "safe"), ("bfloat16", "lut"), ("float32", "lut"))]
+    cases += [_ssd_case(dev, b, l, 64, 64, 64, 1, 64, dtype=dtype)
+              for dtype in ("float32", "bfloat16")]
+    for mode in ("safe", "lut"):
+        cases.append(_attention_case(dev, (8, 16, AUDIO_FRAMES, 80), mode, dtype="bfloat16",
+                                     sdpa_yardstick=True))
+        cases.append(_attention_case(dev, (8, 14, 2 * VLM_TEXT, 64), mode, causal=True,
+                                     dtype="bfloat16", hkv=2, sdpa_yardstick=True))
+    cases.append(_attention_case(dev, (8, 14, 2 * VLM_TEXT, 64), "lut", causal=True,
+                                 dtype="float32", hkv=2, sdpa_yardstick=True))
+    for d in (16, 64, 128):
+        cases.append(_attention_case(dev, (2, 8, 1000, d), "safe", causal=True, window=256,
+                                     kv_len=640))
+    cases += [_layernorm_case(dev, b * l, k, True, False, "bfloat16") for k in (2048, 4096)]
+    cases.append(_layernorm_case(dev, 8 * AUDIO_FRAMES, 1280, False, False, "bfloat16"))
+    cases.append(_layernorm_case(dev, 8 * 2 * VLM_TEXT, 896, True, False, "bfloat16"))
+    return cases
+
+
+def _pad_share(fn) -> dict:
+    """The device time of the attention wrapper's pad copies (its profiler
+    scope ``PAD_SCOPE``: q, k, v zero-padded, the output's slice copied)
+    within one call of ``fn``, from a trace of the host's operators and the
+    device: ms and share of the call's device time (None when the trace has
+    no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention.ops import PAD_SCOPE
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def dev_us(e, total):
+        return getattr(e, "device_time_total" if total else "self_device_time_total", None) \
+            or getattr(e, "cuda_time_total" if total else "self_cuda_time_total", 0.0)
+
+    events = prof.key_averages()
+    busy = sum(dev_us(e, False) for e in events if e.device_type == cuda)
+    pad = sum(dev_us(e, True) for e in events if e.key == PAD_SCOPE and e.device_type == cpu)
+    scopes = sum(e.count for e in events if e.key == PAD_SCOPE and e.device_type == cpu)
+    if busy <= 0:
+        return dict(pad_ms=None, pad_share=None, pad_scopes=scopes)
+    return dict(pad_ms=pad / 1e3, pad_share=pad / busy, pad_scopes=scopes,
+                traced_device_ms=busy / 1e3)
+
+
+def _hybrid_serve(dev) -> list[dict]:
+    """Phase 11b: zamba2-1.2b bf16 at all 38 layers through the engine,
+    under its serve_policy (int8_serve) and float, dense and paged (which
+    falls back to dense with the same tokens): 16 exact-length requests of
+    64-512 tokens x 32 new tokens; TTFT, ITL, tokens/s, one decode dispatch
+    profiled per policy, the Mamba2 state's and the shared K/V's bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import kv_cache
+
+    torch.cuda.empty_cache()
+    base = get_config(HYBRID)
+    params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    prompts = _serve_prompts(6, HYBRID_SERVE_LEN, 0, 0, base.vocab_size)
+    spec = kv_cache.abstract_caches(base, HYBRID_SERVE_SC["max_batch"],
+                                    HYBRID_SERVE_SC["max_seq_len"], torch.float32)
+    group_bytes = {g: sum(int(np.prod(shape)) * 4 for shape, _ in leaves.values())
+                   for g, leaves in spec.items()}
+    runs = []
+    for policy in (base.serve_policy, "float"):
+        runs += _serve_layouts(base, params, prompts, HYBRID_LAYOUTS, dev, "[families]",
+                               policy=policy, profile="first", sc_kw=HYBRID_SERVE_SC)
+    for r in runs:
+        r.update(state_bytes=group_bytes["layers"], shared_kv_bytes=group_bytes["shared"])
+        if r["kv_bytes"] != sum(group_bytes.values()):
+            raise SmokeError(f"[families] {HYBRID}: KV bytes {r['kv_bytes']}, expected "
+                             f"{group_bytes}")
+    log(f"[families] {HYBRID} caches (float32, {HYBRID_SERVE_SC['max_batch']} slots x "
+        f"{HYBRID_SERVE_SC['max_seq_len']}): Mamba2 state {group_bytes['layers'] / 1e6:.1f} MB "
+        f"over {base.n_layers} layers, shared K/V {group_bytes['shared'] / 1e9:.3f} GB over "
+        f"{spec['shared']['k'][0][0]} applications")
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _frontend_timings(dev) -> list[dict]:
+    """Phase 11c: hubert-xlarge (48 layers) ``lm.forward`` on 1 and 8 x 512
+    frames, and internvl2-1b (24 layers) ``lm.prefill`` of 1 and 8 x (256
+    image + 256 text) tokens then 32 greedy ``decode_step``s, bf16, under
+    float and under their serve_policy (int8_serve): median ms, device ms,
+    busy share, attention share, and hubert's pad copies' share."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import precision
+    from repro_torch.models import lm
+
+    out = []
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for name in (AUDIO, VLM):
+        torch.cuda.empty_cache()
+        base = get_config(name)
+        params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        checked = _launch_checker(name, _launches_per_call(base))
+        for policy in ("float", base.serve_policy):
+            pcfg = dataclasses.replace(base, precision=policy)
+            plan = precision.resolve_model_plan(pcfg)
+            p = params if policy == "float" else precision.apply_plan_to_params(params, plan)
+            quantized = plan.int8_kv_cache
+            for bt in FRONTEND_BATCHES:
+                t0 = time.perf_counter()
+                if name == AUDIO:
+                    frames = torch.randn(bt, AUDIO_FRAMES, base.frontend_dim, generator=gen,
+                                         device=dev, dtype=torch.bfloat16)
+
+                    def run():
+                        return lm.forward(p, pcfg, {"frames": frames}, device=dev)[0]
+
+                    what = f"forward {bt} x {AUDIO_FRAMES} frames"
+                else:
+                    patches = torch.randn(bt, base.n_frontend_tokens, base.frontend_dim,
+                                          generator=gen, device=dev, dtype=torch.bfloat16)
+                    tokens = torch.randint(0, base.vocab_size, (bt, VLM_TEXT), generator=gen,
+                                           device=dev)
+                    n_img = base.n_frontend_tokens
+                    caches = lm.init_caches(pcfg, bt, n_img + VLM_TEXT + VLM_DECODE_STEPS,
+                                            torch.float32 if quantized else torch.bfloat16,
+                                            quantized=quantized, device=dev)
+
+                    def run():
+                        return lm.prefill(p, pcfg, {"patches": patches, "tokens": tokens},
+                                          caches, device=dev)
+
+                    what = f"prefill {bt} x ({n_img} image + {VLM_TEXT} text)"
+                torch.cuda.reset_peak_memory_stats()
+                res = checked("prefill", run)
+                logits = res if name == AUDIO else res[0]
+                if not torch.isfinite(logits.float()).all():
+                    raise SmokeError(f"[families] {name} {policy} {what}: non-finite logits")
+                ms = median_ms(run, 5 if bt > 1 else 10, warmup=1)
+                prof = profile_forward(run, iters=3)
+                rec = dict(model=name, policy=policy, batch=bt, what=what, median_ms=ms,
+                           profile=prof, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                if name == AUDIO:
+                    rec.update(frames_per_s=bt * AUDIO_FRAMES / (ms * 1e-3), **_pad_share(run))
+                else:
+                    rec["tokens_per_s"] = bt * (n_img + VLM_TEXT) / (ms * 1e-3)
+                    filled, start = res[1], res[0].argmax(-1, keepdim=True)
+
+                    def decode_run():
+                        tok, c = start, filled
+                        for k in range(VLM_DECODE_STEPS):
+                            pos = torch.full((bt,), n_img + VLM_TEXT + k, dtype=torch.int32,
+                                             device=dev)
+                            lg, c = lm.decode_step(p, pcfg, tok, pos, c, device=dev)
+                            tok = lg.argmax(-1, keepdim=True)
+                        return tok
+
+                    checked("decode", lambda: lm.decode_step(
+                        p, pcfg, start, torch.full((bt,), n_img + VLM_TEXT, device=dev), filled,
+                        device=dev))
+                    run_ms = median_ms(decode_run, 3, warmup=0)  # warm: the checked step
+                    rec.update(decode_ms_per_token=run_ms / VLM_DECODE_STEPS,
+                               decode_tokens_per_s=bt * VLM_DECODE_STEPS / (run_ms * 1e-3))
+                    del caches, filled
+                rec["seconds"] = time.perf_counter() - t0
+                out.append(rec)
+                busy, dev_ms = prof["busy_share"], prof.get("device_ms_per_fwd")
+                extra = (f", pad copies {rec['pad_ms']:.3f} ms = {rec['pad_share']:.1%} of device "
+                         f"time ({rec['pad_scopes']} scopes)" if rec.get("pad_share") is not None
+                         else "" if name != AUDIO else ", pad copies not measured")
+                if name == VLM:
+                    extra = (f"; decode {rec['decode_ms_per_token']:.3f} ms/token "
+                             f"({rec['decode_tokens_per_s']:.0f} tokens/s)")
+                log(f"[families] {name} {base.n_layers} L bf16 {policy} {what}: median "
+                    f"{ms:.3f} ms, device ms "
+                    f"{'not measured' if dev_ms is None else f'{dev_ms:.3f}'}, busy "
+                    f"{'not measured' if busy is None else f'{busy:.1%}'}, attention "
+                    f"{prof.get('attention_share', float('nan')):.1%}, layernorm "
+                    f"{prof.get('layernorm_share', float('nan')):.1%}{extra}, peak "
+                    f"{rec['peak_gb']:.1f} GB  top {prof['top']}")
+            del p
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(dev):
+    """The hybrid family and the modality frontends: (a) float32 checks at
+    the published widths and reduced depth: zamba2-1.2b at 7 layers through
+    the engine (dense, and paged, which falls back to dense) against the
+    port's CPU engine and direct loops; hubert-xlarge at 2 layers, the card's
+    logits against the CPU's; internvl2-1b at 2 layers, 256 patches and text
+    then greedy decode against the CPU path; (b) zamba2-1.2b bf16 at 38
+    layers through the engine under int8_serve and float; (c) hubert-xlarge
+    and internvl2-1b bf16 at full depth.  Returns (results, launch counts of
+    the window)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+
+    LAUNCHES.clear()  # the families path's window starts here
+    cut = dict(vocab_size=512, dtype="float32")
+    # (a) zamba2-1.2b at 7 layers: the shared block at layers 0 and 6
+    zcfg = dataclasses.replace(get_config(HYBRID), n_layers=HYBRID_CHECK_LAYERS, **cut,
+                               precision="float")
+    checks = [_policy_check(dev, zcfg, HYBRID_CHECK_LENGTHS, SERVE_CHECK_NEW, "[families]")]
+    # hubert-xlarge at 2 layers: the card's logits against the CPU's
+    t0 = time.perf_counter()
+    acfg = dataclasses.replace(get_config(AUDIO), n_layers=FRONTEND_CHECK_LAYERS,
+                               dtype="float32")
+    params_cpu = lm.init_params(acfg, torch.Generator().manual_seed(SEED), device="cpu")
+    b, s = AUDIO_CHECK
+    frames = torch.randn(b, s, acfg.frontend_dim, generator=torch.Generator().manual_seed(1))
+    checked = _launch_checker(AUDIO, {"prefill": _launches_per_call(acfg)["prefill"]})
+    card = checked("prefill", lambda: lm.forward(_to(params_cpu, dev), acfg,
+                                                 {"frames": frames.to(dev)}, device=dev)[0])
+    ref = lm.forward(params_cpu, acfg, {"frames": frames}, device="cpu")[0]
+    real = ref[..., :acfg.vocab_size]
+    err = float((card.cpu()[..., :acfg.vocab_size] - real).abs().max())
+    if not (err <= AUDIO_TOL and torch.isfinite(card).all()):
+        raise SmokeError(f"[families] {AUDIO} float32: |card - cpu| {err:.3e} > {AUDIO_TOL}")
+    checks.append(dict(model=AUDIO, n_layers=acfg.n_layers, batch=b, frames=s,
+                       max_abs_err_vs_cpu=err, tol=AUDIO_TOL, max_abs_logit=float(real.abs().max()),
+                       seconds=time.perf_counter() - t0))
+    log(f"[families] float32 check {AUDIO}: {acfg.n_layers} layers d {acfg.d_model}, {b} x {s} "
+        f"frames, |card - cpu| {err:.2e} (tol {AUDIO_TOL}; logits up to "
+        f"{checks[-1]['max_abs_logit']:.2f}) ({checks[-1]['seconds']:.1f} s)")
+    del params_cpu, card
+    # internvl2-1b at 2 layers: 256 patches + text, greedy decode
+    t0 = time.perf_counter()
+    vcfg = dataclasses.replace(get_config(VLM), n_layers=FRONTEND_CHECK_LAYERS, **cut)
+    params_cpu = lm.init_params(vcfg, torch.Generator().manual_seed(SEED), device="cpu")
+    b, s, steps = VLM_CHECK
+    g = torch.Generator().manual_seed(2)
+    patches = torch.randn(b, vcfg.n_frontend_tokens, vcfg.frontend_dim, generator=g)
+    prompt = torch.randint(0, vcfg.vocab_size, (b, s), generator=g)
+    check = _greedy_check(VLM, vcfg, _to(params_cpu, dev), params_cpu, prompt, steps,
+                          _launch_checker(VLM, _launches_per_call(vcfg)), DENSE_TOL,
+                          patches=patches)
+    check.update(model=VLM, n_layers=vcfg.n_layers, seconds=time.perf_counter() - t0)
+    checks.append(check)
+    log(f"[families] float32 check {VLM}: {vcfg.n_layers} layers d {vcfg.d_model}, {b} x "
+        f"({vcfg.n_frontend_tokens} patches + {s}) prompt + {steps} greedy steps  |card - cpu| "
+        f"{check['max_abs_err_vs_cpu']:.2e}  |decode - forward| "
+        f"{check['max_abs_err_decode_vs_forward']:.2e} (tol {DENSE_TOL})  tokens differ at "
+        f"{check['greedy_differs_at_close_calls'] or 'no step'} ({check['seconds']:.1f} s)")
+    del params_cpu
+    torch.cuda.empty_cache()
+
+    runs = _hybrid_serve(dev)  # (b)
+    timings = _frontend_timings(dev)  # (c)
+    counts = dict(LAUNCHES)  # the families path's window ends here
+    for kname in ("flash_attention", "layernorm", "ssd_scan"):
+        if counts.get(kname, 0) <= 0:
+            raise SmokeError(f"{kname} was never launched on the families path")
+    log(f"[families] families path launches: {counts}")
+    return dict(check=checks, runs=runs, timings=timings), counts
+
+
 # ---------------------------------------------------------------- phase 8 --
 
 # Training (phase 8).  (a) Each autograd.Function (the kernel forward, a
@@ -2637,12 +3026,14 @@ JAX_WORKFLOW = {  # (model, policy): (float AUC, PTQ AUC / float, QAT AUC / floa
     ("gw", "paper_vu13p"): (0.9350401361270927, 0.998688191479161, 0.9973498611686317),
 }
 WORKFLOW_TOL = 0.02
-# (c) An LM train step at granite-8b's published width cut to 2 layers,
-# float32, batch 2 x 2048 tokens: run_training for 8 steps with a checkpoint
+# (c) An LM train step at granite-8b's published width cut to 1 layer (for
+# the run's time limit: each checkpoint holds the float32 weights and both
+# moments), float32, batch 2 x 2048 tokens:
+# run_training for 8 steps with a checkpoint
 # every 4, again killed at step 6 and resumed; both under
 # torch.use_deterministic_algorithms(True), and the two runs' parameters
 # must be bitwise equal.
-LM_TRAIN_CUT = dict(n_layers=2, dtype="float32")
+LM_TRAIN_CUT = dict(n_layers=1, dtype="float32")
 LM_TRAIN = dict(total_steps=8, checkpoint_every=4, warmup_steps=2, learning_rate=3e-4)
 LM_TRAIN_SHAPE, LM_TRAIN_FAIL_AT = (2, 2048), 6
 
@@ -3151,6 +3542,7 @@ def main() -> int:
         train, train_counts = timed("train", phase_train, dev)
         int8, int8_counts = timed("int8_moe", phase_int8_moe, dev, serve["runs"])
         mla, mla_counts = timed("mla", phase_mla, dev)
+        families, families_counts = timed("families", phase_families, dev)
     except Exception:  # noqa: BLE001 - report every failed phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3158,7 +3550,7 @@ def main() -> int:
 
     # launches: each kernel's count summed over the path windows it runs in
     windows = (model_counts, mha_counts, softmax_counts, mamba_counts, dense_counts, serve_counts,
-               train_counts, int8_counts, mla_counts)
+               train_counts, int8_counts, mla_counts, families_counts)
     counts = {k: sum(w.get(k, 0) for w in windows)
               for k in ("flash_attention", "layernorm", "qmatmul", "lut_softmax", "ssd_scan")}
     main_shape = {"flash_attention": ([8192, 4, 100, 8], "safe"),
@@ -3187,7 +3579,7 @@ def main() -> int:
                                "kernels": cases, "models": models, "mha": mha,
                                "lut_softmax_path": softmax_path, "mamba": mamba,
                                "dense": dense, "serve": serve, "train": train,
-                               "int8_moe": int8, "mla": mla,
+                               "int8_moe": int8, "mla": mla, "families": families,
                                "launches": counts,
                                "launches_by_path": {"models": model_counts, "mha": mha_counts,
                                                     "lut_softmax": softmax_counts,
@@ -3196,7 +3588,8 @@ def main() -> int:
                                                     "serve": serve_counts,
                                                     "train": train_counts,
                                                     "int8_moe": int8_counts,
-                                                    "mla": mla_counts},
+                                                    "mla": mla_counts,
+                                                    "families": families_counts},
                                "phase_seconds": phase_s,
                                "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s; details in {OUT.relative_to(ROOT)}")

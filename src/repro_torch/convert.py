@@ -32,13 +32,14 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
     return _to_tensor(tree, dev)
 
 
-# the stacked per-layer cache trees that convert: the ssm family's state, the
-# dense KV slabs, the rolling sliding-window buffer and the paged pools, each
+# the stacked per-layer cache trees that convert: the ssm (and hybrid) family's
+# state, the dense KV slabs, the rolling sliding-window buffer and the paged pools, each
 # of the last three also as the int8 KV cache (codes plus k/v scales), and
 # MLA's latent, dense and paged, float or int8 (codes plus latent_scale)
 _KV_LAYOUTS = ({"k", "v"}, {"k", "v", "slot_pos"}, {"k", "v", "page_table"})
 _LATENT_LAYOUTS = ({"latent"}, {"latent", "page_table"})
-_CACHE_LAYOUTS = ({"ssm_state", "conv_state"}, *_KV_LAYOUTS,
+_MAMBA = {"ssm_state", "conv_state"}
+_CACHE_LAYOUTS = (_MAMBA, *_KV_LAYOUTS,
                   *(kv | {"k_scale", "v_scale"} for kv in _KV_LAYOUTS),
                   *_LATENT_LAYOUTS, *(lat | {"latent_scale"} for lat in _LATENT_LAYOUTS))
 
@@ -79,13 +80,15 @@ def caches_from_numpy(tree, device: str | torch.device = "cuda"):
     each KV layout also as the int8 cache, int8 ``k`` / ``v`` codes with
     float32 ``k_scale`` / ``v_scale``; or MLA's packed ``latent`` (B, L,
     width), or its pools (num_pages, page_size, width) with the
-    ``page_table``, each also as int8 codes with a float32 ``latent_scale``.
-    The hybrid caches wait for ROADMAP queue 1, item 10."""
-    if set(tree) != {"layers"} or set(tree["layers"]) not in _CACHE_LAYOUTS:
-        raise NotImplementedError(
-            f"only the ssm family's, the dense and paged KV and the MLA latent caches "
-            f"convert so far, got {sorted(tree)} / {sorted(tree.get('layers', {}))} "
-            "(ROADMAP queue 1, item 10)"
+    ``page_table``, each also as int8 codes with a float32 ``latent_scale``;
+    or the hybrid family's Mamba2 ``layers`` with ``"shared"``: the shared
+    block's dense ``k`` and ``v`` (n_apps, B, H, L, D)."""
+    hybrid = set(tree) == {"layers", "shared"}
+    if not (set(tree) == {"layers"} and set(tree["layers"]) in _CACHE_LAYOUTS
+            or hybrid and set(tree["layers"]) == _MAMBA and set(tree["shared"]) == {"k", "v"}):
+        raise ValueError(
+            f"not a cache tree of the port: {sorted(tree)} / "
+            f"{sorted(tree.get('layers', {}))} / {sorted(tree.get('shared', {}))}"
         )
     return params_from_numpy(tree, device)
 

@@ -293,6 +293,10 @@ class PrecisionPlan:
     def logits_quant(self) -> quant_lib.QuantConfig:
         return self.quant_for(self.logits)
 
+    def shared_quant(self) -> quant_lib.QuantConfig:
+        """The hybrid family's shared attention block's hook."""
+        return self.quant_for(self.shared)
+
     def quant_for_layer(self, i: int) -> quant_lib.QuantConfig:
         return self.quant_for(self.layers[i])
 

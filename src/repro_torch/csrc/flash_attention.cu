@@ -106,13 +106,18 @@
 //      slower at the LM shapes (PERF.md).
 //    A block walks only the key tiles its rows can see; element masks are
 //    evaluated only on tiles that cross the diagonal, the window edge or the
-//    end of kv_len.  Grid order: 1-D, heads in groups whose K/V fills at
-//    most a quarter of L2 (the host's heads_per_group), a group's blocks
-//    consecutive with its longest causal query tiles first and its heads
-//    fastest, so the blocks in flight share a few heads' K/V in L2 and
-//    under a causal mask (a call takes as long as its longest block) the
-//    long walks still start first.  At minicpm3-4b's (8, 40, 2048, 96 / 64)
-//    bf16 the heads-fastest order measured 1.40x slower (PERF.md).
+//    end of kv_len.  A safe row that sees no key (a window ending before
+//    kv_len) is stored as the mean of V over every key, as the plain
+//    version's softmax of a row masked everywhere gives: v_mean_kernel
+//    writes it per (batch, kv head), launched only when such rows exist, and
+//    both kernels read it only for rows that end with a zero sum.  Grid
+//    order: 1-D, heads in groups whose K/V fills at most a quarter of L2
+//    (the host's heads_per_group), a group's blocks consecutive with its
+//    longest causal query tiles first and its heads fastest, so the blocks
+//    in flight share a few heads' K/V in L2 and under a causal mask (a call
+//    takes as long as its longest block) the long walks still start first.
+//    At minicpm3-4b's (8, 40, 2048, 96 / 64) bf16 the heads-fastest order
+//    measured 1.40x slower (PERF.md).
 //
 // Both kernels: GQA maps query head h to key/value head h / (Hq / Hkv) by
 // index; K/V are never repeated in memory.  LUT mode: exp from the
@@ -704,6 +709,7 @@ __global__ void __launch_bounds__(32 * W, 16 / W)
 small_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        const float* __restrict__ exp_tab, const float* __restrict__ inv_tab,
+                       const float* __restrict__ vmean,
                        int BHq, int Hq, int Hkv, int Lq, int Lkv, int kv_len, int causal,
                        int window, int lut_mode, float scale, float exp_off, float exp_step,
                        float inv_off, float inv_step, int slots) {
@@ -751,7 +757,7 @@ small_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool seen = gi.ihi > gi.ilo;
         int lo = __reduce_min_sync(0xffffffffu, seen ? gi.ilo : 0x7fffffff);
         int hi = __reduce_max_sync(0xffffffffu, seen ? gi.ihi : 0);
-        if (hi <= lo) lo = hi = 0;  // no key visible: one empty step, zero output
+        if (hi <= lo) lo = hi = 0;  // no key visible: one empty step (the rows take vmean)
         gi.lo = lo;
         gi.hi = hi;
         gi.n_tiles = max(1, (hi - lo + kRows - 1) / kRows);
@@ -937,6 +943,10 @@ small_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                    : __frcp_rn(l[h]);  // = 1.0f / l[h], without the division
                 }
                 T* op = out + (static_cast<long long>(bh) * Lq + qi) * D + 2 * tig;
+                // a safe row that saw no key: the mean of V (vmean, safe mode only)
+                const long long vrow = static_cast<long long>(gc.hkv0 + slot) * D;
+                const float* vm =
+                    l[h] > 0.0f || vmean == nullptr ? nullptr : vmean + vrow + 2 * tig;
 #pragma unroll
                 for (int nb = 0; nb < D / 8; ++nb) {
                     const int i = 4 * nb + 2 * h;
@@ -945,6 +955,7 @@ small_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     for (int j = 1; j < kAcc; ++j) a += o[j][i], b += o[j][i + 1];
                     a *= inv;
                     b *= inv;
+                    if (vm != nullptr) a = vm[8 * nb], b = vm[8 * nb + 1];
                     if constexpr (ALIGNED) {
                         store_pair(op + 8 * nb, a, b);
                     } else {
@@ -1096,6 +1107,7 @@ __global__ void __launch_bounds__(TcTile<T, DQK, DV, G>::kThreads)
 tc_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, T* __restrict__ out,
                     const float* __restrict__ exp_tab, const float* __restrict__ inv_tab,
+                    const float* __restrict__ vmean,
                     int BHq, int Hq, int Hkv, int Lq, int Lkv, int kv_len, int causal,
                     int window, int lut_mode, float scale, float exp_off, float exp_step,
                     float inv_off, float inv_step, int heads_per_group) {
@@ -1402,6 +1414,12 @@ tc_attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                            : 1.0f / l[h];
         }
         T* op = out + (static_cast<long long>(bh) * Lq + qi) * DV + 2 * tig;
+        if (l[h] == 0.0f && vmean != nullptr) {  // a safe row that saw no key: the mean of V
+            const float* vm = vmean + static_cast<long long>(hkv) * DV + 2 * tig;
+#pragma unroll
+            for (int nb = 0; nb < DV / 8; ++nb) store_pair(op + 8 * nb, vm[8 * nb], vm[8 * nb + 1]);
+            continue;
+        }
 #pragma unroll
         for (int nb = 0; nb < DV / 8; ++nb) {
             store_pair(op + 8 * nb, o[4 * nb + 2 * h] * inv, o[4 * nb + 2 * h + 1] * inv);
@@ -1463,7 +1481,8 @@ int sm_count(int dev) {
 template <typename T, int D, int NB, int W, bool ALIGNED>
 cudaError_t launch_small_w(int dev, int items, int smem, int slots,
                            const void* q, const void* k, const void* v, void* out,
-                           const float* exp_tab, const float* inv_tab, int B, int Hq, int Hkv,
+                           const float* exp_tab, const float* inv_tab, const float* vmean,
+                           int B, int Hq, int Hkv,
                            int Lq, int Lkv, int kv_len, int causal, int window, int lut_mode,
                            float scale, float exp_off, float exp_step, float inv_off,
                            float inv_step, cudaStream_t stream) {
@@ -1483,14 +1502,15 @@ cudaError_t launch_small_w(int dev, int items, int smem, int slots,
     const int grid = std::min((items + W - 1) / W, std::max(1, per_sm) * sm_count(dev));
     kernel<<<grid, 32 * W, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), exp_tab, inv_tab, B * Hq, Hq, Hkv, Lq, Lkv, kv_len, causal, window,
-        lut_mode, scale, exp_off, exp_step, inv_off, inv_step, slots);
+        static_cast<T*>(out), exp_tab, inv_tab, vmean, B * Hq, Hq, Hkv, Lq, Lkv, kv_len, causal,
+        window, lut_mode, scale, exp_off, exp_step, inv_off, inv_step, slots);
     return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_small(const void* q, const void* k, const void* v, void* out,
-                         const float* exp_tab, const float* inv_tab, int B, int Hq, int Hkv,
+                         const float* exp_tab, const float* inv_tab, const float* vmean,
+                         int B, int Hq, int Hkv,
                          int Lq, int Lkv, int kv_len, int causal, int window, int lut_mode,
                          float scale, float exp_off, float exp_step, float inv_off,
                          float inv_step, cudaStream_t stream) {
@@ -1526,7 +1546,8 @@ cudaError_t launch_small(const void* q, const void* k, const void* v, void* out,
     constexpr int kNb7 = sizeof(T) == 4 ? 7 : 8;  // bf16 takes 16 keys per P V step
 #define REPRO_FA_SMALL(NB, W, AL)                                                               \
     launch_small_w<T, D, NB, W, AL>(dev, static_cast<int>(items), smem_for(W), slots_for(W), q,  \
-                                    k, v, out, exp_tab, inv_tab, B, Hq, Hkv, Lq, Lkv, kv_len,    \
+                                    k, v, out, exp_tab, inv_tab, vmean, B, Hq, Hkv, Lq, Lkv,     \
+                                    kv_len,                                                      \
                                     causal, window, lut_mode, scale, exp_off, exp_step, inv_off, \
                                     inv_step, stream)
 #define REPRO_FA_SMALL_W(NB) eight ? REPRO_FA_SMALL(NB, 8, true) : REPRO_FA_SMALL(NB, 4, true)
@@ -1546,7 +1567,8 @@ cudaError_t launch_small(const void* q, const void* k, const void* v, void* out,
 template <typename T, int DQK, int DV, int G>
 cudaError_t launch_tc_groups(const void* q, const void* k, const void* v, int dev, int blocks,
                              int heads_per_group, void* out, const float* exp_tab,
-                             const float* inv_tab, int B, int Hq, int Hkv, int Lq, int Lkv,
+                             const float* inv_tab, const float* vmean, int B, int Hq, int Hkv,
+                             int Lq, int Lkv,
                              int kv_len, int causal, int window, int lut_mode, float scale,
                              float exp_off, float exp_step, float inv_off, float inv_step,
                              cudaStream_t stream) {
@@ -1566,7 +1588,8 @@ cudaError_t launch_tc_groups(const void* q, const void* k, const void* v, int de
         opted_in[dev] = true;
     }
     tc_attention_kernel<T, DQK, DV, G><<<blocks, C::kThreads, C::kSmemBytes, stream>>>(
-        tq, tk, tv, static_cast<T*>(out), exp_tab, inv_tab, B * Hq, Hq, Hkv, Lq, Lkv, kv_len,
+        tq, tk, tv, static_cast<T*>(out), exp_tab, inv_tab, vmean, B * Hq, Hq, Hkv, Lq, Lkv,
+        kv_len,
         causal, window, lut_mode, scale, exp_off, exp_step, inv_off, inv_step, heads_per_group);
     return cudaGetLastError();
 }
@@ -1580,7 +1603,8 @@ int l2_bytes(int dev) {
 
 template <typename T, int DQK, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      const float* exp_tab, const float* inv_tab, int B, int Hq, int Hkv, int Lq,
+                      const float* exp_tab, const float* inv_tab, const float* vmean, int B,
+                      int Hq, int Hkv, int Lq,
                       int Lkv, int kv_len, int causal, int window, int lut_mode, float scale,
                       float exp_off, float exp_step, float inv_off, float inv_step,
                       cudaStream_t stream) {
@@ -1597,7 +1621,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
         static_cast<int>(std::min<long long>(1LL * B * Hq, kv_per_group * (Hq / Hkv)));
 #define REPRO_FA_TC(G)                                                                         \
     launch_tc_groups<T, DQK, DV, G>(q, k, v, dev, blocks, heads_per_group, out, exp_tab,       \
-                                    inv_tab, B, Hq, Hkv, Lq, Lkv, kv_len, causal, window,      \
+                                    inv_tab, vmean, B, Hq, Hkv, Lq, Lkv, kv_len, causal,       \
+                                    window,                                                    \
                                     lut_mode, scale, exp_off, exp_step, inv_off, inv_step,     \
                                     stream)
     if constexpr (sizeof(T) == 4) {
@@ -1614,16 +1639,34 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
     return err;
 }
 
+// The mean of V over all Lkv keys per (batch, kv head), float32, into vmean
+// (B Hkv, DV): what a `safe` row that sees no key gives.  Every score of such
+// a row is masked, and the plain version's softmax over a row masked
+// everywhere weighs every key alike.  One block per (batch, kv head), a
+// thread per column; launched only when some row sees no key.
+template <typename T>
+__global__ void v_mean_kernel(const T* __restrict__ v, float* __restrict__ vmean, int Lkv,
+                              int DV) {
+    const T* src = v + static_cast<long long>(blockIdx.x) * Lkv * DV;
+    for (int c = threadIdx.x; c < DV; c += blockDim.x) {
+        float sum = 0.0f;
+        for (int j = 0; j < Lkv; ++j) {
+            sum += static_cast<float>(src[static_cast<long long>(j) * DV + c]);
+        }
+        vmean[static_cast<long long>(blockIdx.x) * DV + c] = sum / static_cast<float>(Lkv);
+    }
+}
+
 // The instances by (q/k head_dim, V head_dim): 8, 16, 32 on the small-head
 // kernel, (64, 64), (96, 64) and (128, 128) on the tensor-core one.
 template <typename T>
 cudaError_t dispatch_d(int D, int DV, const void* q, const void* k, const void* v, void* out,
-                       const float* exp_tab, const float* inv_tab, int B, int Hq,
-                       int Hkv, int Lq, int Lkv, int kv_len, int causal, int window,
+                       const float* exp_tab, const float* inv_tab, const float* vmean,
+                       int B, int Hq, int Hkv, int Lq, int Lkv, int kv_len, int causal, int window,
                        int lut_mode, float scale, float exp_off, float exp_step,
                        float inv_off, float inv_step, cudaStream_t stream) {
 #define REPRO_FA_CALL(LAUNCH)                                                     \
-    LAUNCH(q, k, v, out, exp_tab, inv_tab, B, Hq, Hkv, Lq, Lkv, kv_len, causal,   \
+    LAUNCH(q, k, v, out, exp_tab, inv_tab, vmean, B, Hq, Hkv, Lq, Lkv, kv_len, causal, \
            window, lut_mode, scale, exp_off, exp_step, inv_off, inv_step, stream)
     if (D == 96 && DV == 64) return REPRO_FA_CALL((launch_tc<T, 96, 64>));
     if (D != DV) return cudaErrorInvalidValue;
@@ -1649,28 +1692,42 @@ cudaError_t dispatch_d(int D, int DV, const void* q, const void* k, const void* 
 
 // q (B, Hq, Lq, D), k (B, Hkv, Lkv, D), v (B, Hkv, Lkv, DV), out (B, Hq, Lq,
 // DV), all contiguous, dtype 0 = float32, 1 = bfloat16.  window <= 0 means
-// no sliding window.
+// no sliding window.  vmean: null, or (B Hkv, DV) float32 scratch that, in
+// safe mode, takes the mean of V for the rows that see no key (a window that
+// ends before kv_len); the caller passes it when such rows exist.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
-                                     void* out, const float* exp_tab,
-                                     const float* inv_tab, int B, int Hq, int Hkv,
-                                     int Lq, int Lkv, int D, int DV, int kv_len, int causal,
-                                     int window, int lut_mode, int dtype, float scale,
-                                     float exp_off, float exp_step, float inv_off,
-                                     float inv_step, void* stream) {
+                                     void* out, const float* exp_tab, const float* inv_tab,
+                                     float* vmean, int B, int Hq, int Hkv, int Lq, int Lkv,
+                                     int D, int DV, int kv_len, int causal, int window,
+                                     int lut_mode, int dtype, float scale, float exp_off,
+                                     float exp_step, float inv_off, float inv_step,
+                                     void* stream) {
     using namespace repro_torch;
     if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Lq <= 0 || Lkv <= 0 ||
         kv_len <= 0) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (lut_mode) vmean = nullptr;  // lut: such a row's sum is 0, and so is its output
+    if (vmean != nullptr) {
+        if (dtype == 0) {
+            v_mean_kernel<float><<<B * Hkv, 128, 0, s>>>(static_cast<const float*>(v), vmean,
+                                                         Lkv, DV);
+        } else if (dtype == 1) {
+            v_mean_kernel<__nv_bfloat16><<<B * Hkv, 128, 0, s>>>(
+                static_cast<const __nv_bfloat16*>(v), vmean, Lkv, DV);
+        }
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
     cudaError_t err;
     if (dtype == 0) {
-        err = dispatch_d<float>(D, DV, q, k, v, out, exp_tab, inv_tab, B, Hq, Hkv, Lq, Lkv,
-                                kv_len, causal, window, lut_mode, scale, exp_off,
+        err = dispatch_d<float>(D, DV, q, k, v, out, exp_tab, inv_tab, vmean, B, Hq, Hkv, Lq,
+                                Lkv, kv_len, causal, window, lut_mode, scale, exp_off,
                                 exp_step, inv_off, inv_step, s);
     } else if (dtype == 1) {
-        err = dispatch_d<__nv_bfloat16>(D, DV, q, k, v, out, exp_tab, inv_tab, B, Hq, Hkv,
-                                        Lq, Lkv, kv_len, causal, window, lut_mode, scale,
+        err = dispatch_d<__nv_bfloat16>(D, DV, q, k, v, out, exp_tab, inv_tab, vmean, B, Hq,
+                                        Hkv, Lq, Lkv, kv_len, causal, window, lut_mode, scale,
                                         exp_off, exp_step, inv_off, inv_step, s);
     } else {
         err = cudaErrorInvalidValue;

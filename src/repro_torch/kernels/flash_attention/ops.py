@@ -20,7 +20,11 @@ head_dim runs on the tensor cores:
 Any other head_dim up to 128 with ``dv == d`` is zero-padded to the next
 square instance (zeros add nothing to q.k and give zero output columns,
 which are sliced off), with the scale kept at 1/sqrt(true head_dim); any
-other (d, dv) pair raises.  Under grad mode, with any of q, k, v requiring
+other (d, dv) pair raises.  Those pad copies (q, k, v in, the output's
+slice out) run under the profiler scope ``PAD_SCOPE``.  A ``safe`` row that
+sees no key (a window that ends before ``kv_len``) gives the mean of V over
+every key, as ``mha_ref``'s softmax of a row masked everywhere; in ``lut``
+mode it gives 0, as there.  Under grad mode, with any of q, k, v requiring
 grad, the launch goes through ``autograd.Attention`` (the kernel forward, a
 backward in torch ops).
 """
@@ -42,6 +46,8 @@ INSTANCES = ((8, 8), (16, 16), (32, 32), (64, 64), (96, 64), (128, 128))  # (q/k
 TMA_DIMS = (64, 96, 128)  # K/V by TMA: q, k, v must be 16-byte aligned
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"safe": 0, "lut": 1}
+#: the profiler scope of the zero-pad copies around a padded head_dim's launch
+PAD_SCOPE = "flash_attention.pad"
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,7 +55,7 @@ def _lib():
     fn = build.library("flash_attention").repro_flash_attention
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_float] * 5
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_float] * 5
         + [ctypes.c_void_p]
     )
     return fn
@@ -129,13 +135,19 @@ def _kernel(q, k, v, *, causal, window, mode, kv_len):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("mha kernel needs contiguous q, k, v")
     if dk != d:  # a square head_dim between instances: fresh, contiguous and aligned
-        q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
+        with torch.profiler.record_function(PAD_SCOPE):  # a profiler's handle on the copies
+            q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
     if dk in TMA_DIMS and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("mha kernel at head_dim 64/96/128 needs 16-byte aligned q, k, v (TMA)")
     out = q.new_empty((b, hq, lq, dvk))
+    # a safe row that sees no key (q >= kv_len + window - 1) takes the mean of
+    # V over every key, as mha_ref; the kernel computes it into this scratch
+    keyless = mode == "safe" and window is not None and lq >= kv_len + window
+    vmean = torch.empty((b * hkv, dvk), dtype=torch.float32, device=q.device) if keyless else None
     exp_ptr, inv_ptr, exp_off, exp_step, inv_off, inv_step = _tables(q.device)
     err = _lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), exp_ptr, inv_ptr,
+        None if vmean is None else vmean.data_ptr(),
         b, hq, hkv, lq, lkv, dk, dvk, kv_len, int(causal),
         0 if window is None else window, _MODES[mode], _DTYPES[q.dtype],
         1.0 / (d ** 0.5), exp_off, exp_step, inv_off, inv_step,
@@ -143,4 +155,7 @@ def _kernel(q, k, v, *, causal, window, mode, kv_len):
     )
     build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out if dvk == dv else out[..., :dv].contiguous()
+    if dvk == dv:
+        return out
+    with torch.profiler.record_function(PAD_SCOPE):
+        return out[..., :dv].contiguous()

@@ -1,17 +1,20 @@
 """Pre-norm residual blocks: the dense transformer kind, the MoE kind (the
 dense kind with ``moe.moe_apply`` as its feed-forward, whose router aux
-comes back with the block) and the Mamba2 kind (``ssm`` family).
-
-The hybrid family (Mamba2 with the shared attention block) comes with
-ROADMAP queue 1, item 10.
+comes back with the block) and the Mamba2 kind (the ``ssm`` and ``hybrid``
+families), and the hybrid family's Zamba2-style shared attention block
+(``shared_attn_*``), which ``models.lm`` applies before the Mamba2 block of
+every ``attn_every``-th layer.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, mlp, moe, ssm
+from repro_torch.serve import kv_cache
 
 
 def block_kind(cfg: ModelConfig) -> str:
@@ -22,18 +25,8 @@ def block_kind(cfg: ModelConfig) -> str:
     return "dense"
 
 
-def _require_ported(cfg: ModelConfig) -> str:
-    kind = block_kind(cfg)
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "hybrid blocks (Mamba2 + shared attention) are not ported yet "
-            "(ROADMAP queue 1, item 10)"
-        )
-    return kind
-
-
 def block_spec(cfg: ModelConfig, dtype=torch.float32):
-    kind = _require_ported(cfg)
+    kind = block_kind(cfg)
     if kind == "mamba":
         return {
             "ln1": layers.norm_spec(cfg.d_model, cfg.norm_kind, dtype),
@@ -59,7 +52,7 @@ def block_apply(
     quant=None,  # per-layer runtime hook from the precision plan
 ):
     """Returns (x, new_cache, aux) like the reference."""
-    kind = _require_ported(cfg)
+    kind = block_kind(cfg)
     rs = cfg.residual_scale
     norm_lut = (kernel or {}).get("norm_lut", False)
     h = layers.norm(params["ln1"], x, cfg.norm_kind, cfg.norm_eps, use_lut=norm_lut)
@@ -80,3 +73,77 @@ def block_apply(
     else:
         ffn_out = mlp.mlp_apply(params["ffn"], cfg, h, quant=quant)
     return x + rs * ffn_out, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Zamba2-style shared attention block (hybrid family)
+# ---------------------------------------------------------------------------
+
+
+def _shared_width(cfg: ModelConfig) -> int:
+    return 2 * cfg.d_model if cfg.hybrid.concat_residual else cfg.d_model
+
+
+def shared_attn_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The shared block's attention config: it attends in the
+    concat(x, x_embed) space (width 2 d_model) and projects back to d."""
+    return dataclasses.replace(cfg, attn_kind="gqa", head_dim=_shared_width(cfg) // cfg.n_heads,
+                               sliding_window=None, ssm=None)
+
+
+def shared_attn_spec(cfg: ModelConfig, dtype=torch.float32):
+    """One transformer block (attention and MLP) at width W = 2 d_model
+    over concat(x, x_embed), then a W -> d projection.  Its weights are
+    shared by every application; each application has its own KV cache."""
+    acfg = shared_attn_cfg(cfg)
+    w, hd = _shared_width(cfg), acfg.resolved_head_dim
+    return {
+        "ln1": layers.norm_spec(w, cfg.norm_kind, dtype),
+        "attn": {
+            "wq": layers.dense_spec(w, cfg.n_heads * hd, axes=("embed", "heads"), dtype=dtype),
+            "wk": layers.dense_spec(w, cfg.n_kv_heads * hd, axes=("embed", "kv_heads"),
+                                    dtype=dtype),
+            "wv": layers.dense_spec(w, cfg.n_kv_heads * hd, axes=("embed", "kv_heads"),
+                                    dtype=dtype),
+            "wo": layers.dense_spec(cfg.n_heads * hd, w, axes=("heads", "embed"), dtype=dtype),
+        },
+        "ln2": layers.norm_spec(w, cfg.norm_kind, dtype),
+        "mlp": mlp.mlp_spec(dataclasses.replace(acfg, d_model=w), dtype),
+        "out_proj": layers.dense_spec(w, cfg.d_model, axes=("mlp", "embed"), dtype=dtype),
+    }
+
+
+def shared_attn_cache_spec(cfg: ModelConfig, batch: int, max_len: int,
+                           dtype: torch.dtype = torch.bfloat16) -> dict:
+    """One application's KV cache, always dense and never int8: the hybrid
+    family is not position-addressed end to end, so no paged layout."""
+    return kv_cache.attention_cache_spec(shared_attn_cfg(cfg), batch, max_len, dtype)
+
+
+def shared_attn_apply(
+    params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    x_embed: torch.Tensor,
+    positions: torch.Tensor | None = None,
+    *,
+    mode: str = "train",
+    cache=None,
+    kernel: dict | None = None,
+    quant=None,  # the precision plan's shared-block hook
+):
+    """Returns (x + residual_scale * out_proj(block(concat(x, x_embed))),
+    cache); a prefill or decode writes its k/v rows into ``cache`` in place,
+    as ``attention.gqa_apply``."""
+    acfg = shared_attn_cfg(cfg)
+    qc = cfg.quant if quant is None else quant
+    norm_lut = (kernel or {}).get("norm_lut", False)
+    h = torch.cat([x, x_embed], dim=-1) if cfg.hybrid.concat_residual else x
+    a = layers.norm(params["ln1"], h, cfg.norm_kind, cfg.norm_eps, use_lut=norm_lut)
+    a, new_cache = attention.gqa_apply(params["attn"], acfg, a, positions, mode=mode,
+                                       cache=cache, kernel=kernel, quant=quant)
+    h = h + a
+    m = layers.norm(params["ln2"], h, cfg.norm_kind, cfg.norm_eps, use_lut=norm_lut)
+    h = h + mlp.mlp_apply(params["mlp"], dataclasses.replace(acfg, d_model=2 * cfg.d_model), m,
+                          quant=quant)
+    return x + cfg.residual_scale * layers.dense(params["out_proj"], h, qc), new_cache

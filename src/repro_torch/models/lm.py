@@ -1,25 +1,37 @@
-"""Causal LM orchestrator (port of ``repro.models.lm``) for the families
-ported so far: ``dense`` (granite-8b, minicpm-2b, starcoder2-7b; minicpm3-4b
-with MLA, whose ``kernel["mla_absorb"]`` picks the absorbed decode), ``moe``
-(granite-moe-3b-a800m, dbrx-132b) and ``ssm`` (mamba2-130m).
+"""Model orchestrator (port of ``repro.models.lm``): causal LMs, the audio
+encoder and the VLM, for every family of the JAX package's zoo: ``dense``
+(granite-8b, minicpm-2b, starcoder2-7b; minicpm3-4b with MLA, whose
+``kernel["mla_absorb"]`` picks the absorbed decode), ``moe``
+(granite-moe-3b-a800m, dbrx-132b), ``ssm`` (mamba2-130m), ``hybrid``
+(zamba2-1.2b: Mamba2 blocks and one shared attention block), ``vlm``
+(internvl2-1b: patch embeddings before the text) and ``audio``
+(hubert-xlarge: frame embeddings, an encoder).
 
 Entry points
 ------------
 ``param_spec / init_params / count_params``  -- parameter trees
 ``forward(params, cfg, batch, mode=...)``    -- logits (+caches, aux)
+``loss_fn``                                  -- scalar loss + metrics
 ``prefill`` / ``decode_step``                -- serving steps on stacked caches
 ``init_caches / abstract_caches``            -- from ``serve.kv_cache``
+
+``batch`` keys by family: ``tokens`` (b, s); the VLM ``patches`` (b, n_img,
+frontend_dim) and ``tokens`` (b, s_text), tokens alone in decode; the audio
+encoder ``frames`` (b, s, frontend_dim) and, to train, ``labels`` (b, s).
+The modality frontends are the reference's stubs: precomputed frame or
+patch embeddings, mapped into d_model by ``frontend_proj``.
 
 The reference's scan over the stacked blocks is a Python loop.  ``prefill``
 and ``decode_step`` return new cache tensors and never write into the
 caller's: the new stack is one copy of the caller's, into which each layer
-writes its new rows.  ``in_place=True`` skips that copy and writes into the
-caller's stack (the serving executor, which owns its caches).  ``loss_fn``
-is the next-token cross entropy of training; ``remat`` recomputes each
-block in the backward (``torch.utils.checkpoint``, non-reentrant).
-``forward``'s aux sums the MoE blocks' router aux over the layers, as the
-reference's scan carries it.  The hybrid, VLM and audio families and the MoE
-aux losses in ``loss_fn`` wait for ROADMAP queue 1, items 9 and 10.
+(and, hybrid, each application of the shared block) writes its new rows.
+``in_place=True`` skips that copy and writes into the caller's stack (the
+serving executor, which owns its caches).  ``loss_fn`` is the next-token
+cross entropy (from the text offset on, for the VLM), the encoder's
+masked-unit cross entropy over ``labels``, plus the MoE aux and z losses;
+``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, non-reentrant).  ``forward``'s aux sums the
+MoE blocks' router aux over the layers, as the reference's scan carries it.
 """
 
 from __future__ import annotations
@@ -42,22 +54,31 @@ from repro_torch.serve import kv_cache as kv_cache_lib
 # ---------------------------------------------------------------------------
 
 
+def n_shared_apps(cfg: ModelConfig) -> int:
+    """Applications of the hybrid family's shared block: one before each
+    layer ``i`` with ``i % attn_every == 0``."""
+    if cfg.family != "hybrid":
+        return 0
+    return -(-cfg.n_layers // cfg.hybrid.attn_every)
+
+
 def resolve_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
 def param_spec(cfg: ModelConfig, dtype=None):
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.frontend} frontends are not ported yet (ROADMAP queue 1, item 9)"
-        )
     dtype = resolve_dtype(cfg) if dtype is None else dtype
     d = cfg.d_model
-    spec = {
-        "embed": layers.embedding_spec(cfg.padded_vocab_size, d, dtype),
-        "blocks": params_lib.stack_spec(blocks.block_spec(cfg, dtype), cfg.n_layers),
-        "final_norm": layers.norm_spec(d, cfg.norm_kind, dtype),
-    }
+    spec = {}
+    if cfg.frontend != "audio":
+        spec["embed"] = layers.embedding_spec(cfg.padded_vocab_size, d, dtype)
+    if cfg.frontend is not None:
+        spec["frontend_proj"] = layers.dense_spec(cfg.frontend_dim or d, d,
+                                                  axes=("frontend", "embed"), dtype=dtype)
+    spec["blocks"] = params_lib.stack_spec(blocks.block_spec(cfg, dtype), cfg.n_layers)
+    if cfg.family == "hybrid":
+        spec["shared_attn"] = blocks.shared_attn_spec(cfg, dtype)
+    spec["final_norm"] = layers.norm_spec(d, cfg.norm_kind, dtype)
     if not cfg.tie_embeddings:
         spec["lm_head"] = layers.dense_spec(
             d, cfg.padded_vocab_size, axes=("embed", "vocab"), dtype=dtype
@@ -85,10 +106,24 @@ init_caches = kv_cache_lib.init_caches
 # ---------------------------------------------------------------------------
 
 
-def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Token embeddings (b, s, d); the patch and audio frontends wait for
-    ROADMAP queue 1, item 9."""
-    return layers.embed(params["embed"], batch["tokens"]) * cfg.emb_scale
+def _embed_inputs(params, cfg: ModelConfig, batch: dict, mode: str, quant=None):
+    """(h (b, s, d), text_offset).  Audio: ``frames`` through
+    ``frontend_proj``.  VLM: ``patches`` through ``frontend_proj``, put
+    before the token embeddings (the offset is their count), except in
+    decode.  Mixed types promote, as the reference's concatenation does."""
+    qc = cfg.quant if quant is None else quant
+    if cfg.frontend == "audio":
+        return layers.dense(params["frontend_proj"], batch["frames"], qc), 0
+    tok_emb = None
+    if "tokens" in batch:
+        tok_emb = layers.embed(params["embed"], batch["tokens"]) * cfg.emb_scale
+    if cfg.frontend == "patch" and "patches" in batch and mode != "decode":
+        patch_emb = layers.dense(params["frontend_proj"], batch["patches"], qc)
+        if tok_emb is None:
+            return patch_emb, patch_emb.shape[1]
+        dt = torch.promote_types(patch_emb.dtype, tok_emb.dtype)
+        return torch.cat([patch_emb.to(dt), tok_emb.to(dt)], dim=1), patch_emb.shape[1]
+    return tok_emb, 0
 
 
 def _aux_init(cfg: ModelConfig, dev: torch.device) -> dict:
@@ -133,38 +168,53 @@ def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: s
         raise ValueError("remat recomputes blocks in the backward: train mode only, no caches")
     uniform_quant = plan.uniform_layer_quant()
     layer_quants = None if uniform_quant is not None else plan.layer_quant_arrays()
-    # one copy of the caller's stack (or, in place, the stack itself), whose
-    # layer slices the blocks update in place (attention) or that takes
-    # their new state (Mamba2)
+    hybrid = cfg.family == "hybrid"
+    shared_quant = plan.shared_quant() if hybrid else None
+    x_embed = h  # every application of the shared block sees the embedding output
+    # one copy of the caller's stacks (or, in place, the stacks themselves),
+    # whose slices the blocks update in place (attention) or that take their
+    # new state (Mamba2)
     if caches is None:
-        new_layers = None
+        new = None
     elif in_place:
-        new_layers = caches["layers"]
+        new = caches
     else:
-        new_layers = {k: t.clone() for k, t in caches["layers"].items()}
+        new = {group: {k: t.clone() for k, t in leaves.items()} for group, leaves in caches.items()}
+
+    def run(fn, x, cache):
+        """fn(x, cache) -> (x, cache, aux), rematerialized when asked; a
+        block's new cache tensors are copied into the stack's slices."""
+        if remat != "none":
+            return _remat(lambda y: fn(y, None)[::2], remat)(x)
+        x, out, aux = fn(x, cache)
+        for k, t in (out or {}).items():
+            if t is not cache[k]:
+                cache[k].copy_(t)
+        return x, aux
+
     aux = _aux_init(cfg, h.device)
     for i in range(cfg.n_layers):  # the reference's scan over the stacked blocks
-        quant = uniform_quant if layer_quants is None else layer_quants.layer(i)
-        lcache = None if new_layers is None else {k: t[i] for k, t in new_layers.items()}
-        if remat != "none":
-            def block(x, bparams=_layer(params["blocks"], i), quant=quant):
-                out, _, l_aux = blocks.block_apply(bparams, cfg, x, positions, mode=mode,
-                                                   kernel=kernel, quant=quant)
-                return out, l_aux
+        if hybrid and i % cfg.hybrid.attn_every == 0:
+            app = i // cfg.hybrid.attn_every  # this application reads and writes its own cache
+            scache = None if new is None else {k: t[app] for k, t in new["shared"].items()}
 
-            h, l_aux = _remat(block, remat)(h)
-        else:
-            h, out_lcache, l_aux = blocks.block_apply(
-                _layer(params["blocks"], i), cfg, h, positions, mode=mode, cache=lcache,
-                kernel=kernel, quant=quant,
-            )
-            for k, t in (out_lcache or {}).items():
-                if t is not lcache[k]:
-                    lcache[k].copy_(t)
+            def shared(x, cache):
+                x, c = blocks.shared_attn_apply(params["shared_attn"], cfg, x, x_embed, positions,
+                                                mode=mode, cache=cache, kernel=kernel,
+                                                quant=shared_quant)
+                return x, c, {}
+
+            h, _ = run(shared, h, scache)
+        quant = uniform_quant if layer_quants is None else layer_quants.layer(i)
+        lcache = None if new is None else {k: t[i] for k, t in new["layers"].items()}
+
+        def block(x, cache, bparams=_layer(params["blocks"], i), quant=quant):
+            return blocks.block_apply(bparams, cfg, x, positions, mode=mode, cache=cache,
+                                      kernel=kernel, quant=quant)
+
+        h, l_aux = run(block, h, lcache)
         aux = {k: v + l_aux[k] for k, v in aux.items()}
-    if new_layers is None:
-        return h, None, aux
-    return h, caches if in_place else {"layers": new_layers}, aux
+    return h, new, aux
 
 
 def _as_tensor(x, dev: torch.device) -> torch.Tensor:
@@ -187,18 +237,21 @@ def forward(
     remat: str = "none",
 ):
     """Returns (logits (b, s, padded_vocab), new_caches, aux); aux holds
-    ``text_offset`` and, for MoE configs, the router aux summed over layers.
+    ``text_offset`` (the VLM's image prefix length; 0 otherwise) and, for
+    MoE configs, the router aux summed over layers.
 
-    ``batch["tokens"]``: (b, s) token ids, tensor or array.  positions: (s,)
-    for train/prefill (defaults to arange), (b,) global positions of the new
-    token for decode (the Mamba2 blocks do not read them).  ``in_place``:
-    write into ``caches`` and return it, instead of a copy."""
+    ``batch``: ``tokens`` (b, s) token ids, the VLM's ``patches`` or the
+    audio encoder's ``frames`` (module docstring), tensors or arrays.
+    positions: (s,) for train/prefill (defaults to arange over the image
+    prefix and the text), (b,) global positions of the new token for decode
+    (the Mamba2 blocks do not read them).  ``in_place``: write into
+    ``caches`` and return it, instead of a copy."""
     dev = resolve_device(device)
     params_lib.check_on(params, dev)
     plan = precision_lib.resolve_model_plan(cfg)
     kernel = plan.kernel_defaults(kernel)
-    tokens = _as_tensor(batch["tokens"], dev)
-    h = _embed_inputs(params, cfg, {"tokens": tokens})
+    inputs = {k: _as_tensor(batch[k], dev) for k in ("tokens", "patches", "frames") if k in batch}
+    h, text_offset = _embed_inputs(params, cfg, inputs, mode, quant=plan.embed_quant())
     if positions is None:
         if mode in ("decode", "extend"):
             raise ValueError(f"{mode} requires explicit per-sequence positions")
@@ -219,7 +272,7 @@ def forward(
     if cfg.padded_vocab_size > cfg.vocab_size:  # mask the vocab padding
         pad = torch.arange(cfg.padded_vocab_size, device=dev) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e9)
-    return logits, new_caches, {**aux, "text_offset": 0}
+    return logits, new_caches, {**aux, "text_offset": text_offset}
 
 
 # ---------------------------------------------------------------------------
@@ -242,33 +295,40 @@ def _cross_entropy(logits, labels, mask, tp_safe: bool = False):
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, *, kernel: dict | None = None,
             remat: str = "none", device: str | torch.device = "cuda"):
-    """(loss, metrics): the mean next-token cross entropy of ``batch``
-    {"tokens" (b, s), optional "loss_mask" (b, s)} under the mask, with
-    "ce_loss", "accuracy" and "loss" as the reference's.  The encoder
-    labels and the frontends' text offset wait for ROADMAP queue 1, item 9;
-    the MoE aux losses (training the MoE family) for item 11's follow-ups."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: lm.loss_fn's MoE aux losses are not ported yet (ROADMAP queue 1, "
-            "item 11: lm.loss_fn's MoE aux losses and training granite-moe-3b)"
-        )
-    if cfg.is_encoder or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder and frontend losses are not ported yet "
-            "(ROADMAP queue 1, item 9)"
-        )
+    """(loss, metrics) as the reference's: the encoder's cross entropy of
+    ``labels`` (b, s) at every frame; otherwise the next-token cross entropy
+    of ``tokens`` from the text offset on (the VLM's image prefix predicts
+    nothing); under the optional ``loss_mask``.  MoE configs add the router's
+    aux and z losses to the total.  Metrics: "ce_loss", "accuracy", "loss",
+    and for MoE "moe_aux_loss", "moe_z_loss" and "moe_dropped_frac" (the
+    mean over layers)."""
     dev = resolve_device(device)
-    tokens = _as_tensor(batch["tokens"], dev)
-    logits, _, aux = forward(params, cfg, {"tokens": tokens}, mode="train", kernel=kernel,
-                             remat=remat, device=dev)
-    if aux.get("text_offset", 0):
-        raise NotImplementedError("a text offset comes with the frontends (ROADMAP queue 1, item 9)")
-    mask = batch.get("loss_mask")
-    mask = (torch.ones(tokens.shape, dtype=torch.float32, device=dev) if mask is None
-            else _as_tensor(mask, dev).float())
+    inputs = {k: batch[k] for k in ("tokens", "patches", "frames") if k in batch}
+    logits, _, aux = forward(params, cfg, inputs, mode="train", kernel=kernel, remat=remat,
+                             device=dev)
     tp_safe = bool((kernel or {}).get("tp_loss", False))
-    loss, acc = _cross_entropy(logits[:, :-1], tokens[:, 1:], mask[:, 1:], tp_safe)
-    return loss, {"ce_loss": loss, "accuracy": acc, "loss": loss}
+    mask = batch.get("loss_mask")
+    if cfg.is_encoder:
+        labels = _as_tensor(batch["labels"], dev)
+        mask = (torch.ones(labels.shape, dtype=torch.float32, device=dev) if mask is None
+                else _as_tensor(mask, dev).float())
+        loss, acc = _cross_entropy(logits, labels, mask, tp_safe)
+    else:
+        off = aux.pop("text_offset", 0)
+        tokens = _as_tensor(batch["tokens"], dev)
+        mask = (torch.ones(tokens.shape, dtype=torch.float32, device=dev) if mask is None
+                else _as_tensor(mask, dev).float())
+        loss, acc = _cross_entropy(logits[:, off:][:, :-1], tokens[:, 1:], mask[:, 1:], tp_safe)
+    total = loss
+    metrics = {"ce_loss": loss, "accuracy": acc}
+    for k in ("moe_aux_loss", "moe_z_loss"):
+        if k in aux:
+            total = total + aux[k]
+            metrics[k] = aux[k]
+    if "moe_dropped_frac" in aux:
+        metrics["moe_dropped_frac"] = aux["moe_dropped_frac"] / cfg.n_layers
+    metrics["loss"] = total
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -19,10 +19,13 @@ Per layer:
   every head, paged as pools (num_pages, page_size, width) with no head
   axis; under ``int8_serve`` int8 codes with one float32 ``latent_scale``
   per token, (B, L) or (num_pages, page_size);
-- the ``ssm`` family's Mamba2 cache (``ssm_state`` (b, h, p, n) and
-  ``conv_state`` (b, width - 1, conv_dim)), float32 of a fixed size whatever
-  the model's type.
+- the ``ssm`` and ``hybrid`` families' Mamba2 cache (``ssm_state``
+  (b, h, p, n) and ``conv_state`` (b, width - 1, conv_dim)), float32 of a
+  fixed size whatever the model's type.
 Stacked on a leading layer axis: ``{"layers": {name: (n_layers, ...)}}``.
+The hybrid family adds ``"shared"``: the dense k / v (n_apps, B, H, L, D) of
+its shared attention block, one slab per application, never paged and
+never int8.
 
 The device ops write into the caches they are handed, in place, and return
 them: ``paged_decode_write`` (one token per slot into its page),
@@ -42,7 +45,7 @@ registered pages, copy-on-write (``flush_copies`` applies the queued page
 copies on the device) and ``check_invariants``.
 
 Not ported yet: the host-memory victim tier (``kv_host_pages``; ROADMAP
-queue 1, item 8, step 9) and the hybrid caches (item 10).
+queue 1, item 8, step 9).
 """
 
 from __future__ import annotations
@@ -169,12 +172,7 @@ def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def _per_layer_cache_spec(cfg: ModelConfig, batch: int, max_len: int, dtype, quantized,
                           **layout_kw):
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "hybrid caches (Mamba2 + shared-attention KV) are not ported yet "
-            "(ROADMAP queue 1, item 10)"
-        )
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return ssm.mamba_cache_spec(cfg, batch, torch.float32)
     return attention_cache_spec(cfg, batch, max_len, dtype, quantized=quantized, **layout_kw)
 
@@ -190,11 +188,20 @@ def abstract_caches(
     num_pages: int | None = None,
 ) -> dict:
     """{"layers": {name: (shape, dtype)}}, shapes with the leading layer
+    axis, and for the hybrid family ``"shared"`` with a leading application
     axis.  ``max_len`` and ``dtype`` size and type the attention caches; the
     SSM caches are float32 of a fixed size."""
     per_layer = _per_layer_cache_spec(cfg, batch, max_len, dtype, quantized, layout=layout,
                                       page_size=page_size, num_pages=num_pages)
-    return {"layers": {k: ((cfg.n_layers,) + shape, dt) for k, (shape, dt) in per_layer.items()}}
+    caches = {"layers": {k: ((cfg.n_layers,) + shape, dt)
+                         for k, (shape, dt) in per_layer.items()}}
+    if cfg.family == "hybrid":
+        from repro_torch.models import blocks, lm  # runtime import: both import this module
+
+        shared = blocks.shared_attn_cache_spec(cfg, batch, max_len, dtype)
+        caches["shared"] = {k: ((lm.n_shared_apps(cfg),) + shape, dt)
+                            for k, (shape, dt) in shared.items()}
+    return caches
 
 
 def init_caches(
@@ -211,8 +218,47 @@ def init_caches(
     int32 slot positions and the trash page in the page table."""
     dev = resolve_device(device)
     spec = abstract_caches(cfg, batch, max_len, dtype, quantized, **layout_kw)
-    return {"layers": {k: _zero_leaf(k, shape, dt, dev)
-                       for k, (shape, dt) in spec["layers"].items()}}
+    return {group: {k: _zero_leaf(k, shape, dt, dev) for k, (shape, dt) in leaves.items()}
+            for group, leaves in spec.items()}
+
+
+def cache_logical_axes(cfg: ModelConfig, quantized: bool = False,
+                       layout: str = "dense") -> dict:
+    """The caches' logical axis names, leaf for leaf (the reference's, for
+    sharding): paged pools have no batch axis and shard over heads; the page
+    table shards over batch."""
+    if layout == "paged":
+        if cfg.attn_kind == "mla":
+            per_layer = {"latent": ("layers", None, None, None)}
+            if quantized:
+                per_layer["latent_scale"] = ("layers", None, None)
+        else:
+            per_layer = {"k": ("layers", None, "kv_heads", None, None),
+                         "v": ("layers", None, "kv_heads", None, None)}
+            if quantized:
+                per_layer["k_scale"] = per_layer["v_scale"] = ("layers", None, "kv_heads", None)
+        per_layer["page_table"] = ("layers", "batch", None)
+        return {"layers": per_layer}
+    if cfg.family in ("ssm", "hybrid"):
+        per_layer = {"ssm_state": ("layers", "batch", "ssm_heads", None, None),
+                     "conv_state": ("layers", "batch", None, "inner")}
+    elif cfg.attn_kind == "mla":
+        per_layer = {"latent": ("layers", "batch", "cache_len", None)}
+        if quantized:
+            per_layer["latent_scale"] = ("layers", "batch", "cache_len")
+    else:
+        per_layer = {"k": ("layers", "batch", "kv_heads", "cache_len", None),
+                     "v": ("layers", "batch", "kv_heads", "cache_len", None)}
+        if cfg.sliding_window is not None:
+            per_layer["slot_pos"] = ("layers", "batch", None)
+        if quantized:
+            per_layer["k_scale"] = per_layer["v_scale"] = ("layers", "batch", "kv_heads",
+                                                           "cache_len")
+    axes = {"layers": per_layer}
+    if cfg.family == "hybrid":
+        axes["shared"] = {"k": ("layers", "batch", "kv_heads", "cache_len", None),
+                          "v": ("layers", "batch", "kv_heads", "cache_len", None)}
+    return axes
 
 
 # ---------------------------------------------------------------------------
@@ -315,14 +361,16 @@ def mask_cache_tail(filled: dict, lengths: torch.Tensor) -> dict:
 
 def insert_prefill_dense(big: dict, filled: dict, slots) -> dict:
     """Scatter freshly prefilled rows into their slots (batch axis 1 on
-    every stacked leaf), in place.  Rows whose slot index is out of range
-    (the engine's pad sentinel ``max_batch``) are dropped."""
+    every stacked leaf of every group: the hybrid family's ``shared`` too),
+    in place.  Rows whose slot index is out of range (the engine's pad
+    sentinel ``max_batch``) are dropped."""
     slots = _host_index(slots)
     nb = next(iter(big["layers"].values())).shape[1]
     keep = ((slots >= 0) & (slots < nb)).nonzero()[:, 0]
-    for name, f in filled["layers"].items():
-        b = big["layers"][name]
-        b[:, slots[keep].to(b.device)] = f[:, keep.to(f.device)].to(b.dtype)
+    for group, leaves in filled.items():
+        for name, f in leaves.items():
+            b = big[group][name]
+            b[:, slots[keep].to(b.device)] = f[:, keep.to(f.device)].to(b.dtype)
     return big
 
 
@@ -564,7 +612,7 @@ class CacheManager:
         self._prefix_pages_hit = 0
         self.kv_bytes = sum(
             int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
-            for shape, dt in self._abstract()["layers"].values()
+            for group in self._abstract().values() for shape, dt in group.values()
         )
 
     # ----------------------------------------------------------- layout --

@@ -1,5 +1,6 @@
 """The port's configs (physics, mamba2-130m, the dense GQA family, the MoE
-family and minicpm3-4b) equal the JAX package's field for field."""
+family, minicpm3-4b, zamba2-1.2b, internvl2-1b and hubert-xlarge) equal
+the JAX package's field for field."""
 
 import dataclasses
 
@@ -7,11 +8,13 @@ import pytest
 
 pytest.importorskip("torch")
 
+from repro.configs import ARCH_NAMES as jax_arch_names  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro_torch.configs import ARCH_NAMES, PHYSICS_NAMES, get_config  # noqa: E402
 
 DENSE = ["granite-8b", "minicpm-2b", "starcoder2-7b"]
 MOE = ["granite-moe-3b-a800m", "dbrx-132b"]
+OTHERS = ["zamba2-1.2b", "internvl2-1b", "hubert-xlarge"]  # hybrid, VLM, audio
 
 
 @pytest.mark.parametrize("name", ["engine_anomaly", "btagging", "gw"])
@@ -25,18 +28,21 @@ def test_physics_config_fields_equal(name):
 
 
 def test_registry_names_and_unported():
+    """Every config of the JAX package's registry has its counterpart, field
+    for field, published and reduced; only unknown names are refused."""
     assert PHYSICS_NAMES == ["engine_anomaly", "btagging", "gw"]
-    assert sorted(ARCH_NAMES) == sorted(DENSE + MOE + ["mamba2-130m", "minicpm3-4b"])
-    for name in DENSE + MOE + ["minicpm3-4b"]:
+    assert sorted(ARCH_NAMES) == sorted(jax_arch_names) == sorted(
+        DENSE + MOE + ["mamba2-130m", "minicpm3-4b"] + OTHERS)
+    for name in DENSE + MOE + ["minicpm3-4b"] + OTHERS:
         for reduced in (False, True):
             ref, ours = jax_get_config(name, reduced), get_config(name, reduced)
+            assert [f.name for f in dataclasses.fields(ours)] == [
+                f.name for f in dataclasses.fields(ref)]
             assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        get_config("internvl2-1b")  # the patch frontend
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        get_config("hubert-xlarge", reduced=True)  # the audio encoder
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        get_config("zamba2-1.2b")
+            assert ours.resolved_head_dim == ref.resolved_head_dim
+    assert get_config("hubert-xlarge").resolved_head_dim == 80
+    assert get_config("zamba2-1.2b").hybrid.attn_every == 6
+    assert get_config("internvl2-1b", reduced=True).dtype == "float32"
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-model")
 

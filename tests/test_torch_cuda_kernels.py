@@ -337,12 +337,14 @@ def _assert_mla_close(out, ref, v, dtype, mode, group):
                                         (torch.bfloat16, "safe"), (torch.bfloat16, "lut")])
 @pytest.mark.parametrize("causal,window", [(False, None), (True, None), (True, 256)])
 @pytest.mark.parametrize("hq,hkv", [(40, 40), (8, 2)])
-@pytest.mark.parametrize("length,kv_len", [(77, None), (1000, None), (1000, 768), (1000, 769)])
+@pytest.mark.parametrize("length,kv_len", [(77, None), (1000, None), (1000, 768), (1000, 769),
+                                           (1000, 640), (1000, 641)])
 def test_attention_native_v_head_dim(dev, dtype, mode, causal, window, hq, hkv, length, kv_len):
     """MLA's (q/k 96, V 64) instance: one launch at the unpadded shapes, the
-    output at V's head_dim; kv_len on a 64-key tile edge and one past it
-    (within the window of every row: a row that sees no key is 0 in the
-    kernel and a uniform average in the plain version)."""
+    output at V's head_dim; kv_len on a 64-key tile edge and one past it.
+    With the window of 256, kv_len 640 / 641 leave rows 895 / 896 on with no
+    key: in safe mode they give the mean of V over every key, as the plain
+    version's softmax of a row masked everywhere; in lut mode 0, as there."""
     g = torch.Generator(device="cpu").manual_seed(length + hq + (kv_len or 0))
     q = torch.randn(2, hq, length, 96, generator=g).to(dev, dtype)
     k = torch.randn(2, hkv, length, 96, generator=g).to(dev, dtype)
@@ -354,6 +356,60 @@ def test_attention_native_v_head_dim(dev, dtype, mode, causal, window, hq, hkv, 
     assert out.dtype == dtype and out.shape == (2, hq, length, 64) and out.is_contiguous()
     ref = mha_ref(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
     _assert_mla_close(out, ref, v, dtype, mode, hq // hkv)
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype,mode", [(torch.float32, "safe"), (torch.float32, "lut"),
+                                        (torch.bfloat16, "safe")])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 2)])
+def test_attention_rows_that_see_no_key(dev, d, dtype, mode, causal, hq, hkv):
+    """A window that ends before kv_len on the (64, 64), (128, 128) and
+    head_dim 8-32 routes: rows q >= kv_len + window - 1 (here 189-299) see
+    no key.  safe: they give the mean of V over every key (kv_len padding
+    included), as mha_ref; lut: 0, as mha_ref.  The other rows keep the
+    existing tolerances."""
+    length, kv_len, window = 300, 150, 40
+    g = torch.Generator(device="cpu").manual_seed(d + hq + hkv)
+    q = torch.randn(2, hq, length, d, generator=g).to(dev, dtype)
+    k, v = (torch.randn(2, hkv, length, d, generator=g).to(dev, dtype) for _ in range(2))
+    before = LAUNCHES["flash_attention"]
+    out = mha(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    ref = mha_ref(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+    _assert_attention_close(out, ref, v, dtype, mode, hq // hkv)
+    keyless = out[:, :, kv_len + window - 1:].float()
+    if mode == "lut":
+        assert torch.all(keyless == 0)
+        return
+    mean = torch.repeat_interleave(v.float().mean(dim=2, keepdim=True), hq // hkv, dim=1)
+    tol = 1e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(keyless, mean.expand_as(keyless), atol=tol, rtol=0)
+    assert float(mean.abs().max()) > 0.01  # the mean is not the old zero
+
+
+@pytest.mark.parametrize("dtype,mode", [(torch.float32, "safe"), (torch.float32, "lut"),
+                                        (torch.bfloat16, "safe")])
+@pytest.mark.parametrize("b,hq,hkv,length,d,causal", [
+    (2, 14, 2, 512, 64, True),  # internvl2-1b: 7 query heads per KV head
+    (2, 16, 16, 512, 80, False),  # hubert-xlarge: head_dim 80 (padded to 128), an encoder
+    (1, 32, 32, 256, 128, True),  # zamba2-1.2b's shared block: MHA at 128
+])
+def test_attention_at_the_frontend_and_hybrid_shapes(dev, dtype, mode, b, hq, hkv, length, d,
+                                                     causal):
+    """The attention shapes of internvl2-1b, hubert-xlarge and zamba2-1.2b's
+    shared block, at a shorter length: one launch, the existing tolerances."""
+    g = torch.Generator(device="cpu").manual_seed(hq + d)
+    q = torch.randn(b, hq, length, d, generator=g).to(dev, dtype)
+    k, v = (torch.randn(b, hkv, length, d, generator=g).to(dev, dtype) for _ in range(2))
+    before = LAUNCHES["flash_attention"]
+    out = mha(q, k, v, causal=causal, mode=mode)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _assert_attention_close(out, mha_ref(q, k, v, causal=causal, mode=mode), v, dtype, mode,
+                            hq // hkv)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

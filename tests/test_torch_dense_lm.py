@@ -187,14 +187,18 @@ def test_unported_attention_paths_raise():
     cache = kv_cache.init_attention_cache(tcfg, 1, 4, torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         attention.gqa_apply(pt, tcfg, x, torch.zeros(1, 1, 2), mode="extend", cache=cache)
-    # the int8 KV cache and MLA are ported (tests/test_torch_int8_kv.py,
-    # tests/test_torch_mla.py); the patch and audio frontends are not
+    # the int8 KV cache, MLA and the patch and audio frontends are ported
+    # (tests/test_torch_int8_kv.py, tests/test_torch_mla.py,
+    # tests/test_torch_frontends.py)
     qcache = kv_cache.init_attention_cache(tcfg, 1, 4, torch.float32, quantized=True,
                                            device="cpu")
     attention.gqa_apply(pt, tcfg, x, mode="prefill", cache=qcache)
     assert qcache["k"].dtype == torch.int8 and bool((qcache["k_scale"][:, :, :2] > 0).all())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        lm.param_spec(dataclasses.replace(tcfg, frontend="patch", frontend_dim=32))
+    for frontend in ("patch", "audio"):
+        kw = dict(frontend=frontend, frontend_dim=32)
+        spec = lm.param_spec(dataclasses.replace(tcfg, **kw))
+        assert _shapes(spec) == _shapes(jlm.param_spec(dataclasses.replace(jcfg, **kw)))
+        assert ("embed" in spec) == (frontend == "patch")
     with pytest.raises(ValueError, match="positions"):
         attention.gqa_apply(pt, tcfg, x[:, :1], mode="decode", cache=cache)
 
@@ -378,7 +382,7 @@ def test_caches_from_numpy_round_trip(name):
     jlast, jnew = _jdecode(params, jcfg, jnp.asarray(toks[:, 12:]), jnp.asarray(pos), jcaches)
     _close(last, jlast)
     _close(new, jnew)
-    with pytest.raises(NotImplementedError, match="item"):
+    with pytest.raises(ValueError, match="not a cache tree"):
         caches_from_numpy({"layers": {"k": np.zeros(1), "v": np.zeros(1),
                                       "k_scale": np.zeros(1)}}, "cpu")
 

@@ -28,7 +28,7 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.core import precision as jprec  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
-from repro_torch.configs import MoEConfig, get_config  # noqa: E402
+from repro_torch.configs import HybridConfig, MoEConfig, get_config  # noqa: E402
 from repro_torch.convert import caches_from_numpy, params_from_numpy  # noqa: E402
 from repro_torch.models import blocks, lm, ssm  # noqa: E402
 from repro_torch.serve import kv_cache  # noqa: E402
@@ -229,7 +229,7 @@ def test_caches_from_numpy_round_trip():
     jlast, jnew = _jdecode(params, jcfg, jnp.asarray(toks[:, 16:]), jnp.asarray(pos), jcaches)
     _close(last, jlast)
     _close(new, jnew)
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(ValueError, match="not a cache tree"):
         caches_from_numpy({"layers": {"k": np.zeros(1)}, "shared": {}}, "cpu")
 
 
@@ -303,26 +303,30 @@ def test_cache_spec_matches_reference(batch):
 
 
 def test_unported_families_raise():
+    """The other families are ported too: the hybrid blocks (Mamba2 with the
+    shared block, tests/test_torch_hybrid.py), the moe block, the int8 KV
+    cache and the MLA latent caches (tests/test_torch_moe.py,
+    tests/test_torch_int8_kv.py, tests/test_torch_mla.py).  What stays
+    refused: a rolling sliding-window buffer in the paged layout."""
     mamba = get_config("mamba2-130m", reduced=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        blocks.block_spec(dataclasses.replace(mamba, family="hybrid"))
-    # the moe block, the int8 KV cache and the MLA latent caches are ported
-    # (tests/test_torch_moe.py, tests/test_torch_int8_kv.py,
-    # tests/test_torch_mla.py); the hybrid caches are not, in either layout
+    hybrid = dataclasses.replace(mamba, family="hybrid", n_heads=4, n_kv_heads=4,
+                                 hybrid=HybridConfig(attn_every=2))
+    assert blocks.block_spec(hybrid).keys() == blocks.block_spec(mamba).keys()
     moe = dataclasses.replace(get_config("gw"), moe=MoEConfig(4, 2, 16))
     assert blocks.block_kind(moe) == "moe"
     assert set(blocks.block_spec(moe)["ffn"]) == {"router", "w_up", "w_down"}
     quantized = kv_cache.abstract_caches(get_config("granite-8b"), 1, 16, quantized=True)
     assert quantized["layers"]["k"][1] == torch.int8
     assert quantized["layers"]["k_scale"] == ((36, 1, 8, 16), torch.float32)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        kv_cache.abstract_caches(dataclasses.replace(get_config("granite-8b"), family="hybrid"),
-                                 1, 16, quantized=True)
+    # the hybrid caches: the Mamba2 state per layer and the shared block's
+    # float K/V per application, never int8 (the reference's)
+    caches = kv_cache.abstract_caches(hybrid, 1, 16, quantized=True)
+    assert set(caches) == {"layers", "shared"}
+    assert caches["layers"] == kv_cache.abstract_caches(mamba, 1, 16)["layers"]
+    assert caches["shared"]["k"] == ((1, 1, 4, 16, 16), torch.bfloat16)
     with pytest.raises(ValueError, match="rolling sliding-window"):
         kv_cache.abstract_caches(get_config("starcoder2-7b"), 1, 8192, layout="paged",
                                  page_size=8, num_pages=4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        kv_cache.abstract_caches(dataclasses.replace(mamba, family="hybrid"), 1, 16)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

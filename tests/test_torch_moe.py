@@ -281,8 +281,37 @@ def test_moe_configs_equal_reference(name, reduced):
 
 
 def test_loss_fn_raises_naming_its_item():
-    _, tcfg = _configs("granite-moe-3b-a800m")
-    params = lm.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11: lm.loss_fn's MoE aux losses"):
-        lm.loss_fn(params, tcfg, {"tokens": torch.zeros(1, 4, dtype=torch.int64)},
-                   device="cpu")
+    """``lm.loss_fn``'s MoE aux losses are ported: the total is the cross
+    entropy plus the router's aux and z losses from ``forward``'s aux, and
+    the loss, the metrics and the gradients equal ``jax.value_and_grad`` of
+    the reference's ``loss_fn`` (loss within 1e-5, each gradient leaf within
+    1e-5 max(1, max |g|), as tests/test_torch_train_grads.py)."""
+    from repro_torch.train import value_and_grad
+
+    jcfg, tcfg = _configs("granite-moe-3b-a800m")
+    params = numpy_tree(jlm.param_spec(jcfg), 19)
+    batch = {"tokens": np.random.default_rng(20).integers(0, jcfg.vocab_size,
+                                                          (2, 12)).astype(np.int32)}
+    (jl, jm), jg = jax.jit(jax.value_and_grad(lambda p, b: jlm.loss_fn(p, jcfg, b),
+                                              has_aux=True))(params, batch)
+    (tl, tm), tg = value_and_grad(lm.loss_fn, params_from_numpy(params, "cpu"), tcfg, batch,
+                                  device="cpu")
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    assert set(tm) == set(jm) == {"ce_loss", "accuracy", "loss", "moe_aux_loss", "moe_z_loss",
+                                  "moe_dropped_frac"}
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(float(tm["loss"]), float(tm["ce_loss"] + tm["moe_aux_loss"]
+                                                        + tm["moe_z_loss"]), rtol=1e-6)
+
+    def close(ours, ref, path=""):
+        if isinstance(ref, dict):
+            for k in ref:
+                close(ours[k], ref[k], f"{path}/{k}")
+            return
+        r = np.asarray(ref)
+        np.testing.assert_allclose(ours.detach().numpy(), r, rtol=0,
+                                   atol=1e-5 * max(1.0, float(np.abs(r).max())), err_msg=path)
+
+    close(tg, jg)
+    assert float(tg["blocks"]["ffn"]["router"]["kernel"].abs().max()) > 0

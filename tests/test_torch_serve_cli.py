@@ -4,8 +4,9 @@
 - The shared flags build the ServeConfig the reference's CLI builds from
   the same arguments, field for field.
 - The launcher answers ``--requests 4`` on the CPU at a reduced config and
-  exits 0, and serves granite-moe-3b-a800m and minicpm3-4b (MLA) under
-  their own ``serve_policy`` (``--policy auto``: int8_serve); without
+  exits 0, and serves granite-moe-3b-a800m, minicpm3-4b (MLA) and
+  zamba2-1.2b (hybrid; paged falls back to dense) under their own
+  ``serve_policy`` (``--policy auto``: int8_serve); without
   ``--device cpu`` on a host without CUDA it raises as ``resolve_device``
   does; ``--replicas`` above 1 and the flags of later
   slices raise ``NotImplementedError``.
@@ -84,6 +85,22 @@ def test_launcher_serves_the_moe_family_under_its_own_policy(layout, capsys):
 def test_launcher_serves_minicpm3_4b_under_its_own_policy(layout, capsys):
     """minicpm3-4b (MLA): int8 weights, the int8 latent cache, LUT softmax."""
     _serves_under_its_own_policy("minicpm3-4b", layout, capsys)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_launcher_serves_zamba2_under_its_own_policy(layout, capsys):
+    """zamba2-1.2b (hybrid): int8 weights, the float shared K/V caches and
+    the Mamba2 state; paged falls back to dense, as the reference's
+    engine."""
+    argv = ["--policy", "auto", "--kv-layout", layout, "--kv-page-size", "8"]
+    ours = cli.config_from_args(_parse(cli, argv), get_config("zamba2-1.2b", True))
+    ref = jcli.config_from_args(_parse(jcli, argv), jax_get_config("zamba2-1.2b", True))
+    assert ours.policy == ref.policy == "int8_serve"
+    launch.main(["--device", "cpu", "--arch", "zamba2-1.2b", "--requests", "3",
+                 "--max-new", "4", *argv])
+    out = capsys.readouterr().out
+    assert "3 requests, 12 tokens" in out and "policy=int8_serve" in out
+    assert "layout=dense" in out and "buckets=exact" in out
 
 
 def test_launcher_defaults_to_the_card(monkeypatch):

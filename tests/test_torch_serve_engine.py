@@ -384,16 +384,30 @@ def test_caches_are_written_in_place_with_one_copy_back_per_decode(models, monke
     (dict(speculative=True), "item 8, step 8"),
     (dict(shard_decode=True), "item 8, shard_decode"),
     (dict(kv_layout="paged", kv_prefix_cache=True, kv_host_pages=8), "item 8, step 9"),
-    # int8_serve and its MLA latent caches are ported (minicpm3-4b); the
-    # hybrid family's caches are not
-    (dict(policy="int8_serve", arch_kw=dict(family="hybrid")), "item 10"),
 ])
 def test_unported_features_raise(models, kw, match):
     _, _, cfg, params = models["granite-8b"]
-    kw = dict(kw)
-    cfg = dataclasses.replace(cfg, **kw.pop("arch_kw", {}))
     with pytest.raises(NotImplementedError, match=match):
         Engine(cfg, params, ServeConfig(**BASE, **kw), device="cpu")
+
+
+def test_hybrid_family_is_served_under_int8_serve():
+    """int8_serve, its MLA latent caches and the hybrid family's caches are
+    ported: a zamba2-1.2b-reduced engine under int8_serve takes int8 weights
+    and keeps its caches float (the Mamba2 state and the shared block's
+    K/V), as the reference's executor; paged falls back to dense
+    (tests/test_torch_hybrid.py holds its streams to the JAX engine's)."""
+    cfg = get_config("zamba2-1.2b", reduced=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = Engine(cfg, params, ServeConfig(**BASE, policy="int8_serve", kv_layout="paged"),
+                 device="cpu")
+    ex = eng.executor
+    assert ex.plan.int8_weights and ex.plan.int8_kv_cache and not ex.quant_cache
+    assert ex.kv_layout == "dense" and not ex.bucketable
+    assert set(ex.caches) == {"layers", "shared"}
+    assert all(t.dtype == torch.float32 for g in ex.caches.values() for t in g.values())
+    out = eng.generate([[1, 2, 3], [4, 5, 6, 7]], max_new_tokens=3)
+    assert all(len(r.generated) == 3 for r in out.values())
 
 
 def test_n_best_raises_and_the_engine_defaults_to_the_card(models, monkeypatch):

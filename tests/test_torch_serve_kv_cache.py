@@ -108,18 +108,24 @@ def test_paged_spec_rejects_unpageable():
     with pytest.raises(ValueError, match="position-addressed"):
         kvc.attention_cache_spec(ssm, 2, 64, layout="paged", page_size=16, num_pages=9)
     # the quantized paged spec is ported: the reference's, scale pools
-    # head-major (the MLA latent pools: tests/test_torch_mla.py); the hybrid
-    # caches are not ported
+    # head-major (the MLA latent pools: tests/test_torch_mla.py); a hybrid
+    # model's caches ignore the layout, as the reference's: the Mamba2 state
+    # and the shared block's dense K/V
     ours = kvc.attention_cache_spec(get_config(ARCH, reduced=True), 2, 64, quantized=True,
                                     layout="paged", page_size=16, num_pages=9)
     ref = jkv.attention_cache_spec(jax_get_config(ARCH, reduced=True), 2, 64, quantized=True,
                                    layout="paged", page_size=16, num_pages=9)
     assert {k: (shape, str(dt).removeprefix("torch.")) for k, (shape, dt) in ours.items()} == {
         k: (s.shape, str(s.dtype)) for k, s in ref.items()}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        kvc.abstract_caches(dataclasses.replace(get_config(ARCH, reduced=True),
-                                                family="hybrid"),
-                            2, 64, quantized=True, layout="paged", page_size=16, num_pages=9)
+    zamba = get_config("zamba2-1.2b", reduced=True)
+    ours = kvc.abstract_caches(zamba, 2, 64, quantized=True, layout="paged", page_size=16,
+                               num_pages=9)
+    ref = jkv.abstract_caches(jax_get_config("zamba2-1.2b", reduced=True), 2, 64,
+                              quantized=True, layout="paged", page_size=16, num_pages=9)
+    assert {g: {k: (shape, str(dt).removeprefix("torch.")) for k, (shape, dt) in leaves.items()}
+            for g, leaves in ours.items()} == {
+        g: {k: (s.shape, str(s.dtype)) for k, s in leaves.items()} for g, leaves in ref.items()}
+    assert set(ours) == {"layers", "shared"} and "page_table" not in ours["layers"]
 
 
 # ------------------------------------------------------------ device ops ---

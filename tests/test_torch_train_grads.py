@@ -248,6 +248,29 @@ def test_attention_function_backward_at_a_v_head_dim_of_its_own(case):
     assert torch.any(grads[2] != 0)
 
 
+def test_attention_backward_of_rows_that_see_no_key():
+    """A safe row that sees no key (window 3 ending before kv_len 7: row 9)
+    has the plain version's uniform P: dV takes its share of dO, dQ and its
+    dK terms are 0.  The backward rebuilds P from the inputs and reads the
+    forward's output only through delta, which the mask zeroes on such a
+    row: its gradients do not depend on what the forward stored there."""
+    qn, kn, vn, don = _qkv(2, 2, 2, 10, 8, seed=5)
+    q, k, v, do = (torch.from_numpy(a) for a in (qn, kn, vn, don))
+    kw = dict(causal=True, window=3, mode="safe", kv_len=7)
+    out = mha_ref(q, k, v, **kw)
+    torch.testing.assert_close(out[:, :, 9], v.mean(dim=2), atol=1e-6, rtol=0)
+    grads = fa_grad.attention_backward(q, k, v, out, do, **kw)
+    zeroed = out.clone()
+    zeroed[:, :, 9] = 0.0  # what the kernel stored there before it took the mean of V
+    for g, z in zip(grads, fa_grad.attention_backward(q, k, v, zeroed, do, **kw)):
+        assert torch.equal(g, z)
+    assert torch.all(grads[0][:, :, 9] == 0)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = torch.autograd.grad(mha_ref(qg, kg, vg, **kw), (qg, kg, vg), do)
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
+
+
 def test_attention_backward_needs_no_plain_forward(monkeypatch):
     """The backward rebuilds P from its formula; it never calls ``mha_ref``."""
     qn, kn, vn, don = _qkv(1, 2, 1, 8, 8, seed=0)

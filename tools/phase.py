@@ -8,7 +8,8 @@ kernel, runs that phase on the card and writes its results and launch
 counts to ``chiprun_out/<NAME>_phase.json``.
 
 ``--kernels`` first runs phase 2's kernel cases at the shapes of that path
-(``chip_smoke._<NAME>_kernel_cases``; int8_moe and mla have them).
+(``chip_smoke._<NAME>_kernel_cases``; int8_moe, mla and families have
+them).
 ``--float-run`` (int8_moe) first serves granite-8b under ``float`` as phase
 7b does, dense and paged, so that phase 9d has its comparison.  ``--seeds N``
 (train) then runs the physics workflow from N more init seeds (1 .. N), to
@@ -30,7 +31,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("models", "mha", "lut_softmax_path", "mamba", "dense", "serve", "train", "int8_moe",
-          "mla")
+          "mla", "families")
 
 
 def main(argv=None) -> int:
