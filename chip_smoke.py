@@ -60,12 +60,13 @@ Phases, each of which fails the run (exit code 1) when it fails:
    the port's CPU path and the float oracle, with 4 qmatmul and 1 attention
    launches per call; then the LUT softmax entry point
    (``kernels.lut_softmax.lut_softmax``) on the encoders' attention scores;
-5. mamba -- mamba2-130m at its published size (24 layers, d_model 768,
-   24 SSM heads of P 64, N 128, chunk 64) on seeded random weights through
+5. mamba -- mamba2-130m at its published widths (d_model 768, 24 SSM
+   heads of P 64, N 128, chunk 64) cut to 12 of its 24 layers (the run's
+   time limit; phases 7c and 8d run all 24) on seeded random weights through
    ``models.lm.prefill`` / ``decode_step``: in float32, 2 prompts of 256
    tokens and 64 greedy decode steps held against the port's CPU path
    (logits and tokens) and against one 320-token ``forward`` (continuity),
-   with 24 ``ssd_scan`` + 49 ``layernorm`` launches per prefill and 0 + 49
+   with 12 ``ssd_scan`` + 25 ``layernorm`` launches per prefill and 0 + 25
    per decode step; then, in the config's bfloat16, the median time of a
    prefill of 1 x 2048 and 8 x 2048 tokens and of a decode step at batch 1
    and 8, with the profiler's busy share, top kernels and the SSD scan's
@@ -79,8 +80,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    (logits and tokens) and one 144-token ``forward`` (continuity), with 2
    ``flash_attention`` + 5 ``layernorm`` launches per prefill and 0 + 5 per
    decode step; (b) granite-8b in bfloat16 at its published widths (d_model
-   4096, 32 q / 8 kv heads of 128, d_ff 14336, vocab 49152) cut to 9 of
-   its 36 layers (the run's time limit; phases 7 and 9 serve it at 9 too) on
+   4096, 32 q / 8 kv heads of 128, d_ff 14336, vocab 49152) cut to 5 of
+   its 36 layers (the run's time limit; phases 7 and 9 serve it at 5 too) on
    seeded random weights drawn on the card: the median time of a
    prefill of 1 x 2048 (time to first token) and 8 x 2048 tokens and of 32
    greedy decode steps at batch 1 and 8, with the profiler's busy share,
@@ -93,7 +94,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    engine's streams, the port's CPU engine's and a direct ``lm.prefill`` /
    ``decode_step`` loop on the card each equal the CPU direct loop, a step
    differing only where its top-two margin is under 2e-4; (b) granite-8b in
-   bfloat16 at its published widths and 9 of its 36 layers (the run's time
+   bfloat16 at its published widths and 5 of its 36 layers (the run's time
    limit), ``max_batch`` 8, ``max_seq_len`` 2048, buckets
    256-2048, 4 decode steps per dispatch, 16 seeded requests of 64-1536
    tokens (8 sharing a 512-token prefix) x 32 new tokens under the dense,
@@ -112,9 +113,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``safe`` and ``lut`` at the encoders' shapes (batch 1024), granite-like
    GQA (2, 32/8, 256, 128) causal in float32 and bf16, a window with
    kv_len < L; LN, RMSNorm and the LUT norm at the encoders' and granite's
-   widths; ``ssd_scan``, ``lut_softmax`` and ``qmatmul`` must raise under
-   grad; (b) the paper's physics workflow (``repro_torch.examples.
-   physics_inference``) for the three encoders at batch 1024: the first
+   widths; ``SSDScan`` (the ``ssd_scan`` kernel forward, the plain scan's
+   gradient) at mamba2-130m's and zamba2-1.2b's widths in float32 and bf16;
+   ``lut_softmax`` and ``qmatmul`` must raise under grad; (b) the paper's
+   physics workflow (``repro_torch.examples.physics_inference``) for the
+   three encoders at batch 1024: the first
    float steps on the card against the port's CPU path from the same init,
    the launches per train step (``flash_attention`` n_layers, ``layernorm``
    2 n_layers + 1 or 0), the step time, then 150 float steps, PTQ and 60
@@ -123,12 +126,20 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``examples/physics_inference.py``; (c) ``train.run_training`` on
    granite-8b's published width cut to 1 layer, float32, 2 x 2048 tokens,
    8 steps with a checkpoint at step 4, then again killed at step 6 and
-   resumed (b and c run under ``torch.use_deterministic_algorithms(True)``): the two
+   resumed (under ``torch.use_deterministic_algorithms(True)``): the two
    runs' parameters and moments bitwise equal, the card's checkpoint
    restored on the CPU bitwise equal; the step's time, tokens/s, device
    busy share, top kernels, the attention and layernorm backwards' shares
-   and the peak memory.  ``python3 tools/phase.py train`` runs this phase
-   alone.
+   and the peak memory; (d) ``run_training`` on mamba2-130m (24 layers) and
+   zamba2-1.2b (7 of 38 layers) at full width, float32, 2 x 2048 tokens:
+   ``ssd_scan`` once per Mamba2 layer and ``flash_attention`` once per
+   shared application per step, each step's loss within 1e-4 of the CPU
+   path's from the card's state, mamba2-130m killed and resumed bitwise;
+   step time, peak memory, busy share; (e) ``make_train_step(mesh=,
+   rules=)`` on a one-card NCCL mesh, bitwise the unsharded step, and the
+   sharded checkpoint restored onto the rules' shardings bitwise (b-e
+   under deterministic algorithms).  ``python3 tools/phase.py train`` runs
+   this phase alone.
 9. int8_moe -- the ``int8_serve`` datapath (int8 per-channel weights, the
    int8 KV cache in the dense, rolling and paged layouts, the LUT softmax in
    the engine's prefill, which attends the dequantized cache through the
@@ -141,7 +152,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    one prefill at the published capacity factor on the card and the CPU:
    the share of int8 KV codes that differ (by at most 1), of router
    decisions that flip (only at a k-th / (k+1)-th tie within 1e-5), and the
-   dropped shares; (b) granite-moe-3b-a800m bf16 at 8 of its 32 layers (the
+   dropped shares; (b) granite-moe-3b-a800m bf16 at 4 of its 32 layers (the
    run's time limit) under its
    ``serve_policy`` (int8_serve), phase 7's traffic under the dense, paged
    and paged + prefix-cache layouts, tokens identical but where a request
@@ -152,7 +163,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    routing / dispatch / combine and expert-GEMM shares, KV bytes, peak
    memory, the program budget; (c) its ``lm.prefill`` at 1 and 8 x 2048
    under int8_serve and float, beside the FLOP floor; (d) granite-8b bf16 at
-   9 layers under int8_serve, dense and paged, beside phase 7's float runs
+   5 layers under int8_serve, dense and paged, beside phase 7's float runs
    of the same build.  ``python3 tools/phase.py int8_moe`` runs this phase
    alone.
 10. mla -- multi-head latent attention, minicpm3-4b (``attention.mla_apply``
@@ -165,7 +176,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    loop by phase 7's margin rule; the absorbed decode's logits within 2e-4
    of the materialized ones on the card; under int8_serve one prefill's
    int8 latent codes card vs CPU differ by at most 1 in at most 0.1 % of
-   them; (b) bf16 at 31 of its 62 layers (the run's time limit) under
+   them; (b) bf16 at 12 of its 62 layers (the run's time limit) under
    int8_serve, phase 7's traffic under
    the dense, paged and paged + prefix-cache layouts with identical tokens,
    ``flash_attention`` n_layers per prefill dispatch and none in decode,
@@ -189,15 +200,16 @@ Phases, each of which fails the run (exit code 1) when it fails:
    7's margin rule; hubert-xlarge cut to 2 layers, its logits on the card
    within 2e-4 of the CPU's; internvl2-1b cut to 2 layers, 256 patches and
    64 tokens then 16 greedy steps against the CPU path and one forward;
-   (b) zamba2-1.2b bf16 at all 38 layers under int8_serve and float, 16
+   (b) zamba2-1.2b bf16 at 13 of its 38 layers (the run's time limit) under
+   int8_serve and float, 16
    exact-length requests of 64-512 tokens x 32 new tokens, dense and paged:
    identical tokens, ``ssd_scan`` once per layer and ``flash_attention``
    once per shared application per prefill dispatch and neither in decode,
    the programs (one per prompt length, one decode), TTFT, ITL, tokens/s,
-   one decode dispatch profiled, the Mamba2 state's and the 7 shared K/V
-   caches' bytes; (c) hubert-xlarge (48 layers) ``lm.forward`` on 1 and 8 x
+   one decode dispatch profiled, the Mamba2 state's and the 3 shared K/V
+   caches' bytes; (c) hubert-xlarge (16 of 48 layers) ``lm.forward`` on 1 and 8 x
    512 frames with its pad copies' share of device time (head_dim 80 runs
-   padded to 128), internvl2-1b (24 layers) ``lm.prefill`` of 1 and 8 x
+   padded to 128), internvl2-1b (8 of 24 layers) ``lm.prefill`` of 1 and 8 x
    (256 + 256) tokens and 32 greedy decode steps, bf16, under float and
    int8_serve.  ``python3 tools/phase.py families`` runs this phase alone.
    Each path sets the launch counts to 0 before it and reads them after.
@@ -295,6 +307,7 @@ SSD_PASSES = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_output_ker
 # tests/test_ssm.py's 2e-4 (float32 sums in other orders).  A greedy token
 # may differ only where the CPU path's top-two margin is below that bound.
 MAMBA = "mamba2-130m"
+MAMBA_LAYERS = 12  # of 24, for the run's time limit (phases 7c and 8d run all 24)
 MAMBA_TOL = 2e-4
 MAMBA_CHECK = (2, 256, 64)  # batch, prompt tokens, greedy decode steps
 MAMBA_TIME_LEN, MAMBA_TIME_BATCHES, MAMBA_TIME_STEPS = 2048, (1, 8), 32
@@ -303,14 +316,14 @@ MAMBA_TIME_LEN, MAMBA_TIME_BATCHES, MAMBA_TIME_STEPS = 2048, (1, 8), 32
 # starcoder2-7b runs twice, the second time with a window of 64 so that its
 # rolling buffer (and the kernel's window mask) is exercised by 128 + 16
 # tokens.  bf16 timings (phase 6b): granite-8b at its published widths, 18
-# of its 36 layers (the script's time limit; phases 7 and 9 serve 18 too).
+# of its 36 layers (GRANITE_TIME_LAYERS, the script's time limit).
 DENSE = ("granite-8b", "minicpm-2b", "starcoder2-7b")
 DENSE_CUT = dict(n_layers=2, vocab_size=512, dtype="float32")
 DENSE_ROLLING_WINDOW = 64
 DENSE_TOL = 2e-4
 DENSE_CHECK = (2, 128, 16)  # batch, prompt tokens, greedy decode steps
 GRANITE_TIME_LEN, GRANITE_TIME_BATCHES, GRANITE_TIME_STEPS = 2048, (1, 8), 32
-GRANITE_TIME_LAYERS = 9  # of 36: halved in PR 23 and again in PR 24 for the run's time limit
+GRANITE_TIME_LAYERS = 5  # of 36, for the run's time limit
 GRANITE_PROFILE_STEPS = 16  # the decode steps under the profiler
 # The serving engine (phase 7).  (a) float32 check: granite-8b (dense, and
 # paged + prefix cache) and mamba2-130m at their published widths cut as in
@@ -360,10 +373,12 @@ INT8_CODES = (2, 64)  # batch, tokens of the prefill whose codes and routes are 
 ROUTER_TIE = 1e-5
 MOE_SERVE = "granite-moe-3b-a800m"
 MOE_PREFILL_BATCHES, MOE_PREFILL_LEN = (1, 8), 2048
-# The full-width serving runs of phases 7b, 9b-9d and 10b-10c cut in depth for
-# the run's time limit, to make room for phases 10 and 11: granite-8b 9 of
-# 36 layers, granite-moe-3b-a800m 8 of 32, minicpm3-4b 31 of 62.
-GRANITE_SERVE_LAYERS, MOE_SERVE_LAYERS, MLA_SERVE_LAYERS = 9, 8, 31
+# The full-width serving runs of phases 7b, 9b-9d, 10b-10c and 11b-11c cut in
+# depth for the run's time limit: granite-8b 5 of 36 layers,
+# granite-moe-3b-a800m 4 of 32, minicpm3-4b 12 of 62, zamba2-1.2b 13 of 38
+# (the shared block 3 times), hubert-xlarge 16 of 48, internvl2-1b 8 of 24.
+GRANITE_SERVE_LAYERS, MOE_SERVE_LAYERS, MLA_SERVE_LAYERS = 5, 4, 12
+HYBRID_SERVE_LAYERS, FRONTEND_TIME_LAYERS = 13, {"hubert-xlarge": 16, "internvl2-1b": 8}
 # MLA, minicpm3-4b (phase 10).  (a) float32 check at the published widths cut
 # to 2 layers and a vocab of 512, under float and under its serve_policy
 # (int8_serve: int8 weights, the int8 latent cache, the LUT softmax in
@@ -390,11 +405,11 @@ MLA_PREFILL_BATCHES, MLA_PREFILL_LEN = (1, 8), 2048
 # (64); hubert-xlarge cut to 2 layers, 2 x 256 frames, logits card vs CPU
 # within 2e-4 (tests/test_ssm.py's and phase 6's bound); internvl2-1b cut to
 # 2 layers and a vocab of 512, 2 x (256 patches + 64 tokens) and 16 greedy
-# steps, the margin rule.  (b) zamba2-1.2b bf16 at all 38 layers, phase 7c's
+# steps, the margin rule.  (b) zamba2-1.2b bf16 at HYBRID_SERVE_LAYERS, phase 7c's
 # exact-length traffic twice over (16 requests of 64-512 tokens) x 32 new
 # tokens, under int8_serve and float, dense and paged (which falls back to
-# dense).  (c) hubert-xlarge (48 layers) on 1 and 8 x 512 frames (10 s of
-# audio at 50 frames/s) and internvl2-1b (24 layers) on 1 and 8 x (256 image
+# dense).  (c) hubert-xlarge (FRONTEND_TIME_LAYERS) on 1 and 8 x 512 frames (10 s of
+# audio at 50 frames/s) and internvl2-1b (likewise) on 1 and 8 x (256 image
 # + 256 text) tokens then 32 greedy decode steps, bf16, under float and
 # int8_serve.  Weights random from the seed; the frontends' frame and patch
 # embeddings random too (the reference's stubs).
@@ -894,7 +909,8 @@ def _lut_softmax_case(dev, rows, k, fixed):
     return dict(kernel="lut_softmax", shape=[rows, k], mode="fixed<12,6>" if fixed else "none",
                 max_abs_err=float(err.max()), rows_over_atol=rows_over,
                 tol="bitwise (+1 table step)", ok=ok, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+                library_ms=None, device_ms=device_ms(lambda: lut_softmax(x, precision=prec)),
+                library_device_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _ssd_case(dev, b, l, h, p, n, groups, chunk, dtype="float32", decay=1.0):
@@ -1493,7 +1509,7 @@ def phase_mamba(dev):
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import layers, lm
 
-    base = get_config(MAMBA)
+    base = dataclasses.replace(get_config(MAMBA), n_layers=MAMBA_LAYERS)
     cfg = dataclasses.replace(base, dtype="float32")
     n_ln = 2 * cfg.n_layers + 1
     per_call = {"prefill": {"ssd_scan": cfg.n_layers, "layernorm": n_ln},
@@ -1867,7 +1883,7 @@ def phase_serve(dev):
     """The serving engine (``serve.api.Engine``) on the card: (a) the
     float32 check of granite-8b and mamba2-130m at their published widths,
     2 layers, against the port's CPU engine and a direct ``lm`` greedy loop;
-    (b) granite-8b bf16 at 9 layers under the dense, paged and paged +
+    (b) granite-8b bf16 at 5 layers under the dense, paged and paged +
     prefix-cache layouts; (c) mamba2-130m bf16 at full depth.  Returns
     (results, launch counts of the window)."""
     import torch
@@ -2337,7 +2353,7 @@ def phase_int8_moe(dev, float_runs=None):
     granite-moe-3b-a800m (2 layers) and dbrx-132b (1 layer) under int8_serve;
     (b) granite-moe-3b-a800m bf16 at 8 layers through the engine, three
     layouts; (c) its ``lm.prefill`` at 1 and 8 x 2048; (d) granite-8b bf16 at
-    9 layers under int8_serve, dense and paged, beside ``float_runs`` (phase
+    5 layers under int8_serve, dense and paged, beside ``float_runs`` (phase
     7's).  Returns (results, launch counts of the window)."""
     import torch
 
@@ -2350,7 +2366,7 @@ def phase_int8_moe(dev, float_runs=None):
     LAUNCHES.clear()  # the int8_serve / MoE path's window starts here
     checks = [_int8_check(dev, *c) for c in INT8_CHECK]
 
-    # (b) granite-moe-3b-a800m bf16, 8 of its 32 layers (the script's time
+    # (b) granite-moe-3b-a800m bf16, 4 of its 32 layers (the script's time
     # limit), its own serve_policy
     torch.cuda.empty_cache()
     base = dataclasses.replace(get_config(MOE_SERVE), n_layers=MOE_SERVE_LAYERS)
@@ -2443,7 +2459,7 @@ def phase_int8_moe(dev, float_runs=None):
     del params, params_q, layer0
     torch.cuda.empty_cache()
 
-    # (d) granite-8b bf16, 9 layers as phase 7b, int8_serve, dense and paged
+    # (d) granite-8b bf16, 5 layers as phase 7b, int8_serve, dense and paged
     g8 = dataclasses.replace(get_config("granite-8b"), n_layers=GRANITE_SERVE_LAYERS)
     params = lm.init_params(g8, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     g8_runs = _serve_layouts(g8, params, _serve_traffic(g8), SERVE_LAYOUTS[:2], dev, "[int8]",
@@ -2560,7 +2576,7 @@ def _mla_prefill_floor(cfg, b, n, int8_kv) -> tuple[float, float, str]:
 
 def phase_mla(dev):
     """MLA, minicpm3-4b: (a) the float32 check under float and int8_serve;
-    (b) bf16 at 31 of its 62 layers under int8_serve through the engine, three
+    (b) bf16 at 12 of its 62 layers under int8_serve through the engine, three
     layouts, then dense with the absorbed decode; (c) ``lm.prefill`` at 1 and
     8 x 2048 under int8_serve and float.  Returns (results, launch counts of
     the window)."""
@@ -2753,7 +2769,7 @@ def _pad_share(fn) -> dict:
 
 
 def _hybrid_serve(dev) -> list[dict]:
-    """Phase 11b: zamba2-1.2b bf16 at all 38 layers through the engine,
+    """Phase 11b: zamba2-1.2b bf16 at HYBRID_SERVE_LAYERS through the engine,
     under its serve_policy (int8_serve) and float, dense and paged (which
     falls back to dense with the same tokens): 16 exact-length requests of
     64-512 tokens x 32 new tokens; TTFT, ITL, tokens/s, one decode dispatch
@@ -2766,7 +2782,7 @@ def _hybrid_serve(dev) -> list[dict]:
     from repro_torch.serve import kv_cache
 
     torch.cuda.empty_cache()
-    base = get_config(HYBRID)
+    base = dataclasses.replace(get_config(HYBRID), n_layers=HYBRID_SERVE_LAYERS)
     params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     prompts = _serve_prompts(6, HYBRID_SERVE_LEN, 0, 0, base.vocab_size)
     spec = kv_cache.abstract_caches(base, HYBRID_SERVE_SC["max_batch"],
@@ -2792,8 +2808,8 @@ def _hybrid_serve(dev) -> list[dict]:
 
 
 def _frontend_timings(dev) -> list[dict]:
-    """Phase 11c: hubert-xlarge (48 layers) ``lm.forward`` on 1 and 8 x 512
-    frames, and internvl2-1b (24 layers) ``lm.prefill`` of 1 and 8 x (256
+    """Phase 11c: hubert-xlarge (16 of 48 layers) ``lm.forward`` on 1 and 8 x 512
+    frames, and internvl2-1b (8 of 24 layers) ``lm.prefill`` of 1 and 8 x (256
     image + 256 text) tokens then 32 greedy ``decode_step``s, bf16, under
     float and under their serve_policy (int8_serve): median ms, device ms,
     busy share, attention share, and hubert's pad copies' share."""
@@ -2807,7 +2823,7 @@ def _frontend_timings(dev) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(3)
     for name in (AUDIO, VLM):
         torch.cuda.empty_cache()
-        base = get_config(name)
+        base = dataclasses.replace(get_config(name), n_layers=FRONTEND_TIME_LAYERS[name])
         params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
         checked = _launch_checker(name, _launches_per_call(base))
         for policy in ("float", base.serve_policy):
@@ -2899,9 +2915,9 @@ def phase_families(dev):
     the engine (dense, and paged, which falls back to dense) against the
     port's CPU engine and direct loops; hubert-xlarge at 2 layers, the card's
     logits against the CPU's; internvl2-1b at 2 layers, 256 patches and text
-    then greedy decode against the CPU path; (b) zamba2-1.2b bf16 at 38
+    then greedy decode against the CPU path; (b) zamba2-1.2b bf16 at 13
     layers through the engine under int8_serve and float; (c) hubert-xlarge
-    and internvl2-1b bf16 at full depth.  Returns (results, launch counts of
+    and internvl2-1b bf16 at a third of their depth.  Returns (results, launch counts of
     the window)."""
     import torch
 
@@ -3036,6 +3052,29 @@ WORKFLOW_TOL = 0.02
 LM_TRAIN_CUT = dict(n_layers=1, dtype="float32")
 LM_TRAIN = dict(total_steps=8, checkpoint_every=4, warmup_steps=2, learning_rate=3e-4)
 LM_TRAIN_SHAPE, LM_TRAIN_FAIL_AT = (2, 2048), 6
+# (a) also SSDScan (the kernel forward, the plain scan's gradient recomputed
+# in torch ops) against torch autograd through the plain ssd_chunked on the
+# card, y's and the final state's cotangents both given, at mamba2-130m's
+# (b, l, heads, P, N, groups) and zamba2-1.2b's widths, float32 and bf16:
+# 1e-5 (float32) / 1e-2 (bf16) of max(1, max |grad|), the bounds of
+# tests/test_torch_cuda_kernels.py's SSDScan cases.
+TRAIN_SSD_CASES = ((2, 2048, 24, 64, 128, 1), (2, 2048, 64, 64, 64, 1))
+SSD_GRAD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+# (d) The Mamba2 and hybrid families trained through run_training, float32,
+# batch 2 x 2048: mamba2-130m at all 24 layers, zamba2-1.2b at its published
+# width cut to 7 of its 38 layers (two applications of the shared block),
+# for the run's time limit.  (name, layers or None, steps, checkpoint every,
+# step at which a second run is killed, then resumed: bitwise the straight
+# run).  The run is replayed step by step on the card (its losses bitwise
+# the run's), and the CPU path's loss from the card's parameters before each
+# step (a forward) must be within SSM_TRAIN_TOL of the card's.
+SSM_TRAIN = (("mamba2-130m", None, 3, 2, 2), ("zamba2-1.2b", 7, 2, 3, None))
+SSM_TRAIN_SHAPE, SSM_TRAIN_TOL = (2, 2048), 1e-4
+# (e) The sharded step (make_train_step(mesh=, rules=)) on a one-card mesh
+# (NCCL, world size 1), mamba2-130m at full width in float32: two steps from
+# the unsharded step's state, bitwise equal to it; the sharded state saved
+# and restored onto the rules' shardings, bitwise.
+MESH_TRAIN_STEPS = 2
 
 
 def _attention_grad_case(dev, shape, hkv, causal, window, kv_len, dtype, mode, v_dim=None):
@@ -3126,20 +3165,60 @@ def _layernorm_grad_case(dev, rows, k, rms, use_lut):
                 plain_fwd_bwd_ms=time_ms(fwd_bwd(layernorm_ref), 10))
 
 
+def _ssd_grad_case(dev, b, l, h, p, n, groups, dtype):
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_with_state
+
+    g = torch.Generator().manual_seed(l + h + n)
+    tdt = getattr(torch, dtype)
+    x = [t.to(dev, tdt).requires_grad_() for t in (
+        torch.randn(b, l, h, p, generator=g) * 0.5, -torch.randn(b, l, h, generator=g).abs() * 0.3,
+        torch.randn(b, l, groups, n, generator=g) * 0.5,
+        torch.randn(b, l, groups, n, generator=g) * 0.5)]
+    dy = torch.randn(b, l, h, p, generator=g).to(dev, tdt)
+    ds = torch.randn(b, h, p, n, generator=g).to(dev)
+
+    def plain(*t):
+        rep = h // groups
+        y, s = ssd_chunked(t[0].float(), t[1].float(), t[2].float().repeat_interleave(rep, 2),
+                           t[3].float().repeat_interleave(rep, 2), chunk=64)
+        return y.to(tdt), s
+
+    def kernel(*t):
+        return ssd_with_state(*t, chunk=64)
+
+    y, state = kernel(*x)
+    if "SSDScan" not in type(y.grad_fn).__name__:
+        raise SmokeError(f"ssd_with_state under grad did not go through the autograd.Function: "
+                         f"{type(y.grad_fn).__name__}")
+    grads = torch.autograd.grad((y, state), x, (dy, ds))
+    ref = torch.autograd.grad(plain(*x), x, (dy, ds))
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for name, gr, rf in zip(("dxdt", "da", "dB", "dC"), grads, ref):
+        scale = max(1.0, float(rf.float().abs().max()))
+        errs[name], _, fine = close_enough(gr.float(), rf.float(), SSD_GRAD_REL[dtype] * scale)
+        ok &= fine and bool(torch.isfinite(gr.float()).all())
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(*x), x, (dy, ds))
+
+    return dict(kernel="ssd_scan", shape=[b, l, h, p, n], groups=groups, dtype=dtype,
+                max_abs_err=errs, ok=bool(ok), fwd_bwd_ms=time_ms(fwd_bwd(kernel), 10),
+                plain_fwd_bwd_ms=time_ms(fwd_bwd(plain), 10))
+
+
 def _no_backward_raises(dev) -> list[str]:
     """The kernels without a backward refuse inputs that require grad."""
     import torch
 
     from repro_torch.kernels.lut_softmax import lut_softmax
     from repro_torch.kernels.qmatmul import qmatmul
-    from repro_torch.kernels.ssd_scan import ssd
 
     x = torch.randn(64, 32, device=dev, requires_grad=True)
     w = torch.randn(32, 32, device=dev)
-    xdt = torch.randn(1, 64, 2, 16, device=dev, requires_grad=True)
-    a, bm = -torch.rand(1, 64, 2, device=dev), torch.randn(1, 64, 1, 16, device=dev)
-    calls = {"lut_softmax": lambda: lut_softmax(x), "qmatmul": lambda: qmatmul(x, w),
-             "ssd_scan": lambda: ssd(xdt, a, bm, bm, chunk=64)}
+    calls = {"lut_softmax": lambda: lut_softmax(x), "qmatmul": lambda: qmatmul(x, w)}
     raised = []
     for name, call in calls.items():
         try:
@@ -3415,11 +3494,246 @@ def _lm_train(dev):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _ssm_replay(cfg, tc, ds, dev, run_losses) -> dict:
+    """The run's steps again on the card, from its init (the same seed and
+    optimizer as ``run_training``): each loss bitwise the run's, and the CPU
+    path's loss (a forward) from a copy of the card's parameters before the
+    step.  Returns the CPU losses, the largest gap, the final card state and
+    the last batch."""
+    import torch
+
+    from repro_torch.data.loader import to_device
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_leaves
+    from repro_torch.optim import AdamW, make_schedule
+    from repro_torch.train import make_train_state, make_train_step
+
+    opt = AdamW(schedule=make_schedule(tc), b1=tc.b1, b2=tc.b2, eps=tc.eps,
+                weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
+    state = make_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(tc.seed),
+                             device=dev)
+    update = make_train_step(cfg, opt)
+    cpu_losses, gaps = [], []
+    for step in range(tc.total_steps):
+        host = ds.batch(step, 0, 1)
+        batch = to_device(host, dev)
+        with torch.no_grad():
+            params = map_leaves(lambda _, t: t.to("cpu"), state["params"])
+            cpu = float(lm.loss_fn(params, cfg, {k: torch.from_numpy(v) for k, v in host.items()},
+                                   device="cpu")[0])
+            del params
+        _, m = update(state, batch)
+        card = float(m["loss"])
+        if card != run_losses[step]:
+            raise SmokeError(f"{cfg.name}: the replayed step {step + 1} lost {card}, the run "
+                             f"{run_losses[step]}: training is not deterministic")
+        cpu_losses.append(cpu)
+        gaps.append(abs(card - cpu))
+    if max(gaps) > SSM_TRAIN_TOL:
+        raise SmokeError(f"{cfg.name}: card vs CPU losses from the card's state differ by {gaps} "
+                         f"(tol {SSM_TRAIN_TOL})")
+    return dict(cpu_losses=cpu_losses, loss_gaps=gaps), state, update, batch
+
+
+def _ssd_backward_device_ms(dev, cfg, b, l) -> float | None:
+    """Device ms of ``SSDScan``'s backward at ``cfg``'s scan shape, random
+    inputs of the phase's distributions."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.autograd import ssd_backward
+
+    s = cfg.ssm
+    h, p, g, n = s.n_heads(cfg.d_model), s.head_dim, s.n_groups, s.state_dim
+    gen = torch.Generator().manual_seed(h + n)
+    x = [t.to(dev) for t in (torch.randn(b, l, h, p, generator=gen) * 0.5,
+                             -torch.randn(b, l, h, generator=gen).abs() * 0.3,
+                             torch.randn(b, l, g, n, generator=gen) * 0.5,
+                             torch.randn(b, l, g, n, generator=gen) * 0.5,
+                             torch.randn(b, l, h, p, generator=gen))]
+    # a train forward uses y alone: the final state's cotangent is None
+    return device_ms(lambda: ssd_backward(*x, None, chunk=min(s.chunk_size, l)), iters=5)
+
+
+def _ssm_train(dev):
+    """(d): mamba2-130m and zamba2-1.2b through run_training on the card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.train import FailureInjector, run_training
+
+    b, l = SSM_TRAIN_SHAPE
+    results, counts = [], {}
+    for name, n_layers, steps, every, fail_at in SSM_TRAIN:
+        cfg = dataclasses.replace(get_config(name), dtype="float32",
+                                  **({} if n_layers is None else {"n_layers": n_layers}))
+        tc = TrainConfig(total_steps=steps, checkpoint_every=every, warmup_steps=1,
+                         learning_rate=3e-4)
+        ds = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=l, global_batch=b))
+        work = Path(tempfile.mkdtemp(prefix="ssm_train_", dir=ROOT / "build"))
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            res = run_training(cfg, tc, ds.batch, workdir=str(work / "straight"), log_every=1,
+                               device=dev)
+            straight_s = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            apps = lm.n_shared_apps(cfg)
+            want = {"ssd_scan": cfg.n_layers * steps, "flash_attention": apps * steps}
+            if {k: launches.get(k, 0) for k in want} != want:
+                raise SmokeError(f"{name} train launches {launches}, expected {want}")
+            for k, v in launches.items():
+                counts[k] = counts.get(k, 0) + v
+            losses = [m["loss"] for m in res.metrics_history]
+            step_ms = statistics.median(m["step_time_s"] for m in res.metrics_history[1:]) * 1e3
+            resumed_s = None
+            if fail_at is not None:  # killed at fail_at, resumed from the checkpoint before
+                t0 = time.perf_counter()
+                try:
+                    run_training(cfg, tc, ds.batch, workdir=str(work / "faulty"), device=dev,
+                                 failure_injector=FailureInjector(fail_at_step=fail_at))
+                except RuntimeError as e:
+                    if "injected failure" not in str(e):
+                        raise
+                else:
+                    raise SmokeError("the failure injector did not fire")
+                resumed = run_training(cfg, tc, ds.batch, workdir=str(work / "faulty"),
+                                       log_every=1, device=dev)
+                resumed_s = time.perf_counter() - t0
+                if resumed.metrics_history[0]["step"] != every + 1:
+                    raise SmokeError(f"{name}: the resumed run started at "
+                                     f"{resumed.metrics_history[0]['step']}")
+                _bitwise_equal(resumed.state, res.state, f"{name}: the resumed run against the "
+                               "straight run")
+                del resumed
+            del res
+            shutil.rmtree(work, ignore_errors=True)
+            t0 = time.perf_counter()
+            replay, state, update, batch = _ssm_replay(cfg, tc, ds, dev, losses)
+            replay_s = time.perf_counter() - t0
+            prof = profile_forward(lambda: update(state, batch), iters=1)
+            del state
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        # the scan's backward (the plain scan recomputed and differentiated)
+        # at this model's shape, against the step's device time
+        bwd_ms = _ssd_backward_device_ms(dev, cfg, b, l)
+        dev_ms = prof.get("device_ms_per_fwd")
+        bwd_share = cfg.n_layers * bwd_ms / dev_ms if bwd_ms and dev_ms else None
+        r = dict(model=name, n_layers=cfg.n_layers, dtype="float32", batch=b, seq=l,
+                 step_ms=step_ms, tokens_per_s=b * l / step_ms * 1e3, peak_gb=peak_gb,
+                 profile=prof, losses=losses, launches=launches, straight_s=straight_s,
+                 resumed_s=resumed_s, replay_s=replay_s, ssd_backward_device_ms=bwd_ms,
+                 ssd_backward_share=bwd_share, **replay)
+        results.append(r)
+        busy = prof["busy_share"]
+        log(f"[train] {name} ({cfg.n_layers} layers, f32, {b} x {l}) run_training {steps} steps: "
+            f"median step {step_ms:.1f} ms, {r['tokens_per_s']:.0f} tokens/s, device busy "
+            f"{'not measured' if busy is None else f'{busy:.1%}'}, device ms/step "
+            f"{dev_ms if dev_ms is None else round(dev_ms, 2)}, peak {peak_gb:.1f} GB; ssd_scan "
+            f"backward {bwd_ms if bwd_ms is None else round(bwd_ms, 3)} device ms x "
+            f"{cfg.n_layers} = {'not measured' if bwd_share is None else f'{bwd_share:.1%}'} "
+            f"of the step; launches {launches}; losses {[round(x, 5) for x in losses]}; "
+            f"vs the CPU from the card's state max |d| {max(replay['loss_gaps']):.2e} (tol {SSM_TRAIN_TOL}); "
+            + ("" if resumed_s is None else f"killed at step {fail_at} and resumed: bitwise the "
+               f"straight run ({resumed_s:.1f} s); ") + f"top {prof['top']}")
+    return results, counts
+
+
+def _mesh_train(dev):
+    """(e): the sharded step on a one-card mesh against the unsharded step,
+    and the sharded state's checkpoint restored onto the rules' shardings."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ParallelismConfig, get_config
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig
+    from repro_torch.data.loader import to_device
+    from repro_torch.distributed import ShardingRules
+    from repro_torch.distributed.sharding import gather
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import AdamW
+    from repro_torch.train import (make_train_state, make_train_step, shard_train_state,
+                                   train_state_shardings)
+
+    b, l = SSM_TRAIN_SHAPE
+    cfg = dataclasses.replace(get_config("mamba2-130m"), dtype="float32")
+    ds = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=l, global_batch=b))
+    work = Path(tempfile.mkdtemp(prefix="mesh_", dir=ROOT / "build"))
+    dist.init_process_group("nccl", init_method=f"file://{work / 'pg'}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        rules = ShardingRules(mesh=mesh, plan=ParallelismConfig())
+        opt = AdamW(schedule=lambda s: 3e-4)
+        shardings = train_state_shardings(cfg, opt, rules)
+        state0 = make_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(0),
+                                  device=dev)
+        plain = copy.deepcopy(state0)
+        sharded = shard_train_state(copy.deepcopy(state0), shardings)
+        steps = {"plain": make_train_step(cfg, opt),
+                 "sharded": make_train_step(cfg, opt, mesh=mesh, rules=rules)}
+        LAUNCHES.clear()
+        ms = {"plain": [], "sharded": []}
+        for i in range(MESH_TRAIN_STEPS):
+            batch = to_device(ds.batch(i, 0, 1), dev)
+            for kind, st in (("plain", plain), ("sharded", sharded)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps[kind](st, batch)
+                torch.cuda.synchronize()
+                ms[kind].append((time.perf_counter() - t0) * 1e3)
+        counts = dict(LAUNCHES)
+        if counts.get("ssd_scan", 0) != 2 * MESH_TRAIN_STEPS * cfg.n_layers:
+            raise SmokeError(f"sharded / unsharded steps launched {counts}")
+        gathered = _map_leaves_dict(gather, sharded)
+        _bitwise_equal(gathered, plain, "the sharded step on a one-card mesh against the "
+                       "unsharded step")
+        ckpt = Checkpointer(str(work / "ckpt"))
+        ckpt.save(MESH_TRAIN_STEPS, sharded, blocking=True)
+        restored = ckpt.restore(state0, shardings=shardings)
+        if not all(isinstance(t, DTensor) for _, t in _leaves(restored)):
+            raise SmokeError("restore(shardings=) did not place every leaf as a DTensor")
+        _bitwise_equal(_map_leaves_dict(gather, restored), plain,
+                       "the sharded checkpoint restored onto the rules' shardings")
+        r = dict(model=cfg.name, batch=b, seq=l, steps=MESH_TRAIN_STEPS, step_ms=ms,
+                 launches=counts)
+        log(f"[train] sharded step on a one-card mesh (NCCL, world 1), {cfg.name} f32 {b} x {l}: "
+            f"{MESH_TRAIN_STEPS} steps bitwise the unsharded step's; restore(shardings=) bitwise; "
+            f"step ms unsharded {[round(x, 1) for x in ms['plain']]}, sharded "
+            f"{[round(x, 1) for x in ms['sharded']]}")
+        return r, counts
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _map_leaves_dict(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves_dict(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def phase_train(dev):
-    """Training: (a) the gradients of the two autograd.Functions on the card
-    and the three kernels that must refuse grad; (b) the physics workflow;
-    (c) the granite-width LM run with its bitwise restart.  Returns (results,
-    launch counts of the windows of (b) and (c))."""
+    """Training: (a) the gradients of the three autograd.Functions on the
+    card and the two kernels that must refuse grad; (b) the physics
+    workflow; (c) the granite-width LM run with its bitwise restart; (d)
+    mamba2-130m and zamba2-1.2b trained; (e) the sharded step on a one-card
+    mesh.  Returns (results, launch counts of the windows of (b)-(e))."""
     import torch
 
     from repro_torch.kernels import LAUNCHES
@@ -3439,6 +3753,13 @@ def phase_train(dev):
         log(f"[grad] layernorm ({rows}, {k}) {c['mode']}: max |d| {c['max_abs_err']}  fwd+bwd "
             f"{c['fwd_bwd_ms']:.3f} ms (plain {c['plain_fwd_bwd_ms']:.3f})  "
             f"{'ok' if c['ok'] else 'FAILED'}")
+    for shape in TRAIN_SSD_CASES:
+        for dtype in ("float32", "bfloat16"):
+            c = _ssd_grad_case(dev, *shape, dtype)
+            grads.append(c)
+            log(f"[grad] ssd_scan {shape[:5]} groups {shape[5]} {dtype}: max |d| "
+                f"{c['max_abs_err']}  fwd+bwd {c['fwd_bwd_ms']:.3f} ms (plain "
+                f"{c['plain_fwd_bwd_ms']:.3f})  {'ok' if c['ok'] else 'FAILED'}")
     bad = [c for c in grads if not c["ok"]]
     if bad:
         raise SmokeError(f"{len(bad)} gradient checks failed: {bad}")
@@ -3455,16 +3776,19 @@ def phase_train(dev):
         physics = _physics_workflow(dev)
         physics_counts = dict(LAUNCHES)
         lm_run, lm_counts = _lm_train(dev)
+        ssm_runs, ssm_counts = _ssm_train(dev)
+        mesh_run, mesh_counts = _mesh_train(dev)
     finally:
         torch.use_deterministic_algorithms(False)
         torch.utils.deterministic.fill_uninitialized_memory = True
-    counts = {k: physics_counts.get(k, 0) + lm_counts.get(k, 0)
-              for k in set(physics_counts) | set(lm_counts)}
-    for kname in ("flash_attention", "layernorm"):
+    windows = (physics_counts, lm_counts, ssm_counts, mesh_counts)
+    counts = {k: sum(w.get(k, 0) for w in windows) for k in set().union(*windows)}
+    for kname in ("flash_attention", "layernorm", "ssd_scan"):
         if counts.get(kname, 0) <= 0:
             raise SmokeError(f"{kname} was never launched on the training path")
     log(f"[train] training path launches: {counts}")
-    return dict(grads=grads, no_backward_raises=raised, physics=physics, lm=lm_run), counts
+    return dict(grads=grads, no_backward_raises=raised, physics=physics, lm=lm_run,
+                ssm=ssm_runs, mesh=mesh_run), counts
 
 
 def _workflow_seed_spread(dev, seeds) -> dict:

@@ -18,8 +18,12 @@ npz stores no bfloat16 or fp8: those leaves are stored as their integer
 bit-views (uint16, uint8) with the dtype's name in META, and read back with
 ``Tensor.view(dtype)``.  META goes through the port's own msgpack codec
 (``checkpoint.codec``).  Restore places the leaves on ``device`` (default:
-each template leaf's own); elastic restore onto shardings waits for ROADMAP
-queue 1, item 12.
+each template leaf's own), or with ``shardings=`` under each leaf's
+sharding on the current mesh, whatever mesh saved it (elastic restart).
+
+In a job of several ranks (``torch.distributed``), ``save`` gathers each
+DTensor leaf to a whole tensor (a collective: every rank calls ``save``)
+and rank 0 alone writes, in the same one-process layout.
 """
 
 from __future__ import annotations
@@ -33,8 +37,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import codec
+from repro_torch.distributed.sharding import gather, mesh_device, place
 
 PyTree = Any
 
@@ -55,7 +61,7 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
     """A host copy of ``leaf`` (a tensor or an array) as a numpy array npz can
     store, and the dtype name META records."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True)
+        t = gather(leaf.detach()).to("cpu", copy=True)
         name = _EXT_NAMES.get(t.dtype)
         if name is not None:
             _, bits, stored = _EXT_DTYPES[name]
@@ -116,8 +122,11 @@ class Checkpointer:
 
     # ------------------------------------------------------------- save --
     def save(self, step: int, tree: PyTree, blocking: bool = False):
-        """Copy to host memory now, write to disk on a background thread."""
+        """Copy to host memory now, write to disk on a background thread
+        (rank 0's, in a job of several ranks)."""
         host = {k: _to_host(v) for k, v in _flatten_with_paths(tree).items()}
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         self.wait()  # one outstanding save at a time
         self._thread = threading.Thread(target=self._write, args=(step, host), daemon=True)
         self._thread.start()
@@ -184,11 +193,10 @@ class Checkpointer:
                 device: str | torch.device | None = None) -> PyTree:
         """Load a checkpoint into the structure of ``template`` as tensors on
         ``device`` (default: each template leaf's device, the CPU for a
-        leaf that is not a tensor)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "elastic restore onto shardings is not ported yet (ROADMAP queue 1, item 12)"
-            )
+        leaf that is not a tensor).  ``shardings`` (the same structure, of
+        ``distributed.sharding.NamedSharding``) places each leaf it names
+        as a DTensor under that sharding on its mesh, on the mesh's device;
+        the mesh the checkpoint was saved from does not matter."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -203,9 +211,14 @@ class Checkpointer:
                 raise IOError(f"checkpoint corruption in {k} @ step {step}")
         dtypes = meta.get("dtypes", {})
         flat_template = _flatten_with_paths(template)
+        flat_shardings = _flatten_with_paths(shardings) if shardings is not None else {}
         placed = {}
         for k, a in host.items():
             t = _from_host(a, dtypes.get(k, a.dtype.name))
+            sh = flat_shardings.get(k)
+            if sh is not None:
+                placed[k] = place(t.to(mesh_device(sh.mesh)), sh)
+                continue
             like = flat_template.get(k)
             dev = device if device is not None else (
                 like.device if isinstance(like, torch.Tensor) else "cpu")

@@ -28,6 +28,7 @@ from repro_torch.configs.base import (  # noqa: F401
     MLAConfig,
     ModelConfig,
     MoEConfig,
+    ParallelismConfig,
     ServeConfig,
     SSMConfig,
     TrainConfig,

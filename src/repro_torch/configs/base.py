@@ -1,9 +1,9 @@
 """Config dataclasses (port of ``repro.configs.base``): the model configs,
-``ServeConfig`` and ``TrainConfig``.
+``ParallelismConfig``, ``ServeConfig`` and ``TrainConfig``.
 
 Plain dataclasses with the reference's fields and defaults, so a config
-converts field for field.  ``ParallelismConfig`` and the dry-run shapes
-wait for ROADMAP queue 1, item 12.
+converts field for field.  The dry-run shapes (``ShapeConfig``,
+``SHAPES``) wait for ROADMAP queue 1, item 12.
 """
 
 from __future__ import annotations
@@ -117,6 +117,20 @@ class ModelConfig:
     def padded_vocab_size(self) -> int:
         """Vocab padded to a multiple of 256 (the reference's TP-friendly size)."""
         return ((self.vocab_size + 255) // 256) * 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelismConfig:
+    """Logical-axis -> mesh-axes mapping knobs (``distributed.sharding``),
+    field for field the reference's."""
+
+    dp: bool = True  # batch over ('pod','data')
+    fsdp: bool = True  # weight non-TP axis over 'data'
+    tp: bool = True  # heads/mlp/vocab over 'model'
+    ep: bool = True  # experts over 'model'
+    sp: bool = False  # sequence over 'model' (long-context cells)
+    remat: Literal["none", "minimal", "full"] = "minimal"
+    grad_accum: int = 1  # microbatch accumulation (activation memory / k)
 
 
 @dataclasses.dataclass(frozen=True)

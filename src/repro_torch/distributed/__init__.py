@@ -1,0 +1,6 @@
+"""Distribution layer (port of ``repro.distributed``): the logical-axis
+sharding rules on a ``DeviceMesh`` / DTensor (``sharding``) and the
+compressed and ring collectives over ``torch.distributed``
+(``collectives``)."""
+
+from repro_torch.distributed.sharding import NamedSharding, ShardingRules  # noqa: F401

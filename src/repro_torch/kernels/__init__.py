@@ -8,11 +8,13 @@ tensor it launches the kernel (sources in ``repro_torch/csrc``, built by
 resets them.
 
 A kernel writes its output through a raw pointer, so autograd cannot see
-through it.  ``flash_attention`` and ``layernorm`` carry gradients through
-a ``torch.autograd.Function`` (their ``autograd.py``: the kernel forward,
-a backward in torch ops).  The other three have no backward yet, and on the
-card they raise under grad (:func:`require_no_grad`) rather than hand back
-an output that silently drops its inputs' gradient.
+through it.  ``flash_attention``, ``layernorm`` and ``ssd_scan`` carry
+gradients through a ``torch.autograd.Function`` (their ``autograd.py``: the
+kernel forward, a backward in torch ops).  ``lut_softmax`` and ``qmatmul``
+have no backward yet, and on the card they raise under grad
+(:func:`require_no_grad`) rather than hand back an output that silently
+drops its inputs' gradient.  For the same reason every wrapper refuses a
+``DTensor`` (:func:`refuse_dtensor`): its pointer would be one shard's.
 """
 
 import collections
@@ -23,7 +25,6 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 # the ROADMAP item (queue 1) that ports each kernel's backward
 BACKWARD_ITEM = {
-    "ssd_scan": "item 10 (the mamba2 and hybrid families' training)",
     "lut_softmax": "item 9 (the other datapaths)",
     "qmatmul": "item 9 (the other datapaths)",
 }
@@ -41,3 +42,17 @@ def require_no_grad(kernel: str, *tensors) -> None:
             f"{BACKWARD_ITEM[kernel]}); call it under torch.no_grad() or on "
             "tensors that do not require grad"
         )
+
+
+def refuse_dtensor(kernel: str, *tensors) -> None:
+    """Raise when any of ``tensors`` is a ``DTensor``: the kernel ``kernel``
+    reads raw pointers, which on a DTensor address one shard.  Gather it to
+    a plain tensor first (``full_tensor()``), as the sharded train step
+    does."""
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"the {kernel} kernel takes plain tensors, not a DTensor: its pointer "
+                        "would address one shard; gather it first (DTensor.full_tensor())")

@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import lut
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, refuse_dtensor
 from repro_torch.kernels.flash_attention import autograd
 from repro_torch.kernels.flash_attention.ref import mha_ref
 
@@ -97,6 +97,7 @@ def mha(
     mode: str = "safe",
     kv_len: int | None = None,  # true (unpadded) kv length; keys past it are masked
 ) -> torch.Tensor:  # (B, Hq, Lq, Dv)
+    refuse_dtensor("flash_attention", q, k, v)
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"mha wants q (B,Hq,Lq,D), k (B,Hkv,Lkv,D), v (B,Hkv,Lkv,Dv); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

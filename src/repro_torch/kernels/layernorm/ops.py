@@ -18,7 +18,7 @@ import functools
 import torch
 
 from repro_torch.core import lut
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, refuse_dtensor
 from repro_torch.kernels.layernorm import autograd
 from repro_torch.kernels.layernorm.ref import layernorm_ref, snap_output
 
@@ -149,6 +149,7 @@ def layernorm(
     eps: float = 1e-5,
     precision=None,  # core.precision.Precision (fixed): output grid
 ) -> torch.Tensor:
+    refuse_dtensor("layernorm", x, gamma, beta)
     k = x.shape[-1]
     if gamma.shape != (k,) or (beta is not None and beta.shape != (k,)):
         raise ValueError(f"gamma/beta must be ({k},), got {tuple(gamma.shape)}, "

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core import lut
-from repro_torch.kernels import LAUNCHES, build, require_no_grad
+from repro_torch.kernels import LAUNCHES, build, refuse_dtensor, require_no_grad
 from repro_torch.kernels.lut_softmax.ref import lut_softmax_ref
 
 
@@ -64,6 +64,7 @@ def lut_softmax(x: torch.Tensor, *, precision=None) -> torch.Tensor:
     """Softmax over the last axis through the paper's 3-stage LUT dataflow;
     ``precision`` (a ``core.precision.Precision``) of kind ``fixed`` puts the
     output on its ap_fixed grid."""
+    refuse_dtensor("lut_softmax", x)
     if x.ndim == 0:
         raise ValueError("lut_softmax needs at least one axis")
     if x.device.type == "cpu":

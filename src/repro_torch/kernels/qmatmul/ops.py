@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant, reuse
-from repro_torch.kernels import LAUNCHES, build, require_no_grad
+from repro_torch.kernels import LAUNCHES, build, refuse_dtensor, require_no_grad
 from repro_torch.kernels.qmatmul.ref import MAX_K, qmatmul_ref
 
 _ALIGN = 16  # bytes: TMA moves rows whose strides are multiples of 16
@@ -62,6 +62,7 @@ def qmatmul_int8(
 
     ``w_kmajor`` is the operand both kernel routes read; without it the
     wrapper makes the copy on every call."""
+    refuse_dtensor("qmatmul", x, w, x_scale, w_scale, w_kmajor)
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"qmatmul wants x (M, K) and w (K, N), got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")

@@ -5,7 +5,9 @@ layout of the reference's ``kernels/ssd_scan/ops.ssd``.
 ``models.ssm.mamba_apply`` and takes B and C per group, (b, l, g, n) with g
 dividing h (head i reads group i // (h / g)), so the per-head copies are
 never made.  On CPU tensors they run the plain version (``ref.ssd_chunked``);
-on CUDA tensors they launch ``csrc/ssd_scan.cu`` or raise.  Inputs are
+on CUDA tensors they launch ``csrc/ssd_scan.cu`` or raise, through
+``autograd.SSDScan`` when an input requires grad (the kernel forward, the
+plain scan's gradient as the backward).  Inputs are
 float32 or bfloat16, computed in float32; y has the input type and the final
 state is float32.  One call on the card is three device kernels (chunk
 states, state passing, output) and counts as one launch of ``ssd_scan``.
@@ -18,7 +20,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, require_no_grad
+from repro_torch.kernels import LAUNCHES, build, refuse_dtensor
+from repro_torch.kernels.ssd_scan import autograd
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 MAX_CHUNK, MAX_P, MAX_N = 64, 128, 128
@@ -97,9 +100,11 @@ def ssd_with_state(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(y (b, l, h, p), final_state (b, h, p, n) float32); ``chunk`` is
     clipped to l, which must be a multiple of it."""
+    refuse_dtensor("ssd_scan", xdt, a, bmat, cmat)
     chunk = _check(xdt, a, bmat, cmat, chunk)
     if xdt.device.type == "cuda":
-        require_no_grad("ssd_scan", xdt, a, bmat, cmat)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (xdt, a, bmat, cmat)):
+            return autograd.ssd_scan(xdt, a, bmat, cmat, chunk=chunk, forward=_kernel)
         return _kernel(xdt, a, bmat, cmat, chunk)
     if xdt.device.type != "cpu":
         raise ValueError(f"ssd runs on cpu or cuda, got {xdt.device}")

@@ -1,3 +1,3 @@
-"""Launchers of the port: so far the serving launcher (``launch/serve.py``);
-mesh construction, the dry-run and training wait for ROADMAP queue 1,
-items 11 and 12."""
+"""Launchers of the port: serving (``launch/serve.py``), training
+(``launch/train.py``) and the device meshes (``launch/mesh.py``); the
+dry-run waits for ROADMAP queue 1, item 12."""

@@ -9,7 +9,7 @@ encoder and the VLM, for every family of the JAX package's zoo: ``dense``
 
 Entry points
 ------------
-``param_spec / init_params / count_params``  -- parameter trees
+``param_spec / init_params / abstract_params / count_params`` -- parameter trees
 ``forward(params, cfg, batch, mode=...)``    -- logits (+caches, aux)
 ``loss_fn``                                  -- scalar loss + metrics
 ``prefill`` / ``decode_step``                -- serving steps on stacked caches
@@ -89,6 +89,11 @@ def param_spec(cfg: ModelConfig, dtype=None):
 def init_params(cfg: ModelConfig, generator: torch.Generator, *, dtype=None,
                 device: str | torch.device = "cuda"):
     return params_lib.init_params(param_spec(cfg, dtype), generator, device)
+
+
+def abstract_params(cfg: ModelConfig, dtype=None):
+    """The parameter tree on the ``meta`` device (shapes and dtypes)."""
+    return params_lib.abstract_params(param_spec(cfg, dtype))
 
 
 def count_params(cfg: ModelConfig) -> int:

@@ -72,6 +72,19 @@ def init_params(
     return map_leaves(lambda path, _: values[path], spec)
 
 
+def abstract_params(spec: SpecTree) -> Any:
+    """The parameter tree of ``spec`` as tensors on the ``meta`` device:
+    shapes and dtypes, no storage (the reference's ``ShapeDtypeStruct``
+    tree)."""
+    return map_leaves(lambda _, s: torch.empty(s.shape, dtype=s.dtype, device="meta"), spec)
+
+
+def logical_axes(spec: SpecTree) -> Any:
+    """The tree of each leaf's logical axis names (``()`` where a spec names
+    none)."""
+    return map_leaves(lambda _, s: tuple(s.logical_axes), spec)
+
+
 def check_on(params: Any, dev: torch.device) -> None:
     """Raise unless every leaf of ``params`` lies on ``dev``'s device type."""
     bad = []

@@ -58,12 +58,24 @@ class AdamW:
             "nu": map_leaves(zeros, params),
         }
 
+    def abstract_state(self, abstract_params: PyTree) -> dict:
+        """The state of :meth:`init` on the ``meta`` device."""
+        f32 = lambda _, p: torch.empty(p.shape, dtype=torch.float32, device="meta")  # noqa: E731
+        return {
+            "step": torch.empty((), dtype=torch.int32, device="meta"),
+            "mu": map_leaves(f32, abstract_params),
+            "nu": map_leaves(f32, abstract_params),
+        }
+
     @torch.no_grad()
-    def update(self, grads: PyTree, state: dict, params: PyTree) -> tuple[PyTree, dict, dict]:
+    def update(self, grads: PyTree, state: dict, params: PyTree, *,
+               grad_norm: torch.Tensor | None = None) -> tuple[PyTree, dict, dict]:
         """Returns (params, state, metrics); ``params`` and ``state`` are the
-        given trees, updated in place."""
+        given trees, updated in place.  ``grad_norm``: the global norm of
+        the whole gradient, when ``grads`` hold one shard of each leaf (the
+        sharded step); the update is elementwise beyond it."""
         step = state["step"] + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
         scale = None
         if self.grad_clip is not None:
             scale = torch.clamp_max(self.grad_clip / (gnorm + 1e-9), 1.0)

@@ -6,6 +6,12 @@ deterministic ``batch_fn`` and deterministic kernels mean that a run
 killed at any step resumes from its latest checkpoint to bitwise the same
 parameters as a straight run (``tests/test_torch_train_loop.py``; on the
 card under ``torch.use_deterministic_algorithms(True)``).
+
+With ``mesh=`` (a ``DeviceMesh``) and ``rules=`` every rank of the mesh runs
+this loop: the state is held under the rules' shardings on the mesh's
+device (``train.step``'s sharded step), a checkpoint is gathered to rank 0,
+which writes it, and a restore places each leaf under the shardings,
+whatever mesh the checkpoint was saved from (elastic restart).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data.loader import to_device
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import gather, mesh_device
 from repro_torch.optim import AdamW, make_schedule
 from repro_torch.train import step as step_lib
 from repro_torch.train.fault_tolerance import (
@@ -61,8 +68,9 @@ def run_training(
     batches, checkpointing into ``workdir/checkpoints`` every
     ``checkpoint_every`` steps, resuming from the latest checkpoint there.
     The parameters are drawn from a generator seeded with
-    ``train_cfg.seed`` on ``device``."""
-    dev = resolve_device(device)
+    ``train_cfg.seed`` on ``device`` (the mesh's device, sharded)."""
+    sharded = mesh is not None and rules is not None
+    dev = mesh_device(mesh) if sharded else resolve_device(device)
     os.makedirs(workdir, exist_ok=True)
     optimizer = AdamW(
         schedule=make_schedule(train_cfg),
@@ -79,15 +87,20 @@ def run_training(
     # ---- restore or init -------------------------------------------------
     generator = torch.Generator(device=dev).manual_seed(train_cfg.seed)
     state = step_lib.make_train_state(cfg, optimizer, generator, device=dev)
+    shardings = None
+    if sharded:
+        shardings = step_lib.train_state_shardings(cfg, optimizer, rules)
+        state = step_lib.shard_train_state(state, shardings)
     start_step = 0
     if ckpt.latest_step() is not None:
-        state = ckpt.restore(state)
-        start_step = int(state["opt"]["step"])
+        state = ckpt.restore(state, shardings=shardings)
+        start_step = int(gather(state["opt"]["step"]))
         log.info("restored checkpoint at step %d", start_step)
 
     preemption = preemption or PreemptionHandler(signals=())
     timer = StepTimer()
-    hb = Heartbeat(os.path.join(workdir, "heartbeat")).start()
+    rank = torch.distributed.get_rank() if sharded else 0
+    hb = Heartbeat(os.path.join(workdir, "heartbeat" + (f".{rank}" if rank else ""))).start()
     history: list[dict] = []
     stopped_early = False
 
@@ -99,7 +112,9 @@ def run_training(
                 ckpt.save(step, state, blocking=True)
                 stopped_early = True
                 break
-            batch = to_device(batch_fn(step, 0, 1), dev)  # copied off the host arrays first
+            # the global batch, copied off the host arrays first (the sharded
+            # step keeps this rank's shard of it)
+            batch = to_device(batch_fn(step, 0, 1), dev)
             timer.start()
             if failure_injector is not None:
                 failure_injector.maybe_fail(step)

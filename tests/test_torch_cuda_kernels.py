@@ -809,3 +809,79 @@ def test_dense_lm_on_the_card(dev, name):
         torch.testing.assert_close(last.cpu(), ref, atol=2e-4, rtol=0)
     for k, t in caches[dev]["layers"].items():
         torch.testing.assert_close(t.cpu(), caches["cpu"]["layers"][k], atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,n", [(24, 128), (64, 64)])  # mamba2-130m's and zamba2's widths
+def test_ssd_scan_gradients_match_plain(dev, h, n, dtype):
+    """Under grad the wrapper launches the kernel inside ``SSDScan``; its
+    gradients (y's and the final state's cotangents) against torch autograd
+    through the plain scan on the card: 1e-5 of each gradient's scale in
+    float32, one bf16 rounding in bf16."""
+    g = torch.Generator(device="cpu").manual_seed(h + n)
+    x = [t.to(dev, dtype).requires_grad_() for t in _ssd_inputs(g, 2, 512, h, 64, n, 1)]
+    before = LAUNCHES["ssd_scan"]
+    y, state = ssd_with_state(*x, chunk=64)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == before + 1
+    assert "SSDScan" in type(y.grad_fn).__name__
+    dy = torch.randn(y.shape, generator=g).to(dev, dtype)
+    ds = torch.randn(state.shape, generator=g).to(dev)
+    grads = torch.autograd.grad((y, state), x, (dy, ds))
+    y_ref, s_ref = _ssd_plain(*x, 64)
+    ref = torch.autograd.grad((y_ref.to(dtype), s_ref), x, (dy, ds))
+    assert LAUNCHES["ssd_scan"] == before + 1  # the backward launches no kernel
+    for gr, rf, t in zip(grads, ref, x):
+        assert gr.dtype == t.dtype and torch.isfinite(gr.float()).all()
+        scale = max(1.0, float(rf.float().abs().max()))
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(gr.float(), rf.float(), atol=tol * scale, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["mamba2-130m", "zamba2-1.2b"])
+def test_ssm_and_hybrid_train_step_on_the_card(dev, name):
+    """One train step of the reduced config from the CPU's state: the loss
+    within 1e-4 of the CPU path's, ``ssd_scan`` launched once per Mamba2
+    layer and ``flash_attention`` once per shared application."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_leaves
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_state, train_step
+
+    cfg = get_config(name, reduced=True)
+    opt = AdamW(schedule=lambda s: 1e-3)
+    state = make_train_state(cfg, opt, torch.Generator().manual_seed(0), device="cpu")
+    state_dev = map_leaves(lambda _, t: t.to(dev), state)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(1))
+    before = dict(LAUNCHES)
+    _, m_dev = train_step(state_dev, {"tokens": toks.to(dev)}, cfg=cfg, optimizer=opt)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] - before.get("ssd_scan", 0) == cfg.n_layers
+    assert LAUNCHES["flash_attention"] - before.get("flash_attention", 0) == lm.n_shared_apps(cfg)
+    _, m = train_step(state, {"tokens": toks}, cfg=cfg, optimizer=opt)
+    np.testing.assert_allclose(float(m_dev["loss"]), float(m["loss"]), rtol=0, atol=1e-4)
+
+
+def test_kernel_wrappers_refuse_a_dtensor(dev, tmp_path):
+    """A DTensor on a one-card mesh: every wrapper raises rather than read
+    one shard's pointer."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        t = distribute_tensor(torch.ones(1, 2, 64, 64, device=dev), mesh,
+                              [Replicate(), Replicate()])
+        calls = [lambda: mha(t, t, t), lambda: layernorm(t, torch.ones(64, device=dev)),
+                 lambda: ssd(t, t[..., 0], t, t, chunk=64), lambda: lut_softmax(t),
+                 lambda: qmatmul(t[0, 0], t[0, 0])]
+        for call in calls:
+            with pytest.raises(TypeError, match="DTensor"):
+                call()
+    finally:
+        dist.destroy_process_group()

@@ -67,7 +67,10 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.kernels.flash_attention.autograd, repro_torch.kernels.layernorm.autograd, "
         "repro_torch.examples.physics_inference, repro_torch.examples.train_lm, "
         "repro_torch.models.moe, repro_torch.configs.granite_moe_3b, repro_torch.configs.dbrx_132b, "
-        "repro_torch.configs.minicpm3_4b, repro_torch.models.attention; "
+        "repro_torch.configs.minicpm3_4b, repro_torch.models.attention, "
+        "repro_torch.kernels.ssd_scan.autograd, repro_torch.distributed, "
+        "repro_torch.distributed.sharding, repro_torch.distributed.collectives, "
+        "repro_torch.launch.mesh, repro_torch.launch.train; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

@@ -8,7 +8,8 @@ against the ``msgpack`` package.
   what it writes.
 - The reference's own checkpoint tests, on the port: round trip, async save
   then wait, keep-k, no partial checkpoint visible, crc corruption, restore
-  the latest of many; plus ``device=`` and the refusal of ``shardings=``.
+  the latest of many; plus ``device=``, and ``shardings=`` that names no
+  leaf (each leaf then restores as a plain tensor, as the reference's).
 """
 
 import os
@@ -185,7 +186,8 @@ def test_restore_latest_of_many_onto_a_device(tmp_path):
     out = ckpt.restore(_tree(), device="cpu")
     assert torch.equal(out["params"]["w"], _tree(30)["params"]["w"])
     assert ckpt.restore(_tree(), step=10)["opt"]["step"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ckpt.restore(_tree(), shardings={})
+    out = ckpt.restore(_tree(), shardings={})
+    assert type(out["params"]["w"]) is torch.Tensor
+    assert torch.equal(out["params"]["w"], _tree(30)["params"]["w"])
     with pytest.raises(FileNotFoundError):
         Checkpointer(str(tmp_path / "empty")).restore(_tree())

@@ -150,6 +150,11 @@ def test_grad_accum_averages_microbatches():
 
 
 def test_make_train_step_refuses_a_mesh():
+    """The sharded step takes a torch DeviceMesh and refuses anything else;
+    a mesh without rules (or rules without a mesh) is the unsharded step,
+    as the reference's."""
     opt = AdamW(schedule=lambda s: 1e-3)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_train_step(get_config("granite-8b", reduced=True), opt, mesh=object(), rules=object())
+    cfg = get_config("granite-8b", reduced=True)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        make_train_step(cfg, opt, mesh=object(), rules=object())
+    assert make_train_step(cfg, opt, mesh=object()).func is train_step
