@@ -162,7 +162,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ITL, decode device ms per step beside its weights' bytes floor, the
    routing / dispatch / combine and expert-GEMM shares, KV bytes, peak
    memory, the program budget; (c) its ``lm.prefill`` at 1 and 8 x 2048
-   under int8_serve and float, beside the FLOP floor; (d) granite-8b bf16 at
+   under int8_serve and float, beside the counted roofline floor (phase
+   12's count); (d) granite-8b bf16 at
    5 layers under int8_serve, dense and paged, beside phase 7's float runs
    of the same build.  ``python3 tools/phase.py int8_moe`` runs this phase
    alone.
@@ -187,8 +188,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    peak memory; then the dense layout with the absorbed decode (its ITL,
    device ms per step, and the share of its tokens equal to the
    materialized run's); (c) ``lm.prefill`` at 1 and 8 x 2048 under
-   int8_serve and float, beside its FLOP floor, with the attention kernel's
-   share.  ``python3 tools/phase.py mla`` runs this phase alone.
+   int8_serve and float, beside its counted roofline floor, with the
+   attention kernel's share.  ``python3 tools/phase.py mla`` runs this phase alone.
 11. families -- the hybrid family (zamba2-1.2b: Mamba2 blocks and the
    weight-shared attention block over concat(x, x_embed)) and the modality
    frontends (hubert-xlarge's frame embeddings, internvl2-1b's patch
@@ -212,6 +213,27 @@ Phases, each of which fails the run (exit code 1) when it fails:
    padded to 128), internvl2-1b (8 of 24 layers) ``lm.prefill`` of 1 and 8 x
    (256 + 256) tokens and 32 greedy decode steps, bf16, under float and
    int8_serve.  ``python3 tools/phase.py families`` runs this phase alone.
+12. roofline -- the package's counts (``repro_torch.roofline``) against the
+   card, after every other phase and with no timing of its own: (a) each of
+   the physics encoders at batch 8192 (both policies, phase 3), granite-8b's
+   ``lm.prefill`` of 8 x 2048 at 5 layers (phase 6), mamba2-130m's at 12
+   layers (phase 5), granite-moe-3b-a800m's and minicpm3-4b's at 4 and 12
+   layers under int8_serve and float (9c, 10c), hubert-xlarge's forward of
+   8 x 512 frames and internvl2-1b's prefill of 8 x 512 tokens under float
+   and int8_serve (11c) is counted once on the card under
+   ``op_counter.OpCounter`` (its kernel launches priced by
+   ``roofline.kernel_costs``) and once on meta tensors (the plain versions'
+   volume re-priced by ``roofline.analysis.fused_work``): the two FLOP
+   counts must agree to 1e-6; (b) the fused H100 bound of each call may not
+   exceed the device time its phase measured by more than 5 %, and a
+   ``[roofline]`` line prints its FLOPs by type, bytes, dominant term,
+   bound, device ms, the bound's share and the model FLOPs' share of the
+   bf16 peak beside the card's name and power limit; (c) granite-8b at 5
+   layers on the dry run's ``card`` mesh: the argument bytes of its prefill
+   equal the bytes of the parameters, caches and tokens allocated on the
+   card; (d) the paper's FPGA cycle model of each encoder at R 1, 2, 4
+   beside phase 3's batch-1 latency (a print).  ``python3 tools/phase.py
+   roofline`` runs this phase alone (no device times: (b) is skipped).
    Each path sets the launch counts to 0 before it and reads them after.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
@@ -222,6 +244,7 @@ the repository around this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -238,13 +261,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense), at the full 700 W limit,
-# by the type of the inputs: the card's rate for the type, whatever units a
-# kernel happens to use.  "tf32x3": float32 work done on the tensor cores as
-# three TF32 products (every attention route and the SSD scan), 495 / 3.
-PEAK_FLOPS = {"float32": 67e12, "tf32x3": 495e12 / 3, "bfloat16": 989e12, "float16": 989e12,
-              "int8": 1979e12}
-PEAK_BYTES = 3.35e12  # HBM3
+# The card's published peaks and the kernels' work are the package's:
+# repro_torch.core.latency_model.H100 and repro_torch.roofline.kernel_costs.
 
 MODELS = ("engine_anomaly", "btagging", "gw")
 POLICIES = ("float", "paper_vu13p")
@@ -573,11 +591,6 @@ def pad_ops(fn) -> dict[str, int]:
             if e.key in ("aten::constant_pad_nd", "aten::pad")}
 
 
-def bound(flops: float, nbytes: float, dtype: str = "float32") -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
-
-
 def close_enough(out, ref, atol, rtol=0.0, flip_allow=None) -> tuple[float, float, bool]:
     """(max abs error, share of rows over atol/rtol, within tolerance).
     ``flip_allow``: the extra error a one-entry LUT flip may cause, allowed
@@ -698,7 +711,8 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import mha, mha_ref
-    from repro_torch.kernels.flash_attention.ops import kernel_head_dims
+    from repro_torch.kernels.flash_attention.ops import cost, kernel_head_dims
+    from repro_torch.roofline.kernel_costs import KernelCost, flash_attention
 
     b, h, l, d = shape
     hkv = h if hkv is None else hkv
@@ -734,16 +748,16 @@ def _attention_case(dev, shape, mode, causal=False, window=None, dtype="float32"
         mask &= pos[:, None] - pos[None, :] < window
     if kv_len is not None:
         mask &= pos[None, :] < kv_len
-    pairs = int(mask.sum())
-    # q, k, v read, out written
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel() * dv // d) * q.element_size()
-    if mode == "lut":
-        nbytes += (1024 + 4096) * 4
-    peak = "tf32x3" if dtype == "float32" else dtype  # every head_dim on the tensor cores
-    bound_ms, bound_by = bound(2.0 * b * h * pairs * (d + dv), nbytes, peak)
+    # the work the function needs (kernel_costs: the mask's pairs, q, k, v
+    # read, out written), every head_dim on the tensor cores
+    work = cost(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+    bound_ms, bound_by = work.bound()
+    peak = next(iter(work.flops))
     dk, dvk = kernel_head_dims(d, dv)
-    padded_bound_ms = (None if (dk, dvk) == (d, dv)
-                       else bound(2.0 * b * h * pairs * (dk + dvk), nbytes, peak)[0])
+    padded_bound_ms = (None if (dk, dvk) == (d, dv) else KernelCost(
+        "flash_attention", flash_attention(b, h, hkv, l, l, dk, dvk, q.dtype, causal=causal,
+                                           window=window, mode=mode, kv_len=kv_len).flops,
+        work.bytes).bound()[0])
 
     iters = 20 if b * h * l * l * d > 1e8 else 50
     ms = time_ms(lambda: mha(q, k, v, **kw), iters)
@@ -793,6 +807,7 @@ def _layernorm_case(dev, rows, k, rms, use_lut, dtype="float32"):
     import torch.nn.functional as F
 
     from repro_torch.kernels.layernorm import layernorm, layernorm_ref
+    from repro_torch.kernels.layernorm.ops import cost
 
     g = torch.Generator().manual_seed(rows + k)
     tdt = getattr(torch, dtype)
@@ -805,9 +820,7 @@ def _layernorm_case(dev, rows, k, rms, use_lut, dtype="float32"):
     flip = LN_LUT_STEP * (ref.float().abs() + beta.float().abs()) if use_lut else None
     err, rows_over, ok = close_enough(out, ref, LN_ATOL + _ulp(ref), flip_allow=flip)
     ok = ok and out.dtype == x.dtype
-    es = x.element_size()
-    nbytes = 2 * x.numel() * es + (1 if rms else 2) * k * es + (4096 * 4 if use_lut else 0)
-    bound_ms, bound_by = bound(8.0 * x.numel(), nbytes)  # float32 arithmetic
+    bound_ms, bound_by = cost(x, gamma, use_lut, rms).bound()  # float32 arithmetic
 
     def kernel():
         return layernorm(x, gamma, b_arg, use_lut=use_lut, rms=rms)
@@ -840,6 +853,7 @@ def _qmatmul_case(dev, m, k, n, grid_k=1):
     import torch
 
     from repro_torch.kernels.qmatmul import ROUTES, qmatmul_int8, qmatmul_ref, route
+    from repro_torch.roofline import kernel_costs
 
     g = torch.Generator(device=dev).manual_seed(m + 3 * k + 7 * n)
     x = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
@@ -857,7 +871,7 @@ def _qmatmul_case(dev, m, k, n, grid_k=1):
     torch.cuda.synchronize()
     ok = torch.equal(out, ref) and ROUTES[path] == before.get(path, 0) + 1
     err = float((out - ref).abs().max())
-    bound_ms, bound_by = bound(2.0 * m * n * k, m * k + k * n + 4 * (m + n) + 4 * m * n, "int8")
+    bound_ms, bound_by = kernel_costs.qmatmul(m, k, n).bound()
     iters = 20 if m * n * k > 1e10 else 50
     ms = time_ms(kernel, iters)
     plain_ms = time_ms(lambda: qmatmul_ref(x, w, xs, ws), max(3, iters // 5))
@@ -885,6 +899,7 @@ def _lut_softmax_case(dev, rows, k, fixed):
 
     from repro_torch.core import fixed_point, precision
     from repro_torch.kernels.lut_softmax import lut_softmax, lut_softmax_ref
+    from repro_torch.roofline import kernel_costs
 
     prec = precision.fixed(12, 6) if fixed else None
     g = torch.Generator(device=dev).manual_seed(rows + k)
@@ -902,7 +917,7 @@ def _lut_softmax_case(dev, rows, k, fixed):
     ok = bool((err <= allow).all()) and rows_over <= FLIP_ROWS
     # about 4 float32 operations per score (index, sum, multiply) against
     # 8 bytes: bound by bytes
-    bound_ms, bound_by = bound(4.0 * x.numel(), 8 * x.numel() + (1024 + 4096) * 4)
+    bound_ms, bound_by = kernel_costs.lut_softmax(rows, k).bound()
     iters = 20 if x.numel() > 1e8 else 50
     ms = time_ms(lambda: lut_softmax(x, precision=prec), iters)
     plain_ms = time_ms(plain, max(3, iters // 5))
@@ -919,7 +934,9 @@ def _ssd_case(dev, b, l, h, p, n, groups, chunk, dtype="float32", decay=1.0):
     version on the same inputs, y and final state."""
     import torch
 
+    from repro_torch.core.latency_model import H100
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_with_state
+    from repro_torch.kernels.ssd_scan.ops import cost
 
     gb = h if groups is None else groups
     g = torch.Generator().manual_seed(l + p + n + h)
@@ -947,15 +964,14 @@ def _ssd_case(dev, b, l, h, p, n, groups, chunk, dtype="float32", decay=1.0):
         tol = f"atol {SSD_ATOL} (y and state)"
     err_s, _, ok_s = close_enough(state, s_ref, SSD_ATOL)
     ok = ok_y and ok_s and bool(torch.isfinite(y).all() and torch.isfinite(state).all())
-    # per chunk: q(q+1)N operations per group (the lower triangle of C B^T),
-    # q(q+1)P + 4qPN per head (the lower triangle of G xdt, C S_in and the
-    # chunk state); float32 runs on the tensor cores as 3xTF32.  Each input
-    # read once, y and the final state written once.
+    # the lower triangles of C B^T (per group) and G xdt, C S_in and the chunk
+    # state (per head); float32 as 3xTF32.  Each input read once, y and the
+    # final state written once (kernel_costs.ssd_scan)
     es = x[0].element_size()
     nc = l // q
-    flops = b * nc * (gb * q * (q + 1) * n + h * (q * (q + 1) * p + 4 * q * p * n))
-    nbytes = es * (2 * b * l * h * p + b * l * h + 2 * b * l * gb * n) + 4 * b * h * p * n
-    bound_ms, bound_by = bound(flops, nbytes, "tf32x3" if dtype == "float32" else dtype)
+    work = cost(x[0], x[2], chunk)
+    flops, nbytes = work.total_flops, work.bytes
+    bound_ms, bound_by = work.bound()
     # the three-pass design's own floor: the chunk states (b nc h P N float32)
     # written, read and rewritten, read; xdt, a and B read twice, C once
     scratch = 4 * b * nc * h * p * n
@@ -971,7 +987,7 @@ def _ssd_case(dev, b, l, h, p, n, groups, chunk, dtype="float32", decay=1.0):
                 max_abs_err=max(err_y, err_s), max_abs_err_state=err_s, rows_over_atol=0.0,
                 tol=tol, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=None,
                 device_ms=dev_ms, library_device_ms=None, pass_device_ms=passes,
-                scratch_bytes=scratch, floor_ms=floor_bytes / PEAK_BYTES * 1e3,
+                scratch_bytes=scratch, floor_ms=floor_bytes / H100.hbm_bw * 1e3,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -1625,6 +1641,8 @@ def _dense_check_configs():
 def _nbytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
     return tree.numel() * tree.element_size()
 
 
@@ -2329,25 +2347,6 @@ def _moe_split_ms(cfg, ffn, t, dev) -> tuple[float | None, float]:
             time_ms(lambda: moe.experts(ffn, cfg, xin), 20))
 
 
-def _moe_prefill_floor(cfg, b, n) -> tuple[float, float, str]:
-    """(TFLOP, bound ms, by) of a bf16 ``lm.prefill`` of b x n tokens:
-    projections, causal attention, router, the (e, capacity, d) expert
-    GEMMs and the logits over every position; bytes: the weights once."""
-    t, d, hd = b * n, cfg.d_model, cfg.resolved_head_dim
-    proj = 2 * t * d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-    attn = 4 * b * cfg.n_heads * hd * n * (n + 1) / 2
-    m = cfg.moe
-    cap = int(max(1, round(t * m.top_k / m.n_experts * m.capacity_factor)))
-    experts = 2 * m.n_experts * cap * d * m.d_expert * (3 if cfg.gated_mlp else 2)
-    router = 2 * t * d * m.n_experts
-    flops = cfg.n_layers * (proj + attn + experts + router) + 2 * t * d * cfg.padded_vocab_size
-    weights = 2 * (cfg.n_layers * (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-                                   + m.n_experts * d * m.d_expert * 3 + d * m.n_experts)
-                   + cfg.padded_vocab_size * d)
-    ms, by = bound(flops, weights, "bfloat16")
-    return flops / 1e12, ms, by
-
-
 def phase_int8_moe(dev, float_runs=None):
     """int8_serve and the MoE family: (a) the float32 check of granite-8b,
     granite-moe-3b-a800m (2 layers) and dbrx-132b (1 layer) under int8_serve;
@@ -2359,6 +2358,7 @@ def phase_int8_moe(dev, float_runs=None):
 
     from repro_torch.configs import get_config
     from repro_torch.core import precision
+    from repro_torch.core.latency_model import H100
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import lm
     from repro_torch.models.params import map_leaves
@@ -2389,7 +2389,7 @@ def phase_int8_moe(dev, float_runs=None):
     params_q = precision.apply_plan_to_params(params, precision.resolve_model_plan(qcfg))
     layer0 = map_leaves(lambda _, t: t[0], params_q["blocks"]["ffn"])
     weight_bytes = _nbytes(params)
-    decode_floor = weight_bytes / PEAK_BYTES * 1e3
+    decode_floor = weight_bytes / H100.hbm_bw * 1e3
     moe_ms, gemm_ms = _moe_split_ms(base, layer0, SERVE_SC["max_batch"], dev)
     for r in runs:
         step = r["decode_profile"]["device_ms_per_step"]
@@ -2434,7 +2434,7 @@ def phase_int8_moe(dev, float_runs=None):
             prof = profile_forward(prefill, iters=2)
             moe_ms, gemm_ms = _moe_split_ms(
                 base, map_leaves(lambda _, t: t[0], p["blocks"]["ffn"]), bt * MOE_PREFILL_LEN, dev)
-            tflop, floor_ms, floor_by = _moe_prefill_floor(base, bt, MOE_PREFILL_LEN)
+            tflop, floor_ms, floor_by = _prefill_floor(pcfg, bt, MOE_PREFILL_LEN)
             dev_ms = prof.get("device_ms_per_fwd")
             rec = dict(policy=policy, batch=bt, tokens=MOE_PREFILL_LEN, median_ms=ms,
                        tokens_per_s=bt * MOE_PREFILL_LEN / (ms * 1e-3), profile=prof,
@@ -2540,40 +2540,6 @@ def _mla_check(dev, policy) -> dict:
     return rec
 
 
-def _mla_flops(cfg, t, pairs) -> dict[str, float]:
-    """FLOP of one MLA forward over ``t`` tokens with ``pairs`` (query, key)
-    pairs attended in all, by the type the work runs in under int8_serve:
-    the latent's K / V projections in float32 (the dequantized latent), the
-    attend as the function needs it (QK^T at q/k head_dim, P.V at v_head_dim)
-    in float32 on the tensor cores, the rest in the weights' type; logits
-    over every position."""
-    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
-    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-    per_token = (d * m.q_lora_rank + m.q_lora_rank * h * qk + d * (m.kv_lora_rank
-                 + m.qk_rope_head_dim) + h * m.v_head_dim * d
-                 + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff)
-    return {"weights": 2.0 * t * (cfg.n_layers * per_token + d * cfg.padded_vocab_size),
-            "latent": 2.0 * t * cfg.n_layers * m.kv_lora_rank * h * (m.qk_nope_head_dim
-                                                                      + m.v_head_dim),
-            "attend": 2.0 * cfg.n_layers * h * pairs * (qk + m.v_head_dim)}
-
-
-def _mla_prefill_floor(cfg, b, n, int8_kv) -> tuple[float, float, str]:
-    """(TFLOP, bound ms, by) of ``lm.prefill`` of b x n tokens: each part of
-    ``_mla_flops`` at the peak of the type it runs in (under int8_serve the
-    latent projections in float32, the attend in 3xTF32; under float all in
-    bf16); bytes: the bf16 weights once."""
-    from repro_torch.models import lm
-
-    f = _mla_flops(cfg, b * n, b * n * (n + 1) / 2)
-    peaks = ({"weights": "bfloat16", "latent": "float32", "attend": "tf32x3"} if int8_kv
-             else dict.fromkeys(f, "bfloat16"))
-    t_ops = sum(f[k] / PEAK_FLOPS[peaks[k]] for k in f)
-    t_bytes = 2 * lm.count_params(cfg) / PEAK_BYTES
-    return (sum(f.values()) / 1e12, max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops > t_bytes else "bytes")
-
-
 def phase_mla(dev):
     """MLA, minicpm3-4b: (a) the float32 check under float and int8_serve;
     (b) bf16 at 12 of its 62 layers under int8_serve through the engine, three
@@ -2584,6 +2550,7 @@ def phase_mla(dev):
 
     from repro_torch.configs import get_config
     from repro_torch.core import precision
+    from repro_torch.core.latency_model import H100
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import lm
 
@@ -2609,7 +2576,7 @@ def phase_mla(dev):
     # view re-projected per layer and step, in float32 off the tensor cores
     materialize_tflop = (2.0 * b * length * m.kv_lora_rank * base.n_heads
                          * (m.qk_nope_head_dim + m.v_head_dim) * base.n_layers / 1e12)
-    materialize_floor = materialize_tflop * 1e12 / PEAK_FLOPS["float32"] * 1e3
+    materialize_floor = materialize_tflop * 1e12 / H100.peak_for("float32") * 1e3
     tokens_per_slot = base.n_layers * b * length
     latent_f32 = tokens_per_slot * (m.kv_lora_rank + m.qk_rope_head_dim) * 4
     gqa_f32 = tokens_per_slot * 2 * base.n_heads * m.v_head_dim * 4
@@ -2671,7 +2638,7 @@ def phase_mla(dev):
             prof["pad_ops"] = pad_ops(prefill) if bt == MLA_PREFILL_BATCHES[0] else None
             if prof["pad_ops"]:
                 raise SmokeError(f"{base.name} {policy} prefill pads: {prof['pad_ops']}")
-            tflop, floor_ms, floor_by = _mla_prefill_floor(base, bt, MLA_PREFILL_LEN, quantized)
+            tflop, floor_ms, floor_by = _prefill_floor(pcfg, bt, MLA_PREFILL_LEN)
             dev_ms = prof.get("device_ms_per_fwd")
             rec = dict(policy=policy, batch=bt, tokens=MLA_PREFILL_LEN, median_ms=ms,
                        tokens_per_s=bt * MLA_PREFILL_LEN / (ms * 1e-3), profile=prof,
@@ -3817,6 +3784,299 @@ def _workflow_seed_spread(dev, seeds) -> dict:
 # ------------------------------------------------------------------- main --
 
 
+# --------------------------------------------------------------- phase 12 --
+
+# Phase 12's checks: the FLOPs of a call counted on the card (its kernel
+# launches priced by roofline.kernel_costs) and on meta (the plain versions'
+# volume re-priced by roofline.analysis.fused_work) agree to ROOFLINE_FLOP_REL;
+# the fused H100 bound of a call may exceed the device time an earlier phase
+# measured by ROOFLINE_BOUND_SLACK at most (a larger bound is a wrong count).
+ROOFLINE_FLOP_REL = 1e-6
+ROOFLINE_BOUND_SLACK = 1.05
+ROOFLINE_BY = {"compute": "operations", "memory": "bytes", "collective": "collective"}
+
+
+def _lm_params(cfg, dev):
+    """``cfg``'s parameters on ``dev``: drawn with a CUDA generator on the
+    card, abstract on meta."""
+    import torch
+
+    from repro_torch.models import lm
+
+    if dev.type == "meta":
+        return lm.abstract_params(cfg)
+    return lm.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+
+
+def _lm_caches(cfg, batch, max_len, dtype, quantized, dev):
+    import torch
+
+    from repro_torch.models import lm
+
+    if dev.type != "meta":
+        return lm.init_caches(cfg, batch, max_len, dtype, quantized=quantized, device=dev)
+    return {g: {k: torch.empty(s, dtype=dt, device="meta") for k, (s, dt) in leaves.items()}
+            for g, leaves in lm.abstract_caches(cfg, batch, max_len, dtype, quantized).items()}
+
+
+def _lm_prefill_call(cfg, batch, length, dev, params):
+    """A closure of ``lm.prefill`` of ``batch`` x ``length`` tokens (int32,
+    as the dry run's inputs) under ``cfg``'s policy, with caches as the
+    phases serve it (float32 int8 caches under int8_serve, bf16 ones under
+    float), and the tensors it allocates."""
+    import torch
+
+    from repro_torch.core import precision
+    from repro_torch.models import lm
+
+    quantized = precision.resolve_model_plan(cfg).int8_kv_cache
+    caches = _lm_caches(cfg, batch, length, torch.float32 if quantized else torch.bfloat16,
+                        quantized, dev)
+    tokens = (torch.empty if dev.type == "meta" else torch.zeros)(
+        (batch, length), dtype=torch.int32, device=dev)
+    return (lambda: lm.prefill(params, cfg, {"tokens": tokens}, caches, device=dev),
+            (params, caches, tokens))
+
+
+def _prefill_floor(cfg, batch, length) -> tuple[float, float, str]:
+    """(TFLOP, bound ms, by) of ``lm.prefill`` of ``batch`` x ``length``
+    tokens under ``cfg`` (its precision policy applied): the fused H100
+    roofline of the step counted on meta (phases 9c, 10c)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import precision
+    from repro_torch.core.latency_model import roofline_by_type
+    from repro_torch.device import meta_trace
+    from repro_torch.roofline import analysis, op_counter
+
+    meta = torch.device("meta")
+    with meta_trace(), torch.no_grad():
+        params = precision.apply_plan_to_params(_lm_params(cfg, meta),
+                                                precision.resolve_model_plan(cfg))
+        fn, _ = _lm_prefill_call(cfg, batch, length, meta, params)
+        _, count = op_counter.count(fn)
+    flops, nbytes = analysis.fused_work(count, cfg, ShapeConfig("prefill", length, batch,
+                                                                "prefill"))
+    terms = roofline_by_type(flops, nbytes, 0.0)
+    return sum(flops.values()) / 1e12, terms.bound_s * 1e3, ROOFLINE_BY[terms.dominant]
+
+
+def _roofline_calls(earlier):
+    """Phase 12's calls: (label, cfg, analysis shape, device ms an earlier
+    phase measured or None, build(dev) -> (call, allocated tensors))."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import precision
+    from repro_torch.models import lm, physics
+    from repro_torch.models import params as params_lib
+
+    earlier = earlier or {}
+
+    def dev_ms(records, **match):
+        rec = next((r for r in records or () if all(r.get(k) == v for k, v in match.items())),
+                   None)
+        return None if rec is None else (rec.get("profile") or {}).get("device_ms_per_fwd")
+
+    calls = []
+    for name in MODELS:  # phase 3, batch 8192
+        for policy in POLICIES:
+            cfg = dataclasses.replace(get_config(name), precision=policy)
+            bt = max(BATCHES)
+
+            def build(dev, cfg=cfg, bt=bt):
+                spec = physics.param_spec(cfg)
+                params = (params_lib.abstract_params(spec) if dev.type == "meta" else
+                          physics.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                              device=dev))
+                params = precision.apply_plan_to_params(params,
+                                                        precision.resolve_model_plan(cfg))
+                x = (torch.empty if dev.type == "meta" else torch.zeros)(
+                    (bt, cfg.seq_len, cfg.input_vec_size), device=dev)
+                return (lambda: physics.forward(params, cfg, x, device=dev)), (params, x)
+
+            calls.append((f"{name} {policy} forward {bt}", cfg,
+                          ShapeConfig(name, cfg.seq_len, bt, "prefill"),
+                          dev_ms(earlier.get("models"), model=name, policy=policy, batch=bt),
+                          build))
+
+    def prefill_call(label, cfg, bt, length, records, **match):
+        def build(dev):
+            params = precision.apply_plan_to_params(_lm_params(cfg, dev),
+                                                    precision.resolve_model_plan(cfg))
+            return _lm_prefill_call(cfg, bt, length, dev, params)
+
+        calls.append((label, cfg, ShapeConfig(cfg.name, length, bt, "prefill"),
+                      dev_ms(records, **match), build))
+
+    g8 = dataclasses.replace(get_config("granite-8b"), n_layers=GRANITE_TIME_LAYERS)
+    bt = max(GRANITE_TIME_BATCHES)
+    prefill_call(f"granite-8b {g8.n_layers} L prefill {bt} x {GRANITE_TIME_LEN}", g8, bt,
+                 GRANITE_TIME_LEN, (earlier.get("dense") or {}).get("granite_8b", {}).get(
+                     "timings"), kind="prefill", batch=bt)
+    m2 = dataclasses.replace(get_config(MAMBA), n_layers=MAMBA_LAYERS)
+    bt = max(MAMBA_TIME_BATCHES)
+    prefill_call(f"mamba2-130m {m2.n_layers} L prefill {bt} x {MAMBA_TIME_LEN}", m2, bt,
+                 MAMBA_TIME_LEN, (earlier.get("mamba") or {}).get("timings"), kind="prefill",
+                 batch=bt)
+    for name, layers, phase, key, bts, length in (
+            (MOE_SERVE, MOE_SERVE_LAYERS, "int8_moe", "moe_prefill", MOE_PREFILL_BATCHES,
+             MOE_PREFILL_LEN),
+            (MLA, MLA_SERVE_LAYERS, "mla", "prefill", MLA_PREFILL_BATCHES, MLA_PREFILL_LEN)):
+        base = dataclasses.replace(get_config(name), n_layers=layers)
+        for policy in (base.serve_policy, "float"):
+            pcfg = dataclasses.replace(base, precision=policy)
+            prefill_call(f"{name} {layers} L {policy} prefill {max(bts)} x {length}", pcfg,
+                         max(bts), length, (earlier.get(phase) or {}).get(key), policy=policy,
+                         batch=max(bts))
+    families = (earlier.get("families") or {}).get("timings")
+    bt = max(FRONTEND_BATCHES)
+    for name in (AUDIO, VLM):
+        base = dataclasses.replace(get_config(name), n_layers=FRONTEND_TIME_LAYERS[name])
+        for policy in ("float", base.serve_policy):
+            pcfg = dataclasses.replace(base, precision=policy)
+
+            def build(dev, pcfg=pcfg, name=name):
+                plan = precision.resolve_model_plan(pcfg)
+                params = precision.apply_plan_to_params(_lm_params(pcfg, dev), plan)
+                new = torch.empty if dev.type == "meta" else torch.zeros
+                if name == AUDIO:
+                    frames = new((bt, AUDIO_FRAMES, pcfg.frontend_dim), dtype=torch.bfloat16,
+                                 device=dev)
+                    return (lambda: lm.forward(params, pcfg, {"frames": frames}, device=dev),
+                            (params, frames))
+                n_img, quantized = pcfg.n_frontend_tokens, plan.int8_kv_cache
+                batch = {"patches": new((bt, n_img, pcfg.frontend_dim), dtype=torch.bfloat16,
+                                        device=dev),
+                         "tokens": new((bt, VLM_TEXT), dtype=torch.int32, device=dev)}
+                caches = _lm_caches(pcfg, bt, n_img + VLM_TEXT + VLM_DECODE_STEPS,
+                                    torch.float32 if quantized else torch.bfloat16, quantized,
+                                    dev)
+                return (lambda: lm.prefill(params, pcfg, batch, caches, device=dev),
+                        (params, caches, batch))
+
+            length = AUDIO_FRAMES if name == AUDIO else pcfg.n_frontend_tokens + VLM_TEXT
+            what = "forward" if name == AUDIO else "prefill"
+            calls.append((f"{name} {base.n_layers} L {policy} {what} {bt} x {length}", pcfg,
+                          ShapeConfig(name, length, bt, "prefill"),
+                          dev_ms(families, model=name, policy=policy, batch=bt), build))
+    return calls
+
+
+def _card_mesh_check(dev) -> dict:
+    """(c): granite-8b at phase 6's depth, ``lm.prefill`` of 8 x 2048 on the
+    one-card mesh: the dry run's argument bytes against the parameters,
+    caches and tokens allocated on the card for the same prefill."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import dryrun
+
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=GRANITE_TIME_LAYERS)
+    bt, length = max(GRANITE_TIME_BATCHES), GRANITE_TIME_LEN
+    shape = ShapeConfig("smoke_prefill", length, bt, "prefill")
+    mesh = dryrun.make_mesh("card")
+    trace = dryrun.trace_prefill(cfg, shape, mesh,
+                                 ShardingRules(mesh=mesh, plan=dryrun.plan_for(cfg, shape)))
+    _, held = _lm_prefill_call(cfg, bt, length, dev, _lm_params(cfg, dev))
+    allocated = _nbytes(held)
+    del held
+    torch.cuda.empty_cache()
+    argument = trace.memory_stats["argument_bytes"]
+    if argument != allocated:
+        raise SmokeError(f"[roofline] granite-8b {cfg.n_layers} L on mesh card: dry-run "
+                         f"argument bytes {argument} != {allocated} allocated on the card")
+    log(f"[roofline] (c) granite-8b {cfg.n_layers} L prefill {bt} x {length} on mesh card: "
+        f"argument bytes {argument} = the parameters, caches and tokens allocated on the card")
+    return dict(argument_bytes=argument, allocated_bytes=allocated,
+                output_bytes=trace.memory_stats["output_bytes"])
+
+
+def phase_roofline(dev, earlier=None):
+    """Phase 12: the roofline counts against the card.  ``earlier``: the
+    results of phases 3-11, whose device times it reads (run alone, it has
+    none, and skips (b)).  Returns (results, launch counts of the window)."""
+    import torch
+
+    from repro_torch.core.latency_model import H100, roofline_by_type
+    from repro_torch.device import meta_trace
+    from repro_torch.examples.physics_inference import fpga_latency
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.roofline import analysis, op_counter
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"[roofline] {smi}; peaks {dict(H100.peaks)} FLOP/s, HBM {H100.hbm_bw:.3g} B/s")
+    meta = torch.device("meta")
+    LAUNCHES.clear()  # the roofline path's window starts here
+    results, failures = [], []
+    for label, cfg, shape, measured, build in _roofline_calls(earlier):
+        with torch.no_grad():
+            fn, held = build(dev)
+            torch.cuda.synchronize()
+            with op_counter.OpCounter() as c:
+                fn()
+            torch.cuda.synchronize()
+        card = c.result()
+        del fn, held
+        with meta_trace(), torch.no_grad():
+            fn, held = build(meta)
+            with op_counter.OpCounter() as c:
+                fn()
+        fused, nbytes = analysis.fused_work(c.result(), cfg, shape)
+        del fn, held
+        terms = roofline_by_type(fused, nbytes, 0.0)
+        card_flops, meta_flops = card.total_flops, sum(fused.values())
+        rel = abs(card_flops - meta_flops) / max(card_flops, meta_flops, 1.0)
+        bound = terms.bound_s * 1e3
+        useful = analysis.model_flops(cfg, shape) + analysis.attention_flops(cfg, shape)
+        rec = dict(call=label, flops_card=card.flops, flops_meta_fused=fused,
+                   flops_rel_diff=rel, bytes_card=card.hbm_bytes, bytes_fused=nbytes,
+                   launches=dict(collections.Counter(k.kernel for k in card.launches)),
+                   dominant=terms.dominant, bound_ms=bound, device_ms=measured,
+                   bound_share=None if not measured else bound / measured,
+                   model_flops_share=None if not measured else
+                   useful / (measured * 1e-3 * H100.peak_for("bfloat16")))
+        results.append(rec)
+        by_type = ", ".join(f"{t} {f / 1e12:.4g}" for t, f in sorted(card.flops.items()))
+        log(f"[roofline] {label}: TFLOP {by_type} (meta fused {meta_flops / 1e12:.6g}, rel "
+            f"{rel:.1e}); bytes card {card.hbm_bytes / 1e9:.4g} GB, fused {nbytes / 1e9:.4g} GB; "
+            f"{terms.dominant}-bound {bound:.4f} ms; device ms "
+            f"{'not measured' if not measured else f'{measured:.4f}'}"
+            + ("" if not measured else f"; bound {rec['bound_share']:.1%} of it, model FLOPs "
+               f"{rec['model_flops_share']:.1%} of bf16 peak") + f"  [{smi}]")
+        if rel > ROOFLINE_FLOP_REL:
+            failures.append(f"{label}: card {card_flops:.6e} vs meta {meta_flops:.6e} FLOPs")
+        if measured and bound > ROOFLINE_BOUND_SLACK * measured:
+            failures.append(f"{label}: bound {bound:.4f} ms > {ROOFLINE_BOUND_SLACK} x device "
+                            f"{measured:.4f} ms")
+        torch.cuda.empty_cache()
+    if failures:
+        raise SmokeError("[roofline] " + "; ".join(failures))
+    card_mesh = _card_mesh_check(dev)
+    fpga = []
+    for name in MODELS:  # (d): a print, not a check
+        for est in fpga_latency(name):
+            card_ms = {p: next((r["median_ms"] for r in (earlier or {}).get("models") or ()
+                                if r["model"] == name and r["policy"] == p and r["batch"] == 1),
+                               None) for p in POLICIES}
+            fpga.append(dict(model=name, reuse=est.reuse, clock_ns=est.clock_ns,
+                             interval_cycles=est.interval_cycles, fpga_us=est.latency_us,
+                             card_batch1_ms=card_ms))
+            log(f"[roofline] (d) {name} FPGA model R{est.reuse}: {est.latency_us:.3f} us "
+                f"(II {est.interval_cycles}, clk {est.clock_ns} ns); the card at batch 1: "
+                + ", ".join(f"{p} {'not measured' if v is None else f'{v * 1e3:.1f} us'}"
+                            for p, v in card_ms.items()))
+    counts = dict(LAUNCHES)  # the roofline path's window ends here
+    return dict(calls=results, card_mesh=card_mesh, fpga=fpga, nvidia_smi=smi), counts
+
+
+# ---------------------------------------------------------------- main --
+
 def main() -> int:
     # phase 8 trains under torch.use_deterministic_algorithms(True), which
     # needs cuBLAS's fixed workspace configuration from the first cuBLAS call
@@ -3867,6 +4127,8 @@ def main() -> int:
         int8, int8_counts = timed("int8_moe", phase_int8_moe, dev, serve["runs"])
         mla, mla_counts = timed("mla", phase_mla, dev)
         families, families_counts = timed("families", phase_families, dev)
+        roofline, roofline_counts = timed("roofline", phase_roofline, dev, dict(
+            models=models, mamba=mamba, dense=dense, int8_moe=int8, mla=mla, families=families))
     except Exception:  # noqa: BLE001 - report every failed phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3874,7 +4136,7 @@ def main() -> int:
 
     # launches: each kernel's count summed over the path windows it runs in
     windows = (model_counts, mha_counts, softmax_counts, mamba_counts, dense_counts, serve_counts,
-               train_counts, int8_counts, mla_counts, families_counts)
+               train_counts, int8_counts, mla_counts, families_counts, roofline_counts)
     counts = {k: sum(w.get(k, 0) for w in windows)
               for k in ("flash_attention", "layernorm", "qmatmul", "lut_softmax", "ssd_scan")}
     main_shape = {"flash_attention": ([8192, 4, 100, 8], "safe"),
@@ -3904,6 +4166,7 @@ def main() -> int:
                                "lut_softmax_path": softmax_path, "mamba": mamba,
                                "dense": dense, "serve": serve, "train": train,
                                "int8_moe": int8, "mla": mla, "families": families,
+                               "roofline": roofline,
                                "launches": counts,
                                "launches_by_path": {"models": model_counts, "mha": mha_counts,
                                                     "lut_softmax": softmax_counts,
@@ -3913,7 +4176,8 @@ def main() -> int:
                                                     "train": train_counts,
                                                     "int8_moe": int8_counts,
                                                     "mla": mla_counts,
-                                                    "families": families_counts},
+                                                    "families": families_counts,
+                                                    "roofline": roofline_counts},
                                "phase_seconds": phase_s,
                                "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s; details in {OUT.relative_to(ROOT)}")

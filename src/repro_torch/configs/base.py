@@ -1,9 +1,9 @@
 """Config dataclasses (port of ``repro.configs.base``): the model configs,
-``ParallelismConfig``, ``ServeConfig`` and ``TrainConfig``.
+the dry-run shapes (``ShapeConfig``, ``SHAPES``), ``ParallelismConfig``,
+``ServeConfig`` and ``TrainConfig``.
 
 Plain dataclasses with the reference's fields and defaults, so a config
-converts field for field.  The dry-run shapes (``ShapeConfig``,
-``SHAPES``) wait for ROADMAP queue 1, item 12.
+converts field for field.
 """
 
 from __future__ import annotations
@@ -117,6 +117,75 @@ class ModelConfig:
     def padded_vocab_size(self) -> int:
         """Vocab padded to a multiple of 256 (the reference's TP-friendly size)."""
         return ((self.vocab_size + 255) // 256) * 256
+
+    def param_count_estimate(self) -> int:
+        """Rough 6ND-style N (for MODEL_FLOPS; the exact count is
+        ``models.lm.count_params``)."""
+        d, l = self.d_model, self.n_layers
+        emb = self.padded_vocab_size * d
+        if self.attn_kind == "mla" and self.mla is not None:
+            m = self.mla
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            attn = (
+                d * m.q_lora_rank
+                + m.q_lora_rank * self.n_heads * qk
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * self.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+                + self.n_heads * m.v_head_dim * d
+            )
+        elif self.attn_kind == "none":
+            attn = 0
+        else:
+            hd = self.resolved_head_dim
+            attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        if self.family == "hybrid" and self.ssm is not None:
+            # Mamba2 backbone layers + one weight-shared attention block
+            s = self.ssm
+            di = s.d_inner(d)
+            per_mamba = d * (2 * di + 2 * s.n_groups * s.state_dim + s.n_heads(d)) + di * d
+            w = 2 * d  # the shared block works in concat(x, x_embed) width
+            ff_mult = 3 if self.gated_mlp else 2
+            shared = 4 * w * w + ff_mult * w * self.d_ff + w * d
+            return emb + l * per_mamba + shared + (0 if self.tie_embeddings else emb)
+        if self.moe is not None:
+            ff_mult = 3 if self.gated_mlp else 2
+            ffn = self.moe.n_experts * ff_mult * d * self.moe.d_expert
+        elif self.ssm is not None and self.attn_kind == "none":
+            s = self.ssm
+            di = s.d_inner(d)
+            ffn = d * (2 * di + 2 * s.n_groups * s.state_dim + s.n_heads(d)) + di * d
+        else:
+            ff_mult = 3 if self.gated_mlp else 2
+            ffn = ff_mult * d * self.d_ff
+        return emb + l * (attn + ffn) + (0 if self.tie_embeddings else emb)
+
+    def active_param_count_estimate(self) -> int:
+        """Active params per token (MoE: the top_k experts only)."""
+        if self.moe is None:
+            return self.param_count_estimate()
+        dense_like = dataclasses.replace(self, moe=None, d_ff=0, gated_mlp=False)
+        base = dense_like.param_count_estimate()
+        ff_mult = 3 if self.gated_mlp else 2
+        active_ffn = self.n_layers * self.moe.top_k * ff_mult * self.d_model * self.moe.d_expert
+        return base + active_ffn
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One dry-run input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -130,13 +130,15 @@ def rsqrt_table(device: str | torch.device = "cuda") -> torch.Tensor:
     return _table("rsqrt", str(resolve_device(device)))
 
 
+# the lookups take the table on x's own device (a ``meta`` x too: the plain
+# versions' shapes in a dry run)
 def lut_exp(x: torch.Tensor) -> torch.Tensor:
-    return lut_lookup(x, exp_table(x.device), EXP_SPEC)
+    return lut_lookup(x, _table("exp", str(x.device)), EXP_SPEC)
 
 
 def lut_inv(x: torch.Tensor) -> torch.Tensor:
-    return lut_lookup(x, inv_table(x.device), INV_SPEC)
+    return lut_lookup(x, _table("inv", str(x.device)), INV_SPEC)
 
 
 def lut_rsqrt(x: torch.Tensor) -> torch.Tensor:
-    return lut_lookup(x, rsqrt_table(x.device), RSQRT_SPEC)
+    return lut_lookup(x, _table("rsqrt", str(x.device)), RSQRT_SPEC)

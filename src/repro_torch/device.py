@@ -2,19 +2,38 @@
 
 Entry points take ``device="cuda"`` by default.  When CUDA is absent they
 raise instead of running on the CPU; the CPU runs only when the caller asks
-for it (the tests pass ``device="cpu"``).
+for it (the tests pass ``device="cpu"``).  They refuse the ``meta`` device
+too, except inside :func:`meta_trace`, which the dry run (``launch.dryrun``)
+and the roofline counts enter around a step on ``meta`` tensors of their own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 
 
+_META_DEPTH = 0
+
+
+@contextlib.contextmanager
+def meta_trace():
+    """Let the entry points run on ``meta`` tensors (shapes only) within the
+    block: every kernel wrapper then runs its plain version, which computes
+    nothing there."""
+    global _META_DEPTH
+    _META_DEPTH += 1
+    try:
+        yield
+    finally:
+        _META_DEPTH -= 1
+
+
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The ``torch.device`` to run on; raises when CUDA was asked for and
-    is not available."""
+    is not available, and for ``meta`` outside :func:`meta_trace`."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -22,6 +41,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                 "repro_torch: CUDA device requested but torch.cuda.is_available() "
                 "is False; pass device='cpu' to run the plain PyTorch path"
             )
+    elif dev.type == "meta" and _META_DEPTH:
+        return dev
     elif dev.type != "cpu":
         raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {device!r}")
     return dev

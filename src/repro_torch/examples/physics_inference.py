@@ -8,8 +8,9 @@ quantization-aware training at that precision (60 steps from the float
 weights), and report each AUC on 1024 held-out events (seed 77) with its
 ratio to the float AUC.  ``--policy`` overrides the paper-optimal presets
 (for example ``paper_vu13p``, whose LUT softmax and LUT norm are then on the
-training path).  The FPGA latency-model lines of the reference wait for
-``core/latency_model`` (ROADMAP queue 1, item 12).
+training path).  Last, the paper's FPGA cycle model (``core.latency_model``,
+its VU13P clocks) estimates the encoder's latency at reuse factors 1, 2
+and 4.
 
     PYTHONPATH=src python -m repro_torch.examples.physics_inference \\
         [gw|engine_anomaly|btagging] [--policy qat_fixed<10,5>] [--device cuda|cpu]
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import fixed_point as fxp
+from repro_torch.core import latency_model as lat
 from repro_torch.core import precision as precision_lib
 from repro_torch.data import physics as pdata
 from repro_torch.device import resolve_device
@@ -78,6 +80,14 @@ def policies(name: str, policy: str | None = None):
     return precision_lib.get_policy(policy), precision_lib.get_policy(policy)
 
 
+def fpga_latency(name: str, reuses=(1, 2, 4)) -> list[lat.FpgaLatencyEstimate]:
+    """The paper's FPGA cycle model of encoder ``name`` at each reuse
+    factor."""
+    cfg = configs.get_config(name)
+    return [lat.fpga_style_estimate(seq_len=cfg.seq_len, d_model=cfg.d_model,
+                                    n_blocks=cfg.n_layers, reuse=r) for r in reuses]
+
+
 def workflow(name: str = "gw", policy: str | None = None, *, device="cuda", n_events=1024,
              float_steps=150, qat_steps=60, params=None, seed=0, verbose=False) -> dict:
     """Train, PTQ, QAT and the AUCs; ``params`` is the float init (default:
@@ -108,6 +118,9 @@ def workflow(name: str = "gw", policy: str | None = None, *, device="cuda", n_ev
     qat_eval = precision_lib.apply_plan_to_params(qat_params, qat_policy.resolve(cfg.n_layers))
     auc_qat = auc_of(cfg_q, qat_eval, xt, yt, device=dev)
     say(f"QAT {qat_policy.name}:   AUC {auc_qat:.4f}  (ratio {auc_qat / auc_float:.4f})")
+    for est in fpga_latency(name):
+        say(f"latency model R{est.reuse}: clk {est.clock_ns:.2f}ns  "
+            f"II {est.interval_cycles}  latency {est.latency_us:.2f}us")
     return dict(model=name, ptq_policy=ptq_policy.name, qat_policy=qat_policy.name,
                 loss_float=loss, auc_float=auc_float, auc_ptq=auc_ptq,
                 ratio_ptq=auc_ptq / auc_float, auc_qat=auc_qat, ratio_qat=auc_qat / auc_float,

@@ -1,11 +1,14 @@
 """Hand-written CUDA kernels for Hopper, one subpackage per TPU kernel.
 
 Each ships ``ref.py`` (the plain PyTorch version) and ``ops.py`` (the
-wrapper): on a CPU tensor the wrapper runs the plain version, on a CUDA
-tensor it launches the kernel (sources in ``repro_torch/csrc``, built by
+wrapper): on a CPU tensor the wrapper runs the plain version, on a ``meta``
+tensor too (shapes only: what the dry run counts), on a CUDA tensor it
+launches the kernel (sources in ``repro_torch/csrc``, built by
 ``kernels.build``) or raises.  Every launch adds one to
 ``LAUNCHES[<kernel>]``; nothing else touches the counts but a caller that
-resets them.
+resets them.  Where a wrapper launches or runs its plain version, it
+reports the call's work (``roofline.kernel_costs``) to an active
+``roofline.op_counter.OpCounter``; with none active that is one check.
 
 A kernel writes its output through a raw pointer, so autograd cannot see
 through it.  ``flash_attention``, ``layernorm`` and ``ssd_scan`` carry
@@ -22,6 +25,9 @@ import collections
 import torch
 
 LAUNCHES: collections.Counter = collections.Counter()
+
+#: devices on which a wrapper runs its plain version
+PLAIN_DEVICES = ("cpu", "meta")
 
 # the ROADMAP item (queue 1) that ports each kernel's backward
 BACKWARD_ITEM = {

@@ -1,8 +1,9 @@
 """Public attention entry point: ``mha`` over (B, H, L, D) tensors.
 
-On a CPU tensor it runs the plain version (``ref.mha_ref``); on a CUDA
-tensor it launches the hand-written kernel (``csrc/flash_attention.cu``) or
-raises.  GQA is mapped by head index inside the kernel.  V may have its own
+On a CPU or ``meta`` tensor it runs the plain version (``ref.mha_ref``); on
+a CUDA tensor it launches the hand-written kernel
+(``csrc/flash_attention.cu``) or raises.  GQA is mapped by head index
+inside the kernel.  V may have its own
 head_dim ``dv <= d`` (MLA: q/k 96, V 64); the output has V's.  Every
 head_dim runs on the tensor cores:
 - 8, 16 and 32: one warp per 16 query rows, heads packed into blocks, K/V
@@ -38,9 +39,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import lut
-from repro_torch.kernels import LAUNCHES, build, refuse_dtensor
+from repro_torch.kernels import LAUNCHES, PLAIN_DEVICES, build, refuse_dtensor
 from repro_torch.kernels.flash_attention import autograd
 from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.roofline import kernel_costs, op_counter
 
 INSTANCES = ((8, 8), (16, 16), (32, 32), (64, 64), (96, 64), (128, 128))  # (q/k, V)
 TMA_DIMS = (64, 96, 128)  # K/V by TMA: q, k, v must be 16-byte aligned
@@ -114,14 +116,27 @@ def mha(
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
         raise ValueError(f"q, k, v on different devices: {devices}")
-    if q.device.type == "cpu":
-        return mha_ref(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+    if q.device.type in PLAIN_DEVICES:
+        counter = op_counter.ACTIVE
+        if counter is None:
+            return mha_ref(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+        with counter.plain_call(cost(q, k, v, causal=causal, window=window, mode=mode,
+                                     kv_len=kv_len)):
+            return mha_ref(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
     if q.device.type != "cuda":
-        raise ValueError(f"mha runs on cpu or cuda, got {q.device}")
+        raise ValueError(f"mha runs on cpu, meta or cuda, got {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return autograd.attention(q, k, v, causal=causal, window=window, mode=mode,
                                   kv_len=kv_len, forward=_kernel)
     return _kernel(q, k, v, causal=causal, window=window, mode=mode, kv_len=kv_len)
+
+
+def cost(q, k, v, *, causal, window, mode, kv_len) -> kernel_costs.KernelCost:
+    """The work of one ``mha`` call on these tensors."""
+    b, hq, lq, d = q.shape
+    _, hkv, lkv, _ = k.shape
+    return kernel_costs.flash_attention(b, hq, hkv, lq, lkv, d, v.shape[3], q.dtype,
+                                        causal=causal, window=window, mode=mode, kv_len=kv_len)
 
 
 def _kernel(q, k, v, *, causal, window, mode, kv_len):
@@ -135,6 +150,7 @@ def _kernel(q, k, v, *, causal, window, mode, kv_len):
                          f"{k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("mha kernel needs contiguous q, k, v")
+    q_in, k_in, v_in = q, k, v  # the call's own tensors, whose work a counter is told
     if dk != d:  # a square head_dim between instances: fresh, contiguous and aligned
         with torch.profiler.record_function(PAD_SCOPE):  # a profiler's handle on the copies
             q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
@@ -156,6 +172,9 @@ def _kernel(q, k, v, *, causal, window, mode, kv_len):
     )
     build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    if op_counter.ACTIVE is not None:
+        op_counter.ACTIVE.launch(cost(q_in, k_in, v_in, causal=causal, window=window,
+                                      mode=mode, kv_len=kv_len))
     if dvk == dv:
         return out
     with torch.profiler.record_function(PAD_SCOPE):

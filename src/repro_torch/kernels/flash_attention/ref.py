@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import lut
+from repro_torch.roofline.op_counter import attnvol
 
 NEG_INF = -1e30
 
@@ -22,24 +23,28 @@ def attention_ref(
     kv_len: int | None = None,
 ) -> torch.Tensor:
     qf, kf, vf = (t.float() for t in (q, k, v))
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    lq, lkv = s.shape[-2], s.shape[-1]
-    kv_len = lkv if kv_len is None else kv_len
-    q_pos = torch.arange(lq, device=s.device)[:, None]
-    k_pos = torch.arange(lkv, device=s.device)[None, :]
-    mask = k_pos < kv_len
-    if causal:
-        mask = mask & (k_pos <= q_pos)
-    if window is not None:
-        mask = mask & (q_pos - k_pos < window)
-    if mode == "safe":
-        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
-    elif mode == "lut":  # the paper's LUT softmax; masked keys weigh zero
-        e = torch.where(mask, lut.lut_exp(s), 0.0)
-        p = e * lut.lut_inv(torch.sum(e, dim=-1, keepdim=True))
-    else:
-        raise ValueError(f"unknown softmax mode {mode!r}")
-    return torch.matmul(p, vf).to(q.dtype)
+    # ``attnvol``: the O(L^2) attention volume, which a roofline count
+    # re-prices as the fused kernel (the reference's named_scope)
+    with attnvol:
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        lq, lkv = s.shape[-2], s.shape[-1]
+        kv_len = lkv if kv_len is None else kv_len
+        q_pos = torch.arange(lq, device=s.device)[:, None]
+        k_pos = torch.arange(lkv, device=s.device)[None, :]
+        mask = k_pos < kv_len
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if window is not None:
+            mask = mask & (q_pos - k_pos < window)
+        if mode == "safe":
+            p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+        elif mode == "lut":  # the paper's LUT softmax; masked keys weigh zero
+            e = torch.where(mask, lut.lut_exp(s), 0.0)
+            p = e * lut.lut_inv(torch.sum(e, dim=-1, keepdim=True))
+        else:
+            raise ValueError(f"unknown softmax mode {mode!r}")
+        out = torch.matmul(p, vf)
+    return out.to(q.dtype)
 
 
 def mha_ref(

@@ -18,9 +18,10 @@ import functools
 import torch
 
 from repro_torch.core import lut
-from repro_torch.kernels import LAUNCHES, build, refuse_dtensor
+from repro_torch.kernels import LAUNCHES, PLAIN_DEVICES, build, refuse_dtensor
 from repro_torch.kernels.layernorm import autograd
 from repro_torch.kernels.layernorm.ref import layernorm_ref, snap_output
+from repro_torch.roofline import kernel_costs, op_counter
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The plan's routes, tuned on an H100 by tools/layernorm_routes.py; each
@@ -105,6 +106,14 @@ def _flags(k: int, dtype_code: int, params_f32: bool, aligned: bool, few_rows: b
     return dtype_code | params_f32 << 2 | vec << 5 | nv << 10 | lanes << 17
 
 
+def cost(x: torch.Tensor, gamma: torch.Tensor, use_lut: bool,
+         rms: bool) -> kernel_costs.KernelCost:
+    """The work of one ``layernorm`` call on these tensors."""
+    k = x.shape[-1]
+    return kernel_costs.layernorm(x.numel() // k if k else 0, k, x.dtype, rms=rms,
+                                  use_lut=use_lut, param_dtype=gamma.dtype)
+
+
 def _kernel(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor | None, use_lut: bool,
             rms: bool, eps: float) -> torch.Tensor:
     k = x.shape[-1]
@@ -136,6 +145,8 @@ def _kernel(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor | None, use
     stream = torch._C._cuda_getCurrentRawStream(dev)  # an int: no Stream object per call
     build.check(_entry(dev)(xp, gp, bp or None, op, rows, k, flags, eps, stream), "layernorm")
     LAUNCHES["layernorm"] += 1
+    if op_counter.ACTIVE is not None:
+        op_counter.ACTIVE.launch(cost(x, gamma, use_lut, rms))
     return out
 
 
@@ -163,7 +174,12 @@ def layernorm(
         else:
             out = _kernel(x, gamma, beta, use_lut, rms, eps)
         return out if precision is None else snap_output(out, precision)
-    if x.device.type == "cpu":
-        return layernorm_ref(x, gamma, beta, use_lut=use_lut, rms=rms, eps=eps,
-                             precision=precision)
-    raise ValueError(f"layernorm runs on cpu or cuda, got {x.device}")
+    if x.device.type in PLAIN_DEVICES:
+        counter = op_counter.ACTIVE
+        if counter is None:
+            return layernorm_ref(x, gamma, beta, use_lut=use_lut, rms=rms, eps=eps,
+                                 precision=precision)
+        with counter.plain_call(cost(x, gamma, use_lut, rms)):
+            return layernorm_ref(x, gamma, beta, use_lut=use_lut, rms=rms, eps=eps,
+                                 precision=precision)
+    raise ValueError(f"layernorm runs on cpu, meta or cuda, got {x.device}")

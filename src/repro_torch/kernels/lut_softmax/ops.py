@@ -16,8 +16,9 @@ import torch
 
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core import lut
-from repro_torch.kernels import LAUNCHES, build, refuse_dtensor, require_no_grad
+from repro_torch.kernels import LAUNCHES, PLAIN_DEVICES, build, refuse_dtensor, require_no_grad
 from repro_torch.kernels.lut_softmax.ref import lut_softmax_ref
+from repro_torch.roofline import kernel_costs, op_counter
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,6 +58,8 @@ def _kernel(x: torch.Tensor) -> torch.Tensor:
     )
     build.check(err, "lut_softmax")
     LAUNCHES["lut_softmax"] += 1
+    if op_counter.ACTIVE is not None:
+        op_counter.ACTIVE.launch(kernel_costs.lut_softmax(x.numel() // k, k))
     return out
 
 
@@ -67,11 +70,17 @@ def lut_softmax(x: torch.Tensor, *, precision=None) -> torch.Tensor:
     refuse_dtensor("lut_softmax", x)
     if x.ndim == 0:
         raise ValueError("lut_softmax needs at least one axis")
-    if x.device.type == "cpu":
-        out = lut_softmax_ref(x)
+    if x.device.type in PLAIN_DEVICES:
+        counter = op_counter.ACTIVE
+        if counter is None:
+            out = lut_softmax_ref(x)
+        else:
+            k = x.shape[-1]
+            with counter.plain_call(kernel_costs.lut_softmax(x.numel() // k if k else 0, k)):
+                out = lut_softmax_ref(x)
     elif x.device.type == "cuda":
         require_no_grad("lut_softmax", x)
         out = _kernel(x)
     else:
-        raise ValueError(f"lut_softmax runs on cpu or cuda, got {x.device}")
+        raise ValueError(f"lut_softmax runs on cpu, meta or cuda, got {x.device}")
     return _snap_output(out, precision)

@@ -19,8 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant, reuse
-from repro_torch.kernels import LAUNCHES, build, refuse_dtensor, require_no_grad
+from repro_torch.kernels import LAUNCHES, PLAIN_DEVICES, build, refuse_dtensor, require_no_grad
 from repro_torch.kernels.qmatmul.ref import MAX_K, qmatmul_ref
+from repro_torch.roofline import kernel_costs, op_counter
 
 _ALIGN = 16  # bytes: TMA moves rows whose strides are multiples of 16
 STREAM_MAX = 64  # the streaming route's largest K and N
@@ -82,10 +83,14 @@ def qmatmul_int8(
     devices = {t.device for t in operands}
     if len(devices) != 1:
         raise ValueError(f"qmatmul operands on different devices: {devices}")
-    if x.device.type == "cpu":
-        return qmatmul_ref(x, w, x_scale, w_scale, out_dtype)
+    if x.device.type in PLAIN_DEVICES:
+        counter = op_counter.ACTIVE
+        if counter is None:
+            return qmatmul_ref(x, w, x_scale, w_scale, out_dtype)
+        with counter.plain_call(kernel_costs.qmatmul(m, k, n)):
+            return qmatmul_ref(x, w, x_scale, w_scale, out_dtype)
     if x.device.type != "cuda":
-        raise ValueError(f"qmatmul runs on cpu or cuda, got {x.device}")
+        raise ValueError(f"qmatmul runs on cpu, meta or cuda, got {x.device}")
     require_no_grad("qmatmul", *operands)  # the scales carry the float inputs' gradient
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise ValueError(f"qmatmul kernel takes int8 codes, got {x.dtype}, {w.dtype}")
@@ -116,6 +121,8 @@ def qmatmul_int8(
     build.check(err, "qmatmul")
     LAUNCHES["qmatmul"] += 1
     ROUTES[path] += 1
+    if op_counter.ACTIVE is not None:
+        op_counter.ACTIVE.launch(kernel_costs.qmatmul(m, k, n))
     if ldo != n:
         out = out[:, :n].contiguous()
     return out if out_dtype == torch.float32 else out.to(out_dtype)

@@ -20,9 +20,10 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, refuse_dtensor
+from repro_torch.kernels import LAUNCHES, PLAIN_DEVICES, build, refuse_dtensor
 from repro_torch.kernels.ssd_scan import autograd
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+from repro_torch.roofline import kernel_costs, op_counter
 
 MAX_CHUNK, MAX_P, MAX_N = 64, 128, 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,6 +61,13 @@ def _check(xdt, a, bmat, cmat, chunk):
     return chunk
 
 
+def cost(xdt, bmat, chunk) -> kernel_costs.KernelCost:
+    """The work of one ``ssd_with_state`` call on these tensors."""
+    b, l, h, p = xdt.shape
+    g, n = bmat.shape[2:]
+    return kernel_costs.ssd_scan(b, l, h, p, n, g, chunk, xdt.dtype)
+
+
 def _kernel(xdt, a, bmat, cmat, chunk):
     b, l, h, p = xdt.shape
     g, n = bmat.shape[2:]
@@ -87,6 +95,8 @@ def _kernel(xdt, a, bmat, cmat, chunk):
     )
     build.check(err, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
+    if op_counter.ACTIVE is not None:
+        op_counter.ACTIVE.launch(cost(xdt, bmat, chunk))
     return y, state
 
 
@@ -106,8 +116,16 @@ def ssd_with_state(
         if torch.is_grad_enabled() and any(t.requires_grad for t in (xdt, a, bmat, cmat)):
             return autograd.ssd_scan(xdt, a, bmat, cmat, chunk=chunk, forward=_kernel)
         return _kernel(xdt, a, bmat, cmat, chunk)
-    if xdt.device.type != "cpu":
-        raise ValueError(f"ssd runs on cpu or cuda, got {xdt.device}")
+    if xdt.device.type not in PLAIN_DEVICES:
+        raise ValueError(f"ssd runs on cpu, meta or cuda, got {xdt.device}")
+    counter = op_counter.ACTIVE
+    if counter is None:
+        return _plain(xdt, a, bmat, cmat, chunk)
+    with counter.plain_call(cost(xdt, bmat, chunk)):
+        return _plain(xdt, a, bmat, cmat, chunk)
+
+
+def _plain(xdt, a, bmat, cmat, chunk):
     rep = xdt.shape[2] // bmat.shape[2]
     f = torch.float32
     y, state = ssd_chunked(

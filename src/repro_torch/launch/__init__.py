@@ -1,3 +1,3 @@
 """Launchers of the port: serving (``launch/serve.py``), training
-(``launch/train.py``) and the device meshes (``launch/mesh.py``); the
-dry-run waits for ROADMAP queue 1, item 12."""
+(``launch/train.py``), the device meshes (``launch/mesh.py``) and the dry
+run on meta tensors (``launch/dryrun.py``)."""

@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import scalar
 from repro_torch.kernels.flash_attention import mha
 from repro_torch.models import layers
+from repro_torch.roofline.op_counter import attnvol
 from repro_torch.serve import kv_cache as kv_cache_lib
 
 MODES = ("train", "prefill", "extend", "decode")
@@ -176,10 +177,11 @@ def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.float() if k_scale is None else _dequantize(k, k_scale)
     vf = v.float() if v_scale is None else _dequantize(v, v_scale)
     qf = q.float().reshape(b, hkv, (hq // hkv) * s, d)
-    scores = torch.matmul(qf, kf.transpose(-1, -2))
-    scores = scores / scalar(d ** 0.5, torch.float32, str(q.device))
-    scores = torch.where(valid[:, None, None, :], scores, -1e30)
-    out = torch.matmul(torch.softmax(scores, dim=-1), vf)
+    with attnvol:  # the attention volume, for a roofline count
+        scores = torch.matmul(qf, kf.transpose(-1, -2))
+        scores = scores / scalar(d ** 0.5, torch.float32, str(q.device))
+        scores = torch.where(valid[:, None, None, :], scores, -1e30)
+        out = torch.matmul(torch.softmax(scores, dim=-1), vf)
     return out.reshape(b, hq, s, d).to(q.dtype)
 
 
@@ -277,19 +279,24 @@ def _mla_decode_attend(params, cfg: ModelConfig, q_nope, q_rope, view, pos, quan
     ckv_all, krope_all = lat[..., :r], lat[..., r:]
     valid = torch.arange(length, device=pos.device)[None, :] <= pos[:, None]
     scale = 1.0 / ((nope + m.qk_rope_head_dim) ** 0.5)
-    rope_scores = _einsum("bhsd,bLd->bhsL", q_rope, krope_all)
+    # ``attnvol`` (for a roofline count): the scores, softmax and P.V, as
+    # the reference's named_scope; the materialized K / V projections and
+    # the absorbed form's weight folds lie outside
     if absorb:
         q_lat = _einsum("bhsn,rhn->bhsr", q_nope, params["wk_b"]["kernel"].reshape(r, h, nope))
-        scores = (_einsum("bhsr,bLr->bhsL", q_lat, ckv_all) + rope_scores) * scale
-    else:
-        k_nope = layers.dense(params["wk_b"], ckv_all, quant).reshape(b, length, h, nope)
-        scores = (_einsum("bhsn,bLhn->bhsL", q_nope, k_nope) + rope_scores) * scale
-    probs = torch.softmax(torch.where(valid[:, None, None, :], scores, -1e30), dim=-1)
-    if absorb:
-        o_lat = _einsum("bhsL,bLr->bhsr", probs, ckv_all)
+        with attnvol:
+            scores = (_einsum("bhsr,bLr->bhsL", q_lat, ckv_all)
+                      + _einsum("bhsd,bLd->bhsL", q_rope, krope_all)) * scale
+            probs = torch.softmax(torch.where(valid[:, None, None, :], scores, -1e30), dim=-1)
+            o_lat = _einsum("bhsL,bLr->bhsr", probs, ckv_all)
         return _einsum("bhsr,rhv->bhsv", o_lat, params["wv_b"]["kernel"].reshape(r, h, vd))
+    k_nope = layers.dense(params["wk_b"], ckv_all, quant).reshape(b, length, h, nope)
     vv = layers.dense(params["wv_b"], ckv_all, quant).reshape(b, length, h, vd)
-    return _einsum("bhsL,bLhv->bhsv", probs, vv)
+    with attnvol:
+        scores = (_einsum("bhsn,bLhn->bhsL", q_nope, k_nope)
+                  + _einsum("bhsd,bLd->bhsL", q_rope, krope_all)) * scale
+        probs = torch.softmax(torch.where(valid[:, None, None, :], scores, -1e30), dim=-1)
+        return _einsum("bhsL,bLhv->bhsv", probs, vv)
 
 
 def mla_apply(

@@ -13,7 +13,8 @@ Entry points
 ``forward(params, cfg, batch, mode=...)``    -- logits (+caches, aux)
 ``loss_fn``                                  -- scalar loss + metrics
 ``prefill`` / ``decode_step``                -- serving steps on stacked caches
-``init_caches / abstract_caches``            -- from ``serve.kv_cache``
+``init_caches / abstract_caches / cache_logical_axes`` -- from ``serve.kv_cache``
+``input_specs(cfg, shape)``                  -- a dry-run cell's inputs on ``meta``
 
 ``batch`` keys by family: ``tokens`` (b, s); the VLM ``patches`` (b, n_img,
 frontend_dim) and ``tokens`` (b, s_text), tokens alone in decode; the audio
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 from torch.utils import checkpoint as checkpoint_lib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import precision as precision_lib
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
@@ -104,6 +105,7 @@ def count_params(cfg: ModelConfig) -> int:
 
 abstract_caches = kv_cache_lib.abstract_caches
 init_caches = kv_cache_lib.init_caches
+cache_logical_axes = kv_cache_lib.cache_logical_axes
 
 
 # ---------------------------------------------------------------------------
@@ -358,3 +360,31 @@ def decode_step(params, cfg: ModelConfig, tokens, positions, caches, *,
                                     caches=caches, positions=positions, kernel=kernel,
                                     device=device)
     return logits[:, -1], new_caches
+
+
+# ---------------------------------------------------------------------------
+# Dry-run input specs (tensors on the meta device: shapes and dtypes, no storage)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Model inputs for one (arch x shape) dry-run cell, the reference's
+    shapes and dtypes, as ``meta`` tensors."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": spec((b, 1)), "positions": spec((b,))}
+    if cfg.frontend == "audio":
+        fd = cfg.frontend_dim or cfg.d_model
+        specs = {"frames": spec((b, s, fd), torch.float32)}
+        if shape.kind == "train":
+            specs["labels"] = spec((b, s))
+        return specs
+    if cfg.frontend == "patch":
+        fd = cfg.frontend_dim or cfg.d_model
+        n_img = cfg.n_frontend_tokens
+        return {"patches": spec((b, n_img, fd), torch.float32), "tokens": spec((b, s - n_img))}
+    return {"tokens": spec((b, s))}

@@ -104,3 +104,15 @@ def stack_spec(spec: SpecTree, n: int) -> SpecTree:
         return dataclasses.replace(s, shape=(n,) + s.shape, logical_axes=axes)
 
     return map_leaves(_stack, spec)
+
+
+def cast_floats(tree: Any, dtype: torch.dtype) -> Any:
+    """Every floating tensor leaf of ``tree`` (nested dicts, lists, tuples)
+    cast to ``dtype``; other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floats(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree

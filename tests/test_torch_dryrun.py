@@ -1,0 +1,140 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) on the CPU: every
+runnable cell traced at a reduced size on the ``tiny`` mesh, the eight
+skips with the reference's reasons, one full-size cell (granite-8b x
+train_4k x pod), the ``card`` mesh's argument bytes against the tensors a
+prefill allocates, and the JSON fields of the reference's ``run_cell``."""
+
+import dataclasses
+import json
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import configs as jax_configs  # noqa: E402
+from repro.roofline import analysis as jax_analysis  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.distributed.sharding import ShardingRules  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+
+RUNNABLE = [(a, s) for a, s, ok, _ in configs.dryrun_cells() if ok]
+SKIPPED = [(a, s, why) for a, s, ok, why in configs.dryrun_cells() if not ok]
+
+# the reference's run_cell fields of an "ok" cell
+REF_FIELDS = {f.name for f in dataclasses.fields(jax_analysis.CellAnalysis)} | {
+    "status", "lower_s", "compile_s", "fallbacks", "plan", "params", "active_params"}
+TERMS = {"compute", "memory", "collective"}
+
+
+@pytest.mark.parametrize("arch, shape", RUNNABLE)
+def test_reduced_cell_on_tiny(arch, shape, tmp_path):
+    r = dryrun.run_cell(arch, shape, "tiny", out_dir=str(tmp_path), reduced=True)
+    assert r["status"] == "ok", r.get("traceback")
+    assert REF_FIELDS <= set(r)
+    assert r["terms"]["dominant"] in TERMS and r["terms_fused"]["dominant"] in TERMS
+    assert r["n_devices"] == 4 and r["trip_counts"] == [configs.get_config(arch, True).n_layers]
+    assert r["flops"] > 0 and r["hbm_bytes"] > 0 and r["memory_stats"]["alias_bytes"] == 0
+    assert min(r["memory_stats"].values()) >= 0 and r["memory_stats"]["argument_bytes"] > 0
+    # the batch (8 at most, reduced) splits over tiny's data axis of 2
+    assert r["device_batch"] == (4 if SHAPE_BATCH[shape] > 1 else 1)
+    cached = dryrun.run_cell(arch, shape, "tiny", out_dir=str(tmp_path), reduced=True)
+    assert cached == json.loads(json.dumps(r, default=str))
+
+
+SHAPE_BATCH = {name: min(s.global_batch, 8) for name, s in configs.SHAPES.items()}
+
+
+def test_the_eight_skips_with_their_reasons(tmp_path):
+    assert len(SKIPPED) == 8
+    for arch, shape, why in SKIPPED:
+        r = dryrun.run_cell(arch, shape, "pod", out_dir=str(tmp_path))
+        assert r == {"arch": arch, "shape": shape, "mesh": "pod", "status": "skip",
+                     "reason": why}
+        assert (False, why) == jax_configs.cell_status(arch, shape)
+    assert {why for *_, why in SKIPPED} == {
+        "encoder-only: no decode step",
+        "pure full attention: 512k decode needs sub-quadratic attention"}
+
+
+def test_full_size_granite_train_on_pod(tmp_path):
+    r = dryrun.run_cell("granite-8b", "train_4k", "pod", out_dir=str(tmp_path))
+    assert r["status"] == "ok", r.get("traceback")
+    cfg = configs.get_config("granite-8b")
+    assert r["n_devices"] == 256 and r["device_batch"] == 256 // 16
+    assert r["plan"]["remat"] == "minimal" and r["fallbacks"] == []
+    # every bf16 parameter gathered whole, every gradient all-reduced over data
+    n = lm.count_params(cfg)
+    assert r["coll_bytes"] == {"all-gather": 2.0 * n, "all-reduce": 2.0 * n}
+    # per device: each bf16 parameter and its two float32 AdamW moments over
+    # the devices its spec splits it across (FSDP x TP: 256 for the
+    # matrices, 16 for the norms), the step counter, and the device's
+    # (16, 4096) int32 tokens
+    rules = ShardingRules(mesh=dryrun.make_mesh("pod"))
+    per_device = 0
+    for axes, shape in _spec_leaves(lm.param_spec(cfg)):
+        spec = rules.spec_for(axes, shape)
+        split = math.prod(16 for part in spec if part is not None)
+        per_device += (2 + 4 + 4) * math.prod(shape) // split
+    assert per_device < (2 + 4 + 4) * n // 16
+    assert r["memory_stats"]["argument_bytes"] == per_device + 4 + 16 * 4096 * 4
+    # the fused attention removes the materialized score volume
+    assert r["flops_fused"] < r["flops"] and r["hbm_bytes_fused"] < r["hbm_bytes"]
+    assert 0 < r["attn_flops_hlo"] < r["flops"]
+    # the model axis (16) repeats each data shard's compute
+    assert r["useful_ratio"] < 1 / 16
+    assert r["model_flops_global"] == pytest.approx(
+        jax_analysis.model_flops(jax_configs.get_config("granite-8b"),
+                                 jax_configs.base.SHAPES["train_4k"])
+        + jax_analysis.attention_flops(jax_configs.get_config("granite-8b"),
+                                       jax_configs.base.SHAPES["train_4k"]), rel=1e-12)
+
+
+def test_card_mesh_argument_bytes_are_the_allocated_bytes():
+    """On the one-card mesh a prefill's argument bytes are those of the
+    parameters, caches and tokens it allocates."""
+    cfg = configs.get_config("granite-8b", reduced=True)
+    shape = ShapeConfig("p", 32, 2, "prefill")
+    mesh = dryrun.make_mesh("card")
+    tr = dryrun.trace_prefill(cfg, shape, mesh, ShardingRules(mesh=mesh,
+                                                              plan=dryrun.plan_for(cfg, shape)))
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    caches = lm.init_caches(cfg, 2, 32, device="cpu")
+    tokens = torch.zeros(2, 32, dtype=torch.int32)
+    leaves = [t for t in _leaves(params) + _leaves(caches) + [tokens]]
+    assert tr.memory_stats["argument_bytes"] == sum(t.numel() * t.element_size() for t in leaves)
+    assert tr.device_shape == shape and tr.coll_bytes == {"all-gather": 0.0}
+
+
+def _spec_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _spec_leaves(v)]
+    return [(tuple(tree.logical_axes), tuple(tree.shape))]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def test_meshes_and_plan():
+    assert {k: math.prod(s) for k, (s, _) in dryrun.MESHES.items()} == {
+        "pod": 256, "multipod": 512, "pod2": 256, "pod8": 256, "pod32": 256, "tiny": 4,
+        "tinypod": 8, "card": 1}
+    assert dryrun.make_mesh("multipod").mesh_dim_names == ("pod", "data", "model")
+    with pytest.raises(KeyError):
+        dryrun.make_mesh("v5e")
+    cfg = configs.get_config("mamba2-130m")
+    assert dryrun.plan_for(cfg, configs.SHAPES["long_500k"]).sp
+    assert not dryrun.plan_for(cfg, configs.SHAPES["train_4k"]).sp
+    assert dryrun.plan_for(cfg, configs.SHAPES["decode_32k"]).remat == "none"
+
+
+def test_main_counts_cells(tmp_path, capsys):
+    rc = dryrun.main(["--arch", "hubert-xlarge", "--mesh", "tiny", "--reduced",
+                      "--out", str(tmp_path)])
+    assert rc == 0
+    assert "2 ok, 2 skipped, 0 errors" in capsys.readouterr().out

@@ -70,7 +70,10 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.configs.minicpm3_4b, repro_torch.models.attention, "
         "repro_torch.kernels.ssd_scan.autograd, repro_torch.distributed, "
         "repro_torch.distributed.sharding, repro_torch.distributed.collectives, "
-        "repro_torch.launch.mesh, repro_torch.launch.train; "
+        "repro_torch.launch.mesh, repro_torch.launch.train, repro_torch.launch.dryrun, "
+        "repro_torch.core.latency_model, repro_torch.roofline.op_counter, "
+        "repro_torch.roofline.kernel_costs, repro_torch.roofline.analysis, "
+        "repro_torch.examples.quickstart; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )
@@ -111,6 +114,22 @@ def test_mla_entry_points_default_to_the_card(monkeypatch):
     last, caches = lm.prefill(params, cfg, {"tokens": tokens}, caches, device="cpu")
     assert last.shape == (1, cfg.padded_vocab_size)
     assert caches["layers"]["latent"].dtype == torch.int8
+
+
+def test_entry_points_refuse_meta_outside_the_dry_run():
+    """``meta`` tensors run only inside ``device.meta_trace`` (the dry run's
+    and the roofline counts' own block)."""
+    from repro_torch.device import meta_trace
+    from repro_torch.models import lm
+
+    cfg = get_config("granite-8b", reduced=True)
+    params = lm.abstract_params(cfg)
+    tokens = torch.empty(1, 4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        lm.forward(params, cfg, {"tokens": tokens}, device="meta")
+    with meta_trace():
+        logits, _, _ = lm.forward(params, cfg, {"tokens": tokens}, device="meta")
+    assert logits.device.type == "meta" and logits.shape == (1, 4, cfg.padded_vocab_size)
 
 
 @pytest.mark.parametrize("helper", ["exp_table", "inv_table", "rsqrt_table", "params_init"])

@@ -5,7 +5,8 @@
 
 NAME picks ``chip_smoke.phase_<NAME>``, one of ``PHASES``.  Builds every
 kernel, runs that phase on the card and writes its results and launch
-counts to ``chiprun_out/<NAME>_phase.json``.
+counts to ``chiprun_out/<NAME>_phase.json``.  ``roofline`` alone has no
+earlier phase's device times, so it skips its bound check.
 
 ``--kernels`` first runs phase 2's kernel cases at the shapes of that path
 (``chip_smoke._<NAME>_kernel_cases``; int8_moe, mla and families have
@@ -31,7 +32,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("models", "mha", "lut_softmax_path", "mamba", "dense", "serve", "train", "int8_moe",
-          "mla", "families")
+          "mla", "families", "roofline")
 
 
 def main(argv=None) -> int:
