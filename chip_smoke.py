@@ -234,6 +234,33 @@ Phases, each of which fails the run (exit code 1) when it fails:
    card; (d) the paper's FPGA cycle model of each encoder at R 1, 2, 4
    beside phase 3's batch-1 latency (a print).  ``python3 tools/phase.py
    roofline`` runs this phase alone (no device times: (b) is skipped).
+13. engine -- the rest of the serving engine, granite-8b bf16 at its
+   published widths and 5 of its 36 layers, phase 7b's 16 requests x 32 new
+   tokens (max_batch 8, 4 decode steps per dispatch); streams compared
+   below may part only at a step whose top-two margin in the card's direct
+   greedy loop is under phase 7's 2e-4: (a) the async loop against the sync
+   loop, dense and paged + prefix cache, with phase 7's launch and program
+   checks: identical streams, TTFT p50/p95, ITL p50 and tokens/s side by
+   side; traced in overlap mode no fence, ``overlap_efficiency`` and
+   ``host_bubble_s``; every steady-state pure decode dispatch under
+   ``torch.cuda.set_sync_debug_mode("error")`` raises nothing; one async
+   decode step profiled (busy share); (b) ``submit(n=4)`` greedy and
+   seeded-sampled: no fork on the card (the kernel prefill is not
+   replayable), greedy siblings equal the n=1 stream, two seeded runs
+   identical; (c) the victim tier, paged + prefix cache over 512 device
+   pages and 1024 host pages, the shared-prefix prompts submitted again:
+   spills and swap-ins, every swapped-in page's rows bitwise the rows it
+   spilled, the streams of the run without the tier, the bytes moved and
+   ``flush_swaps``' seconds (GB/s); (d) the router with 2 replicas on the
+   card: one engine's streams, 8 admitted per replica, the allocation two KV
+   pools and no second copy of the weights; (e) ``shard_decode`` in a
+   one-card NCCL group: params and pools DTensors, one engine's streams,
+   one decode shape; (f) the reference's Pallas row: chunking, prefix-skip,
+   preemption and speculative decoding asked for on the card are each
+   named in ``disabled_features`` with a RuntimeWarning and the engine
+   serves; the same ServeConfig on the port's CPU engine disables nothing
+   and runs extend dispatches and drafts.  ``python3 tools/phase.py engine``
+   runs this phase alone.
    Each path sets the launch counts to 0 before it and reads them after.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
@@ -4075,6 +4102,464 @@ def phase_roofline(dev, earlier=None):
     return dict(calls=results, card_mesh=card_mesh, fpga=fpga, nvidia_smi=smi), counts
 
 
+# ---------------------------------------------------------------- phase 13 --
+
+# The rest of the serving engine (phase 13), granite-8b bf16 at its published
+# widths and GRANITE_SERVE_LAYERS of its 36 layers, phase 7b's 16 requests x
+# SERVE_NEW tokens (max_batch 8, 4 decode steps per dispatch).  "Identical"
+# streams may part only at a step whose top-two margin (the card's direct
+# greedy loop, float32 caches) is under phase 7's DENSE_TOL.
+ENGINE_LAYOUTS = ({}, dict(kv_layout="paged", kv_page_size=16, kv_prefix_cache=True))
+ENGINE_NBEST = 4
+#: (c) the victim tier: a pool below the run's registered pages, so the
+#: shared prefix's chain (evicted LRU-first) spills, and a ring that holds
+#: every spill
+ENGINE_TIER = dict(kv_layout="paged", kv_page_size=16, kv_prefix_cache=True, kv_pages=513)
+ENGINE_HOST_PAGES = 1024
+#: (f) the reference's Pallas row: what needs the cache-extending program,
+#: asked for on the card and, the same ServeConfig, on the port's CPU engine
+ENGINE_PALLAS_SC = dict(SERVE_CHECK_SC, kv_layout="paged", kv_page_size=16,
+                        kv_prefix_cache=True, kv_preemption=True, prefill_chunk=32,
+                        speculative=True, spec_tokens=3, policy="int8_serve")
+ENGINE_PALLAS_DISABLED = ("prefill_chunk", "prefill-skip", "kv_preemption", "speculative")
+
+
+def _same_streams(label, got, want, cfg, params, prompts, dev):
+    """``got`` equals ``want`` request for request, or parts from it at a
+    step whose top-two margin in the card's direct greedy loop is under
+    DENSE_TOL; returns those close calls."""
+    close = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if len(a) != len(b):
+            raise SmokeError(f"{label} request {i}: {len(a)} tokens, expected {len(b)}")
+        k = next((k for k in range(len(b)) if a[k] != b[k]), None)
+        if k is None:
+            continue
+        _, margins = _direct_greedy(cfg, params, prompts[i], k + 1, dev)
+        if margins[k] >= DENSE_TOL:
+            raise SmokeError(f"{label} request {i} parts at step {k} (margin {margins[k]:.2e} "
+                             f">= {DENSE_TOL})")
+        close.append(dict(request=i, step=k, margin=margins[k]))
+    return close
+
+
+def _sync_free_dispatches(eng):
+    """Wrap ``eng.executor.dispatch`` so that every steady-state pure decode
+    dispatch (nothing admitted, preempted or extended, an empty queue and a
+    device carry to merge) runs under ``torch.cuda.set_sync_debug_mode
+    ("error")``: a synchronising call in it raises.  Returns the list the
+    checked dispatches are counted into; ``del executor.dispatch`` undoes
+    the wrap."""
+    import torch
+
+    ex, checked = eng.executor, []
+    real = ex.dispatch
+
+    def dispatch(decision):
+        pure = (not decision.admissions and not decision.prefill_groups
+                and not decision.preempted and not decision.extend_slots
+                and not eng.scheduler.queue and ex._carry is not None)
+        if not pure:
+            return real(decision)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(decision)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        checked.append(len(out.decode_set))
+        return out
+
+    ex.dispatch = dispatch
+    return checked
+
+
+def _engine_async(base, params, prompts, dev, smi) -> tuple[dict, dict]:
+    """(a): the sync and the async loop per layout, then the async loop
+    traced (overlap mode) with its pure decode dispatches checked for
+    synchronising calls, and one async decode step profiled.  Returns (the
+    records, the sync dense streams)."""
+    import torch
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serve.api import Engine
+
+    with warnings.catch_warnings():  # the first engine on the card pays its warm-up here
+        warnings.simplefilter("ignore", RuntimeWarning)
+        _run_engine(Engine(base, params, ServeConfig(**SERVE_SC), device=dev), prompts[:8], 4)
+    out, ref = {}, None
+    for layout in ENGINE_LAYOUTS:
+        label = "dense" if not layout else "paged + prefix cache"
+        rec = {}
+        for loop in ("sync", "async"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)  # prefill-skip needs extend
+                eng = Engine(base, params, ServeConfig(**SERVE_SC, **layout,
+                                                       async_loop=loop == "async"), device=dev)
+            streams, metrics, decodes, grew, _ = _checked_engine_run(
+                eng, prompts, SERVE_NEW, f"[engine] (a) {label} {loop}")
+            rec[loop] = dict(metrics, decode_dispatches=decodes, launches=grew)
+            rec[f"{loop}_streams"] = streams
+            del eng
+        ref = ref or rec["sync_streams"]
+        rec["close_calls"] = _same_streams(f"[engine] (a) {label} async vs sync",
+                                           rec["async_streams"], rec["sync_streams"], base,
+                                           params, prompts, dev)
+        rec["close_calls"] += _same_streams(f"[engine] (a) {label} vs dense", rec["sync_streams"],
+                                            ref, base, params, prompts, dev)
+        sc = ServeConfig(**SERVE_SC, **layout, async_loop=True, trace_phases=True,
+                         phase_mode="overlap")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            eng = Engine(base, params, sc, device=dev)
+        checked = _sync_free_dispatches(eng)
+        streams, traced = _run_engine(eng, prompts, SERVE_NEW)
+        del eng.executor.dispatch
+        if eng._tracer.fences:
+            raise SmokeError(f"[engine] (a) {label}: the overlap tracer fenced "
+                             f"{eng._tracer.fences} times")
+        if not checked:
+            raise SmokeError(f"[engine] (a) {label}: no steady-state pure decode dispatch ran")
+        rec["close_calls"] += _same_streams(f"[engine] (a) {label} traced async", streams,
+                                            rec["sync_streams"], base, params, prompts, dev)
+        ph = eng.telemetry["phases"]
+        rec.update(traced_async=traced, sync_free_dispatches=len(checked),
+                   overlap_efficiency=ph["overlap_efficiency"],
+                   device_overlap_s=ph["device_overlap_s"], host_bubble_s=ph["host_bubble_s"],
+                   fences=eng._tracer.fences)
+        del eng
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            eng = Engine(base, params, ServeConfig(**SERVE_SC, **layout, async_loop=True),
+                         device=dev)
+        rec["async_profile"] = _decode_profile(eng, prompts)
+        del eng
+        torch.cuda.empty_cache()
+        s, a, p = rec["sync"], rec["async"], rec["async_profile"]
+        busy = "not measured" if p["busy_share"] is None else f"{p['busy_share']:.1%}"
+        log(f"[engine] (a) {label}: sync {s['tokens_per_s']:.1f} / async "
+            f"{a['tokens_per_s']:.1f} output tokens/s ({a['tokens_per_s'] / s['tokens_per_s']:.3f}"
+            f"x), TTFT p50 {s['ttft_ms_p50']:.1f} / {a['ttft_ms_p50']:.1f} ms, p95 "
+            f"{s['ttft_ms_p95']:.1f} / {a['ttft_ms_p95']:.1f} ms, ITL p50 {s['itl_ms_p50']:.2f} / "
+            f"{a['itl_ms_p50']:.2f} ms; traced async: overlap_efficiency "
+            f"{rec['overlap_efficiency']:.3f}, host_bubble_s {rec['host_bubble_s']:.3f}, "
+            f"device_overlap_s {rec['device_overlap_s']:.3f}, 0 fences; {len(checked)} "
+            f"steady-state decode dispatches under sync debug mode 'error', none synchronised; "
+            f"one async decode step busy {busy}; streams identical (close calls "
+            f"{rec['close_calls'] or 'none'})  [{smi}]")
+        out[label] = {k: v for k, v in rec.items() if not k.endswith("_streams")}
+    return out, ref
+
+
+def _engine_nbest(base, params, prompts, ref, dev) -> dict:
+    """(b): n-best on the card, where the scheduler cannot fork (the kernel
+    prefill is not replayable): every sibling prefills on its own."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serve import SamplingParams
+    from repro_torch.serve.api import Engine
+
+    sc = ServeConfig(**SERVE_SC, **ENGINE_LAYOUTS[1])
+    picks = prompts[:2]
+
+    def run(sp):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            eng = Engine(base, params, sc, device=dev)
+        groups = [eng.submit(p, sp, n=ENGINE_NBEST) for p in picks]
+        fin = eng.generate()
+        return [[fin[h.uid].generated for h in g] for g in groups], eng
+
+    greedy, eng = run(SamplingParams(max_new_tokens=SERVE_NEW))
+    tel = eng.telemetry
+    if eng.scheduler.fork_enabled or tel["forks"]:
+        raise SmokeError(f"[engine] (b) forks on the card: {tel['forks']}")
+    if tel["prompts_admitted"] != ENGINE_NBEST * len(picks):
+        raise SmokeError(f"[engine] (b) {tel['prompts_admitted']} prefills, expected "
+                         f"{ENGINE_NBEST * len(picks)}")
+    close = []
+    for i, g in enumerate(greedy):
+        close += _same_streams(f"[engine] (b) greedy siblings of request {i}", g,
+                               [ref[i]] * ENGINE_NBEST, base, params, [picks[i]] * ENGINE_NBEST,
+                               dev)
+    del eng
+    seeded = SamplingParams(max_new_tokens=SERVE_NEW, temperature=0.8, seed=11)
+    first, eng = run(seeded)
+    second, eng = run(seeded)
+    if first != second:
+        raise SmokeError("[engine] (b) two runs of the seeded n-best group differ")
+    if any(len({tuple(s) for s in g}) < 2 for g in first):
+        raise SmokeError("[engine] (b) seeded siblings did not diverge")
+    log(f"[engine] (b) n-best: {len(picks)} prompts x n={ENGINE_NBEST}: forks 0 (fork_enabled "
+        f"False on the card), {tel['prompts_admitted']} prefills; greedy siblings equal the n=1 "
+        f"stream (close calls {close or 'none'}); seeded siblings diverge and two runs are "
+        f"identical")
+    return dict(forks=tel["forks"], prefills=tel["prompts_admitted"], close_calls=close)
+
+
+def _engine_tier(base, params, prompts, dev, smi) -> dict:
+    """(c): the victim tier.  A pool smaller than the run's registered pages
+    evicts the shared prefix's chain; a second wave of the shared-prefix
+    prompts swaps it back.  Each flush is timed (synchronised) and checked:
+    the rows a page spilled are the rows its swap-in writes back."""
+    import torch
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serve.api import Engine
+
+    waves = [prompts, prompts[:SERVE_SHARED_REQUESTS]]
+    runs = {}
+    for host_pages in (ENGINE_HOST_PAGES, 0):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            eng = Engine(base, params, ServeConfig(**SERVE_SC, **ENGINE_TIER,
+                                                   kv_host_pages=host_pages), device=dev)
+        mgr = eng.executor.cache_mgr
+        real, spilled = mgr.flush_swaps, {}
+        moved = dict(pages=0, seconds=0.0, checked=0, flushes=0)
+
+        def flush(caches, mgr=mgr, real=real, spilled=spilled, moved=moved):
+            for page, host in mgr._pending_spills:
+                spilled[host] = {n: caches["layers"][n][:, page].clone() for n in mgr._host_pool}
+            swaps = list(mgr._pending_swap_ins)
+            n = len(mgr._pending_spills) + len(swaps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            caches = real(caches)
+            torch.cuda.synchronize()
+            moved["seconds"] += time.perf_counter() - t0
+            moved["pages"] += n
+            moved["flushes"] += bool(n)
+            for host, page in swaps:
+                for name, rows in spilled[host].items():
+                    if not torch.equal(caches["layers"][name][:, page], rows):
+                        raise SmokeError(f"[engine] (c) swapped-in {name} rows of page {page} "
+                                         f"differ from the rows spilled to ring slot {host}")
+                moved["checked"] += 1
+            return caches
+
+        mgr.flush_swaps = flush
+        streams = [_run_engine(eng, w, SERVE_NEW)[0] for w in waves]
+        del mgr.flush_swaps
+        mgr.check_invariants()
+        tel = eng.telemetry
+        page_bytes = sum(r[:, 0].numel() * r.element_size() for r in mgr._host_pool.values())
+        runs[host_pages] = dict(streams=streams, swap_outs=tel["swap_outs"],
+                                swap_ins=tel["swap_ins"], host_evictions=tel["host_evictions"],
+                                page_evictions=tel["page_evictions"],
+                                prefix_hits=tel["prefix_hits"], checked=moved["checked"],
+                                bytes=moved["pages"] * page_bytes, flush_s=moved["seconds"],
+                                flushes=moved["flushes"])
+        del eng, mgr
+        torch.cuda.empty_cache()
+    on, off = runs[ENGINE_HOST_PAGES], runs[0]
+    if not (on["swap_outs"] > 0 and on["swap_ins"] > 0 and on["checked"] == on["swap_ins"]):
+        raise SmokeError(f"[engine] (c) spills {on['swap_outs']}, swap-ins {on['swap_ins']}, "
+                         f"rows checked {on['checked']}")
+    close = []
+    for w, prompts_w in enumerate(waves):
+        close += _same_streams(f"[engine] (c) wave {w} with the tier vs without",
+                               on["streams"][w], off["streams"][w], base, params, prompts_w, dev)
+    rate = on["bytes"] / on["flush_s"] / 1e9 if on["flush_s"] else float("nan")
+    log(f"[engine] (c) victim tier ({ENGINE_TIER['kv_pages'] - 1} device pages, "
+        f"{ENGINE_HOST_PAGES} host pages): {on['swap_outs']} spills, {on['swap_ins']} swap-ins "
+        f"(rows bitwise the spilled rows), {on['host_evictions']} ring evictions, "
+        f"{on['page_evictions']} device evictions; {on['bytes'] / 1e6:.1f} MB moved in "
+        f"{on['flushes']} flushes, {on['flush_s'] * 1e3:.2f} ms of flush_swaps = {rate:.2f} "
+        f"GB/s; streams equal the run "
+        f"without the tier ({off['page_evictions']} evictions; close calls {close or 'none'})"
+        f"  [{smi}]")
+    return {"with_tier": {k: v for k, v in on.items() if k != "streams"},
+            "without": {k: v for k, v in off.items() if k != "streams"},
+            "gb_per_s": rate, "close_calls": close}
+
+
+def _engine_router(base, params, prompts, ref, dev) -> dict:
+    """(d): two replicas on the one card behind the router: one engine's
+    streams, 8 requests admitted on each, and the router's allocation the
+    two KV pools (the weights are shared by reference)."""
+    import torch
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.serve.router import ReplicaRouter
+
+    weights = _nbytes(params)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    router = ReplicaRouter(base, params, ServeConfig(**SERVE_SC, replicas=2), device=dev)
+    grew = torch.cuda.memory_allocated() - before
+    kv = sum(e.executor.cache_mgr.kv_bytes for e in router.engines)
+    if not kv <= grew < kv + 0.01 * weights:
+        raise SmokeError(f"[engine] (d) the router allocated {grew / 1e9:.3f} GB: two KV pools "
+                         f"are {kv / 1e9:.3f} GB, the weights {weights / 1e9:.3f} GB")
+    per = _launches_per_call(base)
+    launched = dict(LAUNCHES)
+    scans = [e.executor._decode_scan for e in router.engines]
+    calls = [0, 0]
+    for i, e in enumerate(router.engines):
+        def counted(*a, i=i, **k):
+            calls[i] += 1
+            return scans[i](*a, **k)
+        e.executor._decode_scan = counted
+    handles = [router.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    fin = router.generate()
+    for e in router.engines:
+        del e.executor._decode_scan
+    streams = [fin[h.uid].generated for h in handles]
+    tel = router.telemetry
+    admitted = [t["prompts_admitted"] for t in tel["replica_telemetry"]]
+    if admitted != [len(prompts) // 2] * 2:
+        raise SmokeError(f"[engine] (d) admitted per replica {admitted}")
+    steps = sum(calls) * SERVE_SC["decode_steps"]
+    want = {k: per["prefill"][k] * tel["prefill_dispatches"] + per["decode"][k] * steps
+            for k in per["prefill"]}
+    got = {k: LAUNCHES.get(k, 0) - launched.get(k, 0) for k in per["prefill"]}
+    if got != want:
+        raise SmokeError(f"[engine] (d) launches {got}, expected {want}")
+    close = _same_streams("[engine] (d) router vs one engine", streams, ref, base, params,
+                          prompts, dev)
+    del router
+    torch.cuda.empty_cache()
+    log(f"[engine] (d) router, 2 replicas on one card: admitted {admitted}, streams equal one "
+        f"engine's (close calls {close or 'none'}); allocation grew {grew / 1e9:.3f} GB = the "
+        f"two KV pools ({kv / 1e9:.3f} GB), not a second copy of the {weights / 1e9:.3f} GB of "
+        f"weights; launches {got}")
+    return dict(admitted=admitted, alloc_gb=grew / 1e9, kv_gb=kv / 1e9,
+                weights_gb=weights / 1e9, launches=got, close_calls=close)
+
+
+def _engine_shard(base, params, prompts, ref, dev) -> dict:
+    """(e): ``shard_decode`` in a one-card NCCL process group: params and
+    pools DTensors, the engine on their local tensors, one engine's
+    streams, one decode shape."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serve.api import Engine
+
+    work = Path(tempfile.mkdtemp(prefix="shard_", dir=ROOT / "build"))
+    dist.init_process_group("nccl", init_method=f"file://{work / 'pg'}", rank=0, world_size=1)
+    try:
+        eng = Engine(base, params, ServeConfig(**SERVE_SC, shard_decode=True), device=dev)
+        ex = eng.executor
+        leaves = [t for _, t in _leaves(ex.placed["params"])] + [
+            t for g in ex.placed["caches"].values() for t in g.values()]
+        if not all(isinstance(t, DTensor) for t in leaves):
+            raise SmokeError("[engine] (e) a parameter or cache pool is not a DTensor")
+        streams, metrics, decodes, grew, _ = _checked_engine_run(
+            eng, prompts, SERVE_NEW, "[engine] (e) shard_decode")
+        tel = eng.telemetry
+        if tel["decode_compiles"] != 1:
+            raise SmokeError(f"[engine] (e) {tel['decode_compiles']} decode shapes")
+        close = _same_streams("[engine] (e) shard_decode vs unsharded", streams, ref, base,
+                              params, prompts, dev)
+        log(f"[engine] (e) shard_decode on a one-card mesh (NCCL, world 1): {len(leaves)} "
+            f"DTensors (params and pools), streams equal the unsharded engine's (close calls "
+            f"{close or 'none'}), 1 decode shape, {metrics['tokens_per_s']:.1f} output tokens/s")
+        del eng, ex, leaves
+        torch.cuda.empty_cache()
+        return dict(metrics, dtensors=True, decode_compiles=1, launches=grew, close_calls=close)
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _engine_pallas_row(base, params, dev) -> dict:
+    """(f): chunking, prefix-skip, preemption resume and speculative decoding
+    asked for on the card: the prefill attends through the kernel, so
+    ``cache_extend`` is False and each is disabled with the reference's
+    RuntimeWarning, and the engine still serves; the same ServeConfig
+    (int8_serve, whose decode is not bitwise its prefill, so chunk tails
+    take the extend program) on the port's CPU engine, over reduced
+    granite-8b, honors every one."""
+    import torch
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.api import Engine
+
+    sc = ServeConfig(**ENGINE_PALLAS_SC)
+    out = {}
+    cpu_cfg = get_config("granite-8b", reduced=True)
+    for where, cfg, p, d in (("card", base, params, dev),
+                             ("cpu", cpu_cfg, None, torch.device("cpu"))):
+        if p is None:
+            p = lm.init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = Engine(cfg, p, sc, device=d)
+        warned = [str(w.message) for w in caught if w.category is RuntimeWarning]
+        prompts = _serve_prompts(3, SERVE_CHECK[0][2], 32, 3, cfg.vocab_size)
+        streams, _ = _run_engine(eng, prompts, SERVE_CHECK_NEW)
+        tel = eng.telemetry
+        out[where] = dict(cache_extend=eng.executor.cache_extend,
+                          disabled=tel["disabled_features"], warnings=warned,
+                          extend_dispatches=tel["extend_dispatches"],
+                          draft_tokens_proposed=tel["draft_tokens_proposed"],
+                          tokens=sum(len(s) for s in streams))
+        del eng
+    card, cpu = out["card"], out["cpu"]
+    joined = " ".join(card["disabled"])
+    missing = [f for f in ENGINE_PALLAS_DISABLED if f not in joined]
+    if card["cache_extend"] or missing or not card["warnings"] or not card["tokens"]:
+        raise SmokeError(f"[engine] (f) on the card: cache_extend {card['cache_extend']}, "
+                         f"not named disabled {missing}, warnings {len(card['warnings'])}")
+    if cpu["disabled"] or cpu["extend_dispatches"] <= 0 or cpu["draft_tokens_proposed"] <= 0:
+        raise SmokeError(f"[engine] (f) on the CPU: {cpu}")
+    log(f"[engine] (f) the reference's Pallas row: on the card cache_extend False, disabled "
+        f"{[d.split(':')[0] for d in card['disabled']]}, {len(card['warnings'])} RuntimeWarnings, "
+        f"{card['tokens']} tokens served; the same ServeConfig on the CPU engine: nothing "
+        f"disabled, {cpu['extend_dispatches']} extend dispatches, "
+        f"{cpu['draft_tokens_proposed']} draft tokens proposed")
+    return out
+
+
+def phase_engine(dev):
+    """Phase 13: the rest of the serving engine on the card (module
+    docstring, 13).  Returns (results, launch counts of the window)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    LAUNCHES.clear()  # the engine path's window starts here
+    torch.cuda.empty_cache()
+    base = dataclasses.replace(get_config("granite-8b"), n_layers=GRANITE_SERVE_LAYERS)
+    params = lm.init_params(base, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    prompts = _serve_traffic(base)
+    t0 = time.perf_counter()
+    res = {}
+    res["async"], ref = _engine_async(base, params, prompts, dev, smi)
+    secs = {"async": time.perf_counter() - t0}
+    log(f"[engine] (async: {secs['async']:.1f} s)")
+    for key, fn, args in (("nbest", _engine_nbest, (base, params, prompts, ref, dev)),
+                          ("tier", _engine_tier, (base, params, prompts, dev, smi)),
+                          ("router", _engine_router, (base, params, prompts, ref, dev)),
+                          ("shard", _engine_shard, (base, params, prompts, ref, dev)),
+                          ("pallas_row", _engine_pallas_row, (base, params, dev))):
+        t1 = time.perf_counter()
+        res[key] = fn(*args)
+        secs[key] = time.perf_counter() - t1
+        log(f"[engine] ({key}: {secs[key]:.1f} s)")
+    del params
+    torch.cuda.empty_cache()
+    counts = dict(LAUNCHES)  # the engine path's window ends here
+    for kname in ("flash_attention", "layernorm"):
+        if counts.get(kname, 0) <= 0:
+            raise SmokeError(f"{kname} was never launched on the engine path")
+    log(f"[engine] engine path launches: {counts}; seconds "
+        f"{ {k: round(v, 1) for k, v in secs.items()} }")
+    return dict(res, seconds=secs, nvidia_smi=smi), counts
+
+
 # ---------------------------------------------------------------- main --
 
 def main() -> int:
@@ -4129,6 +4614,7 @@ def main() -> int:
         families, families_counts = timed("families", phase_families, dev)
         roofline, roofline_counts = timed("roofline", phase_roofline, dev, dict(
             models=models, mamba=mamba, dense=dense, int8_moe=int8, mla=mla, families=families))
+        engine, engine_counts = timed("engine", phase_engine, dev)
     except Exception:  # noqa: BLE001 - report every failed phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4136,7 +4622,8 @@ def main() -> int:
 
     # launches: each kernel's count summed over the path windows it runs in
     windows = (model_counts, mha_counts, softmax_counts, mamba_counts, dense_counts, serve_counts,
-               train_counts, int8_counts, mla_counts, families_counts, roofline_counts)
+               train_counts, int8_counts, mla_counts, families_counts, roofline_counts,
+               engine_counts)
     counts = {k: sum(w.get(k, 0) for w in windows)
               for k in ("flash_attention", "layernorm", "qmatmul", "lut_softmax", "ssd_scan")}
     main_shape = {"flash_attention": ([8192, 4, 100, 8], "safe"),
@@ -4166,7 +4653,7 @@ def main() -> int:
                                "lut_softmax_path": softmax_path, "mamba": mamba,
                                "dense": dense, "serve": serve, "train": train,
                                "int8_moe": int8, "mla": mla, "families": families,
-                               "roofline": roofline,
+                               "roofline": roofline, "engine": engine,
                                "launches": counts,
                                "launches_by_path": {"models": model_counts, "mha": mha_counts,
                                                     "lut_softmax": softmax_counts,
@@ -4177,7 +4664,8 @@ def main() -> int:
                                                     "int8_moe": int8_counts,
                                                     "mla": mla_counts,
                                                     "families": families_counts,
-                                                    "roofline": roofline_counts},
+                                                    "roofline": roofline_counts,
+                                                    "engine": engine_counts},
                                "phase_seconds": phase_s,
                                "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s; details in {OUT.relative_to(ROOT)}")

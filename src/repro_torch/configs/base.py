@@ -225,14 +225,13 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The serving engine's knobs (``serve.api.Engine``), field for field
-    the reference's.  Features that wait for a later slice raise
-    ``NotImplementedError`` in the executor when asked for: ``async_loop``
-    (ROADMAP queue 1, item 8, step 7), ``speculative`` (step 8),
-    ``kv_host_pages > 0`` (step 9) and ``shard_decode``; ``replicas > 1``
-    (``router.py``) in the CLI.  ``cache_extend`` stays True by default:
-    the port's executor has no cache-extending prefill program yet (step
-    5) and reports ``cache_extend=False``, so the scheduler's own gating
-    warns for what needs it."""
+    the reference's.  On a card the prefill attends through the
+    hand-written kernel, the reference's Pallas row: the executor reports
+    ``cache_extend=False`` there whatever this asks, and the features that
+    need the cache-extending prefill program (chunked prefill, prefix-skip,
+    preemption resume, ``speculative``) are disabled with the reference's
+    warnings.  ``shard_decode`` needs a process group of one rank;
+    ``replicas > 1`` is ``serve.router.ReplicaRouter``."""
 
     max_batch: int = 8
     max_seq_len: int = 1024
@@ -257,7 +256,7 @@ class ServeConfig:
     #: preempt the youngest resident instead of head-of-line blocking when
     #: the pool cannot cover the queue head (paged layout)
     kv_preemption: bool = False
-    # --- host-memory victim tier (ROADMAP queue 1, item 8, step 9) ---
+    # --- host-memory victim tier (paged + prefix cache) ---
     kv_host_pages: int = 0
     kv_victim_tier: bool = True
     # --- bucketed prefill + multi-step decode ---
@@ -271,9 +270,9 @@ class ServeConfig:
     #: chunked prefill: admit a longer prompt by its first chunk, then
     #: replay the tail interleaved with resident decode; None = off
     prefill_chunk: int | None = None
-    #: the cache-extending prefill program (ROADMAP queue 1, item 8, step 5)
+    #: the cache-extending prefill program (False on a card: the kernel prefill)
     cache_extend: bool = True
-    # --- speculative decoding (ROADMAP queue 1, item 8, step 8) ---
+    # --- speculative decoding (needs the cache-extending program) ---
     speculative: bool = False
     spec_tokens: int = 4
     draft_config: str | None = None
@@ -288,11 +287,11 @@ class ServeConfig:
     trace_phases: bool = False
     phase_ring: int = 512
     phase_mode: Literal["fenced", "overlap"] = "fenced"
-    # --- pipelined loop (ROADMAP queue 1, item 8, step 7) ---
+    # --- pipelined loop: dispatch N+1 before collecting N ---
     async_loop: bool = False
-    # --- mesh-sharded decode (ROADMAP queue 1, item 8) ---
+    # --- mesh-sharded decode (a process group of one rank) ---
     shard_decode: bool = False
-    # --- data-parallel replicas behind a router (ROADMAP queue 1, item 8) ---
+    # --- data-parallel replicas behind serve.router.ReplicaRouter ---
     replicas: int = 1
 
     def resolved_buckets(self) -> tuple[int, ...]:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import contextlib
 import functools
 
+import numpy as np
 import torch
 
 
@@ -57,3 +58,17 @@ def scalar(value: float, dtype: torch.dtype, device: str) -> torch.Tensor:
     the CPU, the JAX package and the CUDA kernels compute; dividing by a
     tensor on the same device divides on both devices."""
     return torch.tensor(value, dtype=dtype, device=device)
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """A fresh copy of the host array ``a`` on ``device``.
+
+    To a card the copy is staged in a pinned buffer of its own and enqueued
+    without blocking the host (a copy from pageable memory synchronises).
+    The buffer is never written again, and the caching host allocator keeps
+    it from reuse until the copy has landed, so no later host write to
+    ``a`` can reach the device through it."""
+    t = torch.from_numpy(np.array(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

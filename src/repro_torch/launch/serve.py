@@ -7,12 +7,17 @@ synthetic requests, on the card by default.
 ``--arch`` picks a ported config (reduced widths unless ``--full-config``),
 with random weights from seed 0; every engine flag comes from the shared
 serving CLI (``serve/cli.py``).  ``--stream`` consumes the requests through
-``Engine.stream`` and reports time to first token.
+``Engine.stream`` and reports time to first token.  ``--replicas N`` puts
+the ``ReplicaRouter`` in front of N engines; ``--shard-decode`` runs in a
+process group of one rank that the launcher starts (gloo on the CPU, NCCL
+on the card) and ends.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import tempfile
 import time
 
 import numpy as np
@@ -23,6 +28,22 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serve.api import Engine
 from repro_torch.serve.cli import add_serving_args, config_from_args
+from repro_torch.serve.router import ReplicaRouter
+
+
+@contextlib.contextmanager
+def one_rank_group(dev: torch.device):
+    """A ``torch.distributed`` process group of this process alone (what
+    ``shard_decode``'s host mesh spans), ended on exit."""
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/pg", rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -32,12 +53,21 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--requests", type=int, default=16)
     add_serving_args(ap, max_batch=4, max_seq=128, max_new=16, temperature=0.0)
     args = ap.parse_args(argv)
-
     dev = resolve_device(args.device)
+    with one_rank_group(dev) if args.shard_decode else contextlib.nullcontext():
+        serve(args, dev)
+
+
+def serve(args: argparse.Namespace, dev: torch.device) -> None:
+    """Serve ``args.requests`` synthetic requests and print the engine's
+    (or, with replicas, the fleet's) telemetry."""
     cfg = configs.get_config(args.arch, reduced=not args.full_config)
     serve_cfg = config_from_args(args, cfg)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    eng = Engine(cfg, params, serve_cfg, device=dev)
+    # replicas > 1: the same request-lifecycle API behind the least-loaded
+    # data-parallel router
+    eng = (ReplicaRouter(cfg, params, serve_cfg, device=dev) if serve_cfg.replicas > 1
+           else Engine(cfg, params, serve_cfg, device=dev))
     rng = np.random.default_rng(0)
     preamble = [int(t) for t in rng.integers(0, cfg.vocab_size, args.shared_prefix)]
     handles = [
@@ -65,7 +95,16 @@ def main(argv: list[str] | None = None) -> None:
         toks = sum(len(results[h.uid].generated) for h in handles)
         print(f"{len(handles)} requests, {toks} tokens in {dt:.2f}s "
               f"({toks / dt:.1f} tok/s host throughput)")
+    if isinstance(eng, ReplicaRouter):
+        fleet = eng.telemetry
+        print(f"router: {fleet['replicas']} replicas | {fleet['tokens_generated']} tokens total | "
+              f"per-replica admitted "
+              f"{[t['prompts_admitted'] for t in fleet['replica_telemetry']]}")
+        eng = eng.engines[0]  # the detailed lines: the first replica's view
     tel = eng.telemetry
+    mode = "async (pipelined)" if eng.serve_cfg.async_loop else "sync"
+    print(f"engine loop: {mode}" + (" | mesh-sharded decode" if eng.serve_cfg.shard_decode
+                                    else ""))
     queue_wait_ms = tel["queue_wait_s_total"] / max(tel["prompts_admitted"], 1) * 1e3
     print(f"engine: device={dev} | policy={eng.executor.policy.name} | "
           f"queue wait mean {queue_wait_ms:.1f} ms | "
@@ -85,6 +124,16 @@ def main(argv: list[str] | None = None) -> None:
               f"(+{tel['prefix_tokens_shared']} shared-storage) | "
               f"{tel['pages_cached']} pages retained, {tel['cow_copies']} CoW copies, "
               f"{tel['page_evictions']} evictions | {tel['preemptions']} preemptions")
+    if args.kv_host_pages:
+        print(f"victim tier: {tel['swap_outs']} spills / {tel['swap_ins']} swap-ins | "
+              f"host pages {tel['host_pages_used']}/{tel['host_pages_capacity']} "
+              f"({tel['host_evictions']} tier evictions) | "
+              f"swap time {tel['swap_latency_s'] * 1e3:.1f} ms")
+    if args.speculative:
+        print(f"speculative: draft={args.draft or 'self'} k={args.spec_tokens} | "
+              f"proposed {tel['draft_tokens_proposed']} / accepted "
+              f"{tel['draft_tokens_accepted']} | {tel['spec_dispatches']} verify dispatches, "
+              f"{tel['extend_dispatches']} extend dispatches")
     if args.scheduler == "edf" or args.deadline_ms is not None:
         print(f"slo: scheduler={args.scheduler} | {tel['deadline_requests']} deadlined "
               f"requests, {tel['deadline_missed']} missed ({tel['deadline_dropped']} dropped)")
@@ -93,6 +142,11 @@ def main(argv: list[str] | None = None) -> None:
             f"{name} p50 {s['p50_ms']:.2f} / p95 {s['p95_ms']:.2f}"
             for name, s in tel["phases"].items() if isinstance(s, dict)
         ))
+        if "overlap_efficiency" in tel["phases"]:
+            ph = tel["phases"]
+            print(f"overlap: device hidden {ph['device_overlap_s']:.3f}s | "
+                  f"host bubble {ph['host_bubble_s']:.3f}s | "
+                  f"efficiency {ph['overlap_efficiency']:.3f}")
 
 
 if __name__ == "__main__":

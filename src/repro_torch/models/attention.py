@@ -2,12 +2,19 @@
 (multi-head latent attention, minicpm3-4b); ``train`` over a whole
 sequence, ``prefill`` over a dense KV cache (or, GQA, a rolling
 sliding-window buffer), ``decode`` over those or a paged cache
-(``serve.kv_cache``).
+(``serve.kv_cache``), and ``extend`` (the cache-extending prefill): a
+window of W tokens per row written at per-row positions (B, W) into a dense
+or paged position-addressed cache, then attended against the whole logical
+view (history + window) under the explicit mask ``kv_pos <= position``.
 
 Train and prefill attend through the fused attention kernel (``mha``); the
-decode attend is plain torch ops, as the reference's is plain jnp.  A paged
-decode writes its token through ``kv_cache.paged_decode_write`` and attends
-the dense view ``kv_cache.paged_decode_view`` gathers.
+decode and extend attends are plain torch ops, as the reference's are plain
+jnp.  ``_window_attend`` (extend) is the plain version's arithmetic
+(``kernels/flash_attention/ref.py``) over an explicit mask, so on the CPU a
+window row gives what the prefill gave at that position.  A paged decode or
+extend writes through ``kv_cache.paged_decode_write`` /
+``paged_window_write`` and attends the dense view
+``kv_cache.paged_decode_view`` gathers.
 
 A cache that carries ``k_scale`` / ``v_scale`` is the int8 KV cache
 (``int8_serve``): k/v are stored as per-(token, head) symmetric int8 codes
@@ -23,8 +30,9 @@ materialize per-head K and V from it and attend through ``mha`` at a q/k
 head_dim of nope + rope, V zero-padded to it; decode materializes K and V
 from the float32 latent view (the paper-faithful default) or, with
 ``kernel["mla_absorb"]``, folds ``wk_b`` / ``wv_b`` into the query and the
-output and attends the latent itself.  Not ported yet: ``mode="extend"``
-(ROADMAP queue 1, item 8, step 5), for GQA and MLA alike.
+output and attends the latent itself.  Extend writes the window's latent
+rows and materializes per-head K and V from the whole latent view, as the
+prefill does, whatever ``mla_absorb``.
 """
 
 from __future__ import annotations
@@ -32,8 +40,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import lut
 from repro_torch.device import scalar
 from repro_torch.kernels.flash_attention import mha
+from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models import layers
 from repro_torch.roofline.op_counter import attnvol
 from repro_torch.serve import kv_cache as kv_cache_lib
@@ -85,19 +95,50 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _check_mode(mode: str, cache, fn: str) -> None:
+def _check_mode(mode: str, cache) -> None:
     if mode not in MODES:
         raise ValueError(f"unknown attention mode {mode!r}; use one of {MODES}")
-    if mode == "extend":
-        raise NotImplementedError(
-            f"{fn} mode='extend' (the cache-extending prefill) is not ported yet "
-            "(ROADMAP queue 1, item 8, step 5)"
-        )
-    if kv_cache_lib.is_paged(cache) and mode != "decode":
+    if kv_cache_lib.is_paged(cache) and mode in ("train", "prefill"):
         raise ValueError(
-            "a paged cache takes decode writes only: prefill fills a dense scratch "
-            "cache, which CacheManager.insert_prefill scatters into the pages"
+            "a paged cache takes decode and extend writes only: prefill fills a dense "
+            "scratch cache, which CacheManager.insert_prefill scatters into the pages"
         )
+    if mode == "extend" and cache is not None and "slot_pos" in cache:
+        raise ValueError(
+            "cache-extend requires a position-addressed cache; "
+            "rolling sliding-window buffers prefill exact-length"
+        )
+
+
+def _rope_positions(positions: torch.Tensor, mode: str) -> torch.Tensor:
+    """The positions RoPE broadcasts against (..., seq, head_dim): (S,) in
+    train and prefill, (B,) -> (B, 1, 1) in decode, (B, W) -> (B, 1, W) in
+    extend."""
+    if mode == "decode":
+        return positions[:, None, None]
+    if mode == "extend":
+        return positions[:, None, :]
+    return positions
+
+
+def _window_write(cache, rows: dict[str, torch.Tensor], positions: torch.Tensor) -> dict:
+    """Write a window's rows at (B, W) ``positions`` into ``cache`` in place
+    and return the dense logical view to attend (the cache itself, or the
+    paged cache's gathered pages)."""
+    if kv_cache_lib.is_paged(cache):
+        kv_cache_lib.paged_window_write(cache, rows, positions)
+        return kv_cache_lib.paged_decode_view(cache)
+    return kv_cache_lib.dense_window_write(cache, rows, positions)
+
+
+def _window_mask(positions: torch.Tensor, length: int, window: int | None = None):
+    """(B, W, L): window row i attends the kv positions <= its own (and,
+    with a sliding window, within it)."""
+    kv_pos = torch.arange(length, device=positions.device)
+    mask = kv_pos[None, None, :] <= positions[:, :, None]
+    if window is not None:
+        mask = mask & (positions[:, :, None] - kv_pos[None, None, :] < window)
+    return mask
 
 
 def _kv_quantize(x: torch.Tensor):
@@ -164,6 +205,40 @@ def _decode_write(cache, rows: dict[str, torch.Tensor], pos: torch.Tensor,
     return kv_pos[None, :] <= pos[:, None]
 
 
+def _window_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, *,
+                   softmax_mode: str = "safe", k_scale: torch.Tensor | None = None,
+                   v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """W query rows (B, Hq, W, Dq) against the whole cache view (B, Hkv, L,
+    Dk), float or int8 codes with their (B, Hkv, L) scales, under ``mask``
+    (B, W, L), with the prefill path's arithmetic: KV heads repeated across
+    query groups, one scaled product in float32, masked scores at NEG_INF
+    (``safe``) or zero weight (``lut``: ``lut_exp``, then ``lut_inv`` of the
+    sum), as the plain version of the attention kernel.  Masked columns are
+    a suffix of each row's reduction and add exactly zero.  The scale
+    1/sqrt(Dq) multiplies as the reference's, through a device scalar.
+    Returns (B, Hq, W, Dv) in q's dtype."""
+    d = q.shape[-1]
+    group = q.shape[1] // k.shape[1]
+    kf = k.float() if k_scale is None else _dequantize(k, k_scale)
+    vf = v.float() if v_scale is None else _dequantize(v, v_scale)
+    if group > 1:
+        kf = torch.repeat_interleave(kf, group, dim=1)
+        vf = torch.repeat_interleave(vf, group, dim=1)
+    m = mask[:, None]  # (B, 1, W, L): over every head
+    with attnvol:  # the attention volume, for a roofline count
+        s = torch.matmul(q.float(), kf.transpose(-1, -2))
+        s = s * scalar(1.0 / d ** 0.5, torch.float32, str(q.device))
+        if softmax_mode == "safe":
+            p = torch.softmax(torch.where(m, s, NEG_INF), dim=-1)
+        elif softmax_mode == "lut":
+            e = torch.where(m, lut.lut_exp(s), 0.0)
+            p = e * lut.lut_inv(torch.sum(e, dim=-1, keepdim=True))
+        else:
+            raise ValueError(f"unknown softmax mode {softmax_mode!r}")
+        out = torch.matmul(p, vf)
+    return out.to(q.dtype)
+
+
 def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    valid: torch.Tensor, k_scale: torch.Tensor | None = None,
                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
@@ -189,19 +264,19 @@ def gqa_apply(
     params,
     cfg: ModelConfig,
     x: torch.Tensor,  # (B, S, D)
-    positions: torch.Tensor | None = None,  # (S,) train/prefill, (B,) decode
+    positions: torch.Tensor | None = None,  # (S,) train/prefill, (B,) decode, (B, W) extend
     *,
     mode: str = "train",
     cache=None,
     kernel: dict | None = None,
     quant=None,  # per-layer runtime hook from the precision plan
 ):
-    """Returns (out, cache) like the reference.  With a cache, prefill and
-    decode write the new k/v rows into ``cache``'s tensors in place and
-    return it (``models.lm`` hands each layer its slice of one copy of the
-    caller's caches); without one, every mode attends causally over ``x``
-    alone, as the reference's."""
-    _check_mode(mode, cache, "gqa_apply")
+    """Returns (out, cache) like the reference.  With a cache, prefill,
+    decode and extend write the new k/v rows into ``cache``'s tensors in
+    place and return it (``models.lm`` hands each layer its slice of one
+    copy of the caller's caches); without one, every mode attends causally
+    over ``x`` alone, as the reference's."""
+    _check_mode(mode, cache)
     kernel = kernel or {}
     qc = cfg.quant if quant is None else quant
     hd = cfg.resolved_head_dim
@@ -209,11 +284,11 @@ def gqa_apply(
     k = _split_heads(layers.dense(params["wk"], x, qc), cfg.n_kv_heads, hd)
     v = _split_heads(layers.dense(params["wv"], x, qc), cfg.n_kv_heads, hd)
     if positions is None:
-        if mode == "decode":
-            raise ValueError("decode requires explicit per-sequence positions")
+        if mode in ("decode", "extend"):
+            raise ValueError(f"{mode} requires explicit per-sequence positions")
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     if cfg.use_rope:  # q, k stay fresh contiguous tensors, as the kernel needs
-        rope_pos = positions[:, None, None] if mode == "decode" else positions
+        rope_pos = _rope_positions(positions, mode)
         cos, sin = layers.rope_cos_sin(rope_pos, hd, cfg.rope_theta)  # once for q and k
         q, k = layers.rotate(q, cos, sin), layers.rotate(k, cos, sin)
     window = cfg.sliding_window
@@ -238,6 +313,12 @@ def gqa_apply(
                       mode=softmax_mode).to(q.dtype)
         else:
             out = mha(q, k, v, causal=True, window=window, mode=softmax_mode)
+    elif mode == "extend":  # the window at its (B, W) positions, attended over the whole view
+        view = _window_write(cache, rows, positions)
+        out = _window_attend(q, view["k"], view["v"],
+                             _window_mask(positions, view["k"].shape[2], window),
+                             softmax_mode=softmax_mode, k_scale=view.get("k_scale"),
+                             v_scale=view.get("v_scale"))
     elif kv_cache_lib.is_paged(cache):  # decode into its page, attend the gathered view
         kv_cache_lib.paged_decode_write(cache, {n: t[:, :, 0] for n, t in rows.items()},
                                         positions)
@@ -299,11 +380,35 @@ def _mla_decode_attend(params, cfg: ModelConfig, q_nope, q_rope, view, pos, quan
         return _einsum("bhsL,bLhv->bhsv", probs, vv)
 
 
+def _mla_extend(params, cfg: ModelConfig, q_nope, q_rope, view, positions, quant,
+                softmax_mode: str) -> torch.Tensor:
+    """The window rows (q_nope (b, h, W, nope), q_rope (b, h, W, rope))
+    against the whole latent view (b, L, width), float or int8 codes with
+    their scales, with the prefill's math: per-head K and V materialized
+    from the float32 latent through ``wk_b`` / ``wv_b`` and attended by
+    ``_window_attend``; returns the block's output (b, W, d)."""
+    m, h = cfg.mla, cfg.n_heads
+    r, nope, vd = m.kv_lora_rank, m.qk_nope_head_dim, m.v_head_dim
+    lat = view["latent"].float()
+    if "latent_scale" in view:
+        lat = lat * view["latent_scale"][..., None]
+    b, length, _ = lat.shape
+    ckv_all, krope_all = lat[..., :r], lat[..., r:]
+    k_nope = layers.dense(params["wk_b"], ckv_all, quant).reshape(b, length, h, nope)
+    vv = layers.dense(params["wv_b"], ckv_all, quant).reshape(b, length, h, vd)
+    k_full = torch.cat([k_nope.transpose(1, 2),
+                        krope_all[:, None].expand(b, h, length, krope_all.shape[-1])], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    out = _window_attend(q_full, k_full, vv.transpose(1, 2), _window_mask(positions, length),
+                         softmax_mode=softmax_mode)
+    return layers.dense(params["wo"], _merge_heads(out), quant)
+
+
 def mla_apply(
     params,
     cfg: ModelConfig,
     x: torch.Tensor,  # (B, S, D)
-    positions: torch.Tensor | None = None,  # (S,) train/prefill, (B,) decode
+    positions: torch.Tensor | None = None,  # (S,) train/prefill, (B,) decode, (B, W) extend
     *,
     mode: str = "train",
     cache=None,
@@ -311,11 +416,11 @@ def mla_apply(
     quant=None,  # per-layer runtime hook from the precision plan
 ):
     """Multi-head latent attention (DeepSeek-V2 / MiniCPM3); returns (out,
-    cache) like the reference.  With a cache, prefill and decode write the
-    new latent rows (int8 codes and their per-token scales under an int8
-    cache) into ``cache``'s tensors in place and return it.
+    cache) like the reference.  With a cache, prefill, decode and extend
+    write the new latent rows (int8 codes and their per-token scales under
+    an int8 cache) into ``cache``'s tensors in place and return it.
     ``kernel["mla_absorb"]`` picks the absorbed decode."""
-    _check_mode(mode, cache, "mla_apply")
+    _check_mode(mode, cache)
     kernel = kernel or {}
     absorb = kernel.get("mla_absorb", False)
     m = cfg.mla
@@ -325,10 +430,10 @@ def mla_apply(
     nope, vd = m.qk_nope_head_dim, m.v_head_dim
     qk = nope + m.qk_rope_head_dim
     if positions is None:
-        if mode == "decode":
-            raise ValueError("decode requires explicit per-sequence positions")
+        if mode in ("decode", "extend"):
+            raise ValueError(f"{mode} requires explicit per-sequence positions")
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    rope_pos = positions[:, None, None] if mode == "decode" else positions
+    rope_pos = _rope_positions(positions, mode)
 
     # query path: wq_a -> q_norm -> wq_b, RoPE on the last qk_rope dims
     cq = layers.norm(params["q_norm"], layers.dense(params["wq_a"], x, qc), "rmsnorm",
@@ -352,6 +457,10 @@ def mla_apply(
         if mode == "prefill":
             for name, t in rows.items():
                 cache[name][:, :s] = t
+        elif mode == "extend":
+            view = _window_write(cache, rows, positions)
+            return _mla_extend(params, cfg, q_nope, q_rope, view, positions, qc,
+                               kernel.get("softmax_mode", "safe")), cache
         elif kv_cache_lib.is_paged(cache):  # decode into its page, attend the gathered view
             kv_cache_lib.paged_decode_write(cache, {n: t[:, 0] for n, t in rows.items()},
                                             positions)

@@ -2,14 +2,13 @@
 specs, the paged layout and ``CacheManager`` (``kv_cache``), per-slot
 sampling (``sampling``), the scheduling policies (``scheduler``, ``slo``,
 ``workloads``), the phase tracer (``phases``), the device executor
-(``executor``) and the client API (``api.Engine``), with the deprecated
-``ServingEngine`` shim and the CLI (``cli``).
+(``executor``, with the speculative ``DraftWorker``), the client API
+(``api.Engine``), the data-parallel front door (``router.ReplicaRouter``),
+the deprecated ``ServingEngine`` shim and the CLI (``cli``).
 
-The names below are the reference package's exports that are ported,
-resolved on first use: ``models.attention`` imports ``serve.kv_cache``,
-and the executor imports ``models.lm``, so loading them all here would
-make an import cycle.  ``ReplicaRouter`` and ``DraftWorker`` wait for
-ROADMAP queue 1, item 8.
+The names below are the reference package's exports, resolved on first
+use: ``models.attention`` imports ``serve.kv_cache``, and the executor
+imports ``models.lm``, so loading them all here would make an import cycle.
 """
 
 import importlib
@@ -27,10 +26,12 @@ _EXPORTS = {
     "Scheduler": ("scheduler", "Scheduler"),
     "Slot": ("scheduler", "Slot"),
     "DeadlineScheduler": ("slo", "DeadlineScheduler"),
+    "DraftWorker": ("executor", "DraftWorker"),
     "InflightStep": ("executor", "InflightStep"),
     "ModelExecutor": ("executor", "ModelExecutor"),
     "StepOutput": ("executor", "StepOutput"),
     "Engine": ("api", "Engine"),
+    "ReplicaRouter": ("router", "ReplicaRouter"),
     "RequestHandle": ("api", "RequestHandle"),
     "TokenEvent": ("api", "TokenEvent"),
     "ServingEngine": ("engine", "ServingEngine"),

@@ -19,30 +19,33 @@ not express:
   everything, run to completion, return finished requests) that
   ``ServingEngine.run()`` callers migrate to.
 
-The engine loop is synchronous and single-threaded: each
-:meth:`Engine.step` asks the scheduler for an explicit
+The engine loop is single-threaded: each :meth:`Engine.step` asks the
+scheduler for an explicit
 :class:`~repro_torch.serve.scheduler.ScheduleDecision` and has the
-executor apply it.  The pipelined loop (``ServeConfig.async_loop``) waits
-for ROADMAP queue 1, item 8, step 7, and ``submit(..., n>1)`` (n-best) for
-step 8.  All telemetry is merged from the two layers plus the cache
-manager under :attr:`Engine.telemetry` (the reference's key set).  The
-engine runs on the card unless it is given ``device="cpu"``.
+executor apply it, synchronously, or under ``ServeConfig.async_loop``
+pipelined: the step dispatches its decision and collects the previous
+step's (:meth:`Engine._step_async`).  ``submit(..., n=k)`` fans a prompt
+into k candidates (n-best), which fork off the first one's pages where the
+datapath can replay.  All telemetry is merged from the two layers plus the
+cache manager under :attr:`Engine.telemetry` (the reference's key set).
+The engine runs on the card unless it is given ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import inspect
 import time
+import warnings
 from collections.abc import Iterator
 from typing import Callable
-
-import inspect
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
-from repro_torch.serve.executor import ModelExecutor
+from repro_torch.device import resolve_device
+from repro_torch.serve.executor import InflightStep, ModelExecutor
 from repro_torch.serve.phases import make_tracer
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import FifoScheduler, Request, Scheduler
@@ -117,6 +120,11 @@ class Engine:
     dynamics in deterministic simulation time; phase tracing
     (``ServeConfig.trace_phases``) always measures real host/device
     seconds regardless.
+
+    ``draft`` is speculative decoding's ``(config, params)``; without it a
+    ``ServeConfig.draft_config`` other than None / "self" names a config of
+    the port's registry (its reduced shape), on weights drawn from a
+    ``torch.Generator`` on the engine's device seeded with ``seed``.
     """
 
     def __init__(
@@ -129,11 +137,24 @@ class Engine:
         scheduler_factory: Callable[..., Scheduler] | None = None,
         clock: Callable[[], float] | None = None,
         replica: int = 0,
+        draft: tuple | None = None,
         *,
         device: str | torch.device = "cuda",
     ):
+        sc_in = serve_cfg or ServeConfig()
+        if draft is None and sc_in.speculative and sc_in.draft_config not in (None, "self"):
+            # the named draft from the port's registry, reduced; the executor
+            # rejects a draft whose vocabulary differs from the target's
+            from repro_torch.configs import get_config
+            from repro_torch.models import lm
+
+            dev = resolve_device(device)
+            dcfg = get_config(sc_in.draft_config, reduced=True)
+            draft = (dcfg, lm.init_params(dcfg, torch.Generator(device=dev).manual_seed(seed),
+                                          device=dev))
         self.executor = ModelExecutor(
-            cfg, params, serve_cfg, kernel=kernel, seed=seed, replica=replica, device=device,
+            cfg, params, serve_cfg, kernel=kernel, seed=seed, replica=replica, draft=draft,
+            device=device,
         )
         self.serve_cfg = self.executor.serve_cfg
         self.clock = clock if clock is not None else time.perf_counter
@@ -141,7 +162,19 @@ class Engine:
             self.serve_cfg.trace_phases, self.serve_cfg.phase_ring,
             mode=self.serve_cfg.phase_mode,
         )
+        if (self.serve_cfg.trace_phases and self.serve_cfg.async_loop
+                and self.serve_cfg.phase_mode == "fenced"):
+            warnings.warn(
+                "trace_phases with phase_mode='fenced' fences every "
+                "dispatch, serializing the async_loop pipeline it is "
+                "measuring; use phase_mode='overlap' for non-destructive "
+                "overlap accounting",
+                UserWarning,
+                stacklevel=2,
+            )
         self.executor.tracer = self._tracer
+        #: the dispatched-but-uncollected step (the async loop's double buffer)
+        self._inflight: InflightStep | None = None
         if scheduler_factory is None:
             try:
                 factory = SCHEDULERS[self.serve_cfg.scheduler]
@@ -158,6 +191,12 @@ class Engine:
             self.scheduler: Scheduler = factory(*args, clock=self.clock)
         else:  # older custom factories keep the 3-arg contract
             self.scheduler = factory(*args)
+        if self.serve_cfg.speculative and self.executor.draft is None:
+            # the executor warned; the port also lists it with the scheduler's
+            # disabled knobs (the reference only warns)
+            self.scheduler.stats["disabled_features"].append(
+                "speculative: drafts verify through the cache-extending prefill "
+                "program, which this datapath does not support")
         self._uid = 0
         self._requests: dict[int, Request] = {}
         self._finished: dict[int, Request] = {}
@@ -189,8 +228,13 @@ class Engine:
         shortcuts); returns a handle for :meth:`stream` / :meth:`cancel`
         / :meth:`result`.
 
-        ``n > 1`` (n-best sampling) waits for ROADMAP queue 1, item 8,
-        step 8, and raises.
+        ``n > 1`` fans the prompt into n independent candidates (n-best)
+        and returns a list of n handles.  Where the scheduler can fork
+        (paged layout, a replayable datapath) the siblings map the first
+        candidate's live pages copy-on-write, so the prompt prefills once;
+        otherwise each sibling prefills on its own.  A seeded request's
+        siblings get consecutive seeds (seed + i); unseeded siblings diverge
+        through the engine's generator.
 
         ``deadline_s`` is the request's completion budget in seconds
         from now (engine clock); None inherits
@@ -208,11 +252,6 @@ class Engine:
             )
         if n < 1:
             raise ValueError(f"n must be >= 1, got {n}")
-        if n > 1:
-            raise NotImplementedError(
-                "n-best sampling (submit(..., n>1)) is not ported yet "
-                "(ROADMAP queue 1, item 8, step 8)"
-            )
         if params.temperature is not None and params.temperature < 0:
             raise ValueError(
                 f"temperature must be >= 0, got {params.temperature}"
@@ -312,13 +351,21 @@ class Engine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.scheduler.queue) or any(s.active for s in self.executor.slots)
+        return (
+            bool(self.scheduler.queue)
+            or any(s.active for s in self.executor.slots)
+            # an uncollected dispatch still owes tokens and finishes (the
+            # async loop's drain: one more step collects it)
+            or (self._inflight is not None and not self._inflight.empty)
+        )
 
     # -------------------------------------------------------------- loop --
     def _route_output(self, out, ts: float) -> None:
         """Route one collected step's emissions into per-request event
-        queues and finish bookkeeping, stamping everything with ``ts``,
-        the engine clock when the step's results reached the host."""
+        queues and finish bookkeeping, stamping everything with ``ts``, the
+        engine clock at the step's dispatch (its collect under the
+        synchronous loop, one step earlier under the async loop, so both
+        loops give the same virtual-clock timelines)."""
         finished_uids = {req.uid for req in out.finished}
         reasons = {
             req.uid: (
@@ -378,7 +425,10 @@ class Engine:
         """One engine iteration: ``scheduler.schedule`` then
         ``executor.execute``; route the step's emissions into per-request
         event queues, finish any past-deadline drops the policy reported,
-        and stamp SLO accounting."""
+        and stamp SLO accounting.  Under ``ServeConfig.async_loop`` the
+        execute splits across steps (:meth:`_step_async`)."""
+        if self.executor.async_loop:
+            return self._step_async()
         tr = self._tracer
         tr.begin_step()
         with tr.phase("schedule"):
@@ -388,6 +438,37 @@ class Engine:
         self._route_output(out, now)
         self._route_dropped(decision.dropped, now)
         stats = out.stats
+        stats.update(
+            prefill_compiles=self.executor.tel["prefill_compiles"],
+            decode_compiles=self.executor.tel["decode_compiles"],
+        )
+        tr.end_step()
+        return stats
+
+    def _step_async(self) -> dict:
+        """One pipelined iteration: schedule and *dispatch* step N, then
+        *collect* step N-1, so N-1's decode steps run on the device under
+        N's schedule and host_prep.  The stats returned (and the tokens
+        routed) are N-1's, stamped with its dispatch-time clock.  The
+        scheduler sees host slot state one step stale for in-flight slots;
+        collect checks every slot against its dispatch-time snapshot and
+        ``admit_seq``, so tokens of a slot preempted, cancelled or turned
+        over meanwhile are discarded (a preempted request regenerates
+        them), and deadline drops touch queued requests only."""
+        tr = self._tracer
+        tr.begin_step()
+        with tr.phase("schedule"):
+            decision = self.scheduler.schedule(self.executor.slots)
+        inflight = self.executor.dispatch(decision)
+        inflight.dispatched_at = self.clock()
+        self._route_dropped(decision.dropped, inflight.dispatched_at)
+        prev, self._inflight = self._inflight, inflight
+        stats = {"prefilled": 0, "decoded": 0}
+        if prev is not None:
+            out = self.executor.collect(prev)
+            ts = prev.dispatched_at if prev.dispatched_at is not None else self.clock()
+            self._route_output(out, ts)
+            stats = out.stats
         stats.update(
             prefill_compiles=self.executor.tel["prefill_compiles"],
             decode_compiles=self.executor.tel["decode_compiles"],

@@ -2,9 +2,10 @@
 ServeConfig builder for the serving entry points (``launch/serve.py``), so
 a new engine knob lands in every CLI by construction.  The port adds
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
-Flags of features that wait for a later slice parse, and the engine raises
-``NotImplementedError`` when they are set; ``--replicas`` above 1 raises
-here (``router.py``, ROADMAP queue 1, item 8).
+On the card the features that need the cache-extending prefill program
+(chunked prefill, prefix-skip, preemption resume, speculative decoding)
+report themselves disabled, as the reference's Pallas-kernel datapath does;
+``--shard-decode`` needs a process group of one rank.
 """
 
 from __future__ import annotations
@@ -150,10 +151,11 @@ def add_serving_args(
                          "token streams stay bit-identical to the "
                          "synchronous loop (results surface one step late)")
     ap.add_argument("--shard-decode", action="store_true",
-                    help="place params and KV pools with NamedSharding "
-                         "over the host (data, model) mesh; the same "
-                         "len(buckets)+2 programs compile against sharded "
-                         "operands (single-device meshes are a no-op)")
+                    help="place params and KV pools as DTensors over the "
+                         "process group's (data, model) host mesh, every "
+                         "dispatch on their local tensors (one rank: a "
+                         "semantic no-op; the launcher starts a one-rank "
+                         "group)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="data-parallel engines behind one ReplicaRouter "
                          "front door with least-loaded admission (each "
@@ -164,11 +166,6 @@ def add_serving_args(
 def config_from_args(args: argparse.Namespace, model_cfg) -> ServeConfig:
     """Build the ServeConfig from parsed serving args (``model_cfg``
     resolves ``--policy auto`` to the arch's recommended preset)."""
-    if getattr(args, "replicas", 1) > 1:
-        raise NotImplementedError(
-            "--replicas > 1 (the ReplicaRouter, router.py) is not ported yet "
-            "(ROADMAP queue 1, item 8)"
-        )
     return ServeConfig(
         max_batch=args.max_batch,
         max_seq_len=args.max_seq,

@@ -29,9 +29,12 @@ never int8.
 
 The device ops write into the caches they are handed, in place, and return
 them: ``paged_decode_write`` (one token per slot into its page),
-``paged_decode_view`` (each slot's pages gathered into a dense (B, Hkv, L, D)
-or, for the latent, (B, L, width) view, so decode attends exactly as over a
-dense slab), ``mask_cache_tail``
+``dense_window_write`` / ``paged_window_write`` (a window of tokens per slot
+at per-row positions, the cache-extending prefill's write; masked entries
+carry a sentinel position past the cache, dropped by the dense scatter and
+sent to the trash page by the paged one), ``paged_decode_view`` (each slot's
+pages gathered into a dense (B, Hkv, L, D) or, for the latent, (B, L, width)
+view, so decode attends exactly as over a dense slab), ``mask_cache_tail``
 (zero each row past its prompt length), ``insert_prefill_dense`` /
 ``insert_prefill_paged`` (a prefill's dense scratch into its slots; pad rows,
 slot index ``max_batch``, are dropped by the dense scatter and go to the
@@ -42,21 +45,26 @@ tensors), so dropping pad rows needs no device synchronisation.
 page allocation, the worst-case reservation at admission, refcounts, the
 prefix index (hash-chained full prompt pages), LRU retention of refcount-0
 registered pages, copy-on-write (``flush_copies`` applies the queued page
-copies on the device) and ``check_invariants``.
-
-Not ported yet: the host-memory victim tier (``kv_host_pages``; ROADMAP
-queue 1, item 8, step 9).
+copies on the device), the host victim tier (``kv_host_pages``: evicted
+registered pages spill their rows to host rings and swap back into fresh
+device pages on a later prefix hit; ``flush_swaps`` moves the rows) and
+``check_invariants``.  Every host-to-device copy goes through
+``device.upload`` (a pinned buffer of its own, not blocking the host); the
+rings are pinned CPU tensors when the manager's device is a card, and a
+spill's device-to-host copy completes before ``flush_swaps`` returns, so
+host code never reads a ring row whose copy is in flight.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, upload
 from repro_torch.models import ssm
 
 #: cache leaves with a sequence axis: name -> axis index from the right
@@ -298,6 +306,51 @@ def paged_decode_write(cache: dict, updates: dict[str, torch.Tensor],
     return cache
 
 
+def dense_window_write(cache: dict, updates: dict[str, torch.Tensor],
+                       positions: torch.Tensor) -> dict:
+    """Scatter a token window per slot into a dense per-layer cache, in
+    place: the cache-extending prefill's write.  ``updates``: leaf name ->
+    per-slot windows (k/v (B, Hkv, W, D); scales (B, Hkv, W); latent
+    (B, W, width); latent_scale (B, W)).  ``positions``: (B, W) global write
+    positions; masked entries carry a sentinel at or past the cache length
+    and are dropped, as the reference's scatter with ``mode="drop"``."""
+    first = next(iter(updates))
+    length = cache[first].shape[2 if first in _HEAD_MAJOR_POOLS else 1]
+    bi, wi = (positions < length).nonzero(as_tuple=True)
+    pos = positions[bi, wi].long()
+    for name, val in updates.items():
+        buf = cache[name]
+        if name in _HEAD_MAJOR_POOLS:  # advanced indices around a slice lead: (N, Hkv, ...)
+            buf[bi, :, pos] = val[bi, :, wi].to(buf.dtype)
+        else:
+            buf[bi, pos] = val[bi, wi].to(buf.dtype)
+    return cache
+
+
+def paged_window_write(cache: dict, updates: dict[str, torch.Tensor],
+                       positions: torch.Tensor) -> dict:
+    """Scatter a token window per slot into its physical pages, in place:
+    the update shapes and (B, W) ``positions`` of ``dense_window_write``.
+    Each position routes through the page table on its own, so a window may
+    straddle pages; a sentinel position indexes past the table and goes to
+    the trash page, as retired slots' decode writes do."""
+    table = cache["page_table"]  # (B, pages_per_slot)
+    pos = positions.long()
+    for name, val in updates.items():
+        pool = cache[name]
+        ps = _pool_page_size(name, pool)
+        col = pos // ps
+        inside = col < table.shape[1]
+        phys = torch.where(inside, table.gather(1, col.clamp_max(table.shape[1] - 1)),
+                           TRASH_PAGE).long()  # (B, W)
+        off = pos % ps
+        if name in _HEAD_MAJOR_POOLS:  # the index axes lead: values go (B, W, Hkv[, D])
+            pool[phys, :, off] = val.movedim(2, 1).to(pool.dtype)
+        else:
+            pool[phys, off] = val.to(pool.dtype)
+    return cache
+
+
 def paged_decode_view(cache: dict) -> dict[str, torch.Tensor]:
     """Gather each slot's pages into a contiguous logical view: k/v
     (B, Hkv, L, D) and scales (B, Hkv, L), latent (B, L, width) and
@@ -432,13 +485,16 @@ class CacheStats:
     #: pages shared by mapping a resident parent's live pages onto an
     #: n-best sibling (CacheManager.fork)
     gen_pages_shared: int = 0
-    #: the victim tier's counters (ROADMAP queue 1, item 8, step 9): zero
-    #: here, kept so that telemetry has the reference's keys
+    #: victim-tier movement: pages spilled to the host ring on eviction
+    #: (swap_outs), spilled pages fetched back into device pages on a later
+    #: prefix hit (swap_ins), spilled pages dropped when the ring itself
+    #: overflowed (host_evictions)
     swap_outs: int = 0
     swap_ins: int = 0
     host_evictions: int = 0
     host_pages_used: int = 0
     host_pages_capacity: int = 0
+    #: host wall seconds in flush_swaps (the device <-> host row copies)
     swap_latency_s: float = 0.0
 
     @property
@@ -483,9 +539,11 @@ class CacheStats:
 @dataclasses.dataclass(frozen=True)
 class PrefixMatch:
     """Longest prefix-index match for a prompt.  ``keys[i]`` is the
-    interned chain key of token chunk ``i`` (all full pages) and
-    ``pages[i]`` the device page holding it; ``tokens`` ==
-    ``len(keys) * page_size``.  Without a victim tier ``host_hits`` is 0."""
+    interned chain key of token chunk ``i`` (all full pages); the leading
+    ``len(pages)`` chunks are device-resident (``pages[i]`` holds chunk
+    ``i``), the remaining ``host_hits`` chunks live in the host victim tier
+    and swap back in at admission.  ``tokens`` == ``len(keys) *
+    page_size``, the coverage across both tiers."""
 
     pages: tuple[int, ...] = ()
     keys: tuple[int, ...] = ()
@@ -493,7 +551,7 @@ class PrefixMatch:
 
     @property
     def host_hits(self) -> int:
-        """Matched chunks resident only in a host victim tier (none here)."""
+        """Matched chunks resident only in the host victim tier."""
         return len(self.keys) - len(self.pages)
 
     def __bool__(self) -> bool:
@@ -519,7 +577,12 @@ class CacheManager:
     more slot tables) -> back to ``free`` (unregistered content) or
     ``cached`` (refcount 0 but registered in the prefix index, evictable
     LRU) when its last owner finishes.  The trash page 0 is in none of the
-    three sets.
+    three sets.  With a victim tier (``ServeConfig.kv_host_pages``) eviction
+    off the cached LRU adds a fourth, host-side state, ``spilled``: the
+    page's rows live in the host ring under its chain key, and a later
+    prefix hit swaps them back into a fresh device page (``flush_swaps``);
+    the ring's own LRU eviction is the one point where warm prefix state is
+    discarded.
     """
 
     def __init__(
@@ -537,11 +600,6 @@ class CacheManager:
         self.dtype = dtype
         self.device = resolve_device(device)
         sc = serve_cfg
-        if sc.kv_host_pages > 0:
-            raise NotImplementedError(
-                "the host-memory victim tier (kv_host_pages > 0) is not ported yet "
-                "(ROADMAP queue 1, item 8, step 9)"
-            )
         rolling = cfg.sliding_window is not None and cfg.sliding_window < sc.max_seq_len
         #: position-addressed caches can be right-padded (bucketed prefill)
         #: and paged; SSM state and rolling buffers cannot
@@ -610,6 +668,42 @@ class CacheManager:
         self._prefix_queries = 0
         self._prefix_hits = 0
         self._prefix_pages_hit = 0
+        # --- host-memory victim tier (kv_host_pages) ---
+        self.victim_tier = bool(self.prefix_cache and sc.kv_victim_tier
+                                and sc.kv_host_pages > 0)
+        self.host_pages = sc.kv_host_pages if self.victim_tier else 0
+        #: per-pool host rings (n_layers, host_pages, per-page dims...),
+        #: mirroring every device pool leaf but the page table; pinned when
+        #: the device is a card
+        self._host_pool: dict[str, torch.Tensor] = {}
+        if self.victim_tier:
+            for name, (shape, dt) in self._abstract()["layers"].items():
+                if name != "page_table":
+                    self._host_pool[name] = torch.zeros(
+                        (shape[0], self.host_pages) + shape[2:], dtype=dt,
+                        pin_memory=self.device.type == "cuda")
+        self._host_free: list[int] = list(range(self.host_pages - 1, -1, -1))
+        #: chain key -> host ring slot, insertion order == the ring's LRU
+        self._host_index: dict[int, int] = {}
+        self._host_key: dict[int, int] = {}  # host slot -> chain key
+        #: host keys the current admit() must not evict while it allocates
+        #: their swap-in device pages
+        self._host_pins: set[int] = set()
+        #: queued device->host copies (evictions of warm pages) and
+        #: host->device copies (prefix hits on spilled chains), applied by
+        #: flush_swaps at the executor's next dispatch
+        self._pending_spills: list[tuple[int, int]] = []  # (page, host slot)
+        self._pending_swap_ins: list[tuple[int, int]] = []  # (host slot, page)
+        #: device page -> (host slot, chain key) of an unflushed swap-in
+        self._swap_in_by_page: dict[int, tuple[int, int]] = {}
+        self._swap_ins = 0
+        self._swap_outs = 0
+        self._host_evictions = 0
+        self._swap_latency_s = 0.0
+        #: the page table's sharding under ``shard_decode`` (set by the
+        #: executor); ``write_table`` copies into the placed table in place,
+        #: so its rebuilds keep this placement
+        self.table_sharding = None
         self.kv_bytes = sum(
             int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
             for group in self._abstract().values() for shape, dt in group.values()
@@ -634,6 +728,16 @@ class CacheManager:
             **self._layout_kw(),
         )
 
+    def device_shardings(self, rules) -> dict:
+        """The ``NamedSharding`` tree of ``init_device_caches`` under
+        ``rules`` (``distributed.sharding.ShardingRules``), for
+        ``ServeConfig.shard_decode``."""
+        from repro_torch.distributed.sharding import cache_shardings
+
+        return cache_shardings(rules, self.cfg, self.serve_cfg.max_batch,
+                               self.serve_cfg.max_seq_len, quantized=self.quantized,
+                               **self._layout_kw())
+
     # ------------------------------------------------------- allocation --
     def pages_for(self, length: int) -> int:
         """Pages needed to hold ``length`` tokens (at least one)."""
@@ -655,21 +759,110 @@ class CacheManager:
 
     def _take_page(self) -> int | None:
         """Pop a free page, evicting the LRU cached page when the free list
-        is empty.  None when the pool is truly exhausted."""
+        is empty; with a victim tier the evicted page's rows spill to the
+        host ring (its chain key stays fetchable).  None when the pool is
+        truly exhausted."""
         if self._free:
             return self._free.pop()
         if self._cached:
             page = next(iter(self._cached))
             del self._cached[page]
-            self._deregister(page)
+            self._spill(page)
             self._evictions += 1
             return page
         return None
 
-    def _deregister(self, page: int) -> None:
+    def _spill(self, page: int) -> None:
+        """Deregister an evicted page; with a victim tier, move its chain
+        key into the host index and queue the device->host row copy for
+        ``flush_swaps`` (every dispatch flushes swaps before its device
+        work, so the copy reads the rows before the page's new owner
+        writes them).  Plain deregistration when the tier is off or the
+        ring has no evictable slot."""
         key = self._page_key.pop(page, None)
         if key is not None and self._prefix_index.get(key) == page:
             del self._prefix_index[key]
+        if not self.victim_tier or key is None:
+            return
+        if page in self._swap_in_by_page:
+            # the page's content is itself an unflushed swap-in: the rows
+            # never left the ring, so cancel the copy and re-register there
+            self._cancel_swap_in(page)
+            return
+        host = self._host_take()
+        if host is None:
+            return  # ring exhausted (all pinned): discard, as without a tier
+        self._host_index[key] = host
+        self._host_key[host] = key
+        self._pending_spills.append((page, host))
+        self._swap_outs += 1
+
+    def _host_take(self) -> int | None:
+        """Pop a free ring slot, evicting the ring's LRU chain (its rows are
+        gone) when it is full.  Keys pinned by an admission in progress are
+        never victims."""
+        if self._host_free:
+            return self._host_free.pop()
+        victim = next((k for k in self._host_index if k not in self._host_pins), None)
+        if victim is None:
+            return None
+        host = self._host_index.pop(victim)
+        del self._host_key[host]
+        # an unflushed spill aimed at the recycled slot is superseded
+        self._pending_spills = [(p, h) for p, h in self._pending_spills if h != host]
+        self._host_evictions += 1
+        return host
+
+    def _cancel_swap_in(self, page: int) -> None:
+        """Cancel the unflushed host->device copy aimed at ``page`` (evicted
+        or freed before a dispatch flushed it) and restore its chain key on
+        the ring slot, whose rows are intact."""
+        host, key = self._swap_in_by_page.pop(page)
+        self._pending_swap_ins = [(h, p) for h, p in self._pending_swap_ins if p != page]
+        if key not in self._host_index and key not in self._prefix_index:
+            self._host_index[key] = host
+            self._host_key[host] = key
+        elif host not in self._host_key:
+            self._host_free.append(host)
+
+    def _fetch_host(self, key: int) -> int:
+        """Swap one spilled chain page back: a fresh device page, the
+        host->device copy queued for ``flush_swaps``, the key registered on
+        the device page (the ring slot frees once the copy is applied).
+        Callers counted this allocation in ``admission_need``."""
+        host = self._host_index.pop(key)
+        del self._host_key[host]
+        page = self._take_page()
+        if page is None:
+            self._host_index[key] = host
+            self._host_key[host] = key
+            raise RuntimeError(
+                "KV page pool exhausted during victim-tier swap-in; "
+                "check can_reserve(admission_need(...)) before admit()"
+            )
+        self._pending_swap_ins.append((host, page))
+        self._swap_in_by_page[page] = (host, key)
+        self._prefix_index[key] = page
+        self._page_key[page] = key
+        self._swap_ins += 1
+        self._allocs_total += 1
+        return page
+
+    def _deregister(self, page: int) -> None:
+        key = self._page_key.pop(page, None)
+        if key is None:
+            return
+        if self._prefix_index.get(key) == page:
+            del self._prefix_index[key]
+        entry = self._swap_in_by_page.get(page)
+        if entry is not None and entry[1] == key and key not in self._host_index:
+            # deregistered by a write before its swap-in flushed: the ring
+            # still holds the chain's rows, so the key stays fetchable there
+            # (the pending copy still runs: the positions below the write
+            # need the swapped rows)
+            host = entry[0]
+            self._host_index[key] = host
+            self._host_key[host] = key
 
     def _intern_key(self, parent: int, chunk: tuple[int, ...]) -> int:
         key = self._key_intern.get((parent, chunk))
@@ -700,8 +893,12 @@ class CacheManager:
 
     # ----------------------------------------------------- prefix cache --
     def match_prefix(self, tokens: list[int]) -> PrefixMatch:
-        """Longest run of leading *full* prompt pages already in the prefix
-        index.  Pure lookup: hit/query telemetry is counted at ``admit``."""
+        """Longest run of leading *full* prompt pages in the prefix index:
+        device-resident pages first, then (victim tier) chain keys whose
+        rows live in the host ring.  The device run stays leading (a shared
+        page sits at the same table column in every owner), so the walk
+        ends at a chunk in neither tier, or at a device chunk after a host
+        hit.  Pure lookup: hit/query telemetry is counted at ``admit``."""
         if not self.prefix_cache:
             return PrefixMatch()
         parent = 0
@@ -710,10 +907,13 @@ class CacheManager:
         for i in range(len(tokens) // self.page_size):
             chunk = tuple(tokens[i * self.page_size:(i + 1) * self.page_size])
             key = self._key_intern.get((parent, chunk))
-            page = None if key is None else self._prefix_index.get(key)
-            if page is None:
+            if key is None:
                 break
-            pages.append(page)
+            page = self._prefix_index.get(key)
+            if page is not None and len(keys) == len(pages):
+                pages.append(page)
+            elif key not in self._host_index:
+                break
             keys.append(key)
             parent = key
         return PrefixMatch(tuple(pages), tuple(keys), len(keys) * self.page_size)
@@ -738,7 +938,8 @@ class CacheManager:
                        write_from: int) -> int:
         """Pages the pool must have available (free + evictable cached, net
         of other residents' unallocated reservations) to admit this
-        request."""
+        request: its tail's worst case, the cached matched pages it revives,
+        and one fresh page per host-tier hit."""
         if self.layout != "paged":
             return 0
         return (self._tail_need(match, reserve_len, write_from) + self._revived(match)
@@ -771,6 +972,7 @@ class CacheManager:
         if self.prefix_cache:
             self._prefix_queries += 1
         shared = list(match.pages) if match else []
+        swapped = match.host_hits if match else 0
         need = self.admission_need(match, reserve_len, write_from)
         if not self.can_reserve(need):
             raise RuntimeError(
@@ -778,9 +980,9 @@ class CacheManager:
                 "can_reserve() before calling admit()"
             )
         tail_need = self._tail_need(match, reserve_len, write_from)
-        if shared:
+        if shared or swapped:
             self._prefix_hits += 1
-            self._prefix_pages_hit += len(shared)
+            self._prefix_pages_hit += len(shared) + swapped
             pages = self._slot_pages[slot]
             for col, page in enumerate(shared):
                 if self._page_ref[page] == 0:  # revive a retained page
@@ -788,9 +990,25 @@ class CacheManager:
                 self._page_ref[page] += 1
                 self._table[slot, col] = page
                 pages.append(page)
+            if swapped:
+                # each spilled chunk swaps back into a fresh device page; the
+                # remaining host keys stay pinned, since a fetch's own
+                # allocation can spill a page whose ring slot must not be one
+                # this admission still needs
+                host_keys = match.keys[len(shared):]
+                self._host_pins = set(host_keys)
+                try:
+                    for col, key in enumerate(host_keys, start=len(shared)):
+                        self._host_pins.discard(key)
+                        page = self._fetch_host(key)
+                        self._page_ref[page] = 1
+                        self._table[slot, col] = page
+                        pages.append(page)
+                finally:
+                    self._host_pins = set()
             self._slot_keys[slot] = list(match.keys)
             self._table_dirty = True
-        self._slot_reserved[slot] = len(shared) + tail_need
+        self._slot_reserved[slot] = len(shared) + swapped + tail_need
         if not lazy_tail:
             self.ensure(slot, len(tokens))
             self.register_filled(slot, tokens, len(tokens))
@@ -801,7 +1019,7 @@ class CacheManager:
             self.ensure(slot, fill_len)
             self.register_filled(slot, tokens, fill_len)
         self._peak_in_use = max(self._peak_in_use, self.pages_in_use)
-        return len(shared)
+        return len(shared) + swapped
 
     def fork_need(self, parent_slot: int, upto_len: int, reserve_len: int) -> int:
         """Pages a fork admission must reserve: the worst-case tail beyond
@@ -950,6 +1168,11 @@ class CacheManager:
             # list died with this tenancy; flushing it later would corrupt
             # the page's next tenant
             self._pending_copies = [(s, d) for s, d in self._pending_copies if d not in freed]
+        for page in freed:
+            if page in self._swap_in_by_page:
+                # likewise an unflushed swap-in aimed at a freed page: the
+                # key and its rows stay fetchable in the ring
+                self._cancel_swap_in(page)
         self._table[slot, :] = TRASH_PAGE
         self._table_dirty = True
 
@@ -960,22 +1183,72 @@ class CacheManager:
         pages)."""
         if self.layout != "paged" or not self._pending_copies:
             return caches
-        pairs = np.array(self._pending_copies, np.int64)
+        pairs = upload(np.array(self._pending_copies, np.int64).T, self.device)
         self._pending_copies.clear()
-        src, dst = (torch.from_numpy(pairs[:, i].copy()).to(self.device) for i in (0, 1))
+        src, dst = pairs[0], pairs[1]
         for name, pool in caches["layers"].items():
             if name != "page_table":
                 pool[:, dst] = pool[:, src]
         return caches
 
+    def flush_swaps(self, caches: dict) -> dict:
+        """Apply the queued victim-tier movement to the device pools, in
+        place: spills (evicted warm rows -> host ring) first, then swap-ins
+        (ring rows -> fresh device pages), so a chain that spilled and
+        matched again before any dispatch goes device -> host -> device in
+        one flush.  Batched copies on the current stream, one per pool leaf
+        and direction, through pinned buffers on a card.  A spill's copy
+        completes before this returns (the ring is host memory that a later
+        swap-in reads); a swap-in copies up a pinned gather of its ring rows
+        of its own, never the ring itself.  The executor
+        runs it at the top of every dispatch's host_prep, before
+        ``flush_copies``: a copy-on-write destination may be a just-evicted
+        page whose rows must reach the ring first."""
+        if self.layout != "paged" or not (self._pending_spills or self._pending_swap_ins):
+            return caches
+        t0 = time.perf_counter()
+        layers = caches["layers"]
+        if self._pending_spills:
+            # one row per ring slot: a later entry for a recycled slot wins
+            by_host = {h: p for p, h in self._pending_spills}
+            self._pending_spills.clear()
+            hosts = torch.tensor(list(by_host), dtype=torch.int64)
+            pages = upload(np.array(list(by_host.values()), np.int64), self.device)
+            staged = {name: layers[name][:, pages].to("cpu", non_blocking=True)
+                      for name in self._host_pool}  # pinned on a card
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            for name, ring in self._host_pool.items():
+                ring.index_copy_(1, hosts, staged[name])
+        if self._pending_swap_ins:
+            hosts = torch.tensor([h for h, _ in self._pending_swap_ins], dtype=torch.int64)
+            dst = upload(np.array([p for _, p in self._pending_swap_ins], np.int64),
+                         self.device)
+            for name, ring in self._host_pool.items():
+                rows = torch.empty((ring.shape[0], len(hosts)) + ring.shape[2:],
+                                   dtype=ring.dtype, pin_memory=ring.is_pinned())
+                torch.index_select(ring, 1, hosts, out=rows)
+                layers[name][:, dst] = rows.to(self.device, non_blocking=True)
+            for host, page in self._pending_swap_ins:
+                self._swap_in_by_page.pop(page, None)
+                # a slot whose key was restored meanwhile (its target page
+                # deregistered) keeps the chain's rows; the others free
+                if host not in self._host_key:
+                    self._host_free.append(host)
+            self._pending_swap_ins.clear()
+        self._swap_latency_s += time.perf_counter() - t0
+        return caches
+
     def write_table(self, caches: dict) -> dict:
         """Refresh the stacked device page table from the host table, in
         place (no-op for dense or when nothing changed since the last
-        sync).  The host table is copied first: the device must never see
-        a later ``ensure`` / ``free`` of the live numpy array."""
+        sync).  The host table goes up as a copy (``device.upload``): the
+        device never sees a later ``ensure`` / ``free`` of the live numpy
+        array.  In place, a placed (``shard_decode``) table keeps its
+        placement."""
         if self.layout != "paged" or not self._table_dirty:
             return caches
-        table = torch.from_numpy(self._table.copy()).to(self.device)
+        table = upload(self._table, self.device)
         caches["layers"]["page_table"].copy_(table.expand_as(caches["layers"]["page_table"]))
         self._table_dirty = False
         return caches
@@ -1019,6 +1292,12 @@ class CacheManager:
             cow_copies=self._cow_copies,
             page_evictions=self._evictions,
             gen_pages_shared=self._gen_pages_shared,
+            swap_outs=self._swap_outs,
+            swap_ins=self._swap_ins,
+            host_evictions=self._host_evictions,
+            host_pages_used=self.host_pages - len(self._host_free),
+            host_pages_capacity=self.host_pages,
+            swap_latency_s=self._swap_latency_s,
         )
 
     # ------------------------------------------------------- invariants --
@@ -1088,3 +1367,34 @@ class CacheManager:
                 assert seen == col, (
                     f"shared page {page} mapped at column {seen} and at column {col} (slot {slot})"
                 )
+        # --- host victim tier: the ring is its own page universe ---
+        assert len(self._host_index) == len(self._host_key), (
+            "host index/reverse-map size mismatch"
+        )
+        for key, host in self._host_index.items():
+            assert 0 <= host < self.host_pages, f"host slot {host} outside the ring"
+            assert self._host_key.get(host) == key, f"host index/slot key desync for slot {host}"
+            assert key not in self._prefix_index, f"chain key {key} served by both tiers"
+        host_free = set(self._host_free)
+        assert len(host_free) == len(self._host_free), "host free list holds duplicates"
+        held = set(self._host_key)
+        transit = {h for h, _ in self._pending_swap_ins}
+        assert not (host_free & held), "host slot both free and indexed"
+        assert not (host_free & transit), "host slot freed while its swap-in is still pending"
+        assert host_free | held | transit == set(range(self.host_pages)), (
+            "host slot leak/double-free"
+        )
+        assert {p for _, p in self._pending_swap_ins} == set(self._swap_in_by_page), (
+            "pending swap-in queue and its page map desync"
+        )
+        for page in self._swap_in_by_page:
+            assert ref[page] > 0 or page in self._cached, (
+                f"pending swap-in targets page {page}, neither live nor cached"
+            )
+        for page, host in self._pending_spills:
+            # a spill whose chain matched again before any flush: its ring
+            # slot is in transit to a swap-in, which flush_swaps applies after
+            # the spill (the reference's check flags this legal state)
+            assert host in self._host_key or host in transit, (
+                f"pending spill targets unindexed host slot {host}"
+            )

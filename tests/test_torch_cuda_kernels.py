@@ -885,3 +885,99 @@ def test_kernel_wrappers_refuse_a_dtensor(dev, tmp_path):
                 call()
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------ the serving engine's device ops --
+
+
+@pytest.mark.parametrize("name", ["k", "k_scale", "latent", "latent_scale"])
+def test_paged_window_write_on_the_card(dev, name):
+    """The cache-extend window scatter on CUDA tensors: the rows the CPU
+    writes, bitwise (the trash page, which takes the sentinel writes in no
+    defined order, aside)."""
+    from repro_torch.serve import kv_cache
+
+    g = torch.Generator().manual_seed(3)
+    b, w, length, ps = 3, 6, 32, 8
+    pos = torch.tensor([[0, 1, 2, 3, 4, 5], [7, 8, 9, 32, 32, 32], [31, 32, 32, 32, 32, 32]])
+    n_pages = b * length // ps + 1
+    head = name.startswith("k")
+    pool_shape = (n_pages, 4, ps, 16) if name == "k" else (
+        (n_pages, 4, ps) if head else (n_pages, ps, 12) if name == "latent" else (n_pages, ps))
+    upd_shape = (b, 4, w) + pool_shape[3:] if head else (b, w) + pool_shape[2:]
+    pool, upd = torch.randn(pool_shape, generator=g), torch.randn(upd_shape, generator=g)
+    table = torch.randperm(n_pages - 1, generator=g).add(1).int().reshape(b, length // ps)
+    outs = []
+    for d in ("cpu", dev):
+        cache = {name: pool.clone().to(d), "page_table": table.to(d)}
+        kv_cache.paged_window_write(cache, {name: upd.to(d)}, pos.to(d))
+        outs.append(cache[name].cpu())
+    assert torch.equal(outs[0][1:], outs[1][1:])
+
+
+def test_flush_swaps_round_trips_rows_on_the_card(dev):
+    """The victim tier with a card: the rings are pinned host memory, a
+    spill's rows reach the ring by the time ``flush_swaps`` returns, and a
+    swap-in writes them back into a fresh device page bitwise."""
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.serve.kv_cache import CacheManager
+
+    sc = ServeConfig(max_batch=2, max_seq_len=32, kv_layout="paged", kv_page_size=4, kv_pages=4,
+                     kv_prefix_cache=True, kv_host_pages=2)
+    mgr = CacheManager(get_config("granite-8b", reduced=True), sc, device=dev)
+    assert all(r.is_pinned() for r in mgr._host_pool.values())
+    caches = mgr.init_device_caches()
+    for n in ("k", "v"):
+        caches["layers"][n].normal_()
+    prompt = [1, 2, 0, 1]
+    mgr.admit(0, prompt, 5)
+    page = mgr._slot_pages[0][0]
+    rows = {n: caches["layers"][n][:, page].clone() for n in ("k", "v")}
+    mgr.free(0)
+    mgr.admit(1, [2] * 12, 12)  # every page: the prefix page spills
+    mgr.flush_swaps(caches)
+    host = mgr._host_index[mgr._key_intern[(0, tuple(prompt))]]
+    for n in ("k", "v"):
+        assert torch.equal(mgr._host_pool[n][:, host], rows[n].cpu())
+        caches["layers"][n][:, page] = 0.0
+    mgr.free(1)
+    match = mgr.match_prefix(prompt)
+    mgr.admit(0, prompt, 5, match=match, lazy_tail=True, write_from=3)
+    dst = mgr._slot_pages[0][0]
+    mgr.flush_swaps(caches)
+    mgr.write_table(caches)
+    torch.cuda.synchronize()
+    for n in ("k", "v"):
+        assert torch.equal(caches["layers"][n][:, dst], rows[n])
+    assert caches["layers"]["page_table"][0, 0, 0].item() == dst
+    mgr.check_invariants()
+
+
+def test_async_carry_merge_makes_no_synchronizing_call(dev):
+    """What a pure decode dispatch adds to the decode steps under the async
+    loop: the host rows and the validity mask go up through pinned buffers,
+    the carry merges by ``torch.where`` on the card, and the packed results
+    come down without blocking; under ``set_sync_debug_mode("error")`` none
+    of it raises, and the results read after the event are right."""
+    from repro_torch.device import upload
+
+    carry = tuple(torch.arange(8, device=dev, dtype=torch.int32) + k for k in range(3))
+    valid = np.array([True, False] * 4)
+    host_rows = np.arange(24, dtype=np.int32).reshape(3, 8) * 10
+    upload(host_rows, dev)  # warm the pinned pool and the copy path
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rows = upload(host_rows, dev)
+        v = upload(valid, dev)
+        merged = torch.stack([torch.where(v, c, r) for c, r in zip(carry, rows)])
+        valid[:] = False  # a later host write does not reach the copy
+        host = merged.to("cpu", non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    done.synchronize()
+    want = np.where(np.array([True, False] * 4), np.stack([c.cpu().numpy() for c in carry]),
+                    host_rows)
+    np.testing.assert_array_equal(host.numpy(), want)

@@ -181,15 +181,23 @@ def test_decode_attend_matches_reference(rolling):
 
 
 def test_unported_attention_paths_raise():
+    """What the reference refuses, the port refuses: ``extend`` over a
+    rolling sliding-window buffer (the reference's ValueError) and without
+    positions.  The cache-extending ``extend`` mode itself, the int8 KV
+    cache, MLA and the patch and audio frontends are ported
+    (tests/test_torch_cache_extend.py, tests/test_torch_int8_kv.py,
+    tests/test_torch_mla.py, tests/test_torch_frontends.py)."""
     jcfg, tcfg = _configs("granite-8b")
     pt = params_from_numpy(numpy_tree(jattn.gqa_spec(jcfg), 0), "cpu")
     x = torch.zeros(1, 2, tcfg.d_model)
+    rolling = kv_cache.init_attention_cache(dataclasses.replace(tcfg, sliding_window=2), 1, 4,
+                                            torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="position-addressed"):
+        attention.gqa_apply(pt, tcfg, x, torch.zeros(1, 2, dtype=torch.int32), mode="extend",
+                            cache=rolling)
     cache = kv_cache.init_attention_cache(tcfg, 1, 4, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        attention.gqa_apply(pt, tcfg, x, torch.zeros(1, 1, 2), mode="extend", cache=cache)
-    # the int8 KV cache, MLA and the patch and audio frontends are ported
-    # (tests/test_torch_int8_kv.py, tests/test_torch_mla.py,
-    # tests/test_torch_frontends.py)
+    with pytest.raises(ValueError, match="positions"):
+        attention.gqa_apply(pt, tcfg, x, mode="extend", cache=cache)
     qcache = kv_cache.init_attention_cache(tcfg, 1, 4, torch.float32, quantized=True,
                                            device="cpu")
     attention.gqa_apply(pt, tcfg, x, mode="prefill", cache=qcache)

@@ -73,7 +73,8 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.launch.mesh, repro_torch.launch.train, repro_torch.launch.dryrun, "
         "repro_torch.core.latency_model, repro_torch.roofline.op_counter, "
         "repro_torch.roofline.kernel_costs, repro_torch.roofline.analysis, "
-        "repro_torch.examples.quickstart; "
+        "repro_torch.examples.quickstart, repro_torch.serve.router, "
+        "repro_torch.examples.serve_lm; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

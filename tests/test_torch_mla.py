@@ -304,17 +304,20 @@ def test_bf16_weights_promote_against_the_float32_latent():
 
 
 def test_extend_raises_naming_its_step():
+    """The mode errors of ``mla_apply``: extend and decode need explicit
+    positions, and a paged cache takes no prefill (extend itself is held to
+    the reference in tests/test_torch_cache_extend.py)."""
     jcfg, tcfg, pj, pt = _attention_case()
     cache = kv_cache.init_attention_cache(tcfg, 1, 8, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8, step 5"):
-        attention.mla_apply(pt, tcfg, torch.zeros(1, 2, tcfg.d_model),
-                            torch.zeros(1, 2, dtype=torch.int32), mode="extend", cache=cache)
+    with pytest.raises(ValueError, match="extend requires explicit"):
+        attention.mla_apply(pt, tcfg, torch.zeros(1, 2, tcfg.d_model), mode="extend",
+                            cache=cache)
     with pytest.raises(ValueError, match="positions"):
         attention.mla_apply(pt, tcfg, torch.zeros(1, 1, tcfg.d_model), mode="decode",
                             cache=cache)
     paged = kv_cache.init_attention_cache(tcfg, 1, 8, torch.float32, device="cpu",
                                           **_layout_kw("paged"))
-    with pytest.raises(ValueError, match="decode writes only"):
+    with pytest.raises(ValueError, match="decode and extend writes only"):
         attention.mla_apply(pt, tcfg, torch.zeros(1, 2, tcfg.d_model), mode="prefill",
                             cache=paged)
 

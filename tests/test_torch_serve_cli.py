@@ -8,8 +8,9 @@
   zamba2-1.2b (hybrid; paged falls back to dense) under their own
   ``serve_policy`` (``--policy auto``: int8_serve); without
   ``--device cpu`` on a host without CUDA it raises as ``resolve_device``
-  does; ``--replicas`` above 1 and the flags of later
-  slices raise ``NotImplementedError``.
+  does; the flags of the async loop, speculative decoding, the victim tier,
+  ``--shard-decode`` and ``--replicas`` build the reference's ServeConfig
+  and serve on the CPU, each reporting its feature.
 """
 
 import argparse
@@ -109,12 +110,23 @@ def test_launcher_defaults_to_the_card(monkeypatch):
         launch.main(["--arch", "granite-8b", "--requests", "1"])
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--replicas", "2"], "router.py"),
-    (["--async-loop"], "step 7"),
-    (["--speculative"], "step 8"),
-    (["--kv-layout", "paged", "--kv-prefix-cache", "--kv-host-pages", "8"], "step 9"),
+@pytest.mark.parametrize("flags,line", [
+    (["--replicas", "2"], "router: 2 replicas"),
+    (["--async-loop"], "engine loop: async"),
+    (["--speculative", "--spec-tokens", "3"], "speculative: draft=self k=3 | proposed"),
+    (["--kv-layout", "paged", "--kv-page-size", "8", "--kv-pages", "5", "--max-seq", "32",
+      "--kv-prefix-cache", "--kv-preemption", "--shared-prefix", "16", "--kv-host-pages", "8"],
+     "victim tier:"),
+    (["--shard-decode", "--kv-layout", "paged", "--kv-page-size", "8"], "mesh-sharded decode"),
 ])
-def test_flags_of_later_slices_raise(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        launch.main(["--device", "cpu", "--requests", "1", *flags])
+def test_flags_of_this_slice_serve_on_the_cpu(flags, line, capsys):
+    ours = cli.config_from_args(_parse(cli, flags), get_config("granite-8b", reduced=True))
+    ref = jcli.config_from_args(_parse(jcli, flags), jax_get_config("granite-8b", reduced=True))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    launch.main(["--device", "cpu", "--requests", "4", "--max-new", "6", *flags])
+    out = capsys.readouterr().out
+    assert "4 requests, " in out and line in out
+    if "--kv-host-pages" in flags:  # the tight pool spills and swaps back
+        spills, swaps = (int(t) for t in
+                         out.split("victim tier: ")[1].split(" swap-ins")[0].split(" spills / "))
+        assert spills > 0 and swaps > 0

@@ -16,21 +16,22 @@ The requests mix prompt lengths across the prefill buckets, share a
   as ``tests/test_kv_cache.py::test_dense_paged_token_identical``'s
   ``("granite-8b", "int8_serve")`` case, and granite-8b paged + prefix cache
   + preemption + chunked prefill, where prefill-skip, preemption-resume and
-  chunking are gated off as the reference gates them without its
-  cache-extending program;
+  chunking replay through the cache-extending prefill program on both
+  sides;
 - reduced minicpm3-4b (MLA, the packed latent caches) under ``float`` and
   ``int8_serve`` (int8 latent codes with per-token scales), dense, paged and
   paged + prefix cache, where ``bit_exact`` is False on both sides (as the
-  reference's for MLA) and prefix hits are storage-only.
+  reference's for MLA) and prefix hits skip their prefill through the
+  extend program.
 Telemetry (program counts, dispatches, preemptions, prefill tokens saved,
 prefix hits, disabled features) is equal too, and the program budget
 ``prefill_compiles + decode_compiles <= len(buckets) + 2`` holds.
 
 Also: the port's CPU prefill last-position logits are bitwise its decode
 path's for the same token (what makes ``bit_exact`` True on the CPU);
-``cancel`` frees pages at once; the caches are written in place and each
-decode dispatch makes one device-to-host copy; the features of later
-slices raise; the engine defaults to the card.
+``caps`` equal the reference's field for field; ``cancel`` frees pages at
+once; the caches are written in place and each decode dispatch makes one
+device-to-host copy; the engine defaults to the card.
 """
 
 import dataclasses
@@ -176,14 +177,12 @@ INT8_CASES = {
 @pytest.mark.parametrize("case", list(INT8_CASES))
 def test_int8_serve_streams_match_reference(models, sampling, case):
     """``ServeConfig(policy="int8_serve")``: the greedy streams, finish
-    reasons, telemetry and warnings equal the JAX engine's, whose
-    cache-extending program (ROADMAP queue 1, item 8, step 5) is switched
-    off to match the port's; the caches are int8, ``bit_exact`` is False as
-    the reference's, and the program budget holds."""
+    reasons, telemetry and warnings equal the JAX engine's, both with the
+    cache-extending prefill program; the caches are int8, ``bit_exact`` is
+    False as the reference's, and the program budget holds."""
     arch, sc_kw = INT8_CASES[case]
     sc_kw = dict(sc_kw, policy="int8_serve")
-    ref_tokens, ref_reasons, ref_tel, ref_warn = _reference(models, arch, sc_kw, sampling[arch],
-                                                            cache_extend=False)
+    ref_tokens, ref_reasons, ref_tel, ref_warn = _reference(models, arch, sc_kw, sampling[arch])
     tokens, reasons, tel, warn, eng = _ours(models, arch, sc_kw, sampling[arch])
     assert tokens == ref_tokens
     assert reasons == ref_reasons and "length" in reasons
@@ -193,9 +192,9 @@ def test_int8_serve_streams_match_reference(models, sampling, case):
     assert ex.quant_cache and not ex.bit_exact and ex.kernel["softmax_mode"] == "lut"
     assert ex.caches["layers"]["k"].dtype == torch.int8
     assert tel["prefill_compiles"] + tel["decode_compiles"] <= len(ex.buckets) + 2
-    assert tel["decode_compiles"] == 1
-    if "preempt" in case:  # gated off: no skip, no resume replay, no chunking
-        assert tel["prefill_tokens_saved"] == 0 and "prefill_chunk" in str(warn)
+    assert tel["decode_compiles"] == 1 and tel["extend_compiles"] <= 1
+    if "preempt" in case:  # skip, resume replay and chunking, through the extend program
+        assert tel["prefill_tokens_saved"] > 0 and tel["extend_dispatches"] > 0 and not warn
 
 
 MLA_LAYOUTS = {
@@ -210,14 +209,13 @@ MLA_LAYOUTS = {
 def test_mla_streams_match_reference(models, sampling, policy, layout):
     """minicpm3-4b through the engine, configured as
     ``test_int8_serve_streams_match_reference``: the greedy streams, finish
-    reasons, telemetry and warnings equal the JAX engine's (its
-    cache-extending program off); the caches are the packed latent (int8
-    codes and per-token scales under int8_serve), ``bit_exact`` is False as
-    the reference's for MLA, and the program budget holds."""
+    reasons, telemetry and warnings equal the JAX engine's (both with the
+    cache-extending program); the caches are the packed latent (int8 codes
+    and per-token scales under int8_serve), ``bit_exact`` is False as the
+    reference's for MLA, and the program budget holds."""
     sc_kw = dict(MLA_LAYOUTS[layout], policy=policy)
     arch = "minicpm3-4b"
-    ref_tokens, ref_reasons, ref_tel, ref_warn = _reference(models, arch, sc_kw, sampling[arch],
-                                                            cache_extend=False)
+    ref_tokens, ref_reasons, ref_tel, ref_warn = _reference(models, arch, sc_kw, sampling[arch])
     tokens, reasons, tel, warn, eng = _ours(models, arch, sc_kw, sampling[arch])
     assert tokens == ref_tokens
     assert reasons == ref_reasons and "length" in reasons
@@ -232,27 +230,26 @@ def test_mla_streams_match_reference(models, sampling, policy, layout):
                                                    else torch.float32)
     assert tel["prefill_compiles"] + tel["decode_compiles"] <= len(ex.buckets) + 2
     assert tel["decode_compiles"] == 1
-    if "prefix" in layout:  # storage-only hits: shared pages, no tokens saved
-        assert tel["prefix_hits"] > 0 and tel["prefill_tokens_saved"] == 0
+    if "prefix" in layout:  # hits skip their prefill: the tail replays through extend
+        assert tel["prefix_hits"] > 0 and tel["prefill_tokens_saved"] > 0
 
 
 def test_int8_serve_caps_match_reference(models):
-    """``bit_exact`` and ``cache_extend`` as the reference's: bit_exact False
-    under int8 KV and the LUT softmax; the reference's cache_extend is True
-    on its jnp path and False without the program, the port's False until
-    item 8, step 5.  minicpm3-4b (MLA) under its own policy too."""
+    """``bit_exact`` and ``cache_extend`` as the reference's, field for
+    field: bit_exact False under int8 KV and the LUT softmax, cache_extend
+    True on the CPU (the reference's jnp path) and False when switched off.
+    minicpm3-4b (MLA) under its own policy too."""
     for arch in ("granite-8b", "granite-moe-3b-a800m", "minicpm3-4b"):
         jcfg, jparams, cfg, params = models[arch]
         for kw in ({}, dict(kv_layout="paged", kv_page_size=8, kv_prefix_cache=True)):
-            sc = dict(BASE, policy="int8_serve", **kw)
-            with warnings.catch_warnings():  # prefill-skip off, as tested above
-                warnings.simplefilter("ignore", RuntimeWarning)
-                ours = Engine(cfg, params, ServeConfig(**sc), device="cpu").executor.caps
-                ref = JEngine(jcfg, jparams, JServeConfig(**sc)).executor.caps
-                off = JEngine(jcfg, jparams, JServeConfig(**sc, cache_extend=False)).executor.caps
-            assert not ours.bit_exact and not ref.bit_exact and ref.cache_extend
-            assert dataclasses.asdict(ours) == dataclasses.asdict(off)
-            assert dataclasses.asdict(ours) == dict(dataclasses.asdict(ref), cache_extend=False)
+            for extend in (True, False):
+                sc = dict(BASE, policy="int8_serve", cache_extend=extend, **kw)
+                with warnings.catch_warnings():  # prefill-skip off without extend
+                    warnings.simplefilter("ignore", RuntimeWarning)
+                    ours = Engine(cfg, params, ServeConfig(**sc), device="cpu").executor.caps
+                    ref = JEngine(jcfg, jparams, JServeConfig(**sc)).executor.caps
+                assert not ours.bit_exact and ours.cache_extend == extend
+                assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
 
 
 def test_cpu_prefill_logits_are_bitwise_the_decode_paths(models):
@@ -289,14 +286,16 @@ def test_cpu_prefill_logits_are_bitwise_the_decode_paths(models):
     assert torch.equal(out, logits[:, n - 1])
 
 
-def test_caps_match_reference_but_cache_extend(models):
+def test_caps_match_reference(models):
+    """Float granite-8b on the CPU: ``caps`` equal the reference's field for
+    field, ``bit_exact`` and ``cache_extend`` True."""
     _, _, cfg, params = models["granite-8b"]
     jcfg, jparams = models["granite-8b"][:2]
     for kw in ({}, dict(kv_layout="paged", kv_page_size=8, kv_prefix_cache=True)):
         ours = Engine(cfg, params, ServeConfig(**BASE, **kw), device="cpu").executor.caps
         ref = JEngine(jcfg, jparams, JServeConfig(**BASE, **kw)).executor.caps
-        assert ours.bit_exact and ref.bit_exact and ref.cache_extend and not ours.cache_extend
-        assert dataclasses.asdict(ours) == dict(dataclasses.asdict(ref), cache_extend=False)
+        assert ours.bit_exact and ours.cache_extend
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
 
 
 def test_unhonorable_knobs_warn_as_the_reference(models):
@@ -379,18 +378,6 @@ def test_caches_are_written_in_place_with_one_copy_back_per_decode(models, monke
     assert {k: t.data_ptr() for k, t in eng.executor.caches["layers"].items()} == ptrs
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(async_loop=True), "item 8, step 7"),
-    (dict(speculative=True), "item 8, step 8"),
-    (dict(shard_decode=True), "item 8, shard_decode"),
-    (dict(kv_layout="paged", kv_prefix_cache=True, kv_host_pages=8), "item 8, step 9"),
-])
-def test_unported_features_raise(models, kw, match):
-    _, _, cfg, params = models["granite-8b"]
-    with pytest.raises(NotImplementedError, match=match):
-        Engine(cfg, params, ServeConfig(**BASE, **kw), device="cpu")
-
-
 def test_hybrid_family_is_served_under_int8_serve():
     """int8_serve, its MLA latent caches and the hybrid family's caches are
     ported: a zamba2-1.2b-reduced engine under int8_serve takes int8 weights
@@ -410,11 +397,8 @@ def test_hybrid_family_is_served_under_int8_serve():
     assert all(len(r.generated) == 3 for r in out.values())
 
 
-def test_n_best_raises_and_the_engine_defaults_to_the_card(models, monkeypatch):
+def test_the_engine_defaults_to_the_card(models, monkeypatch):
     _, _, cfg, params = models["granite-8b"]
-    eng = Engine(cfg, params, ServeConfig(**BASE), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8, step 8"):
-        eng.submit([1, 2, 3], max_new_tokens=2, n=2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(cfg, params, ServeConfig(**BASE))

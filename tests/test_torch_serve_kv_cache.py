@@ -656,9 +656,19 @@ def test_manager_validates_page_size_pool_and_the_victim_tier():
                                       kv_pages=1), device="cpu")
     with pytest.raises(ValueError, match="kv_layout"):
         CacheManager(cfg, ServeConfig(kv_layout="interleaved"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8, step 9"):
-        CacheManager(cfg, ServeConfig(kv_layout="paged", kv_prefix_cache=True,
-                                      kv_host_pages=16), device="cpu")
+    # the victim tier lives on the paged prefix cache: its rings mirror every
+    # pool but the page table, and kv_victim_tier=False keeps it off
+    tier = CacheManager(cfg, ServeConfig(max_seq_len=64, kv_layout="paged", kv_prefix_cache=True,
+                                         kv_host_pages=16), device="cpu")
+    assert tier.victim_tier and tier.host_pages == 16
+    assert {n: tuple(r.shape) for n, r in tier._host_pool.items()} == {
+        n: (cfg.n_layers, 16) + tuple(tier.init_device_caches()["layers"][n].shape[2:])
+        for n in ("k", "v")}
+    for kw in (dict(kv_victim_tier=False), dict(kv_prefix_cache=False), dict(kv_layout="dense")):
+        sc = dict(dict(max_seq_len=64, kv_layout="paged", kv_prefix_cache=True,
+                       kv_host_pages=16), **kw)
+        off = CacheManager(cfg, ServeConfig(**sc), device="cpu")
+        assert not off.victim_tier and off.stats().host_pages_capacity == 0
 
 
 def test_page_utilization_guards_zero_capacity_and_bytes_shrink_with_pool():
