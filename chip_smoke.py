@@ -262,6 +262,35 @@ Phases, each of which fails the run (exit code 1) when it fails:
    and runs extend dispatches and drafts.  ``python3 tools/phase.py engine``
    runs this phase alone.
    Each path sets the launch counts to 0 before it and reads them after.
+14. tp -- the step split over the model axis (``distributed.tensor_parallel``,
+   ``make_train_step(mesh=, rules=)`` with ``split == "model"``): first phase
+   2's cases at the split's local shapes (granite-8b's attend at model 2,
+   (2, 16 q / 4 kv, 2048, 128) causal, float32 and bf16, forward and
+   backward; its RMSNorm over (4096, 4096), forward and backward), then two
+   processes on the one card, a (data 1, model 2) mesh over gloo (NCCL
+   refuses two ranks on one device), spawned together (one failed rank
+   fails the run): (a) granite-8b at its published widths, 2 layers,
+   float32, 2 x 2048 tokens, 2 split steps, each from the state the
+   unsharded step on the card starts from, the loss within 1e-4, every
+   moment of the rank's shard within 1e-4 of its leaf's largest magnitude
+   (float32 rounding reaches 1.1e-5 there) and every parameter within 1e-5 of max(1, |x|) (or, at most 1e-4 of
+   them, where Adam's m / sqrt(v) amplifies a gradient at the rounding's
+   size, off by exactly what the two runs' moments give through AdamW);
+   (b) granite-moe-3b-a800m the same (20 of its 40 experts per rank),
+   ``moe_dropped_frac`` equal to the unsharded value exactly; (c)
+   granite-8b bf16, 2 layers, a prefill of 1 x 2048 and 8 greedy decode
+   steps over caches of the rank's 4 kv heads, both runs fed the unsharded
+   run's tokens: a greedy token may differ only where the unsharded top-two
+   margin is under 5e-2 (bf16).  Per rank: the state's GB and the step's
+   peak above it, split and unsharded, step ms (the two ranks share the
+   card: these times say nothing of TP speed) and the collectives' bytes.
+   Each split call (a train step, the prefill, each decode step) runs in
+   a window of its own: the counts set to 0 just before it and read just
+   after, the unsharded runs outside; each must launch ``layernorm``
+   2 n_layers + 1 times and ``flash_attention`` n_layers times (none in
+   decode), the attention at the rank's heads.  The kernels line sums
+   the windows of both ranks.  ``python3 tools/phase.py tp`` runs this
+   phase alone.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  The full measurements
@@ -2195,8 +2224,8 @@ def _record_routes(fn):
 
     real, records = moe.route, []
 
-    def recorded(params, cfg, flat):
-        out = real(params, cfg, flat)
+    def recorded(params, cfg, flat, **kw):
+        out = real(params, cfg, flat, **kw)
         records.append((out[1].float().cpu(), out[2].cpu()))
         return out
 
@@ -4560,6 +4589,379 @@ def phase_engine(dev):
     return dict(res, seconds=secs, nvidia_smi=smi), counts
 
 
+# ------------------------------------------------------------------ tp --
+
+TP_RANKS, TP_MESH = 2, (1, 2)  # two processes on the one card, gloo: NCCL refuses that
+TP_CUT = dict(n_layers=2, dtype="float32")
+TP_TRAIN = ("granite-8b", "granite-moe-3b-a800m")
+TP_BATCH = (2, 2048)
+TP_STEPS = 2
+TP_LR = 3e-4
+TP_LOSS_TOL = 1e-4
+TP_STATE_TOL = 1e-5  # parameters: of max(1, |x|)
+TP_MOMENT_TOL = 1e-4  # moments: of the leaf's largest |x| (float32 rounding reaches 1.1e-5)
+TP_ADAM_RESIDUAL = 1e-6  # of max(1, |x|): a parameter's part not explained by its moments
+TP_ADAM_SHARE = 1e-4  # the most parameters whose normalised update amplifies rounding
+TP_DECODE = (1, 2048, 8)  # granite-8b bf16 2 layers: batch, prompt, greedy steps
+TP_MARGIN = 5e-2  # bf16: a greedy token may part only where the unsharded top-two margin is less
+TP_ATTENTION = (2, 16, 2048, 128)  # granite-8b's attend at model 2: batch, q heads, tokens, d
+TP_KV_HEADS = 4
+TP_NORM = (4096, 4096)  # the norms' rows (2 x 2048 tokens) at d_model, RMS
+
+
+def _tp_local_cases(dev) -> list[dict]:
+    """Phase 2's cases at the split's local shapes: granite-8b's attend at
+    model 2 (16 of 32 q heads, 4 of 8 kv heads) forward and backward in
+    float32 and bf16, and its RMSNorm rows."""
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        cases.append(_attention_case(dev, TP_ATTENTION, "safe", causal=True, dtype=dtype,
+                                     hkv=TP_KV_HEADS))
+        cases.append(_attention_grad_case(dev, TP_ATTENTION, TP_KV_HEADS, True, None, None, dtype,
+                                          "safe"))
+    cases.append(_layernorm_case(dev, *TP_NORM, True, False))
+    cases.append(_layernorm_grad_case(dev, *TP_NORM, True, False))
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise SmokeError(f"{len(bad)} local-shape kernel cases failed: {bad}")
+    return cases
+
+
+def _tp_shard(state, shardings, mesh):
+    """``state`` (whole, on this rank) as DTensors under ``shardings``:
+    each rank's shard cut locally and copied, so the whole state stays as
+    it is."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import map_tree, shard_of
+
+    return map_tree(lambda t, sh: DTensor.from_local(
+        shard_of(t, sh.placements, mesh).clone(), mesh, sh.placements, run_check=False),
+        state, shardings)
+
+
+def _tp_split_call(fn, cfg, group, attends: bool):
+    """``fn()``, one call of the split path, in a window of its own: the
+    kernel counts set to 0 just before it and read just after, and the
+    (q heads, kv heads) of every attention call recorded.  Raises unless
+    the window launched ``layernorm`` 2 n_layers + 1 times (each block's
+    two norms, the final norm) and ``flash_attention`` n_layers times where
+    the forward ``attends`` (train, prefill; decode attends the cache
+    without it) and not at all otherwise, every call at this rank's heads.
+    Returns (fn's result, the counts, the head counts seen)."""
+    from repro_torch.distributed import tensor_parallel as tp_lib
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import attention
+
+    real, heads = attention.mha, []
+
+    def recorded(q, k, v, **kw):
+        heads.append((int(q.shape[1]), int(k.shape[1])))
+        return real(q, k, v, **kw)
+
+    lo, hi = tp_lib.kv_head_range(cfg, group)
+    local = (cfg.n_heads // group.size, hi - lo)
+    want = {"layernorm": 2 * cfg.n_layers + 1}
+    if attends:
+        want["flash_attention"] = cfg.n_layers
+    attention.mha = recorded
+    LAUNCHES.clear()  # the window starts here
+    try:
+        out = fn()
+    finally:
+        attention.mha = real
+    counts = {k: n for k, n in LAUNCHES.items() if n}
+    LAUNCHES.clear()
+    if counts != want or heads != [local] * want.get("flash_attention", 0):
+        raise SmokeError(f"[tp] {cfg.name}: the split call launched {counts} (want {want}) at "
+                         f"(q, kv) heads {sorted(set(heads))} (want {local})")
+    return out, counts, local
+
+
+def _tp_train(name, mesh, dev) -> dict:
+    """(a) / (b): ``TP_STEPS`` split steps of ``name`` at its published
+    widths, each from the state the unsharded step starts from on this
+    rank, held against it."""
+    import torch
+
+    from repro_torch.configs import ParallelismConfig, get_config
+    from repro_torch.distributed import ShardingRules
+    from repro_torch.distributed.sharding import shard_of
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_state, make_train_step, train_state_shardings
+
+    cfg = dataclasses.replace(get_config(name), **TP_CUT)
+    rules = ShardingRules(mesh=mesh, plan=ParallelismConfig())
+    opt = AdamW(schedule=lambda s: TP_LR)
+    state = make_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    shardings = train_state_shardings(cfg, opt, rules)
+    split, plain = make_train_step(cfg, opt, mesh=mesh, rules=rules), make_train_step(cfg, opt)
+    if split.split != "model":
+        raise SmokeError(f"{name}: the sharded step's pattern is {split.split!r}, not 'model'")
+    group = split.keywords["group"]
+    g = torch.Generator().manual_seed(SEED + 1)
+    steps = []
+    for i in range(TP_STEPS):
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, TP_BATCH, generator=g,
+                                         dtype=torch.int32).to(dev)}
+        sharded = _tp_shard(state, shardings, mesh)
+        rec = {}
+        for kind, fn, st in (("split", split, sharded), ("plain", plain, state)):
+            held = sum(t.to_local().numel() * t.to_local().element_size() if kind == "split"
+                       else t.numel() * t.element_size() for _, t in _leaves(st))
+            sent = dict(group.bytes)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if kind == "split":
+                (_, m), launches, heads = _tp_split_call(lambda: fn(st, batch), cfg, group, True)
+            else:
+                _, m = fn(st, batch)
+            torch.cuda.synchronize()
+            rec[kind] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                             state_gb=held / 1e9,
+                             step_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                             metrics={k: float(v) for k, v in m.items()})
+            if kind == "split":
+                rec[kind].update(collective_bytes={k: group.bytes[k] - sent[k] for k in sent},
+                                 launches=launches, heads=heads)
+        rec.update(_tp_state_check(sharded, state, shardings, mesh, opt))
+        del sharded
+        rec["loss_err"] = abs(rec["split"]["metrics"]["loss"] - rec["plain"]["metrics"]["loss"])
+        steps.append(rec)
+    del state
+    torch.cuda.empty_cache()
+    bad = [(i, rec) for i, rec in enumerate(steps) if rec["loss_err"] > TP_LOSS_TOL
+           or not rec["state_ok"] or (cfg.moe is not None and (
+               rec["split"]["metrics"]["moe_dropped_frac"]
+               != rec["plain"]["metrics"]["moe_dropped_frac"]))]
+    if bad:  # after every step, so that the message holds each step's readings
+        raise SmokeError(f"[tp] {name}: steps {[i for i, _ in bad]} off (loss tol {TP_LOSS_TOL}, "
+                         f"moments {TP_MOMENT_TOL}): " + "; ".join(
+                             f"step {i}: " + str({k: v for k, v in rec.items()
+                                                  if k not in ("split", "plain")})
+                             + f" dropped {rec['split']['metrics'].get('moe_dropped_frac')} / "
+                             f"{rec['plain']['metrics'].get('moe_dropped_frac')}"
+                             for i, rec in enumerate(steps)))
+    return dict(model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, batch=list(TP_BATCH),
+                steps=steps)
+
+
+def _tp_state_check(sharded, state, shardings, mesh, opt) -> dict:
+    """The split step's shards against the same shards of the unsharded
+    step's state, both from one state.  The moments (linear in the
+    gradient) within ``TP_MOMENT_TOL`` of their leaf's largest magnitude,
+    every element.  A parameter within ``TP_STATE_TOL`` of max(1, |x|), or,
+    where AdamW's normalised update m / sqrt(v) amplifies the moments'
+    rounding (a gradient at the rounding's size), at most ``TP_ADAM_SHARE``
+    of them, its difference exactly what the two runs' moments give
+    through that update: the rest within ``TP_ADAM_RESIDUAL``."""
+    import torch
+
+    from repro_torch.distributed.sharding import shard_of
+
+    step = state["opt"]["step"]
+    c1, c2 = 1 - opt.b1 ** step.float(), 1 - opt.b2 ** step.float()
+    lr = float(opt.schedule(step))
+
+    def update(m, v):  # AdamW's normalised update, as ``optim.adamw`` computes it
+        return (m / c1) / (torch.sqrt(v / c2) + opt.eps)
+
+    def mine(path):
+        t = _leaf_at(sharded, path).to_local()
+        return t, shard_of(_leaf_at(state, path), _leaf_at(shardings, path).placements, mesh)
+
+    def rel(a, b):
+        return (a.double() - b.double()).abs() / b.double().abs().clamp_min(1)
+
+    def leaf_rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    moments, params, residual, amplified, n, worst_leaf = 0.0, 0.0, 0.0, 0, 0, None
+    worst_moment = None
+    for path, _ in _leaves(shardings["params"]):
+        (mu_s, mu_u), (nu_s, nu_u) = mine("opt/mu/" + path), mine("opt/nu/" + path)
+        m_err = max(leaf_rel(mu_s, mu_u), leaf_rel(nu_s, nu_u))
+        if m_err > moments:
+            moments, worst_moment = m_err, path
+        p_s, p_u = mine("params/" + path)
+        d = rel(p_s, p_u)
+        if float(d.max()) > params:
+            params, worst_leaf = float(d.max()), path
+        over = d > TP_STATE_TOL
+        if bool(over.any()):
+            explained = lr * (update(mu_s, nu_s) - update(mu_u, nu_u)).double()
+            left = (p_s.double() - p_u.double() + explained).abs() / p_u.double().abs().clamp_min(1)
+            residual = max(residual, float(left[over].max()))
+            amplified += int(over.sum())
+        n += p_u.numel()
+    ok = (moments <= TP_MOMENT_TOL and residual <= TP_ADAM_RESIDUAL
+          and amplified <= TP_ADAM_SHARE * n)
+    return dict(state_ok=ok, moments_rel_err=moments, moments_worst_leaf=worst_moment,
+                params_rel_err=params, params_worst_leaf=worst_leaf, amplified=amplified,
+                params_n=n,
+                amplified_residual=residual)
+
+
+def _leaf_at(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _tp_decode(mesh, dev) -> dict:
+    """(c): granite-8b bf16 prefill and greedy decode steps over caches of
+    this rank's kv heads, against the unsharded model on the unsharded
+    run's tokens."""
+    import torch
+
+    from repro_torch.configs import ParallelismConfig, get_config
+    from repro_torch.distributed import ShardingRules
+    from repro_torch.distributed import tensor_parallel as tp_lib
+    from repro_torch.distributed.sharding import map_tree, param_shardings, shard_of
+    from repro_torch.models import lm
+    from repro_torch.train.step import model_split
+
+    b, s0, steps = TP_DECODE
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=TP_CUT["n_layers"])
+    rules = ShardingRules(mesh=mesh, plan=ParallelismConfig())
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    sh = param_shardings(rules, cfg, lm)
+    group, local = model_split(cfg, mesh, sh)
+    split = map_tree(lambda t, s, loc: shard_of(t, s.placements, mesh, ("model",)).clone()
+                     if loc else t, params, sh, local)
+    launches = collections.Counter()
+
+    def split_call(fn, attends):
+        out, counts, heads = _tp_split_call(fn, cfg, group, attends)
+        launches.update(counts)
+        return out
+    max_len = s0 + steps
+    whole = lm.init_caches(cfg, b, max_len, torch.bfloat16, device=dev)
+    mine = {g: {k: t.clone() for k, t in leaves.items()}
+            for g, leaves in tp_lib.local_caches(cfg, lm.init_caches(
+                cfg, b, max_len, torch.bfloat16, device=dev), group).items()}
+    prompt = torch.randint(0, cfg.vocab_size, (b, s0), generator=torch.Generator().manual_seed(
+        SEED + 2), dtype=torch.int32).to(dev)
+    s_last, mine = split_call(lambda: lm.prefill(split, cfg, {"tokens": prompt}, mine, device=dev,
+                                                 group=group), True)
+    w_last, whole = lm.prefill(params, cfg, {"tokens": prompt}, whole, device=dev)
+    errs, close, toks = [float((s_last.float() - w_last.float()).abs().max())], [], []
+    for k in range(steps + 1):
+        top2 = w_last.float().topk(2, dim=-1).values
+        margin = float((top2[:, 0] - top2[:, 1]).min())
+        if not torch.equal(s_last.argmax(-1), w_last.argmax(-1)):
+            if margin >= TP_MARGIN:
+                raise SmokeError(f"[tp] granite-8b bf16 decode step {k}: the split's greedy "
+                                 f"token differs where the unsharded margin is {margin:.3e}")
+            close.append(dict(step=k, margin=margin))
+        if k == steps:
+            break
+        tok = w_last.argmax(-1, keepdim=True)  # both runs take the unsharded run's tokens
+        toks.append(tok)
+        pos = torch.full((b,), s0 + k, dtype=torch.int32, device=dev)
+        s_last, mine = split_call(lambda: lm.decode_step(split, cfg, tok, pos, mine, device=dev,
+                                                         group=group), False)
+        w_last, whole = lm.decode_step(params, cfg, tok, pos, whole, device=dev)
+        errs.append(float((s_last.float() - w_last.float()).abs().max()))
+    heads = int(mine["layers"]["k"].shape[2])
+    if heads != cfg.n_kv_heads // group.size:
+        raise SmokeError(f"[tp] the split caches hold {heads} kv heads")
+    return dict(model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, batch=b, prompt=s0,
+                steps=steps, cache_kv_heads=heads, launches=dict(launches), max_abs_logit_err=errs,
+                logit_scale=float(w_last.float().abs().max()), close_calls=close,
+                tokens=torch.cat(toks, 1).cpu().tolist())
+
+
+def _tp_rank(rank: int, world: int, work: str) -> None:
+    """One of the phase's two processes: a (data 1, model 2) mesh over gloo
+    on the one card; writes ``rank<rank>.json`` under ``work``."""
+    import datetime
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/pg", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(TP_MESH, ("data", "model"), device_type="cuda")
+        t0 = time.perf_counter()
+        out = {"train": [_tp_train(name, mesh, dev) for name in TP_TRAIN],
+               "decode": _tp_decode(mesh, dev)}
+        out["seconds"] = time.perf_counter() - t0
+        Path(work, f"rank{rank}.json").write_text(json.dumps(out, default=str))
+        dist.barrier()  # a gloo rank that leaves early resets its peer
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(dev):
+    """Phase 14: the step split over the model axis (module docstring, 14).
+    Returns (results, the launch counts of the split calls' windows, both
+    ranks: the unsharded runs they are held against count nothing)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    cases = _tp_local_cases(dev)
+    _report_cases([c for c in cases if "ms" in c])
+    for c in cases:
+        if "fwd_bwd_ms" in c:
+            log(f"[tp] grad {c['kernel']} {c['shape']} {c.get('dtype', 'float32')}: max |d| "
+                f"{c['max_abs_err']}  fwd+bwd {c['fwd_bwd_ms']:.3f} ms (plain "
+                f"{c['plain_fwd_bwd_ms']:.3f})")
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="tp_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(_tp_rank, args=(TP_RANKS, str(work)), nprocs=TP_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(TP_RANKS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    counts = collections.Counter()
+    for r in ranks:  # each split call's window held its counts (_tp_split_call)
+        for t in r["train"]:
+            for st in t["steps"]:
+                counts.update(st["split"]["launches"])
+        counts.update(r["decode"]["launches"])
+    for i, r in enumerate(ranks):
+        for t in r["train"]:
+            for k, st in enumerate(t["steps"]):
+                sp, pl = st["split"], st["plain"]
+                log(f"[tp] rank {i} {t['model']} {t['layers']} L {t['dtype']} {t['batch']} step "
+                    f"{k}: loss {sp['metrics']['loss']:.6f} (unsharded "
+                    f"{pl['metrics']['loss']:.6f}, |d| {st['loss_err']:.2e}); launches "
+                    f"{sp['launches']} at (q, kv) heads {sp['heads']}; moments |d| / leaf max "
+                    f"{st['moments_rel_err']:.2e} ({st['moments_worst_leaf']}); parameters "
+                    f"|d| / max(1, |x|) {st['params_rel_err']:.2e} "
+                    f"({st['params_worst_leaf']}; {st['amplified']} of {st['params_n']} over "
+                    f"{TP_STATE_TOL} where m / sqrt(v) amplifies, all but "
+                    f"{st['amplified_residual']:.1e} from the moments); state "
+                    f"{sp['state_gb']:.2f} GB + step peak "
+                    f"{sp['step_peak_gb']:.2f} GB (unsharded {pl['state_gb']:.2f} + "
+                    f"{pl['step_peak_gb']:.2f}); step {sp['ms']:.1f} ms (unsharded "
+                    f"{pl['ms']:.1f}; two ranks share the card: not a TP speed); collectives "
+                    f"{ {k2: int(v) for k2, v in sp['collective_bytes'].items()} } B")
+        d = r["decode"]
+        log(f"[tp] rank {i} {d['model']} {d['layers']} L bf16 prefill {d['batch']} x {d['prompt']} "
+            f"+ {d['steps']} greedy steps over caches of {d['cache_kv_heads']} kv heads "
+            f"(launches {d['launches']}): max "
+            f"|logit d| {max(d['max_abs_logit_err']):.3e} (|logit| up to {d['logit_scale']:.2f}), "
+            f"close calls {d['close_calls']}")
+    log(f"[tp] split calls' launches (both ranks): {dict(counts)}; ranks' seconds "
+        f"{[round(r['seconds'], 1) for r in ranks]}, spawn to join {spawn_s:.1f} s")
+    return dict(kernels=cases, ranks=ranks, spawn_s=spawn_s), dict(counts)
+
+
 # ---------------------------------------------------------------- main --
 
 def main() -> int:
@@ -4615,6 +5017,7 @@ def main() -> int:
         roofline, roofline_counts = timed("roofline", phase_roofline, dev, dict(
             models=models, mamba=mamba, dense=dense, int8_moe=int8, mla=mla, families=families))
         engine, engine_counts = timed("engine", phase_engine, dev)
+        tp, tp_counts = timed("tp", phase_tp, dev)
     except Exception:  # noqa: BLE001 - report every failed phase and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4623,7 +5026,7 @@ def main() -> int:
     # launches: each kernel's count summed over the path windows it runs in
     windows = (model_counts, mha_counts, softmax_counts, mamba_counts, dense_counts, serve_counts,
                train_counts, int8_counts, mla_counts, families_counts, roofline_counts,
-               engine_counts)
+               engine_counts, tp_counts)
     counts = {k: sum(w.get(k, 0) for w in windows)
               for k in ("flash_attention", "layernorm", "qmatmul", "lut_softmax", "ssd_scan")}
     main_shape = {"flash_attention": ([8192, 4, 100, 8], "safe"),
@@ -4653,7 +5056,7 @@ def main() -> int:
                                "lut_softmax_path": softmax_path, "mamba": mamba,
                                "dense": dense, "serve": serve, "train": train,
                                "int8_moe": int8, "mla": mla, "families": families,
-                               "roofline": roofline, "engine": engine,
+                               "roofline": roofline, "engine": engine, "tp": tp,
                                "launches": counts,
                                "launches_by_path": {"models": model_counts, "mha": mha_counts,
                                                     "lut_softmax": softmax_counts,
@@ -4665,7 +5068,8 @@ def main() -> int:
                                                     "mla": mla_counts,
                                                     "families": families_counts,
                                                     "roofline": roofline_counts,
-                                                    "engine": engine_counts},
+                                                    "engine": engine_counts,
+                                                    "tp": tp_counts},
                                "phase_seconds": phase_s,
                                "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s; details in {OUT.relative_to(ROOT)}")

@@ -25,7 +25,10 @@ mesh axis name or a tuple of them), and a :class:`NamedSharding` pairs it
 with its mesh; on a ``DeviceMesh`` its ``placements`` are the DTensor
 placement list (``Shard(d)`` on each mesh axis that splits tensor axis d,
 ``Replicate()`` on the others).  :func:`place` puts a plain tensor under a
-sharding, :func:`gather` brings a DTensor back to a plain tensor.
+sharding, :func:`gather` brings a DTensor back to a plain tensor, and
+:func:`gather_over` gathers one over some mesh axes only (the data axes,
+keeping its ``model`` shard, for the split step); :func:`shard_of` cuts a
+rank's piece out of a plain tensor as the placements would.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ParallelismConfig
 from repro_torch.launch.mesh import mesh_axis_names, mesh_axis_size
@@ -250,6 +254,34 @@ def gather(t):
     from torch.distributed.tensor import DTensor
 
     return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def gather_over(t, axes) -> torch.Tensor:
+    """A plain tensor holding ``t`` (a DTensor) gathered over the mesh axes
+    ``axes`` and still split over the others: this rank's shard of ``t``
+    under the placements of the other axes."""
+    mesh = t.device_mesh
+    names = mesh_axis_names(mesh)
+    local = t.to_local()
+    for i in reversed(range(len(names))):  # the minor axis first, as DTensor splits
+        p = t.placements[i]
+        if names[i] in axes and p.is_shard() and mesh.size(i) > 1:
+            parts = [torch.empty_like(local) for _ in range(mesh.size(i))]
+            dist.all_gather(parts, local.contiguous(), group=mesh.get_group(i))
+            local = torch.cat(parts, dim=p.dim)
+    return local
+
+
+def shard_of(t: torch.Tensor, placements, mesh, axes=None) -> torch.Tensor:
+    """This rank's piece of ``t`` under ``placements`` on the mesh axes
+    ``axes`` (every axis by default): a view, cut as DTensor splits (the
+    major axis first, even chunks)."""
+    names = mesh_axis_names(mesh)
+    for i, p in enumerate(placements):
+        if p.is_shard() and (axes is None or names[i] in axes):
+            c = t.shape[p.dim] // mesh.size(i)
+            t = t.narrow(p.dim, mesh.get_local_rank(i) * c, c)
+    return t
 
 
 def map_tree(fn, tree, *rest):

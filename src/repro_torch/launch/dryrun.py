@@ -11,18 +11,35 @@ Every cell runs at full size: meta tensors allocate nothing, so this runs
 on a CPU.  A mesh here is a ``launch.mesh.AbstractMesh`` (no process
 group): the sharding rules read only its shape and axis names.
 
-What one device computes is what the port's sharded step runs (the FSDP
-pattern of ``train.step.sharded_train_step``): the parameters gathered
-whole, the batch split over the data axes (``pod`` x ``data``; a batch the
-data degree does not divide is replicated, the rules' fallback), the
-``model`` axis repeating its data shard's compute (GSPMD's split over
-``model`` is ROADMAP queue 2, item 11), and AdamW on this device's shard of
-each leaf.  Prefill and decode run the same way: parameters gathered,
-batch and caches split over the data axes.  The argument bytes are those
-of the rules' placements (parameters, optimizer moments, caches and batch
-per device); the collectives are counted from the step: each sharded
-parameter gathered whole, and in training each gradient all-reduced over
-the data axes.
+What one device computes is what the port's sharded step runs, in the
+pattern ``train.step.make_train_step`` records as its ``split`` (the
+cell's ``split``):
+
+- ``"model"`` (dense GQA and MoE on a model axis above one): GSPMD's split
+  over ``model`` (``train.step.sharded_train_step`` under the group of
+  ``train.step.model_split``): each parameter gathered over the data axes
+  only, keeping its model shard (whole where the split takes it whole),
+  the step traced at those local
+  shapes under an abstract model group, whose collectives run nothing and
+  count their bytes (``distributed.tensor_parallel``);
+- ``"repeat"`` (the other families, ROADMAP queue 2, item 11, and every
+  family on a model axis of one): the
+  parameters gathered whole and the ``model`` axis repeating its data
+  shard's compute (the FSDP pattern of ``train.step.sharded_train_step``).
+
+Either way the batch is split over the data axes (``pod`` x ``data``; a
+batch the data degree does not divide is replicated, the rules' fallback)
+and AdamW updates this device's shard of each leaf.  Prefill and decode run
+the same way, the split's caches holding this device's kv heads.  The
+argument bytes are those of the rules' placements (parameters, optimizer
+moments, caches and batch per device).  The collectives are counted from
+the step: ``all-gather``, each parameter gathered to the form the step
+computes with (over the data axes, and over ``model`` too where it is taken
+whole); ``all-reduce``, in training each such gradient over the data axes;
+``model all-reduce`` / ``model all-gather``, the split's reductions and
+gathers over ``model`` (partial sums, gradients into split work, the
+vocabulary's reductions, the router's logits).  ``gathered_param_bytes``
+is what one device holds of the parameters while it computes.
 
 Results are cached as JSON under --out (default experiments/dryrun_torch);
 a cell is traced again only with --force.
@@ -43,6 +60,7 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import SHAPES, ModelConfig, ParallelismConfig, ShapeConfig
 from repro_torch.device import meta_trace
+from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.distributed.sharding import ShardingRules, map_tree
 from repro_torch.launch.mesh import abstract_mesh, data_axes, mesh_axis_size
 from repro_torch.models import lm
@@ -125,11 +143,61 @@ def device_batch(rules, shape: ShapeConfig) -> int:
         shape.global_batch,)))[0]
 
 
-def _gather_bytes(aparams, shardings) -> float:
-    """All-gather bytes of the step: each sharded parameter gathered whole."""
+def _gather_bytes(computed, shardings) -> float:
+    """All-gather bytes of the step: each parameter whose computed form
+    (``computed``) is larger than its shard, gathered to that form."""
     return float(sum(t.numel() * t.element_size()
-                     for t, sh in zip(_leaves(aparams), _leaves(shardings))
+                     for t, sh in zip(_leaves(computed), _leaves(shardings))
                      if _local_shape(t.shape, sh) != tuple(t.shape)))
+
+
+@dataclasses.dataclass
+class _Split:
+    """How one device computes: ``pattern`` ``"model"`` or ``"repeat"``;
+    for ``"model"``, the abstract ``group`` and the ``local`` tree of
+    ``train.step.model_split``."""
+
+    pattern: str
+    group: tp_lib.ModelGroup | None = None
+    local: dict | None = None
+
+
+def _split_for(cfg, mesh, param_shardings) -> _Split:
+    group, local = step_lib.model_split(cfg, mesh, param_shardings)
+    return _Split("repeat") if group is None else _Split("model", group, local)
+
+
+def _device_cfg(cfg, split: _Split):
+    """The config whose attention one device runs: its q and kv heads
+    under a split by heads, else ``cfg``."""
+    if split.group is None or not split.group.layout.heads:
+        return cfg
+    lo, hi = tp_lib.kv_head_range(cfg, split.group)
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // split.group.size, n_kv_heads=hi - lo,
+                               head_dim=cfg.resolved_head_dim)
+
+
+def _computed_meta(t: torch.Tensor, sharding, local: bool, size: int) -> torch.Tensor:
+    """The form the split step computes with (``train.step.split_params``):
+    this device's ``model`` shard where ``local``, else the whole leaf."""
+    shape = list(t.shape)
+    dim = tp_lib.model_dim(sharding.spec)
+    if local and dim is not None:
+        shape[dim] //= size
+    return torch.empty(shape, dtype=t.dtype, device="meta")
+
+
+def _computed_params(aparams, shardings, split: _Split):
+    if split.group is None:
+        return aparams
+    return map_tree(lambda t, sh, loc: _computed_meta(t, sh, loc, split.group.size), aparams,
+                    shardings, split.local)
+
+
+def _model_coll(split: _Split) -> dict[str, float]:
+    if split.group is None:
+        return {}
+    return {f"model {k}": v for k, v in split.group.bytes.items()}
 
 
 def _meta_caches(cfg, batch, max_len):
@@ -157,6 +225,9 @@ class Trace:
     device_shape: ShapeConfig
     coll_bytes: dict[str, float]
     memory_stats: dict[str, int]
+    pattern: str  # the step's split: "model" or "repeat"
+    param_bytes: float  # the parameters one device holds while it computes
+    device_cfg: ModelConfig  # the config whose attention heads one device runs
 
 
 # ---------------------------------------------------------------------------
@@ -166,23 +237,29 @@ class Trace:
 
 class _ShardUpdate:
     """AdamW as the sharded step applies it: the gradients averaged over the
-    data axes, their global norm, then the update of this device's shard of
-    each leaf (``opt_local``, ``params_local``)."""
+    data axes, their global norm (split: summed over the model shards), then
+    the update of this device's shard of each leaf (``opt_local``,
+    ``params_local``)."""
 
-    def __init__(self, optimizer, opt_local, params_local, shardings, n_data):
+    def __init__(self, optimizer, opt_local, params_local, shardings, n_data, split: _Split):
         self.optimizer, self.opt_local, self.params_local = optimizer, opt_local, params_local
-        self.shardings, self.n_data = shardings, n_data
+        self.shardings, self.n_data, self.split = shardings, n_data, split
 
     def update(self, grads, _state, _params):
         if self.n_data > 1:  # the all-reduce's mean, the sharded step's copy and divide
             grads = map_leaves(lambda _, g: g.clone() / float(self.n_data), grads)
-        gnorm = global_norm(grads)
-        local = map_tree(_shard_view, grads, self.shardings)
+        if self.split.group is None:
+            gnorm = global_norm(grads)
+        else:
+            gnorm = step_lib.split_global_norm(grads, self.split.local, self.shardings,
+                                               self.split.group)
+        local = map_tree(_shard_view, grads, self.params_local)
         return self.optimizer.update(local, self.opt_local, self.params_local, grad_norm=gnorm)
 
 
-def _shard_view(t: torch.Tensor, sharding) -> torch.Tensor:
-    for dim, n in enumerate(_local_shape(t.shape, sharding)):
+def _shard_view(t: torch.Tensor, shard: torch.Tensor) -> torch.Tensor:
+    """A view of ``t`` the shape of this device's ``shard`` of its leaf."""
+    for dim, n in enumerate(shard.shape):
         t = t.narrow(dim, 0, n)
     return t
 
@@ -197,53 +274,63 @@ def trace_train(cfg, shape, mesh, rules) -> Trace:
     local_specs = lm.input_specs(cfg, dshape)
     n_data = math.prod(mesh_axis_size(mesh, a) for a in data_axes(mesh))
     local = map_tree(_local_meta, state, state_sh)  # this device's shards
+    split = _split_for(cfg, mesh, state_sh["params"])
+    computed = _computed_params(state["params"], state_sh["params"], split)
     shard_update = _ShardUpdate(optimizer, local["opt"], local["params"], state_sh["params"],
-                                n_data)
+                                n_data, split)
     with meta_trace(), op_counter.OpCounter() as c:
-        _, metrics = step_lib.train_step(state, local_specs, cfg=cfg, optimizer=shard_update,
+        _, metrics = step_lib.train_step({"params": computed, "opt": state["opt"]}, local_specs,
+                                         cfg=cfg, optimizer=shard_update,
                                          remat=rules.plan.remat,
-                                         grad_accum=rules.plan.grad_accum)
-    grad_bytes = float(sum(t.numel() * t.element_size() for t in _leaves(state["params"])))
-    coll = {"all-gather": _gather_bytes(state["params"], state_sh["params"])}
+                                         grad_accum=rules.plan.grad_accum, group=split.group)
+    param_bytes = float(sum(t.numel() * t.element_size() for t in _leaves(computed)))
+    coll = {"all-gather": _gather_bytes(computed, state_sh["params"])}
     if n_data > 1:
-        coll["all-reduce"] = grad_bytes
+        coll["all-reduce"] = param_bytes
+    coll.update(_model_coll(split))
     args = _tree_bytes(state, state_sh) + _tree_bytes(specs, _batch_shardings(rules, specs))
     outs = _tree_bytes(state, state_sh) + _out_bytes(metrics)
-    return Trace(c.result(), dshape, coll, {"argument_bytes": args, "output_bytes": outs})
+    return Trace(c.result(), dshape, coll, {"argument_bytes": args, "output_bytes": outs},
+                 split.pattern, param_bytes, _device_cfg(cfg, split))
 
 
-def _serve_trace(cfg, shape, rules, mode) -> Trace:
+def _serve_trace(cfg, shape, mesh, rules, mode) -> Trace:
     aparams = lm.abstract_params(cfg)
     params_sh = rules.tree_shardings(aparams, params_lib.logical_axes(lm.param_spec(cfg)))
+    split = _split_for(cfg, mesh, params_sh)
+    computed = _computed_params(aparams, params_sh, split)
     b = device_batch(rules, shape)
     dshape = dataclasses.replace(shape, global_batch=b)
     caches = _meta_caches(cfg, shape.global_batch, shape.seq_len)
     cache_sh = _cache_shardings(rules, caches, cfg)
-    local_caches = _meta_caches(cfg, b, shape.seq_len)
+    local_caches = tp_lib.local_caches(cfg, _meta_caches(cfg, b, shape.seq_len), split.group)
     specs = lm.input_specs(cfg, shape)
     local = lm.input_specs(cfg, dshape)
+    kw = dict(device="meta", in_place=True, group=split.group)
     with meta_trace(), torch.no_grad(), op_counter.OpCounter() as c:
         if mode == "decode":
-            logits, _, _ = lm.forward(aparams, cfg, {"tokens": local["tokens"]}, mode="decode",
-                                      caches=local_caches, positions=local["positions"],
-                                      device="meta", in_place=True)
+            logits, _, _ = lm.forward(computed, cfg, {"tokens": local["tokens"]}, mode="decode",
+                                      caches=local_caches, positions=local["positions"], **kw)
         else:
-            logits, _, _ = lm.forward(aparams, cfg, local, mode="prefill", caches=local_caches,
-                                      device="meta", in_place=True)
+            logits, _, _ = lm.forward(computed, cfg, local, mode="prefill", caches=local_caches,
+                                      **kw)
         last = logits[:, -1]
     cache_bytes = _tree_bytes(caches, cache_sh)
     args = (_tree_bytes(aparams, params_sh) + cache_bytes
             + _tree_bytes(specs, _batch_shardings(rules, specs)))
-    return Trace(c.result(), dshape, {"all-gather": _gather_bytes(aparams, params_sh)},
-                 {"argument_bytes": args, "output_bytes": cache_bytes + _out_bytes(last)})
+    coll = {"all-gather": _gather_bytes(computed, params_sh), **_model_coll(split)}
+    param_bytes = float(sum(t.numel() * t.element_size() for t in _leaves(computed)))
+    return Trace(c.result(), dshape, coll,
+                 {"argument_bytes": args, "output_bytes": cache_bytes + _out_bytes(last)},
+                 split.pattern, param_bytes, _device_cfg(cfg, split))
 
 
 def trace_prefill(cfg, shape, mesh, rules) -> Trace:
-    return _serve_trace(cfg, shape, rules, "prefill")
+    return _serve_trace(cfg, shape, mesh, rules, "prefill")
 
 
 def trace_decode(cfg, shape, mesh, rules) -> Trace:
-    return _serve_trace(cfg, shape, rules, "decode")
+    return _serve_trace(cfg, shape, mesh, rules, "decode")
 
 
 TRACE = {"train": trace_train, "prefill": trace_prefill, "decode": trace_decode}
@@ -295,7 +382,7 @@ def run_cell(
         analysis = analyze_cell(arch=arch, shape_cfg=shape, cfg=cfg, mesh_name=mesh_name,
                                 n_devices=math.prod(mesh.shape), count=tr.count,
                                 device_shape=tr.device_shape, coll_bytes=tr.coll_bytes,
-                                memory_stats=tr.memory_stats)
+                                memory_stats=tr.memory_stats, device_cfg=tr.device_cfg)
         result = analysis.to_json()
         result.update(
             status="ok",
@@ -306,10 +393,12 @@ def run_cell(
             params=cfg.param_count_estimate(),
             active_params=cfg.active_param_count_estimate(),
             device_batch=tr.device_shape.global_batch,
+            split=tr.pattern,
+            gathered_param_bytes=tr.param_bytes,
         )
         print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: OK (trace {t_trace:.1f}s, "
-              f"dominant={analysis.dominant}, fused={analysis.terms_fused.dominant})",
-              flush=True)
+              f"split={tr.pattern}, dominant={analysis.dominant}, "
+              f"fused={analysis.terms_fused.dominant})", flush=True)
     except Exception as e:  # noqa: BLE001 - record and continue
         result = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                   "status": "error", "error": f"{type(e).__name__}: {e}",

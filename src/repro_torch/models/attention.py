@@ -22,6 +22,14 @@ A cache that carries ``k_scale`` / ``v_scale`` is the int8 KV cache
 dequantized representation (float32, through the kernel's float32 route),
 so the values it scores are those decode reads back.
 
+Under a model group (``distributed.tensor_parallel``) GQA splits by
+heads: q/k/v project to this rank's heads, the kernel runs at the local
+head counts, ``wo`` is row-parallel, and a cache holds the local kv heads
+(``tensor_parallel.local_caches``).  When the kv heads do not divide the
+group, K/V's weight comes whole and each rank projects the kv heads its q
+heads use; when the q heads do not split evenly, the attention repeats
+on every rank.
+
 MLA caches one packed latent per token, ``kv_lora_rank`` values of the
 normed ``ckv`` and the ``qk_rope_head_dim`` values of the rotated ``k_rope``
 shared by every head (``latent``; int8 codes with one float32
@@ -42,6 +50,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lut
 from repro_torch.device import scalar
+from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.kernels.flash_attention import mha
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models import layers
@@ -260,6 +269,20 @@ def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hq, s, d).to(q.dtype)
 
 
+def _head_projections(params, cfg: ModelConfig, tp, hd: int):
+    """q/k/v's parameters at this rank's heads, and (q heads, kv heads):
+    ``wq`` and, when the layout splits the kv heads, ``wk`` / ``wv`` are
+    the rank's shards; otherwise K/V's whole weight, entered into the
+    rank's work, is narrowed to the kv heads its q heads use."""
+    lo, hi = tp_lib.kv_head_range(cfg, tp)
+    proj = dict(params)
+    if not tp.layout.kv_heads:
+        for name in ("wk", "wv"):
+            proj[name] = {k: tp_lib.enter(t, tp).narrow(-1, lo * hd, (hi - lo) * hd)
+                          for k, t in params[name].items()}
+    return proj, cfg.n_heads // tp.size, hi - lo
+
+
 def gqa_apply(
     params,
     cfg: ModelConfig,
@@ -270,6 +293,7 @@ def gqa_apply(
     cache=None,
     kernel: dict | None = None,
     quant=None,  # per-layer runtime hook from the precision plan
+    group=None,  # tensor_parallel.ModelGroup: split by heads where its layout says
 ):
     """Returns (out, cache) like the reference.  With a cache, prefill,
     decode and extend write the new k/v rows into ``cache``'s tensors in
@@ -280,9 +304,16 @@ def gqa_apply(
     kernel = kernel or {}
     qc = cfg.quant if quant is None else quant
     hd = cfg.resolved_head_dim
-    q = _split_heads(layers.dense(params["wq"], x, qc), cfg.n_heads, hd)
-    k = _split_heads(layers.dense(params["wk"], x, qc), cfg.n_kv_heads, hd)
-    v = _split_heads(layers.dense(params["wv"], x, qc), cfg.n_kv_heads, hd)
+    tp = tp_lib.active(group)
+    if tp is not None and not tp.layout.heads:
+        tp = None  # the q heads do not split: the attention repeats on every rank
+    proj, hq, hkv = params, cfg.n_heads, cfg.n_kv_heads
+    if tp is not None:
+        x = tp_lib.enter(x, tp)
+        proj, hq, hkv = _head_projections(params, cfg, tp, hd)
+    q = _split_heads(layers.dense(proj["wq"], x, qc), hq, hd)
+    k = _split_heads(layers.dense(proj["wk"], x, qc), hkv, hd)
+    v = _split_heads(layers.dense(proj["wv"], x, qc), hkv, hd)
     if positions is None:
         if mode in ("decode", "extend"):
             raise ValueError(f"{mode} requires explicit per-sequence positions")
@@ -294,9 +325,14 @@ def gqa_apply(
     window = cfg.sliding_window
     softmax_mode = kernel.get("softmax_mode", "safe")
 
+    def out_proj(o):
+        if tp is not None:
+            return layers.row_parallel_dense(params["wo"], _merge_heads(o), tp, qc)
+        return layers.dense(params["wo"], _merge_heads(o), qc)
+
     if mode == "train" or cache is None:
         out = mha(q, k, v, causal=not cfg.is_encoder, window=window, mode=softmax_mode)
-        return layers.dense(params["wo"], _merge_heads(out), qc), cache
+        return out_proj(out), cache
     if "k_scale" in cache:  # int8 codes + per-(token, head) float32 scales
         (k_codes, k_sc), (v_codes, v_sc) = _kv_quantize(k), _kv_quantize(v)
         rows = {"k": k_codes, "v": v_codes, "k_scale": k_sc, "v_scale": v_sc}
@@ -331,7 +367,7 @@ def gqa_apply(
                               window)
         out = _decode_attend(q, cache["k"], cache["v"], valid, cache.get("k_scale"),
                              cache.get("v_scale"))
-    return layers.dense(params["wo"], _merge_heads(out), qc), cache
+    return out_proj(out), cache
 
 
 def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -495,7 +531,9 @@ def mla_apply(
     return layers.dense(params["wo"], _merge_heads(out), qc), cache
 
 
-def attention_apply(params, cfg, x, positions=None, **kw):
+def attention_apply(params, cfg, x, positions=None, group=None, **kw):
+    """MLA or GQA; ``group`` splits GQA only (``lm.forward`` refuses a model
+    group for MLA)."""
     if cfg.attn_kind == "mla":
         return mla_apply(params, cfg, x, positions, **kw)
-    return gqa_apply(params, cfg, x, positions, **kw)
+    return gqa_apply(params, cfg, x, positions, group=group, **kw)

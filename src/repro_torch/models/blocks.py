@@ -50,6 +50,7 @@ def block_apply(
     cache=None,
     kernel: dict | None = None,
     quant=None,  # per-layer runtime hook from the precision plan
+    group=None,  # tensor_parallel.ModelGroup: the dense and MoE kinds split over it
 ):
     """Returns (x, new_cache, aux) like the reference."""
     kind = block_kind(cfg)
@@ -63,15 +64,15 @@ def block_apply(
         return x + rs * out, new_cache, {}
     attn_out, new_cache = attention.attention_apply(
         params["attn"], cfg, h, positions, mode=mode, cache=cache,
-        kernel=kernel, quant=quant,
+        kernel=kernel, quant=quant, group=group,
     )
     x = x + rs * attn_out
     h = layers.norm(params["ln2"], x, cfg.norm_kind, cfg.norm_eps, use_lut=norm_lut)
     aux = {}
     if kind == "moe":
-        ffn_out, aux = moe.moe_apply(params["ffn"], cfg, h)
+        ffn_out, aux = moe.moe_apply(params["ffn"], cfg, h, group=group)
     else:
-        ffn_out = mlp.mlp_apply(params["ffn"], cfg, h, quant=quant)
+        ffn_out = mlp.mlp_apply(params["ffn"], cfg, h, quant=quant, group=group)
     return x + rs * ffn_out, new_cache, aux
 
 

@@ -1,10 +1,13 @@
 """Shared primitive layers: dense (quantizable), norm (kernel-backed), rotary
-position embedding, activations, token embedding and the tied unembedding."""
+position embedding, activations, token embedding and the tied unembedding;
+under a model group (``distributed.tensor_parallel``) the row-parallel
+dense, the vocab-parallel embedding and the vocab-local unembedding."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.kernels.layernorm import layernorm
 from repro_torch.models.params import ArraySpec
 
@@ -37,6 +40,16 @@ def dense(params, x: torch.Tensor, quant_cfg=None) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
     y = torch.matmul(x, w)
+    if "bias" in params:
+        y = y + params["bias"]
+    return y
+
+
+def row_parallel_dense(params, x: torch.Tensor, group, quant_cfg=None) -> torch.Tensor:
+    """``dense`` with the kernel's input rows split over ``group``: ``x``
+    holds this rank's columns of the input, the partial products are
+    all-reduced, and the bias (replicated) is added once, after."""
+    y = tp_lib.reduce(dense({"kernel": params["kernel"]}, x, quant_cfg), group)
     if "bias" in params:
         y = y + params["bias"]
     return y
@@ -110,10 +123,23 @@ def embedding_spec(vocab: int, d: int, dtype=torch.float32):
     return {"table": ArraySpec((vocab, d), dtype, ("vocab", "embed"), "embed", init_scale=0.02)}
 
 
-def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed(params, tokens: torch.Tensor, group=None) -> torch.Tensor:
+    """The table's rows at ``tokens``.  With ``group``, the table holds this
+    rank's even shard of the rows: ids outside it look up zeros, and the
+    group's lookups are all-reduced."""
+    table = params["table"]
+    if group is None:
+        return table[tokens]
+    lo = group.rank * table.shape[0]
+    local = tokens - lo
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(inside, local, 0)] * inside[..., None].to(table.dtype)
+    return tp_lib.reduce(rows, group)
 
 
-def unembed(params, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: x @ table.T"""
+def unembed(params, x: torch.Tensor, group=None) -> torch.Tensor:
+    """Tied unembedding: x @ table.T; with ``group``, this rank's vocab
+    columns of it (the table's rows that the rank holds)."""
+    if group is not None:
+        x = tp_lib.enter(x, group)
     return torch.matmul(x, params["table"].t())

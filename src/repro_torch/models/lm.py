@@ -33,6 +33,18 @@ masked-unit cross entropy over ``labels``, plus the MoE aux and z losses;
 ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``, non-reentrant).  ``forward``'s aux sums the
 MoE blocks' router aux over the layers, as the reference's scan carries it.
+
+Under a model group (``group=``, a ``distributed.tensor_parallel``
+``ModelGroup``) the dense GQA and MoE families split over the ``model``
+axis, as GSPMD splits the reference's step: the parameters are each rank's
+model-local shards where the rules split them (``train.step`` hands them
+so), the blocks split heads, MLP columns and experts, the embedding looks
+up this rank's vocabulary rows, ``forward``'s logits are this rank's vocab
+columns, the cross entropy reduces over the group, and ``prefill`` /
+``decode_step`` gather their last position's logits whole.  Their caches
+hold this rank's kv heads (``tensor_parallel.local_caches``).  Other
+families, and a precision plan with int8 weights, refuse a group of more
+than one rank; a group of one changes nothing.
 """
 
 from __future__ import annotations
@@ -41,11 +53,13 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import checkpoint as checkpoint_lib
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import precision as precision_lib
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.models import blocks, layers
 from repro_torch.models import params as params_lib
 from repro_torch.serve import kv_cache as kv_cache_lib
@@ -113,7 +127,13 @@ cache_logical_axes = kv_cache_lib.cache_logical_axes
 # ---------------------------------------------------------------------------
 
 
-def _embed_inputs(params, cfg: ModelConfig, batch: dict, mode: str, quant=None):
+def _vocab_group(group):
+    """The active model group when its layout splits the vocabulary."""
+    tp = tp_lib.active(group)
+    return tp if tp is not None and tp.layout.vocab else None
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch: dict, mode: str, quant=None, tp=None):
     """(h (b, s, d), text_offset).  Audio: ``frames`` through
     ``frontend_proj``.  VLM: ``patches`` through ``frontend_proj``, put
     before the token embeddings (the offset is their count), except in
@@ -123,7 +143,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict, mode: str, quant=None):
         return layers.dense(params["frontend_proj"], batch["frames"], qc), 0
     tok_emb = None
     if "tokens" in batch:
-        tok_emb = layers.embed(params["embed"], batch["tokens"]) * cfg.emb_scale
+        tok_emb = layers.embed(params["embed"], batch["tokens"], _vocab_group(tp)) * cfg.emb_scale
     if cfg.frontend == "patch" and "patches" in batch and mode != "decode":
         patch_emb = layers.dense(params["frontend_proj"], batch["patches"], qc)
         if tok_emb is None:
@@ -168,7 +188,7 @@ def _remat(fn, remat: str):
 
 def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: str,
                 caches, kernel, plan: precision_lib.PrecisionPlan, in_place: bool = False,
-                remat: str = "none"):
+                remat: str = "none", group=None):
     if remat not in REMATS:
         raise ValueError(f"unknown remat {remat!r}; use one of {REMATS}")
     if remat != "none" and caches is not None:
@@ -217,7 +237,7 @@ def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: s
 
         def block(x, cache, bparams=_layer(params["blocks"], i), quant=quant):
             return blocks.block_apply(bparams, cfg, x, positions, mode=mode, cache=cache,
-                                      kernel=kernel, quant=quant)
+                                      kernel=kernel, quant=quant, group=group)
 
         h, l_aux = run(block, h, lcache)
         aux = {k: v + l_aux[k] for k, v in aux.items()}
@@ -242,10 +262,13 @@ def forward(
     device: str | torch.device = "cuda",
     in_place: bool = False,
     remat: str = "none",
+    group=None,
 ):
     """Returns (logits (b, s, padded_vocab), new_caches, aux); aux holds
     ``text_offset`` (the VLM's image prefix length; 0 otherwise) and, for
-    MoE configs, the router aux summed over layers.
+    MoE configs, the router aux summed over layers.  Under ``group``
+    (module docstring) the logits are this rank's vocab columns where the
+    vocabulary is split.
 
     ``batch``: ``tokens`` (b, s) token ids, the VLM's ``patches`` or the
     audio encoder's ``frames`` (module docstring), tensors or arrays.
@@ -256,9 +279,12 @@ def forward(
     dev = resolve_device(device)
     params_lib.check_on(params, dev)
     plan = precision_lib.resolve_model_plan(cfg)
+    tp = tp_lib.active(group)
+    if tp is not None:
+        tp_lib.require_split(cfg, plan)
     kernel = plan.kernel_defaults(kernel)
     inputs = {k: _as_tensor(batch[k], dev) for k in ("tokens", "patches", "frames") if k in batch}
-    h, text_offset = _embed_inputs(params, cfg, inputs, mode, quant=plan.embed_quant())
+    h, text_offset = _embed_inputs(params, cfg, inputs, mode, quant=plan.embed_quant(), tp=tp)
     if positions is None:
         if mode in ("decode", "extend"):
             raise ValueError(f"{mode} requires explicit per-sequence positions")
@@ -266,18 +292,23 @@ def forward(
     else:
         positions = _as_tensor(positions, dev)
     x, new_caches, aux = _run_blocks(params, cfg, h, positions, mode=mode, caches=caches,
-                                     kernel=kernel, plan=plan, in_place=in_place, remat=remat)
+                                     kernel=kernel, plan=plan, in_place=in_place, remat=remat,
+                                     group=tp)
     x = layers.norm(
         params["final_norm"], x, cfg.norm_kind, cfg.norm_eps,
         use_lut=(kernel or {}).get("norm_lut", False),
     )
+    vocab_tp = _vocab_group(tp)
     if cfg.tie_embeddings:
-        logits = layers.unembed(params["embed"], x)
+        logits = layers.unembed(params["embed"], x, vocab_tp)
     else:
+        if vocab_tp is not None:
+            x = tp_lib.enter(x, vocab_tp)
         logits = layers.dense(params["lm_head"], x, plan.logits_quant())
     logits = logits * cfg.logit_scale
-    if cfg.padded_vocab_size > cfg.vocab_size:  # mask the vocab padding
-        pad = torch.arange(cfg.padded_vocab_size, device=dev) >= cfg.vocab_size
+    if cfg.padded_vocab_size > cfg.vocab_size:  # mask the vocab padding, at global indices
+        lo = 0 if vocab_tp is None else vocab_tp.rank * logits.shape[-1]
+        pad = torch.arange(lo, lo + logits.shape[-1], device=dev) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e9)
     return logits, new_caches, {**aux, "text_offset": text_offset}
 
@@ -287,7 +318,33 @@ def forward(
 # ---------------------------------------------------------------------------
 
 
-def _cross_entropy(logits, labels, mask, tp_safe: bool = False):
+def _vocab_parallel_cross_entropy(logits, labels, mask, group):
+    """``_cross_entropy`` of this rank's vocab columns of the logits: the
+    max, the sum of exponentials, the target's logit and the accuracy's
+    argmax (the first of the global maxima, as ``torch.argmax``) each
+    reduced over the group."""
+    lf = logits.float()
+    n = lf.shape[-1]
+    lo = group.rank * n
+    m = tp_lib.all_reduce(lf.detach().amax(dim=-1), group, op=dist.ReduceOp.MAX)
+    shifted = lf - m[..., None]
+    sum_exp = tp_lib.reduce(torch.sum(torch.exp(shifted), dim=-1), group)
+    local = labels.long() - lo
+    inside = (local >= 0) & (local < n)
+    picked = torch.take_along_dim(shifted, torch.where(inside, local, 0)[..., None], dim=-1)
+    ll = tp_lib.reduce(picked[..., 0] * inside, group) - torch.log(sum_exp)
+    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    loss = -torch.sum(ll * mask) / denom
+    vmax, imax = lf.detach().max(dim=-1)
+    best = tp_lib.all_gather(vmax[None], group, 0).argmax(dim=0, keepdim=True)
+    pred = torch.take_along_dim(tp_lib.all_gather((imax + lo)[None], group, 0), best, dim=0)[0]
+    acc = torch.sum((pred == labels) * mask) / denom
+    return loss, acc
+
+
+def _cross_entropy(logits, labels, mask, tp_safe: bool = False, group=None):
+    if group is not None:
+        return _vocab_parallel_cross_entropy(logits, labels, mask, group)
     logp = torch.log_softmax(logits.float(), dim=-1)
     if tp_safe:  # the reference's one-hot contraction (its vocab-sharded form)
         onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1]).to(logp.dtype)
@@ -301,31 +358,34 @@ def _cross_entropy(logits, labels, mask, tp_safe: bool = False):
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, *, kernel: dict | None = None,
-            remat: str = "none", device: str | torch.device = "cuda"):
+            remat: str = "none", device: str | torch.device = "cuda", group=None):
     """(loss, metrics) as the reference's: the encoder's cross entropy of
     ``labels`` (b, s) at every frame; otherwise the next-token cross entropy
     of ``tokens`` from the text offset on (the VLM's image prefix predicts
     nothing); under the optional ``loss_mask``.  MoE configs add the router's
     aux and z losses to the total.  Metrics: "ce_loss", "accuracy", "loss",
     and for MoE "moe_aux_loss", "moe_z_loss" and "moe_dropped_frac" (the
-    mean over layers)."""
+    mean over layers).  Under ``group`` every rank of it gives the same
+    loss, its cross entropy reduced over the vocab shards."""
     dev = resolve_device(device)
     inputs = {k: batch[k] for k in ("tokens", "patches", "frames") if k in batch}
     logits, _, aux = forward(params, cfg, inputs, mode="train", kernel=kernel, remat=remat,
-                             device=dev)
+                             device=dev, group=group)
+    vocab_tp = _vocab_group(group)
     tp_safe = bool((kernel or {}).get("tp_loss", False))
     mask = batch.get("loss_mask")
     if cfg.is_encoder:
         labels = _as_tensor(batch["labels"], dev)
         mask = (torch.ones(labels.shape, dtype=torch.float32, device=dev) if mask is None
                 else _as_tensor(mask, dev).float())
-        loss, acc = _cross_entropy(logits, labels, mask, tp_safe)
+        loss, acc = _cross_entropy(logits, labels, mask, tp_safe, vocab_tp)
     else:
         off = aux.pop("text_offset", 0)
         tokens = _as_tensor(batch["tokens"], dev)
         mask = (torch.ones(tokens.shape, dtype=torch.float32, device=dev) if mask is None
                 else _as_tensor(mask, dev).float())
-        loss, acc = _cross_entropy(logits[:, off:][:, :-1], tokens[:, 1:], mask[:, 1:], tp_safe)
+        loss, acc = _cross_entropy(logits[:, off:][:, :-1], tokens[:, 1:], mask[:, 1:], tp_safe,
+                                   vocab_tp)
     total = loss
     metrics = {"ce_loss": loss, "accuracy": acc}
     for k in ("moe_aux_loss", "moe_z_loss"):
@@ -343,23 +403,31 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, kernel: dict | None = None
 # ---------------------------------------------------------------------------
 
 
+def _last_whole(logits: torch.Tensor, group) -> torch.Tensor:
+    """The last position's logits (B, V), gathered over the group's vocab
+    shards when they are split."""
+    last = logits[:, -1]
+    tp = _vocab_group(group)
+    return last if tp is None else tp_lib.all_gather(last, tp, -1)
+
+
 def prefill(params, cfg: ModelConfig, batch: dict, caches, *, kernel: dict | None = None,
-            device: str | torch.device = "cuda"):
+            device: str | torch.device = "cuda", group=None):
     """Run the prompt through the model, filling caches.
 
     Returns (last-position logits (B, V), new caches)."""
     logits, new_caches, _ = forward(params, cfg, batch, mode="prefill", caches=caches,
-                                    kernel=kernel, device=device)
-    return logits[:, -1], new_caches
+                                    kernel=kernel, device=device, group=group)
+    return _last_whole(logits, group), new_caches
 
 
 def decode_step(params, cfg: ModelConfig, tokens, positions, caches, *,
-                kernel: dict | None = None, device: str | torch.device = "cuda"):
+                kernel: dict | None = None, device: str | torch.device = "cuda", group=None):
     """tokens (B, 1), positions (B,) -> (logits (B, V), new caches)."""
     logits, new_caches, _ = forward(params, cfg, {"tokens": tokens}, mode="decode",
                                     caches=caches, positions=positions, kernel=kernel,
-                                    device=device)
-    return logits[:, -1], new_caches
+                                    device=device, group=group)
+    return _last_whole(logits, group), new_caches
 
 
 # ---------------------------------------------------------------------------

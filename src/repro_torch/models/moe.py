@@ -25,6 +25,15 @@ fixes by its ops, this port fixes by construction:
 
 MoE has no kernel of its own: the expert products are batched GEMMs
 (``torch.bmm``), as the reference's einsums.
+
+Under a model group (``distributed.tensor_parallel``) the router's kernel
+holds this rank's experts' columns: their logits are gathered and softmax,
+top-k, capacity, dispatch and the aux and z losses run replicated, over
+this data shard's tokens as before.  Each rank runs its own experts (or,
+when the rules split ``mlp`` instead, every expert on its ``mlp`` columns),
+and the combine's partial sums are reduced.  The token rows and the gates
+enter the rank's experts through ``tensor_parallel.enter``, so the router
+gets every expert's part of its gradient.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import softmax as sm
 from repro_torch.device import scalar
+from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.models import layers
 from repro_torch.models.params import ArraySpec
 
@@ -59,15 +69,22 @@ def capacity(cfg: ModelConfig, t: int) -> int:
     return int(max(1, round(t * m.top_k / m.n_experts * m.capacity_factor)))
 
 
-def route(params, cfg: ModelConfig, flat: torch.Tensor):
+def route(params, cfg: ModelConfig, flat: torch.Tensor, group=None):
     """Routing of ``flat`` (t, d): (router logits (t, e) float32, probs
     (t, e), expert ids (t, k) int64 and normalised gates (t, k) float32, both
-    in descending probability order, the lower expert first on a tie)."""
+    in descending probability order, the lower expert first on a tie).
+    With ``group`` whose layout splits the router's expert columns, the
+    local logits are gathered over the group."""
     k = cfg.moe.top_k
     # float32 throughout, whatever the weights' type (jnp promotes the
     # reference's float32 activations against a bf16 kernel the same way)
     router = {name: w.float() for name, w in params["router"].items()}
-    logits = layers.dense(router, flat.float(), None)
+    tp = tp_lib.active(group)
+    if tp is not None and tp.layout.router:
+        logits = tp_lib.gather(layers.dense(router, tp_lib.enter(flat, tp).float(), None), tp,
+                               dim=-1)
+    else:
+        logits = layers.dense(router, flat.float(), None)
     probs = sm.softmax_paper_exact(logits, dim=-1)
     gate_vals, expert_ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_ids = gate_vals[:, :k], expert_ids[:, :k]
@@ -104,16 +121,24 @@ def experts(params, cfg: ModelConfig, expert_in: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, params["w_down"])
 
 
-def moe_apply(params, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+def moe_apply(params, cfg: ModelConfig, x: torch.Tensor,
+              group=None) -> tuple[torch.Tensor, dict]:
     """Returns (output (b, s, d) in x's dtype, aux): the router's
-    load-balance and z losses and the share of dropped entries."""
+    load-balance and z losses and the share of dropped entries.  With
+    ``group`` whose layout splits the expert leaves (module docstring), the
+    rank runs its shard of them and the output is reduced."""
     mcfg = cfg.moe
     b, s, d = x.shape
     t = b * s
     e, k = mcfg.n_experts, mcfg.top_k
     flat = x.reshape(t, d)
+    tp = tp_lib.active(group)
+    if tp is not None and tp.layout.experts is None:
+        tp = None  # neither experts nor their columns split: the layer repeats
+    by_expert = tp is not None and tp.layout.experts == "experts"
+    e_local = e // tp.size if by_expert else e
 
-    logits, probs, expert_ids, gate_vals = route(params, cfg, flat)
+    logits, probs, expert_ids, gate_vals = route(params, cfg, flat, group=group)
     # aux losses (Switch-style load balance + router z-loss)
     me = probs.mean(dim=0)
     ce = torch.zeros(t, e, dtype=torch.float32, device=x.device).scatter_(
@@ -130,19 +155,28 @@ def moe_apply(params, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, 
     src = torch.full((e * cap + 1,), t, dtype=torch.int64, device=x.device)
     tokens = torch.arange(t, device=x.device)[:, None].expand(t, k)
     src[slot.reshape(-1)] = tokens.reshape(-1)
-    rows = torch.cat([flat, flat.new_zeros(1, d)])
-    expert_out = experts(params, cfg, rows[src[: e * cap]].reshape(e, cap, d))
-
-    # combine: each token's k contributions in ascending expert order, a
-    # dropped entry a zero row, summed one after another in x's dtype
     order = torch.argsort(expert_ids, dim=-1)
     slot = torch.gather(slot, 1, order)
     gates = torch.gather(gate_vals, 1, order).to(x.dtype)
-    vals = torch.cat([expert_out.reshape(e * cap, d), expert_out.new_zeros(1, d)])
+    if tp is not None:  # this rank's experts [lo, lo + e_local), its slots renumbered
+        lo = tp.rank * e_local if by_expert else 0
+        src = src[lo * cap:]
+        slot = slot - lo * cap
+        slot = torch.where((slot >= 0) & (slot < e_local * cap), slot, e_local * cap)
+        flat, gates = tp_lib.enter(flat, tp), tp_lib.enter(gates, tp)
+    rows = torch.cat([flat, flat.new_zeros(1, d)])
+    expert_out = experts(params, cfg, rows[src[: e_local * cap]].reshape(e_local, cap, d))
+
+    # combine: each token's k contributions in ascending expert order, a
+    # dropped entry (or, split, another rank's expert) a zero row, summed
+    # one after another in x's dtype
+    vals = torch.cat([expert_out.reshape(e_local * cap, d), expert_out.new_zeros(1, d)])
     vals = vals[slot.reshape(-1)].reshape(t, k, d) * gates[..., None]
     out = vals[:, 0]
     for j in range(1, k):
         out = out + vals[:, j]
+    if tp is not None:
+        out = tp_lib.reduce(out, tp)
 
     aux = {
         "moe_aux_loss": aux_loss,

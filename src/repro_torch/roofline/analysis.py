@@ -212,9 +212,12 @@ def analyze_cell(
     coll_bytes: dict[str, float] | None = None,
     memory_stats: dict[str, int] | None = None,
     hw: HardwareSpec = H100,
+    device_cfg: ModelConfig | None = None,
 ) -> CellAnalysis:
     """``count``: one device's step (``launch.dryrun``), at
-    ``device_shape`` (the per-device batch; default ``shape_cfg``).
+    ``device_shape`` (the per-device batch; default ``shape_cfg``) and with
+    ``device_cfg``'s attention heads (its share under a model split;
+    default ``cfg``), which price the fused attention.
     ``coll_bytes``: its collectives' bytes by kind.  ``memory_stats``: the
     argument and output bytes per device; the temp bytes are the count's
     peak of live op outputs, and ``alias_bytes`` is 0 (the port updates the
@@ -224,7 +227,7 @@ def analyze_cell(
     coll_total = math.fsum(coll_bytes.values())
     flops_by_type = count.flops
     terms = roofline_by_type(flops_by_type, count.hbm_bytes, coll_total, hw)
-    fused_by_type, hbm_fused = fused_work(count, cfg, device_shape)
+    fused_by_type, hbm_fused = fused_work(count, device_cfg or cfg, device_shape)
     terms_fused = roofline_by_type(fused_by_type, hbm_fused, coll_total, hw)
     stats = dict(memory_stats or {})
     stats.update(temp_bytes=int(count.peak_live_bytes), alias_bytes=0)

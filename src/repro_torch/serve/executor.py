@@ -402,9 +402,11 @@ class ModelExecutor:
         world = dist.get_world_size() if dist.is_initialized() else 1
         if world > 1:
             raise ValueError(
-                f"shard_decode over {world} ranks is not supported: each rank would run "
-                "its own engine over one shard of every weight, which needs the "
-                "tensor-parallel blocks of ROADMAP queue 2, item 11; run it in a "
+                f"shard_decode over {world} ranks is not supported: the reference's host "
+                "mesh has a model axis of 1, so its sharded decode is one controller "
+                "splitting the batch over 'data'; under torch.distributed each rank runs "
+                "its own engine, and splitting the batch needs a rank-0 scheduler that "
+                "hands every rank its slots (ROADMAP queue 2, item 11); run it in a "
                 "process group of one rank"
             )
         self.mesh = make_host_mesh(device_type=self.device.type)

@@ -10,16 +10,32 @@ gradients in float32, as the reference's scan.
 The sharded step (``make_train_step(mesh=, rules=)``) keeps the state as
 DTensors under the rules' placements: parameters and AdamW moments sharded
 alike, ``step`` replicated.  The kernel wrappers read raw pointers, so no
-DTensor reaches them (they refuse one): each step gathers every parameter
-to a plain tensor, runs the forward and backward on this rank's shard of
-the batch (sharded over the data axes), averages the gradients over the
-data axes, and applies AdamW to this rank's shard of each leaf (the FSDP
-pattern).  The global gradient norm comes from the whole averaged
-gradient, and the update is elementwise beyond it, so the step gives the
-unsharded step's result: bitwise on one device, to float32 rounding of
-the batch mean otherwise.  The compute is not split over ``model`` as
-GSPMD splits it; each rank of a data shard computes its whole forward.
-A MoE layer's capacity counts the tokens of this rank's shard.
+DTensor reaches them (they refuse one): each rank hands them plain local
+tensors.  Two patterns, recorded as the step's ``split``:
+
+- ``"model"`` (the dense GQA and MoE families: granite-8b, minicpm-2b,
+  starcoder2-7b, granite-moe-3b-a800m, dbrx-132b), GSPMD's split of the
+  reference's step: each parameter is gathered over the data axes only and
+  keeps its ``model`` shard (``model_split``; a leaf the forward
+  cannot take as a shard, K/V whose kv heads do not divide the axis, comes
+  whole), and the forward and backward run at the local shapes under the
+  mesh's model group (``distributed.tensor_parallel``: heads, MLP columns,
+  experts and vocabulary split).  Every rank of the group computes the same
+  loss; a leaf replicated over ``model`` gets its whole gradient on each.
+  The global norm counts each split leaf's squares over its shards and
+  each replicated leaf's once.
+- ``"repeat"`` (the SSM, hybrid, MLA, encoder and VLM families, ROADMAP
+  queue 2, item 11): every parameter gathered whole, the whole forward on
+  every rank, the ranks that differ only in ``model`` repeating each
+  other's work (the FSDP pattern).  The global norm comes from the whole
+  averaged gradient.  A model axis of one takes this path for every
+  family: it is then bitwise the unsharded step on one device.
+
+Both run on this rank's shard of the batch (split over the data axes),
+average the gradients over the data axes and apply AdamW to this rank's
+shard of each leaf, elementwise beyond the global norm, so the step gives
+the unsharded step's result to float32 rounding.  A MoE layer's capacity
+counts the tokens of this rank's data shard.
 """
 
 from __future__ import annotations
@@ -34,7 +50,8 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import scalar
 from repro_torch.distributed import sharding as sharding_lib
-from repro_torch.launch.mesh import data_axes, mesh_axis_size
+from repro_torch.distributed import tensor_parallel as tp_lib
+from repro_torch.launch.mesh import data_axes, mesh_axis_names, mesh_axis_size
 from repro_torch.models import lm
 from repro_torch.models import params as params_lib
 from repro_torch.models.params import map_leaves
@@ -105,10 +122,14 @@ def shard_train_state(state: dict, shardings: dict) -> dict:
 
 
 def make_loss_fn(cfg: ModelConfig, *, kernel: dict | None = None, remat: str = "none",
-                 loss_impl: Callable = lm.loss_fn):
+                 loss_impl: Callable = lm.loss_fn, group=None):
+    """``loss(params, batch)``; under ``group`` (a model group) the split
+    loss of ``lm.loss_fn``."""
+    extra = {} if group is None else {"group": group}
+
     def _loss(params, batch):
         return loss_impl(params, cfg, batch, kernel=kernel, remat=remat,
-                         device=_device(params))
+                         device=_device(params), **extra)
 
     return _loss
 
@@ -122,11 +143,14 @@ def train_step(
     kernel: dict | None = None,
     remat: str = "none",
     grad_accum: int = 1,
+    group=None,
 ):
     """One synchronous update; returns (state, metrics), ``state`` updated
     in place.  ``grad_accum > 1`` splits the batch axis into that many
-    microbatches and averages their gradients before the optimizer."""
-    loss_fn = make_loss_fn(cfg, kernel=kernel, remat=remat)
+    microbatches and averages their gradients before the optimizer.
+    ``group``: the loss's model group (the dry run's count of one device's
+    split step)."""
+    loss_fn = make_loss_fn(cfg, kernel=kernel, remat=remat, group=group)
     params = state["params"]
     if grad_accum <= 1:
         (_, metrics), grads = value_and_grad(loss_fn, params, batch)
@@ -161,27 +185,82 @@ def _mean_over(t: torch.Tensor, mesh, axes: tuple[str, ...], n: int) -> torch.Te
     return t / scalar(float(n), t.dtype, str(t.device))
 
 
+def model_split(cfg: ModelConfig, mesh, param_shardings):
+    """(group, local) for the split step on ``mesh`` (a ``DeviceMesh`` or an
+    ``AbstractMesh``): the mesh's model group carrying the config's
+    ``tensor_parallel.Layout``, and per parameter leaf whether the forward
+    takes its ``model`` shard (True) or the whole leaf
+    (``tensor_parallel.split_plan``).  (None, None) for the ``"repeat"``
+    pattern: a family that does not split, or a model axis of one."""
+    group = tp_lib.active(tp_lib.model_group(mesh))
+    if group is None or not tp_lib.splits(cfg):
+        return None, None
+    layout, local = tp_lib.split_plan(cfg, params_lib.logical_axes(lm.param_spec(cfg)),
+                                      param_shardings, group.size)
+    return tp_lib.model_group(mesh, layout), local
+
+
+def split_params(params: PyTree, local: PyTree, mesh) -> PyTree:
+    """Plain tensors of the DTensor ``params``: gathered over the data axes,
+    and over ``model`` too where ``local`` is False."""
+    axes = data_axes(mesh)
+    every = mesh_axis_names(mesh)
+    return sharding_lib.map_tree(lambda t, loc: sharding_lib.gather_over(t, axes if loc else every),
+                                 params, local)
+
+
+def split_global_norm(grads: PyTree, local: PyTree, shardings: PyTree, group) -> torch.Tensor:
+    """The global norm of a gradient held as the split step holds it: each
+    leaf split over ``model`` (a shard on this rank) contributes its squares
+    summed over the group, each other leaf (whole and equal on every rank)
+    its squares once."""
+    dev = tree_leaves(grads)[0][1].device
+    split = torch.zeros((), dtype=torch.float32, device=dev)
+    once = torch.zeros((), dtype=torch.float32, device=dev)
+    for (_, g), (_, loc), (_, sh) in zip(tree_leaves(grads), tree_leaves(local),
+                                         tree_leaves(shardings)):
+        sq = torch.sum(torch.square(g.float()))
+        if loc and tp_lib.model_dim(sh.spec) is not None:
+            split = split + sq
+        else:
+            once = once + sq
+    return torch.sqrt(once + tp_lib.all_reduce(split, group))
+
+
 def sharded_train_step(state: dict, batch: dict, *, cfg: ModelConfig, optimizer: AdamW,
                        mesh, rules, shardings: dict, kernel: dict | None = None,
-                       remat: str = "none"):
+                       remat: str = "none", local: PyTree | None = None, group=None):
     """One update of a state held under ``shardings`` (module docstring);
     ``batch`` holds the whole global batch (plain tensors, the same on every
     rank) or DTensors.  Returns (state, metrics), the state updated in
-    place; the metrics are the data axes' means."""
+    place; the metrics are the data axes' means.  Without ``group`` the
+    ``"repeat"`` pattern; with the mesh's model group (whose ``bytes``
+    count the step's collectives over ``model``) and the ``local`` tree
+    of ``model_split``, the ``"model"`` pattern."""
     from torch.distributed.tensor import DTensor
 
     axes = data_axes(mesh)
     n = math.prod(mesh_axis_size(mesh, a) for a in axes)
-    local = {k: v.to_local() if isinstance(v, DTensor) else sharding_lib.local_shard(
+    rows = {k: v.to_local() if isinstance(v, DTensor) else sharding_lib.local_shard(
         v, rules.batch_sharding(v.ndim, shape=tuple(v.shape))) for k, v in batch.items()}
-    params = sharding_lib.map_tree(sharding_lib.gather, state["params"])
-    loss_fn = make_loss_fn(cfg, kernel=kernel, remat=remat)
-    (_, metrics), grads = value_and_grad(loss_fn, params, local)
+    if group is None:
+        params = sharding_lib.map_tree(sharding_lib.gather, state["params"])
+    else:
+        params = split_params(state["params"], local, mesh)
+    loss_fn = make_loss_fn(cfg, kernel=kernel, remat=remat, group=group)
+    (_, metrics), grads = value_and_grad(loss_fn, params, rows)
     del params
     grads = map_leaves(lambda _, g: _mean_over(g, mesh, axes, n), grads)
     metrics = {k: _mean_over(v.float(), mesh, axes, n) for k, v in metrics.items()}
-    gnorm = global_norm(grads)
-    grads = sharding_lib.map_tree(sharding_lib.local_shard, grads, shardings["params"])
+    if group is None:
+        gnorm = global_norm(grads)
+        grads = sharding_lib.map_tree(sharding_lib.local_shard, grads, shardings["params"])
+    else:
+        gnorm = split_global_norm(grads, local, shardings["params"], group)
+        grads = sharding_lib.map_tree(
+            lambda g, loc, sh: sharding_lib.shard_of(g, sh.placements, mesh,
+                                                     axes if loc else None),
+            grads, local, shardings["params"])
     to_local = lambda t: t.to_local()  # noqa: E731
     _, _, opt_metrics = optimizer.update(
         grads, sharding_lib.map_tree(to_local, state["opt"]),
@@ -195,13 +274,20 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *, mesh=None, rules=None
     """The train step as a function of (state, batch), updating the state in
     place (the reference's ``donate``); sharded when ``mesh`` (a
     ``DeviceMesh``) and ``rules`` are both given, the state then held under
-    ``train_state_shardings(cfg, optimizer, rules)``."""
+    ``train_state_shardings(cfg, optimizer, rules)``.  A sharded step's
+    ``split`` names its pattern, ``"model"`` or ``"repeat"`` (module
+    docstring)."""
     if mesh is None or rules is None:
         return functools.partial(train_step, cfg=cfg, optimizer=optimizer, kernel=kernel,
                                  remat=remat)
     if not hasattr(mesh, "get_group"):
         raise TypeError(f"mesh= takes a torch DeviceMesh (launch.mesh.make_mesh), got "
                         f"{type(mesh).__name__}")
-    return functools.partial(sharded_train_step, cfg=cfg, optimizer=optimizer, mesh=mesh,
-                             rules=rules, shardings=train_state_shardings(cfg, optimizer, rules),
-                             kernel=kernel, remat=remat)
+    shardings = train_state_shardings(cfg, optimizer, rules)
+    # a model axis of one splits nothing: the FSDP step, bitwise as before
+    group, local = model_split(cfg, mesh, shardings["params"])
+    fn = functools.partial(sharded_train_step, cfg=cfg, optimizer=optimizer, mesh=mesh,
+                           rules=rules, shardings=shardings, kernel=kernel, remat=remat,
+                           local=local, group=group)
+    fn.split = "repeat" if group is None else "model"
+    return fn

@@ -1,0 +1,162 @@
+"""One rank of the gloo job of ``tests/test_torch_tensor_parallel.py``: four
+CPU processes that run the reduced dense GQA and MoE configs split over the
+model axis of a (data 2, model 2) and a (data 1, model 4) mesh, then the
+(data 4, model 1) mesh whose group of one must leave the step as it was.  Imports torch and the port only (no JAX).  Reads the
+parameters and batches the test wrote (``<out>/inputs.pt``); every rank
+writes its results to ``<out>/tp<rank>.pt``."""
+
+from __future__ import annotations
+
+import copy
+import os
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import ParallelismConfig, get_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.distributed import tensor_parallel as tp_lib
+from repro_torch.distributed.sharding import ShardingRules, gather, local_shard, shard_of
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import lm
+from repro_torch.optim import AdamW
+from repro_torch.train import make_train_step, shard_train_state, train_step
+from repro_torch.train.step import (make_loss_fn, split_params, train_state_shardings,
+                                    value_and_grad)
+
+ARCHS = ("granite-8b", "granite-moe-3b-a800m", "starcoder2-7b", "minicpm-2b", "dbrx-132b")
+MESHES = ((2, 2), (1, 4))
+LR = 1e-3
+PROMPT, DECODE = 8, 4
+
+
+def _items(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _items(tree[k], path + (k,))]
+    return [("/".join(path), tree)]
+
+
+def _state(cfg, opt, params_np):
+    params = params_from_numpy(params_np, "cpu")
+    return {"params": params, "opt": opt.init(params)}
+
+
+def _grads(cfg, mesh, step, plain, sharded, batch):
+    """Each leaf's split gradient on this rank's data shard of ``batch``
+    against the unsharded gradient on the same rows, cut as the split step
+    holds the leaf (its model shard, or whole)."""
+    local, group = step.keywords["local"], step.keywords["group"]
+    rules = step.keywords["rules"]
+    rows = {k: local_shard(v, rules.batch_sharding(v.ndim, shape=tuple(v.shape)))
+            for k, v in batch.items()}
+    params = split_params(sharded["params"], local, mesh)
+    (_, m_split), g_split = value_and_grad(make_loss_fn(cfg, group=group), params, rows)
+    (_, m_whole), g_whole = value_and_grad(make_loss_fn(cfg), plain["params"], rows)
+    sh = step.keywords["shardings"]["params"]
+    errs, shapes = {}, {}
+    for (k, g), (_, w), (_, loc), (_, s), (_, p) in zip(
+            _items(g_split), _items(g_whole), _items(local), _items(sh), _items(params)):
+        want = shard_of(w, s.placements, mesh, ("model",)) if loc else w
+        errs[k] = float((g - want).abs().max())
+        shapes[k] = (tuple(p.shape), bool(loc))
+    return errs, shapes, {k: float(m_split[k] - m_whole[k]) for k in m_whole}, params, rows
+
+
+def _serve(cfg, group, params, plain, rows):
+    """``lm.forward`` logits, and a prefill plus greedy decode steps, split
+    against unsharded, from this rank's rows."""
+    tokens = rows["tokens"]
+    split = lm.forward(params, cfg, {"tokens": tokens}, device="cpu", group=group)[0]
+    if split.shape[-1] < cfg.padded_vocab_size:
+        split = tp_lib.all_gather(split, group, -1)
+    whole = lm.forward(plain["params"], cfg, {"tokens": tokens}, device="cpu")[0]
+    b = tokens.shape[0]
+    caches = lm.init_caches(cfg, b, PROMPT + DECODE, torch.float32, device="cpu")
+    local = tp_lib.local_caches(cfg, caches, group)
+    cache_heads = int(local["layers"]["k"].shape[2])
+    prompt = {"tokens": tokens[:, :PROMPT]}
+    s_last, s_c = lm.prefill(params, cfg, prompt, local, device="cpu", group=group)
+    w_last, w_c = lm.prefill(plain["params"], cfg, prompt, caches, device="cpu")
+    errs, s_tok, w_tok = [float((s_last - w_last).abs().max())], [], []
+    for i in range(DECODE):
+        st, wt = s_last.argmax(-1, keepdim=True), w_last.argmax(-1, keepdim=True)
+        s_tok.append(st)
+        w_tok.append(wt)
+        pos = torch.full((b,), PROMPT + i, dtype=torch.int32)
+        s_last, s_c = lm.decode_step(params, cfg, st, pos, s_c, device="cpu", group=group)
+        w_last, w_c = lm.decode_step(plain["params"], cfg, wt, pos, w_c, device="cpu")
+        errs.append(float((s_last - w_last).abs().max()))
+    return dict(logits_err=float((split - whole).abs().max()), decode_errs=errs,
+                split_tokens=torch.cat(s_tok, 1), whole_tokens=torch.cat(w_tok, 1),
+                cache_heads=cache_heads, cache_stays_local=int(s_c["layers"]["k"].shape[2]))
+
+
+def _case(arch, shape, inp):
+    cfg = get_config(arch, reduced=True)
+    mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+    rules = ShardingRules(mesh=mesh, plan=ParallelismConfig())
+    opt = AdamW(schedule=lambda s: LR)
+    state0 = _state(cfg, opt, inp["params"])
+    plain = copy.deepcopy(state0)
+    shardings = train_state_shardings(cfg, opt, rules)
+    sharded = shard_train_state(copy.deepcopy(state0), shardings)
+    step = make_train_step(cfg, opt, mesh=mesh, rules=rules)
+    batches = [{"tokens": torch.from_numpy(b)} for b in inp["batches"]]
+    grad_errs, shapes, metric_errs, params, rows = _grads(cfg, mesh, step, plain, sharded,
+                                                          batches[0])
+    serve = _serve(cfg, step.keywords["group"], params, plain, rows)
+    held = {k: tuple(v.to_local().shape) for k, v in _items(sharded["params"])}
+    steps = []
+    for batch in batches:  # each split step from the state the unsharded step starts from
+        before = copy.deepcopy(dict(_items(plain)))
+        sharded = shard_train_state(copy.deepcopy(plain), shardings)
+        _, m_plain = train_step(plain, batch, cfg=cfg, optimizer=opt, grad_accum=shape[0])
+        _, m_split = step(sharded, batch)
+        steps.append(dict(
+            before=before, split={k: gather(v).clone() for k, v in _items(sharded)},
+            plain=copy.deepcopy(dict(_items(plain))),
+            loss={"split": float(m_split["loss"]), "plain": float(m_plain["loss"])}))
+    return dict(split=step.split, grad_errs=grad_errs, compute_shapes=shapes, held_shapes=held,
+                metric_errs=metric_errs, serve=serve, steps=steps,
+                collective_bytes=dict(step.keywords["group"].bytes))
+
+
+def _group_of_one(inp):
+    """On (data 4, model 1): the step on the old path (within float32
+    rounding of the unsharded step over the four data shards' microbatches:
+    gloo sums four gradients in its own order), and ``lm.forward`` under a
+    group of one bitwise the forward without one."""
+    cfg = get_config("granite-moe-3b-a800m", reduced=True)
+    mesh = make_mesh((4, 1), ("data", "model"), device_type="cpu")
+    rules = ShardingRules(mesh=mesh, plan=ParallelismConfig())
+    opt = AdamW(schedule=lambda s: LR)
+    state0 = _state(cfg, opt, inp["params"])
+    plain = copy.deepcopy(state0)
+    sharded = shard_train_state(copy.deepcopy(state0), train_state_shardings(cfg, opt, rules))
+    step = make_train_step(cfg, opt, mesh=mesh, rules=rules)
+    batch = {"tokens": torch.from_numpy(inp["batches"][0])}
+    _, m_plain = train_step(plain, batch, cfg=cfg, optimizer=opt, grad_accum=4)
+    _, m_step = step(sharded, batch)
+    group = tp_lib.model_group(mesh)
+    one = lm.forward(plain["params"], cfg, batch, device="cpu", group=group)[0]
+    none = lm.forward(plain["params"], cfg, batch, device="cpu")[0]
+    return dict(split=step.split, step_group=step.keywords.get("group"), group_size=group.size,
+                forward_equal=torch.equal(one, none),
+                loss_equal=float(m_plain["loss"]) == float(m_step["loss"]),
+                state_close=max(float((gather(v).float() - p.float()).abs().max())
+                                for (_, v), (_, p) in zip(_items(sharded), _items(plain))))
+
+
+def run(rank: int, world: int, out: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(out, 'pg')}",
+                            rank=rank, world_size=world)
+    try:
+        inputs = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
+        results = {f"{arch}@{shape[0]}x{shape[1]}": _case(arch, shape, inputs[arch])
+                   for arch in ARCHS for shape in MESHES}
+        results["one"] = _group_of_one(inputs["granite-moe-3b-a800m"])
+        torch.save(results, os.path.join(out, f"tp{rank}.pt"))
+        dist.barrier()  # a gloo rank that leaves early resets its peers
+    finally:
+        dist.destroy_process_group()

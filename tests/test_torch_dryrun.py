@@ -1,8 +1,10 @@
 """The port's dry run (``repro_torch.launch.dryrun``) on the CPU: every
 runnable cell traced at a reduced size on the ``tiny`` mesh, the eight
-skips with the reference's reasons, one full-size cell (granite-8b x
-train_4k x pod), the ``card`` mesh's argument bytes against the tensors a
-prefill allocates, and the JSON fields of the reference's ``run_cell``."""
+skips with the reference's reasons, full-size cells (granite-8b x
+train_4k x pod, split over ``model``, against the repeat pattern's
+per-device FLOPs; dbrx-132b x train_4k x pod's parameters per device), the
+``card`` mesh's argument bytes against the tensors a prefill allocates, and
+the JSON fields of the reference's ``run_cell``."""
 
 import dataclasses
 import json
@@ -16,8 +18,10 @@ from repro import configs as jax_configs  # noqa: E402
 from repro.roofline import analysis as jax_analysis  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.distributed import tensor_parallel as tp_lib  # noqa: E402
 from repro_torch.distributed.sharding import ShardingRules  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import abstract_mesh  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 RUNNABLE = [(a, s) for a, s, ok, _ in configs.dryrun_cells() if ok]
@@ -40,6 +44,9 @@ def test_reduced_cell_on_tiny(arch, shape, tmp_path):
     assert min(r["memory_stats"].values()) >= 0 and r["memory_stats"]["argument_bytes"] > 0
     # the batch (8 at most, reduced) splits over tiny's data axis of 2
     assert r["device_batch"] == (4 if SHAPE_BATCH[shape] > 1 else 1)
+    cfg = configs.get_config(arch, True)
+    assert r["split"] == ("model" if tp_lib.splits(cfg) else "repeat")  # tiny's model axis is 2
+    assert ("model all-reduce" in r["coll_bytes"]) == (r["split"] == "model")
     cached = dryrun.run_cell(arch, shape, "tiny", out_dir=str(tmp_path), reduced=True)
     assert cached == json.loads(json.dumps(r, default=str))
 
@@ -59,15 +66,37 @@ def test_the_eight_skips_with_their_reasons(tmp_path):
         "pure full attention: 512k decode needs sub-quadratic attention"}
 
 
+def _split_param_bytes(cfg, mesh) -> int:
+    """bf16 bytes of the parameters one device of ``mesh`` computes with
+    under the split: each leaf's model shard where the split takes one, the
+    whole leaf where it does not (K/V, granite-8b's 8 kv heads on 16)."""
+    rules = ShardingRules(mesh=mesh)
+    size = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+    total = 0
+    for axes, shape in _spec_leaves(lm.param_spec(cfg)):
+        spec = rules.spec_for(axes, shape)
+        local = tp_lib.takes_model_shard(cfg, axes, spec, size)
+        total += 2 * math.prod(shape) // (size if local and "model" in spec else 1)
+    return total
+
+
 def test_full_size_granite_train_on_pod(tmp_path):
     r = dryrun.run_cell("granite-8b", "train_4k", "pod", out_dir=str(tmp_path))
     assert r["status"] == "ok", r.get("traceback")
     cfg = configs.get_config("granite-8b")
     assert r["n_devices"] == 256 and r["device_batch"] == 256 // 16
     assert r["plan"]["remat"] == "minimal" and r["fallbacks"] == []
-    # every bf16 parameter gathered whole, every gradient all-reduced over data
+    # split over model: each bf16 parameter gathered over data to its model
+    # shard (K/V whole), each such gradient all-reduced over data, and the
+    # split's own reductions over model
+    assert r["split"] == "model"
     n = lm.count_params(cfg)
-    assert r["coll_bytes"] == {"all-gather": 2.0 * n, "all-reduce": 2.0 * n}
+    gathered = _split_param_bytes(cfg, dryrun.make_mesh("pod"))
+    assert gathered < 2 * n // 8
+    assert r["gathered_param_bytes"] == gathered
+    assert {k: v for k, v in r["coll_bytes"].items() if not k.startswith("model")} == {
+        "all-gather": float(gathered), "all-reduce": float(gathered)}
+    assert r["coll_bytes"]["model all-reduce"] > 0 and r["coll_bytes"]["model all-gather"] > 0
     # per device: each bf16 parameter and its two float32 AdamW moments over
     # the devices its spec splits it across (FSDP x TP: 256 for the
     # matrices, 16 for the norms), the step counter, and the device's
@@ -83,8 +112,9 @@ def test_full_size_granite_train_on_pod(tmp_path):
     # the fused attention removes the materialized score volume
     assert r["flops_fused"] < r["flops"] and r["hbm_bytes_fused"] < r["hbm_bytes"]
     assert 0 < r["attn_flops_hlo"] < r["flops"]
-    # the model axis (16) repeats each data shard's compute
-    assert r["useful_ratio"] < 1 / 16
+    # the model axis (16) splits each data shard's compute: all but the
+    # repeated K/V projections and the norms are useful
+    assert 1 / 16 < r["useful_ratio"] < 1
     assert r["model_flops_global"] == pytest.approx(
         jax_analysis.model_flops(jax_configs.get_config("granite-8b"),
                                  jax_configs.base.SHAPES["train_4k"])
@@ -92,9 +122,38 @@ def test_full_size_granite_train_on_pod(tmp_path):
                                        jax_configs.base.SHAPES["train_4k"]), rel=1e-12)
 
 
+def test_split_divides_granite_flops_per_device():
+    """granite-8b x train_4k on pod: one device's FLOPs under the split at
+    least 8x below the repeat pattern's, which is a (16, 1) mesh's device
+    (the same data shard, the model axis only repeating it)."""
+    cfg = configs.get_config("granite-8b")
+    shape = configs.SHAPES["train_4k"]
+    flops = {}
+    for dims in ((16, 16), (16, 1)):
+        mesh = abstract_mesh(dims, ("data", "model"))
+        tr = dryrun.trace_train(cfg, shape, mesh,
+                                ShardingRules(mesh=mesh, plan=dryrun.plan_for(cfg, shape)))
+        assert tr.device_shape.global_batch == 16
+        flops[dims] = sum(tr.count.flops.values())
+    assert flops[(16, 1)] >= 8 * flops[(16, 16)]
+
+
+def test_dbrx_train_on_pod_fits_a_card(tmp_path):
+    """dbrx-132b x train_4k on pod: the parameters one device gathers (its
+    expert, its q heads, K/V whole, its vocabulary) under an H100's 80 GB,
+    where the repeat pattern gathers all ~263 GB."""
+    r = dryrun.run_cell("dbrx-132b", "train_4k", "pod", out_dir=str(tmp_path))
+    assert r["status"] == "ok", r.get("traceback")
+    cfg = configs.get_config("dbrx-132b")
+    assert r["split"] == "model"
+    assert r["gathered_param_bytes"] == _split_param_bytes(cfg, dryrun.make_mesh("pod")) < 80e9
+    assert 2 * lm.count_params(cfg) > 250e9
+
+
 def test_card_mesh_argument_bytes_are_the_allocated_bytes():
     """On the one-card mesh a prefill's argument bytes are those of the
-    parameters, caches and tokens it allocates."""
+    parameters, caches and tokens it allocates; a model axis of one
+    repeats (splits nothing)."""
     cfg = configs.get_config("granite-8b", reduced=True)
     shape = ShapeConfig("p", 32, 2, "prefill")
     mesh = dryrun.make_mesh("card")
@@ -106,6 +165,8 @@ def test_card_mesh_argument_bytes_are_the_allocated_bytes():
     leaves = [t for t in _leaves(params) + _leaves(caches) + [tokens]]
     assert tr.memory_stats["argument_bytes"] == sum(t.numel() * t.element_size() for t in leaves)
     assert tr.device_shape == shape and tr.coll_bytes == {"all-gather": 0.0}
+    assert tr.pattern == "repeat" and tr.param_bytes == sum(
+        t.numel() * t.element_size() for t in _leaves(params))
 
 
 def _spec_leaves(tree):

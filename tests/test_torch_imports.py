@@ -70,6 +70,7 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.configs.minicpm3_4b, repro_torch.models.attention, "
         "repro_torch.kernels.ssd_scan.autograd, repro_torch.distributed, "
         "repro_torch.distributed.sharding, repro_torch.distributed.collectives, "
+        "repro_torch.distributed.tensor_parallel, "
         "repro_torch.launch.mesh, repro_torch.launch.train, repro_torch.launch.dryrun, "
         "repro_torch.core.latency_model, repro_torch.roofline.op_counter, "
         "repro_torch.roofline.kernel_costs, repro_torch.roofline.analysis, "

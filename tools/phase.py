@@ -32,7 +32,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("models", "mha", "lut_softmax_path", "mamba", "dense", "serve", "train", "int8_moe",
-          "mla", "families", "roofline", "engine")
+          "mla", "families", "roofline", "engine", "tp")
 
 
 def main(argv=None) -> int:
