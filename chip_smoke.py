@@ -266,31 +266,43 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``make_train_step(mesh=, rules=)`` with ``split == "model"``): first phase
    2's cases at the split's local shapes (granite-8b's attend at model 2,
    (2, 16 q / 4 kv, 2048, 128) causal, float32 and bf16, forward and
-   backward; its RMSNorm over (4096, 4096), forward and backward), then two
-   processes on the one card, a (data 1, model 2) mesh over gloo (NCCL
-   refuses two ranks on one device), spawned together (one failed rank
-   fails the run): (a) granite-8b at its published widths, 2 layers,
-   float32, 2 x 2048 tokens, 2 split steps, each from the state the
-   unsharded step on the card starts from, the loss within 1e-4, every
-   moment of the rank's shard within 1e-4 of its leaf's largest magnitude
-   (float32 rounding reaches 1.1e-5 there) and every parameter within 1e-5 of max(1, |x|) (or, at most 1e-4 of
-   them, where Adam's m / sqrt(v) amplifies a gradient at the rounding's
-   size, off by exactly what the two runs' moments give through AdamW);
-   (b) granite-moe-3b-a800m the same (20 of its 40 experts per rank),
-   ``moe_dropped_frac`` equal to the unsharded value exactly; (c)
-   granite-8b bf16, 2 layers, a prefill of 1 x 2048 and 8 greedy decode
-   steps over caches of the rank's 4 kv heads, both runs fed the unsharded
-   run's tokens: a greedy token may differ only where the unsharded top-two
-   margin is under 5e-2 (bf16).  Per rank: the state's GB and the step's
-   peak above it, split and unsharded, step ms (the two ranks share the
-   card: these times say nothing of TP speed) and the collectives' bytes.
-   Each split call (a train step, the prefill, each decode step) runs in
-   a window of its own: the counts set to 0 just before it and read just
-   after, the unsharded runs outside; each must launch ``layernorm``
-   2 n_layers + 1 times and ``flash_attention`` n_layers times (none in
-   decode), the attention at the rank's heads.  The kernels line sums
-   the windows of both ranks.  ``python3 tools/phase.py tp`` runs this
-   phase alone.
+   backward; its RMSNorm over (4096, 4096), forward and backward;
+   minicpm3-4b's attend at model 2, (8, 20, 2048, 96 / V 64) causal bf16,
+   SDPA beside it; zamba2-1.2b's scan at model 2, (2, 2048, 32 heads, 64,
+   N 64) float32, forward and backward), then two processes on the one
+   card, a (data 1, model 2) mesh over gloo (NCCL refuses two ranks on one
+   device), spawned together (one failed rank fails the run): (a)
+   granite-8b at its published widths, 2 layers, float32, 2 x 2048 tokens,
+   2 split steps, each from the state the unsharded step on the whole batch
+   on the card starts from, the loss within 1e-4, every moment of the
+   rank's shard within 1e-4 of its leaf's largest magnitude (float32
+   rounding reaches 1.1e-5 there) and every parameter within 1e-5 of
+   max(1, |x|) (or, at most 1e-4 of them, where Adam's m / sqrt(v)
+   amplifies a gradient at the rounding's size, off by exactly what the
+   two runs' moments give through AdamW); (b) granite-moe-3b-a800m the
+   same (20 of its 40 experts per rank), ``moe_dropped_frac`` equal to the
+   unsharded value exactly; (d) minicpm3-4b (MLA: 20 of 40 heads per rank,
+   the latents whole) and (e) zamba2-1.2b (32 of 64 SSM heads, 16 of 32
+   shared-block heads; layer 0 applies the shared block) the same; (g)
+   granite-moe-3b-a800m on a (data 2, model 1) mesh, each rank one row of
+   the batch (the ``"repeat"`` pattern), against the whole-batch step, its
+   capacity, drops and aux loss the whole batch's: the dropped share
+   exact; (c) granite-8b and (f) minicpm3-4b in bf16, 2 layers, a prefill
+   of 1 x 2048 and 8 greedy decode steps over the rank's caches (4 kv
+   heads; the whole latent), both runs fed the unsharded run's tokens: a
+   greedy token may differ only where the unsharded top-two margin is under
+   5e-2 (bf16).  Per rank: the state's GB and the step's peak above it,
+   split and unsharded, step ms (the two ranks share the card: these times
+   say nothing of TP speed) and the collectives' bytes.  Each split call (a
+   train step, a prefill, each decode step) runs in a window of its own:
+   the counts set to 0 just before it and read just after, the unsharded
+   runs outside; each must launch ``layernorm`` once per norm (2 per GQA
+   block, 4 per MLA block, 2 per Mamba2 block and per shared-block
+   application, and the final norm), ``flash_attention`` once per
+   attention (none in decode) and ``ssd_scan`` once per Mamba2 layer (none
+   in decode), the attention and the scan at the rank's heads.  The
+   kernels line sums the windows of both ranks.  ``python3 tools/phase.py
+   tp`` runs this phase alone.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  The full measurements
@@ -550,23 +562,25 @@ def median_ms(fn, iters: int, warmup: int = 5) -> float:
 
 def device_times(fn, iters: int = 20) -> dict[str, float] | None:
     """Device ms per call of ``fn`` by kernel name under ``torch.profiler``,
-    free of the host's launch cost; None when the trace shows no device
-    time."""
+    free of the host's launch cost; None when no trace shows every call's
+    device time.  A trace now and then comes back empty, or with some of
+    its kernel records lost (a kernel counted fewer times than the calls
+    launch it, so its time per call reads low): it is taken again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):  # a trace now and then comes back empty: one more try
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        times = {e.key: us / iters / 1e3 for e in prof.key_averages()
-                 if (us := getattr(e, "self_device_time_total", None)
-                     or getattr(e, "self_cuda_time_total", 0)) > 0}
-        if times:
-            return times
+        rows = [(e.key, us, e.count) for e in prof.key_averages()
+                if (us := getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0)) > 0]
+        if rows and all(count % iters == 0 for _, _, count in rows):
+            return {key: us / iters / 1e3 for key, us, _ in rows}
     return None
 
 
@@ -4592,8 +4606,10 @@ def phase_engine(dev):
 # ------------------------------------------------------------------ tp --
 
 TP_RANKS, TP_MESH = 2, (1, 2)  # two processes on the one card, gloo: NCCL refuses that
-TP_CUT = dict(n_layers=2, dtype="float32")
-TP_TRAIN = ("granite-8b", "granite-moe-3b-a800m")
+TP_DATA_MESH = (2, 1)  # the data-sharded MoE step: the two ranks split the batch
+TP_CUT = dict(n_layers=2, dtype="float32")  # zamba2-1.2b: its layer 0 applies the shared block
+TP_TRAIN = ("granite-8b", "granite-moe-3b-a800m", "minicpm3-4b", "zamba2-1.2b")
+TP_MOE_DATA = "granite-moe-3b-a800m"  # on TP_DATA_MESH against the whole-batch step
 TP_BATCH = (2, 2048)
 TP_STEPS = 2
 TP_LR = 3e-4
@@ -4602,17 +4618,24 @@ TP_STATE_TOL = 1e-5  # parameters: of max(1, |x|)
 TP_MOMENT_TOL = 1e-4  # moments: of the leaf's largest |x| (float32 rounding reaches 1.1e-5)
 TP_ADAM_RESIDUAL = 1e-6  # of max(1, |x|): a parameter's part not explained by its moments
 TP_ADAM_SHARE = 1e-4  # the most parameters whose normalised update amplifies rounding
-TP_DECODE = (1, 2048, 8)  # granite-8b bf16 2 layers: batch, prompt, greedy steps
+TP_DECODE = (1, 2048, 8)  # granite-8b, minicpm3-4b bf16 2 layers: batch, prompt, greedy steps
+TP_DECODE_MODELS = ("granite-8b", "minicpm3-4b")
 TP_MARGIN = 5e-2  # bf16: a greedy token may part only where the unsharded top-two margin is less
 TP_ATTENTION = (2, 16, 2048, 128)  # granite-8b's attend at model 2: batch, q heads, tokens, d
 TP_KV_HEADS = 4
 TP_NORM = (4096, 4096)  # the norms' rows (2 x 2048 tokens) at d_model, RMS
+TP_MLA_ATTENTION = (8, 20, 2048, 96)  # minicpm3-4b's attend at model 2: 20 of 40 heads, V at 64
+TP_MLA_V = 64
+TP_SSD = (2, 2048, 32, 64, 64)  # zamba2's scan at model 2: batch, tokens, 32 of 64 heads, P, N
 
 
 def _tp_local_cases(dev) -> list[dict]:
     """Phase 2's cases at the split's local shapes: granite-8b's attend at
     model 2 (16 of 32 q heads, 4 of 8 kv heads) forward and backward in
-    float32 and bf16, and its RMSNorm rows."""
+    float32 and bf16, and its RMSNorm rows; minicpm3-4b's attend at model
+    2 (20 of 40 heads, q/k at 96, V at 64) in bf16, SDPA beside it; and
+    zamba2-1.2b's scan at model 2 (32 of 64 SSM heads) forward and
+    backward in float32."""
     cases = []
     for dtype in ("float32", "bfloat16"):
         cases.append(_attention_case(dev, TP_ATTENTION, "safe", causal=True, dtype=dtype,
@@ -4621,6 +4644,11 @@ def _tp_local_cases(dev) -> list[dict]:
                                           "safe"))
     cases.append(_layernorm_case(dev, *TP_NORM, True, False))
     cases.append(_layernorm_grad_case(dev, *TP_NORM, True, False))
+    cases.append(_attention_case(dev, TP_MLA_ATTENTION, "safe", causal=True, dtype="bfloat16",
+                                 v_dim=TP_MLA_V))
+    b, l, h, p, n = TP_SSD
+    cases.append(_ssd_case(dev, b, l, h, p, n, 1, 64))
+    cases.append(_ssd_grad_case(dev, b, l, h, p, n, 1, "float32"))
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise SmokeError(f"{len(bad)} local-shape kernel cases failed: {bad}")
@@ -4640,47 +4668,83 @@ def _tp_shard(state, shardings, mesh):
         state, shardings)
 
 
+def _tp_want(cfg, group, attends: bool) -> tuple[dict, tuple, int | None]:
+    """(the launches one call of the split path makes, its attention's (q,
+    kv) heads, its scan's heads) for ``cfg`` under ``group`` (None: the
+    ``"repeat"`` pattern, whole heads).  ``layernorm``: each block's norms
+    (a GQA or MoE block 2, an MLA block 4 with ``q_norm`` / ``kv_norm``, a
+    Mamba2 block 2 with ``gate_norm``, each application of the hybrid's
+    shared block 2) and the final norm.  ``flash_attention``: once per
+    attention layer (the hybrid: per application) where the call
+    ``attends`` (train, prefill; decode attends without it);
+    ``ssd_scan`` once per Mamba2 layer likewise."""
+    from repro_torch.distributed import tensor_parallel as tp_lib
+    from repro_torch.models import lm
+
+    L, apps = cfg.n_layers, lm.n_shared_apps(cfg)
+    size = 1 if group is None else group.size
+    heads = (cfg.n_heads, cfg.n_kv_heads)
+    if group is not None and group.layout.heads:
+        lo, hi = tp_lib.kv_head_range(cfg, group)
+        heads = (cfg.n_heads // size, cfg.n_heads // size if cfg.attn_kind == "mla" else hi - lo)
+    ssd_heads = None
+    if cfg.ssm is not None:
+        ssd_heads = cfg.ssm.n_heads(cfg.d_model)
+        if group is not None and group.layout.ssm:
+            ssd_heads //= size
+    if cfg.family == "hybrid":
+        ln, flash, ssd = 2 * L + 2 * apps + 1, apps, L
+    elif cfg.family == "ssm":
+        ln, flash, ssd = 2 * L + 1, 0, L
+    else:
+        ln, flash, ssd = (4 if cfg.attn_kind == "mla" else 2) * L + 1, L, 0
+    want = {"layernorm": ln}
+    if attends:
+        want.update({k: n for k, n in (("flash_attention", flash), ("ssd_scan", ssd)) if n})
+    return want, heads, ssd_heads
+
+
 def _tp_split_call(fn, cfg, group, attends: bool):
     """``fn()``, one call of the split path, in a window of its own: the
     kernel counts set to 0 just before it and read just after, and the
-    (q heads, kv heads) of every attention call recorded.  Raises unless
-    the window launched ``layernorm`` 2 n_layers + 1 times (each block's
-    two norms, the final norm) and ``flash_attention`` n_layers times where
-    the forward ``attends`` (train, prefill; decode attends the cache
-    without it) and not at all otherwise, every call at this rank's heads.
-    Returns (fn's result, the counts, the head counts seen)."""
-    from repro_torch.distributed import tensor_parallel as tp_lib
+    (q heads, kv heads) of every attention call and the heads of every scan
+    recorded.  Raises unless the window launched what ``_tp_want`` says,
+    every attention and scan at this rank's heads.  Returns (fn's result,
+    the counts, the attention heads seen)."""
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.models import attention
+    from repro_torch.models import attention, ssm
 
-    real, heads = attention.mha, []
+    real, real_ssd, heads, scans = attention.mha, ssm.ssd_with_state, [], []
 
     def recorded(q, k, v, **kw):
         heads.append((int(q.shape[1]), int(k.shape[1])))
         return real(q, k, v, **kw)
 
-    lo, hi = tp_lib.kv_head_range(cfg, group)
-    local = (cfg.n_heads // group.size, hi - lo)
-    want = {"layernorm": 2 * cfg.n_layers + 1}
-    if attends:
-        want["flash_attention"] = cfg.n_layers
-    attention.mha = recorded
+    def recorded_ssd(xdt, *a, **kw):
+        scans.append(int(xdt.shape[2]))
+        return real_ssd(xdt, *a, **kw)
+
+    want, local, ssd_heads = _tp_want(cfg, group, attends)
+    attention.mha, ssm.ssd_with_state = recorded, recorded_ssd
     LAUNCHES.clear()  # the window starts here
     try:
         out = fn()
     finally:
-        attention.mha = real
+        attention.mha, ssm.ssd_with_state = real, real_ssd
     counts = {k: n for k, n in LAUNCHES.items() if n}
     LAUNCHES.clear()
-    if counts != want or heads != [local] * want.get("flash_attention", 0):
+    if (counts != want or heads != [local] * want.get("flash_attention", 0)
+            or scans != [ssd_heads] * want.get("ssd_scan", 0)):
         raise SmokeError(f"[tp] {cfg.name}: the split call launched {counts} (want {want}) at "
-                         f"(q, kv) heads {sorted(set(heads))} (want {local})")
+                         f"(q, kv) heads {sorted(set(heads))} (want {local}), scans at heads "
+                         f"{sorted(set(scans))} (want {ssd_heads})")
     return out, counts, local
 
 
-def _tp_train(name, mesh, dev) -> dict:
-    """(a) / (b): ``TP_STEPS`` split steps of ``name`` at its published
-    widths, each from the state the unsharded step starts from on this
+def _tp_train(name, mesh, dev, pattern: str = "model") -> dict:
+    """(a), (b), (d), (e), (g): ``TP_STEPS`` sharded steps of ``name`` at its
+    published widths on ``mesh``, taking the ``pattern`` split, each from
+    the state the unsharded step on the whole batch starts from on this
     rank, held against it."""
     import torch
 
@@ -4696,9 +4760,10 @@ def _tp_train(name, mesh, dev) -> dict:
     state = make_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     shardings = train_state_shardings(cfg, opt, rules)
     split, plain = make_train_step(cfg, opt, mesh=mesh, rules=rules), make_train_step(cfg, opt)
-    if split.split != "model":
-        raise SmokeError(f"{name}: the sharded step's pattern is {split.split!r}, not 'model'")
+    if split.split != pattern:
+        raise SmokeError(f"{name}: the sharded step's pattern is {split.split!r}, not {pattern!r}")
     group = split.keywords["group"]
+    sent_by = group.bytes if group is not None else {}
     g = torch.Generator().manual_seed(SEED + 1)
     steps = []
     for i in range(TP_STEPS):
@@ -4709,7 +4774,7 @@ def _tp_train(name, mesh, dev) -> dict:
         for kind, fn, st in (("split", split, sharded), ("plain", plain, state)):
             held = sum(t.to_local().numel() * t.to_local().element_size() if kind == "split"
                        else t.numel() * t.element_size() for _, t in _leaves(st))
-            sent = dict(group.bytes)
+            sent = dict(sent_by)
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -4724,7 +4789,7 @@ def _tp_train(name, mesh, dev) -> dict:
                              step_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
                              metrics={k: float(v) for k, v in m.items()})
             if kind == "split":
-                rec[kind].update(collective_bytes={k: group.bytes[k] - sent[k] for k in sent},
+                rec[kind].update(collective_bytes={k: sent_by[k] - sent[k] for k in sent},
                                  launches=launches, heads=heads)
         rec.update(_tp_state_check(sharded, state, shardings, mesh, opt))
         del sharded
@@ -4745,7 +4810,7 @@ def _tp_train(name, mesh, dev) -> dict:
                              f"{rec['plain']['metrics'].get('moe_dropped_frac')}"
                              for i, rec in enumerate(steps)))
     return dict(model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, batch=list(TP_BATCH),
-                steps=steps)
+                mesh=list(mesh.shape), pattern=pattern, steps=steps)
 
 
 def _tp_state_check(sharded, state, shardings, mesh, opt) -> dict:
@@ -4810,10 +4875,10 @@ def _leaf_at(tree, path):
     return tree
 
 
-def _tp_decode(mesh, dev) -> dict:
-    """(c): granite-8b bf16 prefill and greedy decode steps over caches of
-    this rank's kv heads, against the unsharded model on the unsharded
-    run's tokens."""
+def _tp_decode(name, mesh, dev) -> dict:
+    """(c), (f): ``name`` in bf16, a prefill and greedy decode steps over
+    this rank's caches (granite-8b's kv heads; minicpm3-4b's latent, whole),
+    against the unsharded model on the unsharded run's tokens."""
     import torch
 
     from repro_torch.configs import ParallelismConfig, get_config
@@ -4824,7 +4889,7 @@ def _tp_decode(mesh, dev) -> dict:
     from repro_torch.train.step import model_split
 
     b, s0, steps = TP_DECODE
-    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=TP_CUT["n_layers"])
+    cfg = dataclasses.replace(get_config(name), n_layers=TP_CUT["n_layers"])
     rules = ShardingRules(mesh=mesh, plan=ParallelismConfig())
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     sh = param_shardings(rules, cfg, lm)
@@ -4853,7 +4918,7 @@ def _tp_decode(mesh, dev) -> dict:
         margin = float((top2[:, 0] - top2[:, 1]).min())
         if not torch.equal(s_last.argmax(-1), w_last.argmax(-1)):
             if margin >= TP_MARGIN:
-                raise SmokeError(f"[tp] granite-8b bf16 decode step {k}: the split's greedy "
+                raise SmokeError(f"[tp] {name} bf16 decode step {k}: the split's greedy "
                                  f"token differs where the unsharded margin is {margin:.3e}")
             close.append(dict(step=k, margin=margin))
         if k == steps:
@@ -4865,12 +4930,18 @@ def _tp_decode(mesh, dev) -> dict:
                                                          group=group), False)
         w_last, whole = lm.decode_step(params, cfg, tok, pos, whole, device=dev)
         errs.append(float((s_last.float() - w_last.float()).abs().max()))
-    heads = int(mine["layers"]["k"].shape[2])
-    if heads != cfg.n_kv_heads // group.size:
-        raise SmokeError(f"[tp] the split caches hold {heads} kv heads")
+    if cfg.attn_kind == "mla":  # the latent is the heads', whole on every rank
+        heads, width = cfg.n_heads // group.size, int(mine["layers"]["latent"].shape[-1])
+        if width != cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim:
+            raise SmokeError(f"[tp] {name}: the split latent cache holds {width} columns")
+    else:
+        heads = int(mine["layers"]["k"].shape[2])
+        if heads != cfg.n_kv_heads // group.size:
+            raise SmokeError(f"[tp] {name}: the split caches hold {heads} kv heads")
     return dict(model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, batch=b, prompt=s0,
                 steps=steps, cache_kv_heads=heads, launches=dict(launches), max_abs_logit_err=errs,
-                logit_scale=float(w_last.float().abs().max()), close_calls=close,
+                logit_scale=float(w_last[..., :cfg.vocab_size].float().abs().max()),
+                close_calls=close,
                 tokens=torch.cat(toks, 1).cpu().tolist())
 
 
@@ -4891,9 +4962,11 @@ def _tp_rank(rank: int, world: int, work: str) -> None:
                             timeout=datetime.timedelta(seconds=300))
     try:
         mesh = make_mesh(TP_MESH, ("data", "model"), device_type="cuda")
+        data_mesh = make_mesh(TP_DATA_MESH, ("data", "model"), device_type="cuda")
         t0 = time.perf_counter()
-        out = {"train": [_tp_train(name, mesh, dev) for name in TP_TRAIN],
-               "decode": _tp_decode(mesh, dev)}
+        out = {"train": [_tp_train(name, mesh, dev) for name in TP_TRAIN]
+               + [_tp_train(TP_MOE_DATA, data_mesh, dev, pattern="repeat")],
+               "decode": [_tp_decode(name, mesh, dev) for name in TP_DECODE_MODELS]}
         out["seconds"] = time.perf_counter() - t0
         Path(work, f"rank{rank}.json").write_text(json.dumps(out, default=str))
         dist.barrier()  # a gloo rank that leaves early resets its peer
@@ -4932,13 +5005,15 @@ def phase_tp(dev):
         for t in r["train"]:
             for st in t["steps"]:
                 counts.update(st["split"]["launches"])
-        counts.update(r["decode"]["launches"])
+        for d in r["decode"]:
+            counts.update(d["launches"])
     for i, r in enumerate(ranks):
         for t in r["train"]:
             for k, st in enumerate(t["steps"]):
                 sp, pl = st["split"], st["plain"]
-                log(f"[tp] rank {i} {t['model']} {t['layers']} L {t['dtype']} {t['batch']} step "
-                    f"{k}: loss {sp['metrics']['loss']:.6f} (unsharded "
+                log(f"[tp] rank {i} {t['model']} {t['layers']} L {t['dtype']} {t['batch']} on "
+                    f"{t['mesh']} ({t['pattern']}) step {k}: loss {sp['metrics']['loss']:.6f} "
+                    f"(unsharded "
                     f"{pl['metrics']['loss']:.6f}, |d| {st['loss_err']:.2e}); launches "
                     f"{sp['launches']} at (q, kv) heads {sp['heads']}; moments |d| / leaf max "
                     f"{st['moments_rel_err']:.2e} ({st['moments_worst_leaf']}); parameters "
@@ -4950,13 +5025,18 @@ def phase_tp(dev):
                     f"{sp['step_peak_gb']:.2f} GB (unsharded {pl['state_gb']:.2f} + "
                     f"{pl['step_peak_gb']:.2f}); step {sp['ms']:.1f} ms (unsharded "
                     f"{pl['ms']:.1f}; two ranks share the card: not a TP speed); collectives "
-                    f"{ {k2: int(v) for k2, v in sp['collective_bytes'].items()} } B")
-        d = r["decode"]
-        log(f"[tp] rank {i} {d['model']} {d['layers']} L bf16 prefill {d['batch']} x {d['prompt']} "
-            f"+ {d['steps']} greedy steps over caches of {d['cache_kv_heads']} kv heads "
-            f"(launches {d['launches']}): max "
-            f"|logit d| {max(d['max_abs_logit_err']):.3e} (|logit| up to {d['logit_scale']:.2f}), "
-            f"close calls {d['close_calls']}")
+                    f"{ {k2: int(v) for k2, v in sp['collective_bytes'].items()} } B"
+                    + (f"; dropped {sp['metrics']['moe_dropped_frac']} (unsharded "
+                       f"{pl['metrics']['moe_dropped_frac']}), aux "
+                       f"{sp['metrics']['moe_aux_loss']:.6e} (unsharded "
+                       f"{pl['metrics']['moe_aux_loss']:.6e})"
+                       if "moe_dropped_frac" in sp["metrics"] else ""))
+        for d in r["decode"]:
+            log(f"[tp] rank {i} {d['model']} {d['layers']} L bf16 prefill {d['batch']} x "
+                f"{d['prompt']} + {d['steps']} greedy steps at {d['cache_kv_heads']} "
+                f"{'heads over the whole latent' if 'minicpm3' in d['model'] else 'kv heads'} "
+                f"(launches {d['launches']}): max |logit d| {max(d['max_abs_logit_err']):.3e} "
+                f"(|logit| up to {d['logit_scale']:.2f}), close calls {d['close_calls']}")
     log(f"[tp] split calls' launches (both ranks): {dict(counts)}; ranks' seconds "
         f"{[round(r['seconds'], 1) for r in ranks]}, spawn to join {spawn_s:.1f} s")
     return dict(kernels=cases, ranks=ranks, spawn_s=spawn_s), dict(counts)

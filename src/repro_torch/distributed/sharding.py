@@ -250,10 +250,12 @@ def local_shard(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
 
 def gather(t):
     """A plain tensor holding the whole of ``t`` (a DTensor: gathered over
-    its mesh; a plain tensor is returned as it is)."""
+    every axis of its mesh by :func:`gather_over`'s plain all-gathers, not
+    ``full_tensor()``, whose functional collectives crash a gloo group
+    over CUDA tensors; a plain tensor is returned as it is)."""
     from torch.distributed.tensor import DTensor
 
-    return t.full_tensor() if isinstance(t, DTensor) else t
+    return gather_over(t, mesh_axis_names(t.device_mesh)) if isinstance(t, DTensor) else t
 
 
 def gather_over(t, axes) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Tensor and expert parallelism over the mesh's ``model`` axis: the split
 of a step's compute that GSPMD makes of the reference's jitted step
 (``repro.train.step.make_train_step`` under the rules' shardings), for the
-dense GQA and MoE families.
+dense GQA, MLA, MoE, Mamba2 and hybrid language models; and the data group
+through which a data-sharded step computes the few terms that GSPMD
+computes over the whole batch (:class:`DataGroup`).
 
 The **model group** is ``mesh.get_group("model")`` with this rank's index
 in it (:class:`ModelGroup`).  The residual stream is replicated over the
@@ -13,14 +15,37 @@ same loss.  Work inside a block is split:
   row-parallel.  When the kv heads do not divide the group, K/V's weight is
   taken whole and each rank projects the kv heads its q heads use
   (:func:`kv_head_range`);
+- MLA by heads too.  The rules split ``wq_a`` / ``wkv_a`` by their
+  ``q_lora`` / ``kv_lora`` columns and ``wq_b`` / ``wk_b`` / ``wv_b`` by
+  their lora rows (a mesh axis splits one tensor axis per spec, the first),
+  and ``wkv_a``'s columns pack the latent and the RoPE key: so these five
+  leaves are taken whole.  Each rank computes the latents and their norms
+  whole (a few hundred columns per token), narrows ``wq_b`` / ``wk_b`` /
+  ``wv_b`` to its heads' columns, attends at its heads and runs ``wo``
+  row-parallel.  The latent cache is shared by the heads and stays whole;
+- Mamba2 by SSM heads.  ``in_proj``'s ``inner`` axis packs ``[z | x | B |
+  C | dt]`` and ``conv_w`` / ``conv_b``'s pack ``[x | B | C]``, so the
+  rules' contiguous cut of them falls inside ``x``: they are taken whole,
+  and each rank narrows them to its heads' ``z``, ``x`` and ``dt`` columns
+  and the whole ``B`` / ``C`` (and ``A_log``, ``dt_bias``, ``D``, which the
+  rules replicate, to its heads).  The scan runs over the local heads.
+  ``gate_norm`` is one RMSNorm over the whole ``inner``: the local ``y`` is
+  gathered and normed whole on every rank (the layernorm kernel on whole
+  rows), then narrowed for ``out_proj``, which is row-parallel (the rules'
+  cut of its rows falls on whole heads when the heads divide the group);
 - the MLP by columns of ``mlp``: ``w_up`` / ``w_gate`` column-parallel,
-  ``w_down`` row-parallel;
+  ``w_down`` row-parallel; the hybrid's shared block splits its attention
+  and MLP so, and its ``out_proj`` (``mlp`` rows) is row-parallel;
 - MoE by experts: the router's local logits are gathered, routing runs
   replicated, each rank runs its experts and the combine's partial sum is
   reduced (when the experts do not divide the group and the rules split
   ``mlp`` instead, each rank runs every expert on its ``mlp`` columns);
 - the vocabulary: the embedding looks up this rank's rows, the logits are
   this rank's columns, the cross entropy reduces over the group.
+
+Where the heads do not divide the group (minicpm3-4b's 40 or mamba2-130m's
+24 on 16), that layer repeats on every rank, as GSPMD's fallback
+replicates an axis that does not divide.
 
 The collectives pair as Megatron pairs them, because every rank computes
 the same loss: into rank-local work, identity forward and all-reduce
@@ -44,16 +69,23 @@ the right shape and counts its bytes, as a real group does
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import scalar
+from repro_torch.launch.mesh import mesh_axis_size
 
 #: the logical axes whose ``model`` split the forward takes as it is (any
 #: cut of a vocabulary, an ``mlp`` width or an expert list is a valid one)
 _ANY_CUT = ("vocab", "mlp", "experts")
+#: the logical axes of Mamba2's ``out_proj`` (after the stack's ``layers``),
+#: the one ``inner`` leaf whose rules' cut (of its rows) the forward can
+#: take: the others pack several kinds of column along ``inner``
+_SSM_ROWS = ("inner", "embed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,12 +95,14 @@ class Layout:
     False (None) the layer takes its leaves whole and repeats on every
     rank.  :func:`split_plan` sets it; the default splits nothing."""
 
-    heads: bool = False  # wq's q heads and wo's rows
+    heads: bool = False  # the q heads (GQA's wq, MLA's narrowed wq_b / wk_b / wv_b), wo's rows
     kv_heads: bool = False  # wk / wv's kv heads; under ``heads`` and False: whole, narrowed
-    mlp: bool = False  # the dense MLP's columns
+    mlp: bool = False  # the dense (or the hybrid's shared) MLP's columns
     router: bool = False  # the router's expert columns
     experts: str | None = None  # the expert leaves' split axis, "experts" or "mlp"
     vocab: bool = False  # the embedding's rows and lm_head's columns
+    ssm: bool = False  # Mamba2's SSM heads: in_proj / conv narrowed, out_proj's rows
+    shared_out: bool = False  # the hybrid's shared out_proj's rows
 
 
 @dataclasses.dataclass
@@ -108,22 +142,23 @@ def active(group: ModelGroup | None) -> ModelGroup | None:
 
 
 def splits(cfg: ModelConfig) -> bool:
-    """Whether the family's step splits over ``model`` (dense GQA and MoE
-    language models); the others repeat it on every rank of the axis."""
-    return (cfg.family in ("dense", "moe") and cfg.attn_kind == "gqa"
-            and cfg.frontend is None and not cfg.is_encoder)
+    """Whether the family's step splits over ``model`` (the dense GQA, MLA,
+    MoE, Mamba2 and hybrid language models); the encoder and the VLM repeat
+    it on every rank of the axis."""
+    return (cfg.family in ("dense", "moe", "ssm", "hybrid") and cfg.frontend is None
+            and not cfg.is_encoder)
 
 
 def require_split(cfg: ModelConfig, plan=None) -> None:
     """Raise unless ``cfg`` (and its precision ``plan``) can run split."""
     if not splits(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family with {cfg.attn_kind} attention does not split "
-            "over the model axis yet (ROADMAP queue 2, item 11); its step repeats per rank")
+            f"{cfg.name}: the {cfg.family} family does not split over the model axis yet "
+            "(ROADMAP queue 1, item 13.3); its step repeats per rank")
     if plan is not None and plan.int8_weights:
         raise NotImplementedError(
             f"{cfg.name}: per-channel int8 weights reduce over a split axis; precision plans "
-            "under the model split are ROADMAP queue 2, item 11")
+            "under the model split are ROADMAP queue 1, item 13.4")
 
 
 # ---------------------------------------------------------------------------
@@ -150,6 +185,19 @@ def kv_head_range(cfg: ModelConfig, group: ModelGroup) -> tuple[int, int]:
     return first // per_kv, (first + local - 1) // per_kv + 1
 
 
+def ssm_heads_split(cfg: ModelConfig, size: int) -> bool:
+    """Whether Mamba2 splits by whole SSM heads over ``size`` ranks (with
+    one B / C group, which every head reads, as every published config
+    has)."""
+    return (cfg.ssm is not None and cfg.ssm.n_groups == 1
+            and cfg.ssm.n_heads(cfg.d_model) % size == 0)
+
+
+def ssm_head_range(cfg: ModelConfig, group: ModelGroup) -> tuple[int, int]:
+    """This rank's SSM heads [lo, hi)."""
+    return shard_range(cfg.ssm.n_heads(cfg.d_model), group)
+
+
 def model_dim(spec) -> int | None:
     """The tensor axis that ``spec`` splits over ``model``, or None."""
     for dim, part in enumerate(spec):
@@ -161,9 +209,10 @@ def model_dim(spec) -> int | None:
 def takes_model_shard(cfg: ModelConfig, logical_axes, spec, size: int) -> bool:
     """Whether the split forward takes a leaf (under ``spec``, its logical
     axes ``logical_axes``) as its ``model`` shard; False means it takes the
-    leaf whole (attention that does not split by whole heads, or K/V whose
-    kv heads do not divide the group).  A leaf ``spec`` does not split over
-    ``model`` is its own shard."""
+    leaf whole (attention that does not split by whole heads, K/V whose kv
+    heads do not divide the group, MLA's lora leaves, Mamba2's packed
+    ``inner`` leaves: module docstring).  A leaf ``spec`` does not split
+    over ``model`` is its own shard."""
     dim = model_dim(spec)
     if dim is None:
         return True
@@ -172,6 +221,8 @@ def takes_model_shard(cfg: ModelConfig, logical_axes, spec, size: int) -> bool:
         return heads_split(cfg, size)
     if logical == "kv_heads":
         return heads_split(cfg, size) and cfg.n_kv_heads % size == 0
+    if logical == "inner":
+        return tuple(logical_axes[dim:]) == _SSM_ROWS and ssm_heads_split(cfg, size)
     return logical in _ANY_CUT
 
 
@@ -198,12 +249,17 @@ def split_plan(cfg: ModelConfig, logical_axes, shardings, size: int):
         dim = model_dim(sh.spec)
         return ax[dim] if dim is not None and loc else None
 
-    layout = Layout(heads=taken("blocks", "attn", "wq", "kernel") == "heads",
-                    kv_heads=taken("blocks", "attn", "wk", "kernel") == "kv_heads",
-                    mlp=taken("blocks", "ffn", "w_up", "kernel") == "mlp",
-                    router=taken("blocks", "ffn", "router", "kernel") == "experts",
-                    experts=taken("blocks", "ffn", "w_up") if cfg.moe is not None else None,
-                    vocab=taken("embed", "table") == "vocab")
+    # the hybrid's attention and MLP are its shared block's
+    attn, ffn = (("shared_attn", "attn"), ("shared_attn", "mlp")) if cfg.family == "hybrid" \
+        else (("blocks", "attn"), ("blocks", "ffn"))
+    layout = Layout(heads=taken(*attn, "wo", "kernel") == "heads",
+                    kv_heads=taken(*attn, "wk", "kernel") == "kv_heads",
+                    mlp=taken(*ffn, "w_up", "kernel") == "mlp",
+                    router=taken(*ffn, "router", "kernel") == "experts",
+                    experts=taken(*ffn, "w_up") if cfg.moe is not None else None,
+                    vocab=taken("embed", "table") == "vocab",
+                    ssm=taken("blocks", "mamba", "out_proj", "kernel") == "inner",
+                    shared_out=taken("shared_attn", "out_proj", "kernel") == "mlp")
     return layout, local
 
 
@@ -213,17 +269,50 @@ def shard_range(n: int, group: ModelGroup) -> tuple[int, int]:
     return group.rank * c, (group.rank + 1) * c
 
 
+def ssm_columns(cfg: ModelConfig, group: ModelGroup, packed: str) -> torch.Tensor:
+    """The indices of this rank's columns in a Mamba2 leaf whose axis packs
+    ``packed`` ("zxbcdt": ``in_proj``'s outputs; "xbc": ``conv_w`` /
+    ``conv_b`` and the ``conv_state`` cache): its heads' ``z``, ``x`` and
+    ``dt`` columns, and the ``B`` / ``C`` columns."""
+    s = cfg.ssm
+    p, di = s.head_dim, s.d_inner(cfg.d_model)
+    gn2 = 2 * s.state_dim  # one group
+    lo, hi = ssm_head_range(cfg, group)
+    heads = torch.arange(lo * p, hi * p)
+    if packed == "xbc":
+        return torch.cat([heads, torch.arange(di, di + gn2)])
+    return torch.cat([heads, di + heads, torch.arange(2 * di, 2 * di + gn2),
+                      torch.arange(2 * di + gn2 + lo, 2 * di + gn2 + hi)])
+
+
 def local_caches(cfg: ModelConfig, caches: dict, group: ModelGroup | None) -> dict:
-    """Whole GQA caches (dense, rolling or paged; float or int8) narrowed
-    to the kv heads this rank's attention writes and reads
-    (:func:`kv_head_range`): the ``kv_heads`` axis (2 of every stacked
-    ``k``, ``v``, ``k_scale``, ``v_scale``).  Views of ``caches``."""
+    """Whole caches as this rank's split forward reads and writes them.
+    GQA (dense, rolling or paged; float or int8), and the hybrid's shared
+    K/V: narrowed to the kv heads this rank's attention uses
+    (:func:`kv_head_range`), the ``kv_heads`` axis (2 of every stacked
+    ``k``, ``v``, ``k_scale``, ``v_scale``), views.  Mamba2: ``ssm_state``
+    narrowed to this rank's SSM heads (a view), ``conv_state`` to its ``x``
+    columns and the whole ``B`` / ``C`` (:func:`ssm_columns`; a copy, the
+    columns are not one slice).  MLA's latent is shared by the heads and
+    stays whole."""
     tp = active(group)
-    if tp is None or not tp.layout.heads:
+    if tp is None:
         return caches
-    lo, hi = kv_head_range(cfg, tp)
-    return {g: {k: t.narrow(2, lo, hi - lo) if k in ("k", "v", "k_scale", "v_scale") else t
-                for k, t in leaves.items()} for g, leaves in caches.items()}
+    out = {g: dict(leaves) for g, leaves in caches.items()}
+    if tp.layout.heads and cfg.attn_kind == "gqa":
+        lo, hi = kv_head_range(cfg, tp)
+        for leaves in out.values():
+            for k in ("k", "v", "k_scale", "v_scale"):
+                if k in leaves:
+                    leaves[k] = leaves[k].narrow(2, lo, hi - lo)
+    if tp.layout.ssm:
+        lo, hi = ssm_head_range(cfg, tp)
+        leaves = out["layers"]
+        leaves["ssm_state"] = leaves["ssm_state"].narrow(2, lo, hi - lo)
+        conv = leaves["conv_state"]
+        leaves["conv_state"] = conv.index_select(
+            conv.ndim - 1, ssm_columns(cfg, tp, "xbc").to(conv.device))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -300,3 +389,83 @@ def gather(x: torch.Tensor, group: ModelGroup, dim: int) -> torch.Tensor:
     """Rank-local pieces gathered along ``dim`` for replicated work: gather
     forward, this rank's slice of the gradient backward."""
     return _Gather.apply(x, group, dim)
+
+
+# ---------------------------------------------------------------------------
+# the data group
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DataGroup:
+    """The mesh axes that split a step's batch: ``size`` shards, this
+    rank's shard ``rank`` in the global order of the rows (the major axis
+    first, as ``rules.batch_sharding`` cuts them, so a shard's flat tokens
+    are a contiguous run of the global flat order); ``groups`` each axis's
+    (process group, size), major first, empty for an abstract mesh (the dry
+    run: collectives run nothing).
+
+    A data-sharded step hands it to the forward for the terms that the
+    reference's jitted step computes over the whole batch: MoE capacity,
+    the ranks that decide drops and the aux loss's means (``models.moe``),
+    and the masked loss's denominator (``models.lm``)."""
+
+    size: int
+    rank: int
+    groups: tuple = ()
+
+
+def data_group(mesh, axes) -> DataGroup | None:
+    """The :class:`DataGroup` of ``mesh``'s axes ``axes`` (those that split
+    the batch, major first); None when they split it into one shard."""
+    sizes = [mesh_axis_size(mesh, a) for a in axes]
+    size = math.prod(sizes)
+    if size <= 1:
+        return None
+    if not hasattr(mesh, "get_group"):
+        return DataGroup(size, 0)
+    rank = 0
+    for a, n in zip(axes, sizes):
+        rank = rank * n + mesh.get_local_rank(a)
+    return DataGroup(size, rank, tuple((mesh.get_group(a), n) for a, n in zip(axes, sizes)))
+
+
+def data_sum(t: torch.Tensor, data: DataGroup) -> torch.Tensor:
+    """A new tensor: ``t`` summed over the data shards (no autograd)."""
+    out = t.contiguous().clone()
+    for g, _ in data.groups:
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
+    return out
+
+
+def data_gather(t: torch.Tensor, data: DataGroup, dim: int) -> torch.Tensor:
+    """Every shard's ``t`` concatenated along ``dim`` in the global order
+    (no autograd)."""
+    t = t.contiguous()
+    if not data.groups:
+        return torch.cat([t] * data.size, dim=dim)
+    for g, n in reversed(data.groups):  # the minor axis first: the major one ends outermost
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=g)
+        t = torch.cat(parts, dim=dim)
+    return t
+
+
+class _DataMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, data):
+        return data_sum(x, data) / scalar(float(data.size), x.dtype, str(x.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def data_mean(x: torch.Tensor, data: DataGroup) -> torch.Tensor:
+    """The mean of ``x`` over the data shards, for a term that the
+    whole-batch step computes from whole-batch means (the same value on
+    every shard).  Its gradient passes through unscaled: the step averages
+    the shards' gradients, so shard r's share of the whole-batch gradient,
+    (1/n) dL/dmean · dx_r, comes out of that average when each shard
+    back-propagates dL/dmean · dx_r."""
+    return _DataMean.apply(x, data)

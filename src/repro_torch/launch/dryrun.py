@@ -15,17 +15,22 @@ What one device computes is what the port's sharded step runs, in the
 pattern ``train.step.make_train_step`` records as its ``split`` (the
 cell's ``split``):
 
-- ``"model"`` (dense GQA and MoE on a model axis above one): GSPMD's split
-  over ``model`` (``train.step.sharded_train_step`` under the group of
+- ``"model"`` (dense GQA, MLA, MoE, Mamba2 and the hybrid on a model axis
+  above one): GSPMD's split over ``model``
+  (``train.step.sharded_train_step`` under the group of
   ``train.step.model_split``): each parameter gathered over the data axes
   only, keeping its model shard (whole where the split takes it whole),
-  the step traced at those local
-  shapes under an abstract model group, whose collectives run nothing and
-  count their bytes (``distributed.tensor_parallel``);
-- ``"repeat"`` (the other families, ROADMAP queue 2, item 11, and every
-  family on a model axis of one): the
-  parameters gathered whole and the ``model`` axis repeating its data
-  shard's compute (the FSDP pattern of ``train.step.sharded_train_step``).
+  the step traced at those local shapes under an abstract model group,
+  whose collectives run nothing and count their bytes
+  (``distributed.tensor_parallel``);
+- ``"repeat"`` (the encoder and the VLM, ROADMAP queue 1, item 13.3, and
+  every family on a model axis of one): the parameters gathered whole and
+  the ``model`` axis repeating its data shard's compute (the FSDP pattern
+  of ``train.step.sharded_train_step``).
+
+A training step's MoE layers run under the batch's abstract data group
+(``train.step.batch_data_group``), as the sharded step runs them: capacity
+and drops over the whole batch.
 
 Either way the batch is split over the data axes (``pod`` x ``data``; a
 batch the data degree does not divide is replicated, the rules' fallback)
@@ -63,7 +68,7 @@ from repro_torch.device import meta_trace
 from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.distributed.sharding import ShardingRules, map_tree
 from repro_torch.launch.mesh import abstract_mesh, data_axes, mesh_axis_size
-from repro_torch.models import lm
+from repro_torch.models import blocks, lm
 from repro_torch.models import params as params_lib
 from repro_torch.models.params import map_leaves
 from repro_torch.optim import AdamW
@@ -169,12 +174,15 @@ def _split_for(cfg, mesh, param_shardings) -> _Split:
 
 def _device_cfg(cfg, split: _Split):
     """The config whose attention one device runs: its q and kv heads
-    under a split by heads, else ``cfg``."""
+    under a split by heads, else ``cfg``; the head dim stays the whole
+    model's (the hybrid's shared block's, which ``shared_attn_cfg`` sets)."""
     if split.group is None or not split.group.layout.heads:
         return cfg
+    size = split.group.size
     lo, hi = tp_lib.kv_head_range(cfg, split.group)
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // split.group.size, n_kv_heads=hi - lo,
-                               head_dim=cfg.resolved_head_dim)
+    hd = (blocks.shared_attn_cfg(cfg) if cfg.family == "hybrid" else cfg).resolved_head_dim
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // size, n_kv_heads=hi - lo,
+                               head_dim=hd)
 
 
 def _computed_meta(t: torch.Tensor, sharding, local: bool, size: int) -> torch.Tensor:
@@ -278,11 +286,13 @@ def trace_train(cfg, shape, mesh, rules) -> Trace:
     computed = _computed_params(state["params"], state_sh["params"], split)
     shard_update = _ShardUpdate(optimizer, local["opt"], local["params"], state_sh["params"],
                                 n_data, split)
+    data = step_lib.batch_data_group(mesh, rules, specs)
     with meta_trace(), op_counter.OpCounter() as c:
         _, metrics = step_lib.train_step({"params": computed, "opt": state["opt"]}, local_specs,
                                          cfg=cfg, optimizer=shard_update,
                                          remat=rules.plan.remat,
-                                         grad_accum=rules.plan.grad_accum, group=split.group)
+                                         grad_accum=rules.plan.grad_accum, group=split.group,
+                                         data=data)
     param_bytes = float(sum(t.numel() * t.element_size() for t in _leaves(computed)))
     coll = {"all-gather": _gather_bytes(computed, state_sh["params"])}
     if n_data > 1:

@@ -28,7 +28,11 @@ head counts, ``wo`` is row-parallel, and a cache holds the local kv heads
 (``tensor_parallel.local_caches``).  When the kv heads do not divide the
 group, K/V's weight comes whole and each rank projects the kv heads its q
 heads use; when the q heads do not split evenly, the attention repeats
-on every rank.
+on every rank.  MLA splits by heads too: the latents and their norms are
+computed whole on every rank (their weights come whole), ``wq_b`` /
+``wk_b`` / ``wv_b`` are narrowed to this rank's heads' columns, the kernel
+(or the decode's torch ops) runs at the local heads, ``wo`` is
+row-parallel, and the latent cache stays whole.
 
 MLA caches one packed latent per token, ``kv_lora_rank`` values of the
 normed ``ckv`` and the ``qk_rope_head_dim`` values of the rotated ``k_rope``
@@ -386,8 +390,9 @@ def _mla_decode_attend(params, cfg: ModelConfig, q_nope, q_rope, view, pos, quan
     (b, h, 1, v_head_dim) in float32.  Materialized (the default): per-head
     K and V from the latent through ``wk_b`` / ``wv_b``, every step.
     Absorbed: ``wk_b`` folded into the query and ``wv_b`` applied to the
-    latent-space output."""
-    m, h = cfg.mla, cfg.n_heads
+    latent-space output.  ``params``' ``wk_b`` / ``wv_b`` hold the query's
+    heads' columns."""
+    m, h = cfg.mla, q_nope.shape[1]  # the heads of the query (a rank's, split)
     r, nope, vd = m.kv_lora_rank, m.qk_nope_head_dim, m.v_head_dim
     lat = view["latent"].float()
     if "latent_scale" in view:
@@ -421,9 +426,10 @@ def _mla_extend(params, cfg: ModelConfig, q_nope, q_rope, view, positions, quant
     """The window rows (q_nope (b, h, W, nope), q_rope (b, h, W, rope))
     against the whole latent view (b, L, width), float or int8 codes with
     their scales, with the prefill's math: per-head K and V materialized
-    from the float32 latent through ``wk_b`` / ``wv_b`` and attended by
-    ``_window_attend``; returns the block's output (b, W, d)."""
-    m, h = cfg.mla, cfg.n_heads
+    from the float32 latent through ``wk_b`` / ``wv_b`` (the query's
+    heads' columns) and attended by ``_window_attend``; returns the heads'
+    output (b, h, W, v_head_dim)."""
+    m, h = cfg.mla, q_nope.shape[1]
     r, nope, vd = m.kv_lora_rank, m.qk_nope_head_dim, m.v_head_dim
     lat = view["latent"].float()
     if "latent_scale" in view:
@@ -435,9 +441,24 @@ def _mla_extend(params, cfg: ModelConfig, q_nope, q_rope, view, positions, quant
     k_full = torch.cat([k_nope.transpose(1, 2),
                         krope_all[:, None].expand(b, h, length, krope_all.shape[-1])], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
-    out = _window_attend(q_full, k_full, vv.transpose(1, 2), _window_mask(positions, length),
-                         softmax_mode=softmax_mode)
-    return layers.dense(params["wo"], _merge_heads(out), quant)
+    return _window_attend(q_full, k_full, vv.transpose(1, 2), _window_mask(positions, length),
+                          softmax_mode=softmax_mode)
+
+
+def _mla_head_projections(params, cfg: ModelConfig, tp):
+    """``wq_b`` / ``wk_b`` / ``wv_b`` (whole: their lora rows are what the
+    rules split) narrowed to this rank's heads' columns, entered into its
+    work, and the local head count."""
+    m = cfg.mla
+    h = cfg.n_heads // tp.size
+    lo = tp.rank * h
+    widths = {"wq_b": m.qk_nope_head_dim + m.qk_rope_head_dim, "wk_b": m.qk_nope_head_dim,
+              "wv_b": m.v_head_dim}
+    proj = dict(params)
+    for name, w in widths.items():
+        proj[name] = {k: tp_lib.enter(t, tp).narrow(-1, lo * w, h * w)
+                      for k, t in params[name].items()}
+    return proj, h
 
 
 def mla_apply(
@@ -450,19 +471,28 @@ def mla_apply(
     cache=None,
     kernel: dict | None = None,
     quant=None,  # per-layer runtime hook from the precision plan
+    group=None,  # tensor_parallel.ModelGroup: split by heads where its layout says
 ):
     """Multi-head latent attention (DeepSeek-V2 / MiniCPM3); returns (out,
     cache) like the reference.  With a cache, prefill, decode and extend
     write the new latent rows (int8 codes and their per-token scales under
     an int8 cache) into ``cache``'s tensors in place and return it.
-    ``kernel["mla_absorb"]`` picks the absorbed decode."""
+    ``kernel["mla_absorb"]`` picks the absorbed decode.  Under ``group``
+    whose layout splits the heads (module docstring) every mode attends at
+    this rank's heads; the latent rows written are the whole ones."""
     _check_mode(mode, cache)
     kernel = kernel or {}
     absorb = kernel.get("mla_absorb", False)
     m = cfg.mla
     qc = cfg.quant if quant is None else quant
     b, s, _ = x.shape
-    h, r = cfg.n_heads, m.kv_lora_rank
+    r = m.kv_lora_rank
+    tp = tp_lib.active(group)
+    if tp is not None and not tp.layout.heads:
+        tp = None  # the heads do not split: the attention repeats on every rank
+    proj, h = params, cfg.n_heads
+    if tp is not None:
+        proj, h = _mla_head_projections(params, cfg, tp)
     nope, vd = m.qk_nope_head_dim, m.v_head_dim
     qk = nope + m.qk_rope_head_dim
     if positions is None:
@@ -471,10 +501,18 @@ def mla_apply(
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
     rope_pos = _rope_positions(positions, mode)
 
+    def local(t):  # a replicated tensor into this rank's heads' work
+        return t if tp is None else tp_lib.enter(t, tp)
+
+    def out_proj(o):
+        if tp is not None:
+            return layers.row_parallel_dense(params["wo"], _merge_heads(o), tp, qc)
+        return layers.dense(params["wo"], _merge_heads(o), qc)
+
     # query path: wq_a -> q_norm -> wq_b, RoPE on the last qk_rope dims
     cq = layers.norm(params["q_norm"], layers.dense(params["wq_a"], x, qc), "rmsnorm",
                      cfg.norm_eps)
-    q = layers.dense(params["wq_b"], cq, qc).reshape(b, s, h, qk).transpose(1, 2)
+    q = layers.dense(proj["wq_b"], local(cq), qc).reshape(b, s, h, qk).transpose(1, 2)
     q_nope = q[..., :nope]  # (b, h, s, nope)
     q_rope = layers.apply_rope(q[..., nope:], rope_pos, cfg.rope_theta)  # (b, h, s, rope)
 
@@ -495,8 +533,8 @@ def mla_apply(
                 cache[name][:, :s] = t
         elif mode == "extend":
             view = _window_write(cache, rows, positions)
-            return _mla_extend(params, cfg, q_nope, q_rope, view, positions, qc,
-                               kernel.get("softmax_mode", "safe")), cache
+            return out_proj(_mla_extend(proj, cfg, q_nope, q_rope, view, positions, qc,
+                                        kernel.get("softmax_mode", "safe"))), cache
         elif kv_cache_lib.is_paged(cache):  # decode into its page, attend the gathered view
             kv_cache_lib.paged_decode_write(cache, {n: t[:, 0] for n, t in rows.items()},
                                             positions)
@@ -507,9 +545,8 @@ def mla_apply(
         if mode == "decode":
             view = (kv_cache_lib.paged_decode_view(cache) if kv_cache_lib.is_paged(cache)
                     else cache)
-            out = _mla_decode_attend(params, cfg, q_nope, q_rope, view, positions, qc, absorb)
-            out = _merge_heads(out).to(x.dtype)  # decode math runs f32; restore carry dtype
-            return layers.dense(params["wo"], out, qc), cache
+            out = _mla_decode_attend(proj, cfg, q_nope, q_rope, view, positions, qc, absorb)
+            return out_proj(out.to(x.dtype)), cache  # decode math runs f32; restore carry dtype
         if "latent_scale" in cache:
             # attend the cache's own representation (the int8 round trip), so
             # prefill scores the values decode reads back
@@ -517,8 +554,9 @@ def mla_apply(
             ckv, k_rope = lat_att[..., :r], lat_att[..., r:]
 
     # train / prefill: materialize per-head K / V, attend through the kernel
-    k_nope = layers.dense(params["wk_b"], ckv, qc).reshape(b, s, h, nope)
-    vv = layers.dense(params["wv_b"], ckv, qc).reshape(b, s, h, vd)
+    ckv, k_rope = local(ckv), local(k_rope)
+    k_nope = layers.dense(proj["wk_b"], ckv, qc).reshape(b, s, h, nope)
+    vv = layers.dense(proj["wv_b"], ckv, qc).reshape(b, s, h, vd)
     # fresh contiguous tensors, as the kernel needs (k_rope is broadcast)
     k_full = torch.cat([k_nope.transpose(1, 2),
                         k_rope[:, None].expand(b, h, s, k_rope.shape[-1])], dim=-1)
@@ -528,12 +566,11 @@ def mla_apply(
     # comes back to q's dtype
     out = mha(q_full.to(k_full.dtype), k_full, v_heads, causal=not cfg.is_encoder,
               mode=kernel.get("softmax_mode", "safe")).to(q_full.dtype)
-    return layers.dense(params["wo"], _merge_heads(out), qc), cache
+    return out_proj(out), cache
 
 
 def attention_apply(params, cfg, x, positions=None, group=None, **kw):
-    """MLA or GQA; ``group`` splits GQA only (``lm.forward`` refuses a model
-    group for MLA)."""
+    """MLA or GQA, either split by heads under ``group``."""
     if cfg.attn_kind == "mla":
-        return mla_apply(params, cfg, x, positions, **kw)
+        return mla_apply(params, cfg, x, positions, group=group, **kw)
     return gqa_apply(params, cfg, x, positions, group=group, **kw)

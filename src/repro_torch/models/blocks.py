@@ -3,7 +3,9 @@ dense kind with ``moe.moe_apply`` as its feed-forward, whose router aux
 comes back with the block) and the Mamba2 kind (the ``ssm`` and ``hybrid``
 families), and the hybrid family's Zamba2-style shared attention block
 (``shared_attn_*``), which ``models.lm`` applies before the Mamba2 block of
-every ``attn_every``-th layer.
+every ``attn_every``-th layer.  Under a model group every kind splits as
+``distributed.tensor_parallel`` describes; the shared block's attention
+and MLP split as the dense kind's, its ``out_proj`` row-parallel.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.models import attention, layers, mlp, moe, ssm
 from repro_torch.serve import kv_cache
 
@@ -50,7 +53,8 @@ def block_apply(
     cache=None,
     kernel: dict | None = None,
     quant=None,  # per-layer runtime hook from the precision plan
-    group=None,  # tensor_parallel.ModelGroup: the dense and MoE kinds split over it
+    group=None,  # tensor_parallel.ModelGroup: every kind splits over it
+    data=None,  # tensor_parallel.DataGroup: the MoE kind runs the whole batch's layer
 ):
     """Returns (x, new_cache, aux) like the reference."""
     kind = block_kind(cfg)
@@ -59,7 +63,7 @@ def block_apply(
     h = layers.norm(params["ln1"], x, cfg.norm_kind, cfg.norm_eps, use_lut=norm_lut)
     if kind == "mamba":
         out, new_cache = ssm.mamba_apply(
-            params["mamba"], cfg, h, mode=mode, cache=cache, quant=quant
+            params["mamba"], cfg, h, mode=mode, cache=cache, quant=quant, group=group
         )
         return x + rs * out, new_cache, {}
     attn_out, new_cache = attention.attention_apply(
@@ -70,7 +74,7 @@ def block_apply(
     h = layers.norm(params["ln2"], x, cfg.norm_kind, cfg.norm_eps, use_lut=norm_lut)
     aux = {}
     if kind == "moe":
-        ffn_out, aux = moe.moe_apply(params["ffn"], cfg, h, group=group)
+        ffn_out, aux = moe.moe_apply(params["ffn"], cfg, h, group=group, data=data)
     else:
         ffn_out = mlp.mlp_apply(params["ffn"], cfg, h, quant=quant, group=group)
     return x + rs * ffn_out, new_cache, aux
@@ -132,19 +136,29 @@ def shared_attn_apply(
     cache=None,
     kernel: dict | None = None,
     quant=None,  # the precision plan's shared-block hook
+    group=None,  # tensor_parallel.ModelGroup
 ):
     """Returns (x + residual_scale * out_proj(block(concat(x, x_embed))),
     cache); a prefill or decode writes its k/v rows into ``cache`` in place,
-    as ``attention.gqa_apply``."""
+    as ``attention.gqa_apply``.  Under ``group`` the attention and the MLP
+    split as the dense block's, and ``out_proj``, whose rows the layout
+    splits, takes this rank's columns of its input and reduces."""
     acfg = shared_attn_cfg(cfg)
     qc = cfg.quant if quant is None else quant
     norm_lut = (kernel or {}).get("norm_lut", False)
     h = torch.cat([x, x_embed], dim=-1) if cfg.hybrid.concat_residual else x
     a = layers.norm(params["ln1"], h, cfg.norm_kind, cfg.norm_eps, use_lut=norm_lut)
     a, new_cache = attention.gqa_apply(params["attn"], acfg, a, positions, mode=mode,
-                                       cache=cache, kernel=kernel, quant=quant)
+                                       cache=cache, kernel=kernel, quant=quant, group=group)
     h = h + a
     m = layers.norm(params["ln2"], h, cfg.norm_kind, cfg.norm_eps, use_lut=norm_lut)
     h = h + mlp.mlp_apply(params["mlp"], dataclasses.replace(acfg, d_model=2 * cfg.d_model), m,
-                          quant=quant)
-    return x + cfg.residual_scale * layers.dense(params["out_proj"], h, qc), new_cache
+                          quant=quant, group=group)
+    tp = tp_lib.active(group)
+    if tp is not None and tp.layout.shared_out:
+        lo, hi = tp_lib.shard_range(h.shape[-1], tp)
+        out = layers.row_parallel_dense(params["out_proj"],
+                                        tp_lib.enter(h, tp).narrow(-1, lo, hi - lo), tp, qc)
+    else:
+        out = layers.dense(params["out_proj"], h, qc)
+    return x + cfg.residual_scale * out, new_cache

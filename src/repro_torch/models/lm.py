@@ -35,16 +35,22 @@ masked-unit cross entropy over ``labels``, plus the MoE aux and z losses;
 MoE blocks' router aux over the layers, as the reference's scan carries it.
 
 Under a model group (``group=``, a ``distributed.tensor_parallel``
-``ModelGroup``) the dense GQA and MoE families split over the ``model``
-axis, as GSPMD splits the reference's step: the parameters are each rank's
-model-local shards where the rules split them (``train.step`` hands them
-so), the blocks split heads, MLP columns and experts, the embedding looks
-up this rank's vocabulary rows, ``forward``'s logits are this rank's vocab
-columns, the cross entropy reduces over the group, and ``prefill`` /
-``decode_step`` gather their last position's logits whole.  Their caches
-hold this rank's kv heads (``tensor_parallel.local_caches``).  Other
-families, and a precision plan with int8 weights, refuse a group of more
-than one rank; a group of one changes nothing.
+``ModelGroup``) the dense GQA, MLA, MoE, Mamba2 and hybrid families split
+over the ``model`` axis, as GSPMD splits the reference's step: the
+parameters are each rank's model-local shards where the rules split them
+(``train.step`` hands them so), the blocks split heads, SSM heads, MLP
+columns and experts, the embedding looks up this rank's vocabulary rows,
+``forward``'s logits are this rank's vocab columns, the cross entropy
+reduces over the group, and ``prefill`` / ``decode_step`` gather their
+last position's logits whole.  Their caches hold this rank's kv heads and
+SSM heads (``tensor_parallel.local_caches``).  The encoder and the VLM,
+and a precision plan with int8 weights, refuse a group of more than one
+rank; a group of one changes nothing.
+
+Under a data group (``data=``, a ``tensor_parallel.DataGroup``: the batch
+is this rank's shard of a data-sharded step) the MoE layers and the masked
+loss's denominator are the whole batch's (``models.moe``,
+:func:`loss_fn`), as in the reference's step over the global batch.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ from torch.utils import checkpoint as checkpoint_lib
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import precision as precision_lib
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, scalar
 from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.models import blocks, layers
 from repro_torch.models import params as params_lib
@@ -188,7 +194,7 @@ def _remat(fn, remat: str):
 
 def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: str,
                 caches, kernel, plan: precision_lib.PrecisionPlan, in_place: bool = False,
-                remat: str = "none", group=None):
+                remat: str = "none", group=None, data=None):
     if remat not in REMATS:
         raise ValueError(f"unknown remat {remat!r}; use one of {REMATS}")
     if remat != "none" and caches is not None:
@@ -228,7 +234,7 @@ def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: s
             def shared(x, cache):
                 x, c = blocks.shared_attn_apply(params["shared_attn"], cfg, x, x_embed, positions,
                                                 mode=mode, cache=cache, kernel=kernel,
-                                                quant=shared_quant)
+                                                quant=shared_quant, group=group)
                 return x, c, {}
 
             h, _ = run(shared, h, scache)
@@ -237,7 +243,7 @@ def _run_blocks(params, cfg: ModelConfig, h: torch.Tensor, positions, *, mode: s
 
         def block(x, cache, bparams=_layer(params["blocks"], i), quant=quant):
             return blocks.block_apply(bparams, cfg, x, positions, mode=mode, cache=cache,
-                                      kernel=kernel, quant=quant, group=group)
+                                      kernel=kernel, quant=quant, group=group, data=data)
 
         h, l_aux = run(block, h, lcache)
         aux = {k: v + l_aux[k] for k, v in aux.items()}
@@ -263,12 +269,14 @@ def forward(
     in_place: bool = False,
     remat: str = "none",
     group=None,
+    data=None,
 ):
     """Returns (logits (b, s, padded_vocab), new_caches, aux); aux holds
     ``text_offset`` (the VLM's image prefix length; 0 otherwise) and, for
     MoE configs, the router aux summed over layers.  Under ``group``
     (module docstring) the logits are this rank's vocab columns where the
-    vocabulary is split.
+    vocabulary is split; under ``data`` the MoE layers are the whole
+    batch's.
 
     ``batch``: ``tokens`` (b, s) token ids, the VLM's ``patches`` or the
     audio encoder's ``frames`` (module docstring), tensors or arrays.
@@ -293,7 +301,7 @@ def forward(
         positions = _as_tensor(positions, dev)
     x, new_caches, aux = _run_blocks(params, cfg, h, positions, mode=mode, caches=caches,
                                      kernel=kernel, plan=plan, in_place=in_place, remat=remat,
-                                     group=tp)
+                                     group=tp, data=data)
     x = layers.norm(
         params["final_norm"], x, cfg.norm_kind, cfg.norm_eps,
         use_lut=(kernel or {}).get("norm_lut", False),
@@ -318,7 +326,18 @@ def forward(
 # ---------------------------------------------------------------------------
 
 
-def _vocab_parallel_cross_entropy(logits, labels, mask, group):
+def _denominator(mask: torch.Tensor, data=None) -> torch.Tensor:
+    """The masked mean's divisor, max(sum(mask), 1).  Under ``data`` the
+    whole batch's, divided by the shard count: the step's mean of the
+    shards' losses is then the whole batch's masked mean, whatever each
+    shard's share of the mask."""
+    if data is None:
+        return torch.clamp_min(torch.sum(mask), 1.0)
+    total = tp_lib.data_sum(torch.sum(mask.detach()), data)
+    return torch.clamp_min(total, 1.0) / scalar(float(data.size), total.dtype, str(total.device))
+
+
+def _vocab_parallel_cross_entropy(logits, labels, mask, group, denom):
     """``_cross_entropy`` of this rank's vocab columns of the logits: the
     max, the sum of exponentials, the target's logit and the accuracy's
     argmax (the first of the global maxima, as ``torch.argmax``) each
@@ -333,7 +352,6 @@ def _vocab_parallel_cross_entropy(logits, labels, mask, group):
     inside = (local >= 0) & (local < n)
     picked = torch.take_along_dim(shifted, torch.where(inside, local, 0)[..., None], dim=-1)
     ll = tp_lib.reduce(picked[..., 0] * inside, group) - torch.log(sum_exp)
-    denom = torch.clamp_min(torch.sum(mask), 1.0)
     loss = -torch.sum(ll * mask) / denom
     vmax, imax = lf.detach().max(dim=-1)
     best = tp_lib.all_gather(vmax[None], group, 0).argmax(dim=0, keepdim=True)
@@ -342,23 +360,23 @@ def _vocab_parallel_cross_entropy(logits, labels, mask, group):
     return loss, acc
 
 
-def _cross_entropy(logits, labels, mask, tp_safe: bool = False, group=None):
+def _cross_entropy(logits, labels, mask, tp_safe: bool = False, group=None, data=None):
+    denom = _denominator(mask, data)
     if group is not None:
-        return _vocab_parallel_cross_entropy(logits, labels, mask, group)
+        return _vocab_parallel_cross_entropy(logits, labels, mask, group, denom)
     logp = torch.log_softmax(logits.float(), dim=-1)
     if tp_safe:  # the reference's one-hot contraction (its vocab-sharded form)
         onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1]).to(logp.dtype)
         ll = torch.einsum("...v,...v->...", logp, onehot)
     else:
         ll = torch.take_along_dim(logp, labels[..., None].long(), dim=-1)[..., 0]
-    denom = torch.clamp_min(torch.sum(mask), 1.0)
     loss = -torch.sum(ll * mask) / denom
     acc = torch.sum((torch.argmax(logits, -1) == labels) * mask) / denom
     return loss, acc
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, *, kernel: dict | None = None,
-            remat: str = "none", device: str | torch.device = "cuda", group=None):
+            remat: str = "none", device: str | torch.device = "cuda", group=None, data=None):
     """(loss, metrics) as the reference's: the encoder's cross entropy of
     ``labels`` (b, s) at every frame; otherwise the next-token cross entropy
     of ``tokens`` from the text offset on (the VLM's image prefix predicts
@@ -366,11 +384,14 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, kernel: dict | None = None
     aux and z losses to the total.  Metrics: "ce_loss", "accuracy", "loss",
     and for MoE "moe_aux_loss", "moe_z_loss" and "moe_dropped_frac" (the
     mean over layers).  Under ``group`` every rank of it gives the same
-    loss, its cross entropy reduced over the vocab shards."""
+    loss, its cross entropy reduced over the vocab shards.  Under ``data``
+    (``batch`` this rank's shard) the masked mean divides by the whole
+    batch's mask, so the mean over the shards is the whole batch's loss,
+    and the MoE terms are the whole batch's (``models.moe``)."""
     dev = resolve_device(device)
     inputs = {k: batch[k] for k in ("tokens", "patches", "frames") if k in batch}
     logits, _, aux = forward(params, cfg, inputs, mode="train", kernel=kernel, remat=remat,
-                             device=dev, group=group)
+                             device=dev, group=group, data=data)
     vocab_tp = _vocab_group(group)
     tp_safe = bool((kernel or {}).get("tp_loss", False))
     mask = batch.get("loss_mask")
@@ -378,14 +399,14 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, kernel: dict | None = None
         labels = _as_tensor(batch["labels"], dev)
         mask = (torch.ones(labels.shape, dtype=torch.float32, device=dev) if mask is None
                 else _as_tensor(mask, dev).float())
-        loss, acc = _cross_entropy(logits, labels, mask, tp_safe, vocab_tp)
+        loss, acc = _cross_entropy(logits, labels, mask, tp_safe, vocab_tp, data)
     else:
         off = aux.pop("text_offset", 0)
         tokens = _as_tensor(batch["tokens"], dev)
         mask = (torch.ones(tokens.shape, dtype=torch.float32, device=dev) if mask is None
                 else _as_tensor(mask, dev).float())
         loss, acc = _cross_entropy(logits[:, off:][:, :-1], tokens[:, 1:], mask[:, 1:], tp_safe,
-                                   vocab_tp)
+                                   vocab_tp, data)
     total = loss
     metrics = {"ce_loss": loss, "accuracy": acc}
     for k in ("moe_aux_loss", "moe_z_loss"):

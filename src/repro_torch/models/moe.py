@@ -11,7 +11,8 @@ fixes by its ops, this port fixes by construction:
   descending sort;
 - capacity: ``int(max(1, round(t * k / e * capacity_factor)))`` with
   Python's ``round``, over every token of the call (pad tokens and idle
-  decode slots included), which decides the drops;
+  decode slots included; under a data group, of the whole batch), which
+  decides the drops;
 - dispatch: the reference's stable sort by expert ranks each entry within
   its expert by flat (token, slot) order, and one token routes to an expert
   at most once, so the rank is the token's place among the expert's tokens:
@@ -26,14 +27,29 @@ fixes by its ops, this port fixes by construction:
 MoE has no kernel of its own: the expert products are batched GEMMs
 (``torch.bmm``), as the reference's einsums.
 
+Under a data group (``tensor_parallel.DataGroup``: a data-sharded step,
+each rank holding a contiguous run of the global flat tokens) the layer is
+the reference's over the whole batch, which its jitted step sees: the
+capacity counts every shard's tokens; an entry's rank within its expert is
+its rank within this shard plus the count of the expert's entries on the
+shards before it (an all-gather of the per-expert counts), so a token is
+dropped exactly where the whole batch's stable sort drops it; the dropped
+count is summed over the shards; and the aux loss takes the whole batch's
+``me`` and ``ce`` (``tensor_parallel.data_mean``, whose gradient passes
+through unscaled, so that the step's mean of the shards' gradients is the
+whole batch's).  The z-loss is a mean of per-token terms: the step's mean
+over the shards is already the whole batch's.  Each shard's expert batches
+hold min(C, t) rows per expert (C the global capacity, t this shard's
+tokens), the most a shard can keep.
+
 Under a model group (``distributed.tensor_parallel``) the router's kernel
 holds this rank's experts' columns: their logits are gathered and softmax,
-top-k, capacity, dispatch and the aux and z losses run replicated, over
-this data shard's tokens as before.  Each rank runs its own experts (or,
-when the rules split ``mlp`` instead, every expert on its ``mlp`` columns),
-and the combine's partial sums are reduced.  The token rows and the gates
-enter the rank's experts through ``tensor_parallel.enter``, so the router
-gets every expert's part of its gradient.
+top-k, capacity, dispatch and the aux and z losses run replicated.  Each
+rank runs its own experts (or, when the rules split ``mlp`` instead, every
+expert on its ``mlp`` columns), and the combine's partial sums are
+reduced.  The token rows and the gates enter the rank's experts through
+``tensor_parallel.enter``, so the router gets every expert's part of its
+gradient.
 """
 
 from __future__ import annotations
@@ -92,21 +108,35 @@ def route(params, cfg: ModelConfig, flat: torch.Tensor, group=None):
     return logits, probs, expert_ids, gate_vals
 
 
-def dispatch(cfg: ModelConfig, expert_ids: torch.Tensor, cap: int):
-    """Each routed entry's place in the expert batches: (slot (t, k) int64,
-    ``expert * cap + rank`` for kept entries and ``e * cap`` for dropped
-    ones; keep (t, k) bool).  The rank of an entry is the number of earlier
-    tokens routed to the same expert, as the reference's stable sort gives."""
+def expert_rows(cap: int, t: int, data=None) -> int:
+    """Rows per expert batch: ``cap``, or under a data group min(cap, t),
+    the most a shard of t tokens can keep of the global capacity."""
+    return cap if data is None else min(cap, t)
+
+
+def dispatch(cfg: ModelConfig, expert_ids: torch.Tensor, cap: int, data=None):
+    """Each routed entry's place in the expert batches of ``expert_rows``
+    rows: (slot (t, k) int64, ``expert * rows + rank`` for kept entries and
+    ``e * rows`` for dropped ones; keep (t, k) bool).  The rank of an entry
+    is the number of earlier tokens routed to the same expert, as the
+    reference's stable sort gives; it is kept where that rank plus the
+    expert's entries on the earlier data shards (``data``, module
+    docstring; none without it) is under ``cap``."""
     t, k = expert_ids.shape
     e = cfg.moe.n_experts
+    rows = expert_rows(cap, t, data)
     # expert-major (e, t), so the count runs along the inner axis (a scan
     # along the outer axis of a (t, e) tensor is a slow kernel on the card)
     routed = torch.zeros(e, t, dtype=torch.int32, device=expert_ids.device)
     routed.scatter_(0, expert_ids.t(), 1)
     before = torch.cumsum(routed, dim=1, dtype=torch.int32) - routed  # earlier tokens
     rank = torch.gather(before, 0, expert_ids.t()).t().long()
-    keep = rank < cap
-    slot = torch.where(keep, expert_ids * cap + rank, e * cap)
+    earlier = torch.zeros(e, dtype=torch.int64, device=expert_ids.device)
+    if data is not None:
+        counts = tp_lib.data_gather(routed.sum(dim=1)[None], data, 0)  # (shards, e)
+        earlier = counts[: data.rank].sum(dim=0).long()
+    keep = rank + earlier[expert_ids] < cap
+    slot = torch.where(keep, expert_ids * rows + rank, e * rows)
     return slot, keep
 
 
@@ -122,15 +152,18 @@ def experts(params, cfg: ModelConfig, expert_in: torch.Tensor) -> torch.Tensor:
 
 
 def moe_apply(params, cfg: ModelConfig, x: torch.Tensor,
-              group=None) -> tuple[torch.Tensor, dict]:
+              group=None, data=None) -> tuple[torch.Tensor, dict]:
     """Returns (output (b, s, d) in x's dtype, aux): the router's
     load-balance and z losses and the share of dropped entries.  With
-    ``group`` whose layout splits the expert leaves (module docstring), the
-    rank runs its shard of them and the output is reduced."""
+    ``data`` (a ``tensor_parallel.DataGroup``) ``x`` is this rank's shard
+    of the batch and the layer is the whole batch's (module docstring).
+    With ``group`` whose layout splits the expert leaves, the rank runs its
+    shard of them and the output is reduced."""
     mcfg = cfg.moe
     b, s, d = x.shape
     t = b * s
     e, k = mcfg.n_experts, mcfg.top_k
+    n = 1 if data is None else data.size
     flat = x.reshape(t, d)
     tp = tp_lib.active(group)
     if tp is not None and tp.layout.experts is None:
@@ -143,16 +176,21 @@ def moe_apply(params, cfg: ModelConfig, x: torch.Tensor,
     me = probs.mean(dim=0)
     ce = torch.zeros(t, e, dtype=torch.float32, device=x.device).scatter_(
         1, expert_ids, 1.0).mean(dim=0)
+    if data is not None:  # the whole batch's means
+        me, ce = tp_lib.data_mean(me, data), tp_lib.data_mean(ce, data)
     aux_loss = e * torch.sum(me * ce) * mcfg.router_aux_weight
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * mcfg.router_z_weight
 
-    cap = capacity(cfg, t)
-    slot, keep = dispatch(cfg, expert_ids, cap)
+    cap = capacity(cfg, t * n)
+    rows = expert_rows(cap, t, data)
+    slot, keep = dispatch(cfg, expert_ids, cap, data)
     dropped = (t * k - keep.sum()).float()
+    if data is not None:
+        dropped = tp_lib.data_sum(dropped, data)
 
-    # expert batches (e, cap, d): each slot's source token, or a zero row for
+    # expert batches (e, rows, d): each slot's source token, or a zero row for
     # an empty slot; dropped entries write the bin past the last slot
-    src = torch.full((e * cap + 1,), t, dtype=torch.int64, device=x.device)
+    src = torch.full((e * rows + 1,), t, dtype=torch.int64, device=x.device)
     tokens = torch.arange(t, device=x.device)[:, None].expand(t, k)
     src[slot.reshape(-1)] = tokens.reshape(-1)
     order = torch.argsort(expert_ids, dim=-1)
@@ -160,17 +198,17 @@ def moe_apply(params, cfg: ModelConfig, x: torch.Tensor,
     gates = torch.gather(gate_vals, 1, order).to(x.dtype)
     if tp is not None:  # this rank's experts [lo, lo + e_local), its slots renumbered
         lo = tp.rank * e_local if by_expert else 0
-        src = src[lo * cap:]
-        slot = slot - lo * cap
-        slot = torch.where((slot >= 0) & (slot < e_local * cap), slot, e_local * cap)
+        src = src[lo * rows:]
+        slot = slot - lo * rows
+        slot = torch.where((slot >= 0) & (slot < e_local * rows), slot, e_local * rows)
         flat, gates = tp_lib.enter(flat, tp), tp_lib.enter(gates, tp)
-    rows = torch.cat([flat, flat.new_zeros(1, d)])
-    expert_out = experts(params, cfg, rows[src[: e_local * cap]].reshape(e_local, cap, d))
+    tokens_in = torch.cat([flat, flat.new_zeros(1, d)])
+    expert_out = experts(params, cfg, tokens_in[src[: e_local * rows]].reshape(e_local, rows, d))
 
     # combine: each token's k contributions in ascending expert order, a
     # dropped entry (or, split, another rank's expert) a zero row, summed
     # one after another in x's dtype
-    vals = torch.cat([expert_out.reshape(e_local * cap, d), expert_out.new_zeros(1, d)])
+    vals = torch.cat([expert_out.reshape(e_local * rows, d), expert_out.new_zeros(1, d)])
     vals = vals[slot.reshape(-1)].reshape(t, k, d) * gates[..., None]
     out = vals[:, 0]
     for j in range(1, k):
@@ -181,6 +219,6 @@ def moe_apply(params, cfg: ModelConfig, x: torch.Tensor,
     aux = {
         "moe_aux_loss": aux_loss,
         "moe_z_loss": z_loss,
-        "moe_dropped_frac": dropped / scalar(float(t * k), torch.float32, str(x.device)),
+        "moe_dropped_frac": dropped / scalar(float(t * k * n), torch.float32, str(x.device)),
     }
     return out.reshape(b, s, d), aux

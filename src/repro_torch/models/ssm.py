@@ -7,6 +7,21 @@ the reference calls its jnp ``ssd_chunked``: the same function.  Decode is
 the O(1) single-token state update in plain torch, as in the reference.
 ``ssd_chunked`` and the naive recurrence live with the kernel's plain
 version (``kernels/ssd_scan/ref.py``) and are re-exported here.
+
+Under a model group whose layout splits the SSM heads
+(``distributed.tensor_parallel``) each rank runs its heads: ``in_proj``,
+``conv_w`` and ``conv_b`` come whole and are narrowed to its heads' ``z``,
+``x`` and ``dt`` columns and the whole ``B`` / ``C`` (one group, which
+every head reads)
+(``tensor_parallel.ssm_columns``), ``A_log`` / ``dt_bias`` / ``D`` to its
+heads, the scan runs over them, the local ``y`` is gathered for
+``gate_norm`` (one RMSNorm over the whole ``inner``, so the layernorm
+kernel runs on whole rows, repeated on every rank), and the normed rows'
+local columns go through ``out_proj`` row-parallel.  Gathering ``y`` keeps
+the kernel and every unsharded bit of the norm; the alternative, an
+all-reduce of the squares under a norm of its own, would not.  The caches
+hold the local heads' state and the local ``x`` with the whole ``B`` /
+``C`` (``tensor_parallel.local_caches``).
 """
 
 from __future__ import annotations
@@ -16,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.kernels.ssd_scan import ssd_with_state
 from repro_torch.kernels.ssd_scan.ref import _segsum, ssd_chunked, ssd_naive_ref  # noqa: F401
 from repro_torch.models import layers
@@ -107,11 +123,14 @@ def mamba_init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
             for k, (shape, dt) in mamba_cache_spec(cfg, batch, dtype).items()}
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor, h: int | None = None):
+    """(z, xBC, dt) of ``in_proj``'s output at ``h`` heads (default all;
+    a rank's under the split, whose columns ``tensor_parallel.ssm_columns``
+    packs in the same order)."""
     s = cfg.ssm
-    di = s.d_inner(cfg.d_model)
+    h = s.n_heads(cfg.d_model) if h is None else h
+    di = h * s.head_dim
     gn = s.n_groups * s.state_dim
-    h = s.n_heads(cfg.d_model)
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di: di + di + 2 * gn]
     dt = zxbcdt[..., di + di + 2 * gn:]
@@ -126,6 +145,22 @@ def _expand_groups(t: torch.Tensor, h: int, g: int) -> torch.Tensor:
     return t.reshape(b, l, g, n).repeat_interleave(h // g, dim=2)
 
 
+def _local_params(params, cfg: ModelConfig, tp):
+    """The leaves this rank's heads use, entered into its work: in_proj's
+    and the conv's columns, A_log / dt_bias / D's heads."""
+    lo, hi = tp_lib.ssm_head_range(cfg, tp)
+    out = dict(params)
+    out["in_proj"] = {k: tp_lib.enter(t, tp).index_select(
+        -1, tp_lib.ssm_columns(cfg, tp, "zxbcdt").to(t.device))
+        for k, t in params["in_proj"].items()}
+    cols = tp_lib.ssm_columns(cfg, tp, "xbc").to(params["conv_w"].device)
+    for name in ("conv_w", "conv_b"):
+        out[name] = tp_lib.enter(params[name], tp).index_select(-1, cols)
+    for name in ("A_log", "dt_bias", "D"):
+        out[name] = tp_lib.enter(params[name], tp).narrow(0, lo, hi - lo)
+    return out, lo, hi - lo
+
+
 def mamba_apply(
     params,
     cfg: ModelConfig,
@@ -134,21 +169,29 @@ def mamba_apply(
     mode: str = "train",
     cache: dict | None = None,
     quant=None,  # per-layer runtime hook from the precision plan
+    group=None,  # tensor_parallel.ModelGroup: split by SSM heads where its layout says
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (out (b, l, d), new_cache); the cache tensors are new, the
-    caller's are never written."""
+    caller's are never written.  Under ``group`` (module docstring) the
+    cache is this rank's."""
     s = cfg.ssm
     qc = cfg.quant if quant is None else quant
     b, l, d = x.shape
-    di = s.d_inner(d)
-    h = s.n_heads(d)
     p = s.head_dim
     g = s.n_groups
     n = s.state_dim
     f32 = torch.float32
+    tp = tp_lib.active(group)
+    if tp is not None and not tp.layout.ssm:
+        tp = None  # the SSM heads do not split: the block repeats on every rank
+    lo, h, full = 0, s.n_heads(d), params
+    if tp is not None:
+        params, lo, h = _local_params(params, cfg, tp)
+        x = tp_lib.enter(x, tp)
+    di = h * p
 
     zxbcdt = layers.dense(params["in_proj"], x, qc)
-    z, xbc, dt = _split_proj(cfg, zxbcdt)
+    z, xbc, dt = _split_proj(cfg, zxbcdt, h)
     dt = _softplus(dt.to(f32) + params["dt_bias"])  # (b, l, h)
     a_neg = -torch.exp(params["A_log"])  # (h,) negative decay rates
 
@@ -199,5 +242,9 @@ def mamba_apply(
 
     # gated output: RMSNorm(y * silu(z)) -> out_proj
     y = y * F.silu(z)
-    y = layers.norm(params["gate_norm"], y, "rmsnorm", cfg.norm_eps)
-    return layers.dense(params["out_proj"], y, qc), new_cache
+    if tp is None:
+        y = layers.norm(params["gate_norm"], y, "rmsnorm", cfg.norm_eps)
+        return layers.dense(params["out_proj"], y, qc), new_cache
+    y = layers.norm(full["gate_norm"], tp_lib.gather(y, tp, -1), "rmsnorm", cfg.norm_eps)
+    y = tp_lib.enter(y, tp).narrow(-1, lo * p, di)
+    return layers.row_parallel_dense(full["out_proj"], y, tp, qc), new_cache

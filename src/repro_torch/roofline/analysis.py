@@ -42,7 +42,7 @@ def _attn_geometry(cfg: ModelConfig):
     if cfg.family == "hybrid":
         n_apps = math.ceil(cfg.n_layers / cfg.hybrid.attn_every)
         width = 2 * cfg.d_model if cfg.hybrid.concat_residual else cfg.d_model
-        hd = width // cfg.n_heads
+        hd = cfg.head_dim or width // cfg.n_heads  # set where the heads are a device's
         return n_apps, cfg.n_heads, hd, hd, cfg.n_kv_heads
     if cfg.attn_kind == "mla" and cfg.mla is not None:
         qk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim

@@ -13,29 +13,34 @@ alike, ``step`` replicated.  The kernel wrappers read raw pointers, so no
 DTensor reaches them (they refuse one): each rank hands them plain local
 tensors.  Two patterns, recorded as the step's ``split``:
 
-- ``"model"`` (the dense GQA and MoE families: granite-8b, minicpm-2b,
-  starcoder2-7b, granite-moe-3b-a800m, dbrx-132b), GSPMD's split of the
-  reference's step: each parameter is gathered over the data axes only and
-  keeps its ``model`` shard (``model_split``; a leaf the forward
-  cannot take as a shard, K/V whose kv heads do not divide the axis, comes
-  whole), and the forward and backward run at the local shapes under the
-  mesh's model group (``distributed.tensor_parallel``: heads, MLP columns,
-  experts and vocabulary split).  Every rank of the group computes the same
-  loss; a leaf replicated over ``model`` gets its whole gradient on each.
-  The global norm counts each split leaf's squares over its shards and
-  each replicated leaf's once.
-- ``"repeat"`` (the SSM, hybrid, MLA, encoder and VLM families, ROADMAP
-  queue 2, item 11): every parameter gathered whole, the whole forward on
-  every rank, the ranks that differ only in ``model`` repeating each
-  other's work (the FSDP pattern).  The global norm comes from the whole
-  averaged gradient.  A model axis of one takes this path for every
-  family: it is then bitwise the unsharded step on one device.
+- ``"model"`` (the dense GQA, MLA, MoE, Mamba2 and hybrid families:
+  granite-8b, minicpm-2b, starcoder2-7b, minicpm3-4b, granite-moe-3b-a800m,
+  dbrx-132b, mamba2-130m, zamba2-1.2b), GSPMD's split of the reference's
+  step: each parameter is gathered over the data axes only and keeps its
+  ``model`` shard (``model_split``; a leaf the forward cannot take as a
+  shard, such as K/V whose kv heads do not divide the axis, comes whole),
+  and the forward and backward run at the local shapes under the mesh's
+  model group (``distributed.tensor_parallel``: heads, SSM heads, MLP
+  columns, experts and vocabulary split).  Every rank of the group computes
+  the same loss; a leaf replicated over ``model`` gets its whole gradient
+  on each.  The global norm counts each split leaf's squares over its
+  shards and each replicated leaf's once.
+- ``"repeat"`` (the encoder and VLM families, ROADMAP queue 1, item 13.3):
+  every parameter gathered whole, the whole forward on every rank, the
+  ranks that differ only in ``model`` repeating each other's work (the
+  FSDP pattern).  The global norm comes from the whole averaged gradient.
+  A model axis of one takes this path for every family; on a one-device
+  mesh it is bitwise the unsharded step.
 
 Both run on this rank's shard of the batch (split over the data axes),
 average the gradients over the data axes and apply AdamW to this rank's
 shard of each leaf, elementwise beyond the global norm, so the step gives
-the unsharded step's result to float32 rounding.  A MoE layer's capacity
-counts the tokens of this rank's data shard.
+the reference's step over the whole batch to float32 rounding.  The few
+terms that the reference computes over the whole batch see it through the
+data group (``tensor_parallel.DataGroup``) handed to the loss: a MoE
+layer's capacity, drop ranks and aux-loss means, and a ``loss_mask``'s
+denominator (the whole batch's mask).  So the aux loss and the dropped
+share are the whole batch's on every rank, and are reported as they are.
 """
 
 from __future__ import annotations
@@ -60,6 +65,9 @@ from repro_torch.optim.adamw import AdamW, global_norm, tree_get, tree_leaves
 PyTree = Any
 
 ACCUM_METRICS = ("loss", "ce_loss", "accuracy")
+#: metrics that a data-sharded loss computes for the whole batch, the same
+#: on every rank (``lm.loss_fn`` under a data group): not averaged again
+WHOLE_BATCH_METRICS = ("moe_aux_loss", "moe_dropped_frac")
 
 
 def value_and_grad(loss_fn: Callable, params: PyTree, *args, **kwargs):
@@ -122,10 +130,13 @@ def shard_train_state(state: dict, shardings: dict) -> dict:
 
 
 def make_loss_fn(cfg: ModelConfig, *, kernel: dict | None = None, remat: str = "none",
-                 loss_impl: Callable = lm.loss_fn, group=None):
+                 loss_impl: Callable = lm.loss_fn, group=None, data=None):
     """``loss(params, batch)``; under ``group`` (a model group) the split
-    loss of ``lm.loss_fn``."""
+    loss of ``lm.loss_fn``, under ``data`` (a data group) its shard of the
+    whole batch's."""
     extra = {} if group is None else {"group": group}
+    if data is not None:
+        extra["data"] = data
 
     def _loss(params, batch):
         return loss_impl(params, cfg, batch, kernel=kernel, remat=remat,
@@ -144,13 +155,14 @@ def train_step(
     remat: str = "none",
     grad_accum: int = 1,
     group=None,
+    data=None,
 ):
     """One synchronous update; returns (state, metrics), ``state`` updated
     in place.  ``grad_accum > 1`` splits the batch axis into that many
     microbatches and averages their gradients before the optimizer.
-    ``group``: the loss's model group (the dry run's count of one device's
-    split step)."""
-    loss_fn = make_loss_fn(cfg, kernel=kernel, remat=remat, group=group)
+    ``group`` / ``data``: the loss's model and data groups (the dry run's
+    count of one device's sharded step)."""
+    loss_fn = make_loss_fn(cfg, kernel=kernel, remat=remat, group=group, data=data)
     params = state["params"]
     if grad_accum <= 1:
         (_, metrics), grads = value_and_grad(loss_fn, params, batch)
@@ -227,16 +239,34 @@ def split_global_norm(grads: PyTree, local: PyTree, shardings: PyTree, group) ->
     return torch.sqrt(once + tp_lib.all_reduce(split, group))
 
 
+def batch_data_group(mesh, rules, batch: dict):
+    """The data group of ``batch``'s rows under ``rules.batch_sharding``
+    (the mesh axes that split them, which a batch the data degree does not
+    divide leaves out), or None when nothing splits them."""
+    from torch.distributed.tensor import DTensor
+
+    v = next(iter(batch.values()))
+    if isinstance(v, DTensor):
+        names = mesh_axis_names(v.device_mesh)
+        axes = tuple(names[i] for i, p in enumerate(v.placements)
+                     if p.is_shard() and p.dim == 0)
+    else:
+        part = rules.batch_sharding(v.ndim, shape=tuple(v.shape)).spec[0]
+        axes = () if part is None else (part,) if isinstance(part, str) else tuple(part)
+    return tp_lib.data_group(mesh, axes)
+
+
 def sharded_train_step(state: dict, batch: dict, *, cfg: ModelConfig, optimizer: AdamW,
                        mesh, rules, shardings: dict, kernel: dict | None = None,
                        remat: str = "none", local: PyTree | None = None, group=None):
     """One update of a state held under ``shardings`` (module docstring);
     ``batch`` holds the whole global batch (plain tensors, the same on every
     rank) or DTensors.  Returns (state, metrics), the state updated in
-    place; the metrics are the data axes' means.  Without ``group`` the
-    ``"repeat"`` pattern; with the mesh's model group (whose ``bytes``
-    count the step's collectives over ``model``) and the ``local`` tree
-    of ``model_split``, the ``"model"`` pattern."""
+    place; the metrics are the data axes' means (those the loss computed
+    for the whole batch, ``WHOLE_BATCH_METRICS``, as they are).  Without
+    ``group`` the ``"repeat"`` pattern; with the mesh's model group (whose
+    ``bytes`` count the step's collectives over ``model``) and the
+    ``local`` tree of ``model_split``, the ``"model"`` pattern."""
     from torch.distributed.tensor import DTensor
 
     axes = data_axes(mesh)
@@ -247,11 +277,13 @@ def sharded_train_step(state: dict, batch: dict, *, cfg: ModelConfig, optimizer:
         params = sharding_lib.map_tree(sharding_lib.gather, state["params"])
     else:
         params = split_params(state["params"], local, mesh)
-    loss_fn = make_loss_fn(cfg, kernel=kernel, remat=remat, group=group)
+    data = batch_data_group(mesh, rules, batch)
+    loss_fn = make_loss_fn(cfg, kernel=kernel, remat=remat, group=group, data=data)
     (_, metrics), grads = value_and_grad(loss_fn, params, rows)
     del params
     grads = map_leaves(lambda _, g: _mean_over(g, mesh, axes, n), grads)
-    metrics = {k: _mean_over(v.float(), mesh, axes, n) for k, v in metrics.items()}
+    metrics = {k: v.float() if data is not None and k in WHOLE_BATCH_METRICS
+               else _mean_over(v.float(), mesh, axes, n) for k, v in metrics.items()}
     if group is None:
         gnorm = global_norm(grads)
         grads = sharding_lib.map_tree(sharding_lib.local_shard, grads, shardings["params"])

@@ -45,26 +45,27 @@ def _batches(cfg):
 
 
 def _train(cfg, out, rank):
-    """From one state, twice: the unsharded step on the whole batch, the
-    unsharded step averaging its two halves (``grad_accum=2``, the data
-    axis's split) and the sharded step; then the sharded state saved on
-    (2, 2) and restored onto (4, 1) and unsharded."""
+    """Two steps, each from the state the unsharded whole-batch step starts
+    from: that step and the sharded step (zamba2-1.2b splits over
+    ``model``: its ``split``); then the last sharded state saved on (2, 2)
+    and restored onto (4, 1) and unsharded."""
     mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
     rules = ShardingRules(mesh=mesh, plan=ParallelismConfig())
     opt = AdamW(schedule=lambda s: 1e-3)
     state0 = make_train_state(cfg, opt, torch.Generator().manual_seed(0), device="cpu")
     plain = copy.deepcopy(state0)
-    split = copy.deepcopy(state0)
-    sharded = shard_train_state(copy.deepcopy(state0), train_state_shardings(cfg, opt, rules))
+    shardings = train_state_shardings(cfg, opt, rules)
     update = make_train_step(cfg, opt, mesh=mesh, rules=rules)
-    losses = {"plain": [], "split": [], "sharded": []}
+    losses = {"plain": [], "sharded": []}
+    states = {"plain": [], "sharded": []}
     for batch in _batches(cfg):
+        sharded = shard_train_state(copy.deepcopy(plain), shardings)
         _, m = train_step(plain, batch, cfg=cfg, optimizer=opt)
         losses["plain"].append(float(m["loss"]))
-        _, m = train_step(split, batch, cfg=cfg, optimizer=opt, grad_accum=2)
-        losses["split"].append(float(m["loss"]))
         _, m = update(sharded, batch)
         losses["sharded"].append(float(m["loss"]))
+        states["plain"].append(copy.deepcopy(dict(_tree_items(plain))))
+        states["sharded"].append({k: gather(v).clone() for k, v in _tree_items(sharded)})
     # every parameter and moment leaf: its shard on this rank, as the rules say
     shard_shapes = {k: (tuple(v.to_local().shape), tuple(v.placements))
                     for k, v in _tree_items(sharded)}
@@ -82,8 +83,8 @@ def _train(cfg, out, rank):
     restored41 = {k: gather(v) for k, v in _tree_items(on41)}
     unsharded = dict(_tree_items(ckpt.restore(state0, device="cpu")))
     if rank == 0:
-        torch.save({"losses": losses, "plain": dict(_tree_items(plain)),
-                    "split": dict(_tree_items(split)), "sharded": gathered,
+        torch.save({"losses": losses, "states": states,
+                    "pattern": update.split, "sharded": gathered,
                     "restored41": restored41, "unsharded": unsharded,
                     "placed_as_rules": placed_as_rules, "shard_shapes": shard_shapes},
                    os.path.join(out, "rank0.pt"))

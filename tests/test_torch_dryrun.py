@@ -138,6 +138,31 @@ def test_split_divides_granite_flops_per_device():
     assert flops[(16, 1)] >= 8 * flops[(16, 16)]
 
 
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "mamba2-130m", "zamba2-1.2b"])
+def test_mla_ssm_and_hybrid_split_over_model_on_pod(arch):
+    """train_4k on pod: the MLA, Mamba2 and hybrid families take the split
+    (vocabulary and MLP columns split; zamba2-1.2b's 64 SSM heads and 32
+    shared-block heads divide 16 and split too, minicpm3-4b's 40 heads and
+    mamba2-130m's 24 SSM heads do not and repeat), against the repeat
+    pattern's device (a (16, 1) mesh's, the same data shard): no more FLOPs
+    or peak live bytes per device, zamba2-1.2b at least 4x fewer of both."""
+    cfg = configs.get_config(arch)
+    shape = configs.SHAPES["train_4k"]
+    traces = {}
+    for dims in ((16, 16), (16, 1)):
+        mesh = abstract_mesh(dims, ("data", "model"))
+        traces[dims] = dryrun.trace_train(cfg, shape, mesh, ShardingRules(
+            mesh=mesh, plan=dryrun.plan_for(cfg, shape)))
+    split, repeat = traces[(16, 16)], traces[(16, 1)]
+    assert split.pattern == "model" and repeat.pattern == "repeat"
+    flops = {k: sum(t.count.flops.values()) for k, t in traces.items()}
+    peak = {k: t.count.peak_live_bytes for k, t in traces.items()}
+    assert flops[(16, 16)] < flops[(16, 1)] and peak[(16, 16)] < peak[(16, 1)]
+    if cfg.family == "hybrid":
+        assert 4 * flops[(16, 16)] < flops[(16, 1)] and 4 * peak[(16, 16)] < peak[(16, 1)]
+    assert split.param_bytes < repeat.param_bytes
+
+
 def test_dbrx_train_on_pod_fits_a_card(tmp_path):
     """dbrx-132b x train_4k on pod: the parameters one device gathers (its
     expert, its q heads, K/V whole, its vocabulary) under an H100's 80 GB,
