@@ -251,16 +251,28 @@ Phases, each of which fails the run (exit code 1) when it fails:
    pages and 1024 host pages, the shared-prefix prompts submitted again:
    spills and swap-ins, every swapped-in page's rows bitwise the rows it
    spilled, the streams of the run without the tier, the bytes moved and
-   ``flush_swaps``' seconds (GB/s); (d) the router with 2 replicas on the
+   victim-tier flushes' seconds (GB/s); (d) the router with 2 replicas on the
    card: one engine's streams, 8 admitted per replica, the allocation two KV
    pools and no second copy of the weights; (e) ``shard_decode`` in a
    one-card NCCL group: params and pools DTensors, one engine's streams,
-   one decode shape; (f) the reference's Pallas row: chunking, prefix-skip,
-   preemption and speculative decoding asked for on the card are each
-   named in ``disabled_features`` with a RuntimeWarning and the engine
-   serves; the same ServeConfig on the port's CPU engine disables nothing
-   and runs extend dispatches and drafts.  ``python3 tools/phase.py engine``
-   runs this phase alone.
+   one decode shape; (g) ``shard_decode`` over two processes on the card
+   (gloo: NCCL refuses two ranks on one device), spawned together: rank 0's
+   ``Engine`` sends every device program, rank 1 runs them in
+   ``serve_worker``, 4 of the 8 slots each, the prefill replicated; phase
+   7's first 8 prompts (the shared prefix; cut for the run's time) with
+   phase 7's launch and program checks on rank 0, one
+   decode shape (4, 4 steps) per rank, tokens/s beside the card's name and
+   power limit: bf16 at 5 layers, dense and paged + prefix cache, rank 0's
+   streams bitwise the one-rank engine's at 4 slots (a rank's decode
+   shape: cuBLAS rounds a bf16 decode at 4 rows otherwise than at 8, so
+   against the 8-slot engine the partings and their direct-loop margins
+   are recorded), and float32 at 2 layers, dense, bitwise the 8-slot
+   one-rank engine's; (f) the reference's Pallas row: chunking,
+   prefix-skip, preemption and speculative decoding asked for on the card
+   are each named in ``disabled_features`` with a RuntimeWarning and the
+   engine serves; the same ServeConfig on the port's CPU engine disables
+   nothing and runs extend dispatches and drafts.  ``python3 tools/phase.py
+   engine`` runs this phase alone.
    Each path sets the launch counts to 0 before it and reads them after.
 14. tp -- the step split over the model axis (``distributed.tensor_parallel``,
    ``make_train_step(mesh=, rules=)`` with ``split == "model"``): first phase
@@ -269,7 +281,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
    backward; its RMSNorm over (4096, 4096), forward and backward;
    minicpm3-4b's attend at model 2, (8, 20, 2048, 96 / V 64) causal bf16,
    SDPA beside it; zamba2-1.2b's scan at model 2, (2, 2048, 32 heads, 64,
-   N 64) float32, forward and backward), then two processes on the one
+   N 64) float32, forward and backward; hubert-xlarge's attend at model 2,
+   (8, 8, 512, 80) both ways bf16, padded to the 128 instance, and
+   internvl2-1b's, (8, 7 q / 1 kv, 2048, 64) causal bf16, SDPA beside
+   them), then two processes on the one
    card, a (data 1, model 2) mesh over gloo (NCCL refuses two ranks on one
    device), spawned together (one failed rank fails the run): (a)
    granite-8b at its published widths, 2 layers, float32, 2 x 2048 tokens,
@@ -287,11 +302,17 @@ Phases, each of which fails the run (exit code 1) when it fails:
    granite-moe-3b-a800m on a (data 2, model 1) mesh, each rank one row of
    the batch (the ``"repeat"`` pattern), against the whole-batch step, its
    capacity, drops and aux loss the whole batch's: the dropped share
-   exact; (c) granite-8b and (f) minicpm3-4b in bf16, 2 layers, a prefill
-   of 1 x 2048 and 8 greedy decode steps over the rank's caches (4 kv
-   heads; the whole latent), both runs fed the unsharded run's tokens: a
-   greedy token may differ only where the unsharded top-two margin is under
-   5e-2 (bf16).  Per rank: the state's GB and the step's peak above it,
+   exact; (h) hubert-xlarge (frames and labels, 8 of 16 heads of 80,
+   bidirectional) and internvl2-1b (256 patches before 1792 tokens, 7 of 14
+   q heads over 1 of 2 kv heads) as (a); (c) granite-8b and (f)
+   minicpm3-4b in bf16, 2 layers, a prefill of 1 x 2048 and 8 greedy
+   decode steps over the rank's caches (4 kv heads; the whole latent), (i)
+   internvl2-1b the same after 256 patches and 256 tokens (1 kv head), (j)
+   granite-8b under ``int8_serve`` (its weights the plan's transform of
+   the whole leaves, cut after it; the int8 KV cache narrowed by kv head;
+   the LUT softmax), both runs fed the unsharded run's tokens: a greedy
+   token may differ only where the unsharded top-two margin is under 5e-2
+   (bf16).  Per rank: the state's GB and the step's peak above it,
    split and unsharded, step ms (the two ranks share the card: these times
    say nothing of TP speed) and the collectives' bytes.  Each split call (a
    train step, a prefill, each decode step) runs in a window of its own:
@@ -4356,32 +4377,37 @@ def _engine_tier(base, params, prompts, dev, smi) -> dict:
             eng = Engine(base, params, ServeConfig(**SERVE_SC, **ENGINE_TIER,
                                                    kv_host_pages=host_pages), device=dev)
         mgr = eng.executor.cache_mgr
-        real, spilled = mgr.flush_swaps, {}
+        real, spilled = mgr.apply_flush, {}
         moved = dict(pages=0, seconds=0.0, checked=0, flushes=0)
 
-        def flush(caches, mgr=mgr, real=real, spilled=spilled, moved=moved):
-            for page, host in mgr._pending_spills:
-                spilled[host] = {n: caches["layers"][n][:, page].clone() for n in mgr._host_pool}
-            swaps = list(mgr._pending_swap_ins)
-            n = len(mgr._pending_spills) + len(swaps)
+        def flush(caches, ops, mgr=mgr, real=real, spilled=spilled, moved=moved):
+            """``apply_flush`` with its victim-tier part (spills, swap-ins)
+            timed alone and checked, the rest (copies, the table) after."""
+            ops = dict(ops or {})
+            tier = {k: ops.pop(k) for k in ("spills", "swap_ins") if k in ops}
+            for host, page in zip(*tier.get("spills", ((), ()))):
+                spilled[int(host)] = {n: caches["layers"][n][:, int(page)].clone()
+                                      for n in mgr._host_pool}
+            swaps = list(zip(*tier.get("swap_ins", ((), ()))))
+            n = len(tier.get("spills", ((),))[0]) + len(swaps)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            caches = real(caches)
+            caches = real(caches, tier)
             torch.cuda.synchronize()
             moved["seconds"] += time.perf_counter() - t0
             moved["pages"] += n
             moved["flushes"] += bool(n)
             for host, page in swaps:
-                for name, rows in spilled[host].items():
-                    if not torch.equal(caches["layers"][name][:, page], rows):
+                for name, rows in spilled[int(host)].items():
+                    if not torch.equal(caches["layers"][name][:, int(page)], rows):
                         raise SmokeError(f"[engine] (c) swapped-in {name} rows of page {page} "
                                          f"differ from the rows spilled to ring slot {host}")
                 moved["checked"] += 1
-            return caches
+            return real(caches, ops)
 
-        mgr.flush_swaps = flush
+        mgr.apply_flush = flush
         streams = [_run_engine(eng, w, SERVE_NEW)[0] for w in waves]
-        del mgr.flush_swaps
+        del mgr.apply_flush
         mgr.check_invariants()
         tel = eng.telemetry
         page_bytes = sum(r[:, 0].numel() * r.element_size() for r in mgr._host_pool.values())
@@ -4406,7 +4432,7 @@ def _engine_tier(base, params, prompts, dev, smi) -> dict:
         f"{ENGINE_HOST_PAGES} host pages): {on['swap_outs']} spills, {on['swap_ins']} swap-ins "
         f"(rows bitwise the spilled rows), {on['host_evictions']} ring evictions, "
         f"{on['page_evictions']} device evictions; {on['bytes'] / 1e6:.1f} MB moved in "
-        f"{on['flushes']} flushes, {on['flush_s'] * 1e3:.2f} ms of flush_swaps = {rate:.2f} "
+        f"{on['flushes']} flushes, {on['flush_s'] * 1e3:.2f} ms of the tier's flushes = {rate:.2f} "
         f"GB/s; streams equal the run "
         f"without the tier ({off['page_evictions']} evictions; close calls {close or 'none'})"
         f"  [{smi}]")
@@ -4512,6 +4538,128 @@ def _engine_shard(base, params, prompts, ref, dev) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+SHARD_RANKS = 2  # (g): shard_decode over two gloo ranks on the one card (NCCL refuses that)
+#: (g)'s runs: (model dtype, layout).  bf16 is held bitwise against the
+#: one-rank engine whose decode runs at a rank's shape (max_batch / 2
+#: slots): cuBLAS rounds a bf16 decode at 4 rows otherwise than at 8.
+#: float32 (2 layers) against the one-rank engine at all 8 slots.
+SHARD_REQUESTS = SERVE_SHARED_REQUESTS  # (g) serves phase 7's first 8 prompts (the shared prefix)
+SHARD_RUNS = (("bfloat16", {}),
+              ("bfloat16", dict(kv_layout="paged", kv_page_size=16, kv_prefix_cache=True)),
+              ("float32", {}))
+
+
+def _shard_rank(rank: int, world: int, work: str, ref) -> None:
+    """One of (g)'s two processes: rank 0 serves phase 7's first
+    ``SHARD_REQUESTS`` prompts through
+    ``Engine`` under ``shard_decode`` for each of ``SHARD_RUNS``, with phase
+    7's launch and program checks, its streams bitwise the one-rank
+    engine's (module docstring, 13), and where the bf16 streams part from
+    the 8-slot one-rank engine's ``ref``, the direct loop's margins; rank 1
+    runs ``serve_worker``.  Each writes ``rank<rank>.json`` under
+    ``work``: its slots and program shapes."""
+    import datetime
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.api import Engine, serve_worker
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/pg", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        runs, models = [], {}
+        for dtype, layout in SHARD_RUNS:
+            if dtype not in models:
+                cut = (dict(n_layers=GRANITE_SERVE_LAYERS) if dtype == "bfloat16"
+                       else dict(n_layers=TP_CUT["n_layers"], dtype=dtype))
+                base = dataclasses.replace(get_config("granite-8b"), **cut)
+                models = {dtype: (base, lm.init_params(
+                    base, torch.Generator(device=dev).manual_seed(SEED), device=dev))}
+            base, params = models[dtype]
+            prompts = _serve_traffic(base)[:SHARD_REQUESTS]
+            sc = ServeConfig(**SERVE_SC, **layout, shard_decode=True)
+            label = (f"[engine] (g) shard_decode over {world} ranks, {base.n_layers} L {dtype} "
+                     f"{sc.kv_layout}{' + prefix cache' if sc.kv_prefix_cache else ''}")
+            rec = dict(run=label.split(", ", 1)[1])
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                if rank == 0:
+                    slots = SERVE_SC["max_batch"] // world if dtype == "bfloat16" else None
+                    one = ServeConfig(**dict(SERVE_SC, max_batch=slots or SERVE_SC["max_batch"]),
+                                      **layout)
+                    want = _run_engine(Engine(base, params, one, device=dev), prompts,
+                                       SERVE_NEW)[0]
+                    eng = Engine(base, params, sc, device=dev)
+                    ex = eng.executor
+                    streams, metrics, decodes, grew, _ = _checked_engine_run(
+                        eng, prompts, SERVE_NEW, label)
+                    eng.close()
+                    if streams != want:
+                        raise SmokeError(f"{label}: rank 0's streams differ from the one-rank "
+                                         f"engine's at {one.max_batch} slots")
+                    rec.update(metrics, launches=grew, decode_dispatches=decodes,
+                               one_rank_slots=one.max_batch)
+                    if dtype == "bfloat16" and not layout:
+                        parted = [(i, next(k for k in range(len(b)) if a[k] != b[k]))
+                                  for i, (a, b) in enumerate(zip(streams, ref)) if a != b]
+                        rec["vs_8_slots"] = [dict(request=i, step=k, margin=float(
+                            _direct_greedy(base, params, prompts[i], k + 1, dev)[1][k]))
+                            for i, k in parted]
+                    del eng
+                else:
+                    ex = serve_worker(base, params, sc, device=dev)
+            rec.update(slots=[ex.shard.lo, ex.shard.hi], split=ex.shard.split,
+                       decode_shapes=sorted(ex._decode_shapes),
+                       prefill_shapes=sorted(ex._prefill_shapes))
+            if rec["decode_shapes"] != [(ex.shard.hi - ex.shard.lo, sc.decode_steps)]:
+                raise SmokeError(f"{label}: rank {rank} ran decode shapes {rec['decode_shapes']}")
+            runs.append(rec)
+            del ex
+            torch.cuda.empty_cache()
+        Path(work, f"rank{rank}.json").write_text(json.dumps(runs, default=str))
+        dist.barrier()  # a gloo rank that leaves early resets its peer
+    finally:
+        dist.destroy_process_group()
+
+
+def _engine_shard_ranks(ref, smi) -> dict:
+    """(g): ``shard_decode`` over two gloo ranks on the one card (module
+    docstring, 13)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    work = Path(tempfile.mkdtemp(prefix="shard_ranks_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(_shard_rank, args=(SHARD_RANKS, str(work), ref[:SHARD_REQUESTS]),
+                 nprocs=SHARD_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(SHARD_RANKS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for k, rec in enumerate(ranks[0]):
+        parted = rec.get("vs_8_slots")
+        log(f"[engine] (g) shard_decode over {SHARD_RANKS} gloo ranks on the card, "
+            f"{rec['run']}: slots {[r[k]['slots'] for r in ranks]}, decode shapes "
+            f"{[r[k]['decode_shapes'] for r in ranks]}, streams bitwise the one-rank engine's "
+            f"at {rec['one_rank_slots']} slots, launches {rec['launches']}; "
+            f"{rec['tokens_per_s']:.1f} output tokens/s, TTFT p50 {rec['ttft_ms_p50']:.0f} ms, "
+            f"ITL p50 {rec['itl_ms_p50']:.2f} ms ({smi})"
+            + ("" if parted is None else
+               f"; against the 8-slot engine {len(parted)} of {rec['requests']} requests part "
+               f"(bf16 rounds a 4-row decode otherwise), direct-loop margins "
+               f"{sorted(round(p['margin'], 4) for p in parted)}"))
+    return dict(ranks=ranks, spawn_s=spawn_s)
+
+
 def _engine_pallas_row(base, params, dev) -> dict:
     """(f): chunking, prefix-skip, preemption resume and speculative decoding
     asked for on the card: the prefill attends through the kernel, so
@@ -4587,6 +4735,7 @@ def phase_engine(dev):
                           ("tier", _engine_tier, (base, params, prompts, dev, smi)),
                           ("router", _engine_router, (base, params, prompts, ref, dev)),
                           ("shard", _engine_shard, (base, params, prompts, ref, dev)),
+                          ("shard_ranks", _engine_shard_ranks, (ref, smi)),
                           ("pallas_row", _engine_pallas_row, (base, params, dev))):
         t1 = time.perf_counter()
         res[key] = fn(*args)
@@ -4608,7 +4757,8 @@ def phase_engine(dev):
 TP_RANKS, TP_MESH = 2, (1, 2)  # two processes on the one card, gloo: NCCL refuses that
 TP_DATA_MESH = (2, 1)  # the data-sharded MoE step: the two ranks split the batch
 TP_CUT = dict(n_layers=2, dtype="float32")  # zamba2-1.2b: its layer 0 applies the shared block
-TP_TRAIN = ("granite-8b", "granite-moe-3b-a800m", "minicpm3-4b", "zamba2-1.2b")
+TP_TRAIN = ("granite-8b", "granite-moe-3b-a800m", "minicpm3-4b", "zamba2-1.2b", "hubert-xlarge",
+            "internvl2-1b")
 TP_MOE_DATA = "granite-moe-3b-a800m"  # on TP_DATA_MESH against the whole-batch step
 TP_BATCH = (2, 2048)
 TP_STEPS = 2
@@ -4619,7 +4769,9 @@ TP_MOMENT_TOL = 1e-4  # moments: of the leaf's largest |x| (float32 rounding rea
 TP_ADAM_RESIDUAL = 1e-6  # of max(1, |x|): a parameter's part not explained by its moments
 TP_ADAM_SHARE = 1e-4  # the most parameters whose normalised update amplifies rounding
 TP_DECODE = (1, 2048, 8)  # granite-8b, minicpm3-4b bf16 2 layers: batch, prompt, greedy steps
-TP_DECODE_MODELS = ("granite-8b", "minicpm3-4b")
+#: "<arch>" or "<arch>:<precision policy>"
+TP_DECODE_MODELS = ("granite-8b", "minicpm3-4b", "internvl2-1b", "granite-8b:int8_serve")
+TP_VLM_PROMPT = 256  # internvl2-1b's text tokens after its 256 patches
 TP_MARGIN = 5e-2  # bf16: a greedy token may part only where the unsharded top-two margin is less
 TP_ATTENTION = (2, 16, 2048, 128)  # granite-8b's attend at model 2: batch, q heads, tokens, d
 TP_KV_HEADS = 4
@@ -4627,15 +4779,20 @@ TP_NORM = (4096, 4096)  # the norms' rows (2 x 2048 tokens) at d_model, RMS
 TP_MLA_ATTENTION = (8, 20, 2048, 96)  # minicpm3-4b's attend at model 2: 20 of 40 heads, V at 64
 TP_MLA_V = 64
 TP_SSD = (2, 2048, 32, 64, 64)  # zamba2's scan at model 2: batch, tokens, 32 of 64 heads, P, N
+TP_HUBERT_ATTENTION = (8, 8, 512, 80)  # hubert-xlarge at model 2: 8 of 16 heads, both ways
+TP_VLM_ATTENTION = (8, 7, 2048, 64)  # internvl2-1b at model 2: 7 of 14 q heads, causal
+TP_VLM_KV_HEADS = 1  # and 1 of its 2 kv heads
 
 
 def _tp_local_cases(dev) -> list[dict]:
     """Phase 2's cases at the split's local shapes: granite-8b's attend at
     model 2 (16 of 32 q heads, 4 of 8 kv heads) forward and backward in
     float32 and bf16, and its RMSNorm rows; minicpm3-4b's attend at model
-    2 (20 of 40 heads, q/k at 96, V at 64) in bf16, SDPA beside it; and
+    2 (20 of 40 heads, q/k at 96, V at 64) in bf16, SDPA beside it;
     zamba2-1.2b's scan at model 2 (32 of 64 SSM heads) forward and
-    backward in float32."""
+    backward in float32; hubert-xlarge's attend at model 2 (8 of 16 heads
+    of 80, both ways, padded to the 128 instance) and internvl2-1b's (7 of
+    14 q heads over 1 of 2 kv heads, causal) in bf16, SDPA beside them."""
     cases = []
     for dtype in ("float32", "bfloat16"):
         cases.append(_attention_case(dev, TP_ATTENTION, "safe", causal=True, dtype=dtype,
@@ -4649,6 +4806,9 @@ def _tp_local_cases(dev) -> list[dict]:
     b, l, h, p, n = TP_SSD
     cases.append(_ssd_case(dev, b, l, h, p, n, 1, 64))
     cases.append(_ssd_grad_case(dev, b, l, h, p, n, 1, "float32"))
+    cases.append(_attention_case(dev, TP_HUBERT_ATTENTION, "safe", causal=False, dtype="bfloat16"))
+    cases.append(_attention_case(dev, TP_VLM_ATTENTION, "safe", causal=True, dtype="bfloat16",
+                                 hkv=TP_VLM_KV_HEADS))
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise SmokeError(f"{len(bad)} local-shape kernel cases failed: {bad}")
@@ -4741,6 +4901,36 @@ def _tp_split_call(fn, cfg, group, attends: bool):
     return out, counts, local
 
 
+def _tp_config(name, **cut):
+    """The published config of ``name`` ("<arch>" or "<arch>:<precision
+    policy>") with the fields ``cut``."""
+    from repro_torch.configs import get_config
+
+    arch, _, policy = name.partition(":")
+    return dataclasses.replace(get_config(arch), **cut, **({"precision": policy} if policy
+                                                           else {}))
+
+
+def _tp_batch(cfg, g, dev) -> dict:
+    """A ``TP_BATCH`` training batch of ``cfg``'s family from the CPU
+    generator ``g``: frames and labels (the audio encoder), the VLM's
+    patches before the rest of the sequence in tokens, or tokens."""
+    import torch
+
+    b, s = TP_BATCH
+    fd = cfg.frontend_dim or cfg.d_model
+    if cfg.frontend == "audio":
+        return {"frames": torch.randn(b, s, fd, generator=g).to(dev),
+                "labels": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                        dtype=torch.int32).to(dev)}
+    n_img = cfg.n_frontend_tokens if cfg.frontend == "patch" else 0
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s - n_img), generator=g,
+                                     dtype=torch.int32).to(dev)}
+    if n_img:
+        batch["patches"] = torch.randn(b, n_img, fd, generator=g).to(dev)
+    return batch
+
+
 def _tp_train(name, mesh, dev, pattern: str = "model") -> dict:
     """(a), (b), (d), (e), (g): ``TP_STEPS`` sharded steps of ``name`` at its
     published widths on ``mesh``, taking the ``pattern`` split, each from
@@ -4748,13 +4938,12 @@ def _tp_train(name, mesh, dev, pattern: str = "model") -> dict:
     rank, held against it."""
     import torch
 
-    from repro_torch.configs import ParallelismConfig, get_config
+    from repro_torch.configs import ParallelismConfig
     from repro_torch.distributed import ShardingRules
-    from repro_torch.distributed.sharding import shard_of
     from repro_torch.optim import AdamW
     from repro_torch.train import make_train_state, make_train_step, train_state_shardings
 
-    cfg = dataclasses.replace(get_config(name), **TP_CUT)
+    cfg = _tp_config(name, **TP_CUT)
     rules = ShardingRules(mesh=mesh, plan=ParallelismConfig())
     opt = AdamW(schedule=lambda s: TP_LR)
     state = make_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(SEED), device=dev)
@@ -4767,8 +4956,7 @@ def _tp_train(name, mesh, dev, pattern: str = "model") -> dict:
     g = torch.Generator().manual_seed(SEED + 1)
     steps = []
     for i in range(TP_STEPS):
-        batch = {"tokens": torch.randint(0, cfg.vocab_size, TP_BATCH, generator=g,
-                                         dtype=torch.int32).to(dev)}
+        batch = _tp_batch(cfg, g, dev)
         sharded = _tp_shard(state, shardings, mesh)
         rec = {}
         for kind, fn, st in (("split", split, sharded), ("plain", plain, state)):
@@ -4876,12 +5064,17 @@ def _leaf_at(tree, path):
 
 
 def _tp_decode(name, mesh, dev) -> dict:
-    """(c), (f): ``name`` in bf16, a prefill and greedy decode steps over
-    this rank's caches (granite-8b's kv heads; minicpm3-4b's latent, whole),
-    against the unsharded model on the unsharded run's tokens."""
+    """(c), (f), (i), (j): ``name`` ("<arch>" or "<arch>:<precision
+    policy>") in bf16, a prefill and greedy decode steps over this rank's
+    caches (granite-8b's kv heads; minicpm3-4b's latent, whole; the VLM's
+    patches before its prompt; under ``int8_serve`` the int8 KV cache and
+    the LUT softmax, the weights the plan's transform of the whole leaves,
+    cut after it), against the unsharded model on the unsharded run's
+    tokens."""
     import torch
 
-    from repro_torch.configs import ParallelismConfig, get_config
+    from repro_torch.configs import ParallelismConfig
+    from repro_torch.core import precision as precision_lib
     from repro_torch.distributed import ShardingRules
     from repro_torch.distributed import tensor_parallel as tp_lib
     from repro_torch.distributed.sharding import map_tree, param_shardings, shard_of
@@ -4889,9 +5082,11 @@ def _tp_decode(name, mesh, dev) -> dict:
     from repro_torch.train.step import model_split
 
     b, s0, steps = TP_DECODE
-    cfg = dataclasses.replace(get_config(name), n_layers=TP_CUT["n_layers"])
+    cfg = _tp_config(name, n_layers=TP_CUT["n_layers"])
+    plan = precision_lib.resolve_model_plan(cfg)
     rules = ShardingRules(mesh=mesh, plan=ParallelismConfig())
-    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    params = precision_lib.apply_plan_to_params(
+        lm.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev), plan)
     sh = param_shardings(rules, cfg, lm)
     group, local = model_split(cfg, mesh, sh)
     split = map_tree(lambda t, s, loc: shard_of(t, s.placements, mesh, ("model",)).clone()
@@ -4902,16 +5097,26 @@ def _tp_decode(name, mesh, dev) -> dict:
         out, counts, heads = _tp_split_call(fn, cfg, group, attends)
         launches.update(counts)
         return out
-    max_len = s0 + steps
-    whole = lm.init_caches(cfg, b, max_len, torch.bfloat16, device=dev)
-    mine = {g: {k: t.clone() for k, t in leaves.items()}
-            for g, leaves in tp_lib.local_caches(cfg, lm.init_caches(
-                cfg, b, max_len, torch.bfloat16, device=dev), group).items()}
-    prompt = torch.randint(0, cfg.vocab_size, (b, s0), generator=torch.Generator().manual_seed(
-        SEED + 2), dtype=torch.int32).to(dev)
-    s_last, mine = split_call(lambda: lm.prefill(split, cfg, {"tokens": prompt}, mine, device=dev,
+    g = torch.Generator().manual_seed(SEED + 2)
+    prompt = {}
+    if cfg.frontend == "patch":  # the image prefix, then TP_VLM_PROMPT text tokens
+        s0 = TP_VLM_PROMPT
+        prompt["patches"] = torch.randn(b, cfg.n_frontend_tokens, cfg.frontend_dim,
+                                        generator=g).to(dev, torch.bfloat16)
+    off = cfg.n_frontend_tokens if "patches" in prompt else 0
+    prompt["tokens"] = torch.randint(0, cfg.vocab_size, (b, s0), generator=g,
+                                     dtype=torch.int32).to(dev)
+    max_len = off + s0 + steps
+    quant = plan.int8_kv_cache
+
+    def caches():
+        return lm.init_caches(cfg, b, max_len, torch.bfloat16, quantized=quant, device=dev)
+    whole = caches()
+    mine = {g2: {k: t.clone() for k, t in leaves.items()}
+            for g2, leaves in tp_lib.local_caches(cfg, caches(), group).items()}
+    s_last, mine = split_call(lambda: lm.prefill(split, cfg, prompt, mine, device=dev,
                                                  group=group), True)
-    w_last, whole = lm.prefill(params, cfg, {"tokens": prompt}, whole, device=dev)
+    w_last, whole = lm.prefill(params, cfg, prompt, whole, device=dev)
     errs, close, toks = [float((s_last.float() - w_last.float()).abs().max())], [], []
     for k in range(steps + 1):
         top2 = w_last.float().topk(2, dim=-1).values
@@ -4925,7 +5130,7 @@ def _tp_decode(name, mesh, dev) -> dict:
             break
         tok = w_last.argmax(-1, keepdim=True)  # both runs take the unsharded run's tokens
         toks.append(tok)
-        pos = torch.full((b,), s0 + k, dtype=torch.int32, device=dev)
+        pos = torch.full((b,), off + s0 + k, dtype=torch.int32, device=dev)
         s_last, mine = split_call(lambda: lm.decode_step(split, cfg, tok, pos, mine, device=dev,
                                                          group=group), False)
         w_last, whole = lm.decode_step(params, cfg, tok, pos, whole, device=dev)
@@ -4938,8 +5143,12 @@ def _tp_decode(name, mesh, dev) -> dict:
         heads = int(mine["layers"]["k"].shape[2])
         if heads != cfg.n_kv_heads // group.size:
             raise SmokeError(f"[tp] {name}: the split caches hold {heads} kv heads")
-    return dict(model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, batch=b, prompt=s0,
-                steps=steps, cache_kv_heads=heads, launches=dict(launches), max_abs_logit_err=errs,
+        if quant and (mine["layers"]["k"].dtype != torch.int8
+                      or int(mine["layers"]["k_scale"].shape[2]) != heads):
+            raise SmokeError(f"[tp] {name}: the split int8 KV cache is not narrowed by kv head")
+    return dict(model=cfg.name, policy=plan.policy.name, layers=cfg.n_layers, dtype=cfg.dtype,
+                batch=b, prompt=s0, image=off, steps=steps, cache_kv_heads=heads,
+                int8_kv=bool(quant), launches=dict(launches), max_abs_logit_err=errs,
                 logit_scale=float(w_last[..., :cfg.vocab_size].float().abs().max()),
                 close_calls=close,
                 tokens=torch.cat(toks, 1).cpu().tolist())
@@ -5032,9 +5241,12 @@ def phase_tp(dev):
                        f"{pl['metrics']['moe_aux_loss']:.6e})"
                        if "moe_dropped_frac" in sp["metrics"] else ""))
         for d in r["decode"]:
-            log(f"[tp] rank {i} {d['model']} {d['layers']} L bf16 prefill {d['batch']} x "
-                f"{d['prompt']} + {d['steps']} greedy steps at {d['cache_kv_heads']} "
-                f"{'heads over the whole latent' if 'minicpm3' in d['model'] else 'kv heads'} "
+            image = f" ({d['image']} patches)" if d["image"] else ""
+            log(f"[tp] rank {i} {d['model']} {d['policy']} {d['layers']} L bf16 prefill "
+                f"{d['batch']} x {d['image'] + d['prompt']}{image}"
+                f" + {d['steps']} greedy steps at {d['cache_kv_heads']} "
+                f"{'heads over the whole latent' if 'minicpm3' in d['model'] else 'kv heads'}"
+                f"{' (int8 KV)' if d['int8_kv'] else ''} "
                 f"(launches {d['launches']}): max |logit d| {max(d['max_abs_logit_err']):.3e} "
                 f"(|logit| up to {d['logit_scale']:.2f}), close calls {d['close_calls']}")
     log(f"[tp] split calls' launches (both ranks): {dict(counts)}; ranks' seconds "

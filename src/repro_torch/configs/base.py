@@ -230,8 +230,9 @@ class ServeConfig:
     ``cache_extend=False`` there whatever this asks, and the features that
     need the cache-extending prefill program (chunked prefill, prefix-skip,
     preemption resume, ``speculative``) are disabled with the reference's
-    warnings.  ``shard_decode`` needs a process group of one rank;
-    ``replicas > 1`` is ``serve.router.ReplicaRouter``."""
+    warnings.  ``shard_decode`` splits the slots over the ranks of the
+    process group (``serve.api.Engine`` on rank 0, ``serve.api.serve_worker``
+    on the others); ``replicas > 1`` is ``serve.router.ReplicaRouter``."""
 
     max_batch: int = 8
     max_seq_len: int = 1024
@@ -289,7 +290,7 @@ class ServeConfig:
     phase_mode: Literal["fenced", "overlap"] = "fenced"
     # --- pipelined loop: dispatch N+1 before collecting N ---
     async_loop: bool = False
-    # --- mesh-sharded decode (a process group of one rank) ---
+    # --- mesh-sharded decode: the slots split over the process group's ranks ---
     shard_decode: bool = False
     # --- data-parallel replicas behind serve.router.ReplicaRouter ---
     replicas: int = 1

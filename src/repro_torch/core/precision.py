@@ -427,7 +427,14 @@ def apply_plan_to_params(params: dict, plan: PrecisionPlan) -> dict:
     ap_fixed grids and quantize-dequantize int8 weights, per the plan.
 
     ``blocks`` is stacked (leading layer axis) and takes a per-layer plan;
-    every other top-level key maps onto one global slot."""
+    every other top-level key maps onto one global slot.
+
+    It takes whole leaves: under a model group the transform runs before
+    any cut (the serving executor applies it before it places the
+    parameters, a split step's caller before it shards them), so each
+    rank's shard of its output is exact.  An int8 leaf's per-channel scale
+    comes from the whole leaf; quantizing a row-parallel shard instead
+    would need a MAX over the group, which nothing here does."""
     if not plan.transforms_params:
         return params
     n_layers = len(plan.layers)

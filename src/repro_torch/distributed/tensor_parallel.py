@@ -1,7 +1,8 @@
 """Tensor and expert parallelism over the mesh's ``model`` axis: the split
 of a step's compute that GSPMD makes of the reference's jitted step
-(``repro.train.step.make_train_step`` under the rules' shardings), for the
-dense GQA, MLA, MoE, Mamba2 and hybrid language models; and the data group
+(``repro.train.step.make_train_step`` under the rules' shardings), for
+every language model of the zoo: the dense GQA, MLA, MoE, Mamba2 and
+hybrid families, the audio encoder and the VLM; and the data group
 through which a data-sharded step computes the few terms that GSPMD
 computes over the whole batch (:class:`DataGroup`).
 
@@ -41,10 +42,17 @@ same loss.  Work inside a block is split:
   reduced (when the experts do not divide the group and the rules split
   ``mlp`` instead, each rank runs every expert on its ``mlp`` columns);
 - the vocabulary: the embedding looks up this rank's rows, the logits are
-  this rank's columns, the cross entropy reduces over the group.
+  this rank's columns (``lm_head``'s, or the tied table's), the cross
+  entropy reduces over the group (the encoder's masked-unit loss too);
+- the modality frontends: ``frontend_proj`` (logical axes ``("frontend",
+  "embed")``, neither of which maps to ``model``) is taken whole, so the
+  audio encoder's frame embeddings and the VLM's patch embeddings are
+  computed whole on every rank; the VLM's text tokens then look up this
+  rank's vocabulary rows.  The encoder's bidirectional attention splits by
+  heads as the causal one does.
 
-Where the heads do not divide the group (minicpm3-4b's 40 or mamba2-130m's
-24 on 16), that layer repeats on every rank, as GSPMD's fallback
+Where the heads do not divide the group (minicpm3-4b's 40, internvl2-1b's
+14 or mamba2-130m's 24 on 16), that layer repeats on every rank, as GSPMD's fallback
 replicates an axis that does not divide.
 
 The collectives pair as Megatron pairs them, because every rank computes
@@ -59,7 +67,11 @@ Which leaves the forward takes as this rank's ``model`` shard is decided
 here once, by :func:`takes_model_shard` from the rules' specs, and
 :func:`split_plan` sums it up for a config as a :class:`Layout` that the
 group carries: the layers read the layout, never the leaves' shapes.  A
-group of size 1, or none, leaves every model function on its old path:
+precision plan splits as a float model does: its weight transform runs on
+whole leaves before any cut (the serving executor applies it before it
+places the parameters), and no forward quantizes a weight, so a
+row-parallel leaf never needs a MAX over the group for a per-channel
+scale.  A group of size 1, or none, leaves every model function on its old path:
 :func:`active` returns None for it.  A group with no process group (an
 abstract mesh, the dry run) runs no collective: each returns a tensor of
 the right shape and counts its bytes, as a real group does
@@ -141,24 +153,24 @@ def active(group: ModelGroup | None) -> ModelGroup | None:
     return group if group is not None and group.size > 1 else None
 
 
+#: the language-model families, every one of which splits over ``model``
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def splits(cfg: ModelConfig) -> bool:
-    """Whether the family's step splits over ``model`` (the dense GQA, MLA,
-    MoE, Mamba2 and hybrid language models); the encoder and the VLM repeat
-    it on every rank of the axis."""
-    return (cfg.family in ("dense", "moe", "ssm", "hybrid") and cfg.frontend is None
-            and not cfg.is_encoder)
+    """Whether the family's step splits over ``model``: every family of the
+    zoo does, as GSPMD splits every one of them by the same rules."""
+    return cfg.family in LM_FAMILIES
 
 
 def require_split(cfg: ModelConfig, plan=None) -> None:
-    """Raise unless ``cfg`` (and its precision ``plan``) can run split."""
+    """Raise unless ``cfg`` can run split (a language model of the zoo).
+    Any precision ``plan`` runs split as it runs whole: its weight
+    transform (``core.precision.apply_plan_to_params``) takes whole leaves,
+    before any cut, so a cut of its output is exact, and the int8 KV
+    cache's scales are per (token, kv head), narrowed with their heads."""
     if not splits(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not split over the model axis yet "
-            "(ROADMAP queue 1, item 13.3); its step repeats per rank")
-    if plan is not None and plan.int8_weights:
-        raise NotImplementedError(
-            f"{cfg.name}: per-channel int8 weights reduce over a split axis; precision plans "
-            "under the model split are ROADMAP queue 1, item 13.4")
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family has no model split")
 
 
 # ---------------------------------------------------------------------------
@@ -252,12 +264,15 @@ def split_plan(cfg: ModelConfig, logical_axes, shardings, size: int):
     # the hybrid's attention and MLP are its shared block's
     attn, ffn = (("shared_attn", "attn"), ("shared_attn", "mlp")) if cfg.family == "hybrid" \
         else (("blocks", "attn"), ("blocks", "ffn"))
+    # the vocabulary's rows in the embedding, or (the audio encoder has no
+    # table) its columns in lm_head
+    vocab = taken("embed", "table") if "embed" in logical_axes else taken("lm_head", "kernel")
     layout = Layout(heads=taken(*attn, "wo", "kernel") == "heads",
                     kv_heads=taken(*attn, "wk", "kernel") == "kv_heads",
                     mlp=taken(*ffn, "w_up", "kernel") == "mlp",
                     router=taken(*ffn, "router", "kernel") == "experts",
                     experts=taken(*ffn, "w_up") if cfg.moe is not None else None,
-                    vocab=taken("embed", "table") == "vocab",
+                    vocab=vocab == "vocab",
                     ssm=taken("blocks", "mamba", "out_proj", "kernel") == "inner",
                     shared_out=taken("shared_attn", "out_proj", "kernel") == "mlp")
     return layout, local

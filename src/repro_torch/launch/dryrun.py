@@ -15,18 +15,17 @@ What one device computes is what the port's sharded step runs, in the
 pattern ``train.step.make_train_step`` records as its ``split`` (the
 cell's ``split``):
 
-- ``"model"`` (dense GQA, MLA, MoE, Mamba2 and the hybrid on a model axis
-  above one): GSPMD's split over ``model``
-  (``train.step.sharded_train_step`` under the group of
-  ``train.step.model_split``): each parameter gathered over the data axes
-  only, keeping its model shard (whole where the split takes it whole),
-  the step traced at those local shapes under an abstract model group,
-  whose collectives run nothing and count their bytes
-  (``distributed.tensor_parallel``);
-- ``"repeat"`` (the encoder and the VLM, ROADMAP queue 1, item 13.3, and
-  every family on a model axis of one): the parameters gathered whole and
-  the ``model`` axis repeating its data shard's compute (the FSDP pattern
-  of ``train.step.sharded_train_step``).
+- ``"model"`` (every family on a model axis above one: the dense GQA,
+  MLA, MoE, Mamba2 and hybrid language models, the audio encoder and the
+  VLM): GSPMD's split over ``model`` (``train.step.sharded_train_step``
+  under the group of ``train.step.model_split``): each parameter gathered
+  over the data axes only, keeping its model shard (whole where the split
+  takes it whole: the frontends' ``frontend_proj``, K/V whose kv heads do
+  not divide the axis), the step traced at those local shapes under an
+  abstract model group, whose collectives run nothing and count their
+  bytes (``distributed.tensor_parallel``);
+- ``"repeat"`` (every family on a model axis of one): the parameters
+  gathered whole (the FSDP pattern of ``train.step.sharded_train_step``).
 
 A training step's MoE layers run under the batch's abstract data group
 (``train.step.batch_data_group``), as the sharded step runs them: capacity

@@ -8,9 +8,14 @@ synthetic requests, on the card by default.
 with random weights from seed 0; every engine flag comes from the shared
 serving CLI (``serve/cli.py``).  ``--stream`` consumes the requests through
 ``Engine.stream`` and reports time to first token.  ``--replicas N`` puts
-the ``ReplicaRouter`` in front of N engines; ``--shard-decode`` runs in a
-process group of one rank that the launcher starts (gloo on the CPU, NCCL
-on the card) and ends.
+the ``ReplicaRouter`` in front of N engines.  ``--shard-decode`` runs in
+the process group of the world that ``torchrun`` describes (``RANK``,
+``WORLD_SIZE``; one rank without it), which the launcher starts (gloo on the
+CPU, NCCL on the card) and ends: the slots split over the ranks, rank 0
+serves the requests and prints, the other ranks run
+``serve.api.serve_worker``.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu --shard-decode
 """
 
 from __future__ import annotations
@@ -26,23 +31,33 @@ import torch
 from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.serve.api import Engine
+from repro_torch.serve.api import Engine, serve_worker
 from repro_torch.serve.cli import add_serving_args, config_from_args
 from repro_torch.serve.router import ReplicaRouter
 
 
 @contextlib.contextmanager
-def one_rank_group(dev: torch.device):
-    """A ``torch.distributed`` process group of this process alone (what
-    ``shard_decode``'s host mesh spans), ended on exit."""
+def world_group(dev: torch.device):
+    """The ``torch.distributed`` process group that ``shard_decode``'s host
+    mesh spans: the world of ``torchrun``'s ``RANK`` / ``WORLD_SIZE`` (its
+    ``MASTER_ADDR`` / ``MASTER_PORT`` rendezvous), or this process alone;
+    ended on exit.  Two ranks on one card take gloo (NCCL refuses them)."""
+    import os
+
     import torch.distributed as dist
 
+    rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
+    if dev.type == "cuda" and world > 1:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)) % torch.cuda.device_count())
+    one_card = dev.type == "cuda" and world > torch.cuda.device_count()
+    backend = "nccl" if dev.type == "cuda" and not one_card else "gloo"
     with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                                init_method=f"file://{tmp}/pg", rank=0, world_size=1)
+        init = "env://" if world > 1 else f"file://{tmp}/pg"
+        dist.init_process_group(backend, init_method=init, rank=rank, world_size=world)
         try:
-            yield
+            yield rank
         finally:
+            dist.barrier()  # a gloo rank that leaves early resets its peers
             dist.destroy_process_group()
 
 
@@ -54,8 +69,20 @@ def main(argv: list[str] | None = None) -> None:
     add_serving_args(ap, max_batch=4, max_seq=128, max_new=16, temperature=0.0)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    with one_rank_group(dev) if args.shard_decode else contextlib.nullcontext():
+    if not args.shard_decode:
         serve(args, dev)
+        return
+    with world_group(dev) as rank:
+        if rank == 0:
+            serve(args, dev)
+        else:  # the same model and engine arguments as rank 0's
+            cfg = configs.get_config(args.arch, reduced=not args.full_config)
+            serve_worker(cfg, _params(cfg, dev), config_from_args(args, cfg), device=dev)
+
+
+def _params(cfg, dev: torch.device):
+    """Random weights from seed 0, the same on every rank."""
+    return lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
 
 
 def serve(args: argparse.Namespace, dev: torch.device) -> None:
@@ -63,7 +90,7 @@ def serve(args: argparse.Namespace, dev: torch.device) -> None:
     (or, with replicas, the fleet's) telemetry."""
     cfg = configs.get_config(args.arch, reduced=not args.full_config)
     serve_cfg = config_from_args(args, cfg)
-    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = _params(cfg, dev)
     # replicas > 1: the same request-lifecycle API behind the least-loaded
     # data-parallel router
     eng = (ReplicaRouter(cfg, params, serve_cfg, device=dev) if serve_cfg.replicas > 1
@@ -95,6 +122,7 @@ def serve(args: argparse.Namespace, dev: torch.device) -> None:
         toks = sum(len(results[h.uid].generated) for h in handles)
         print(f"{len(handles)} requests, {toks} tokens in {dt:.2f}s "
               f"({toks / dt:.1f} tok/s host throughput)")
+    eng.close()  # a shard_decode engine's worker ranks return
     if isinstance(eng, ReplicaRouter):
         fleet = eng.telemetry
         print(f"router: {fleet['replicas']} replicas | {fleet['tokens_generated']} tokens total | "
@@ -103,8 +131,12 @@ def serve(args: argparse.Namespace, dev: torch.device) -> None:
         eng = eng.engines[0]  # the detailed lines: the first replica's view
     tel = eng.telemetry
     mode = "async (pipelined)" if eng.serve_cfg.async_loop else "sync"
-    print(f"engine loop: {mode}" + (" | mesh-sharded decode" if eng.serve_cfg.shard_decode
-                                    else ""))
+    shard = eng.executor.shard
+    print(f"engine loop: {mode}" + (
+        "" if shard is None else
+        f" | mesh-sharded decode over {shard.world} rank(s), rank 0 slots "
+        f"[{shard.lo}, {shard.hi})" + (" (every rank every slot)" if shard.world > 1
+                                      and not shard.split else "")))
     queue_wait_ms = tel["queue_wait_s_total"] / max(tel["prompts_admitted"], 1) * 1e3
     print(f"engine: device={dev} | policy={eng.executor.policy.name} | "
           f"queue wait mean {queue_wait_ms:.1f} ms | "

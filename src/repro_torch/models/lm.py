@@ -35,17 +35,21 @@ masked-unit cross entropy over ``labels``, plus the MoE aux and z losses;
 MoE blocks' router aux over the layers, as the reference's scan carries it.
 
 Under a model group (``group=``, a ``distributed.tensor_parallel``
-``ModelGroup``) the dense GQA, MLA, MoE, Mamba2 and hybrid families split
-over the ``model`` axis, as GSPMD splits the reference's step: the
+``ModelGroup``) every family splits over the ``model`` axis, as GSPMD
+splits the reference's step: the
 parameters are each rank's model-local shards where the rules split them
 (``train.step`` hands them so), the blocks split heads, SSM heads, MLP
 columns and experts, the embedding looks up this rank's vocabulary rows,
 ``forward``'s logits are this rank's vocab columns, the cross entropy
 reduces over the group, and ``prefill`` / ``decode_step`` gather their
 last position's logits whole.  Their caches hold this rank's kv heads and
-SSM heads (``tensor_parallel.local_caches``).  The encoder and the VLM,
-and a precision plan with int8 weights, refuse a group of more than one
-rank; a group of one changes nothing.
+SSM heads (``tensor_parallel.local_caches``).  The audio encoder's frame
+embeddings and the VLM's patch embeddings are computed whole on every rank
+(``frontend_proj`` is never cut), the VLM's text tokens look up this rank's
+vocabulary rows, and the encoder's untied ``lm_head`` gives this rank's
+vocab columns to the vocab-parallel cross entropy.  A precision plan runs
+split on the whole leaves its transform gave (``core.precision``); a group
+of one changes nothing.
 
 Under a data group (``data=``, a ``tensor_parallel.DataGroup``: the batch
 is this rank's shard of a data-sharded step) the MoE layers and the masked
@@ -145,18 +149,19 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict, mode: str, quant=None, 
     before the token embeddings (the offset is their count), except in
     decode.  Mixed types promote, as the reference's concatenation does."""
     qc = cfg.quant if quant is None else quant
-    if cfg.frontend == "audio":
+    if cfg.frontend == "audio":  # whole on every rank of a model group
         return layers.dense(params["frontend_proj"], batch["frames"], qc), 0
-    tok_emb = None
-    if "tokens" in batch:
-        tok_emb = layers.embed(params["embed"], batch["tokens"], _vocab_group(tp)) * cfg.emb_scale
+    patch_emb = None
     if cfg.frontend == "patch" and "patches" in batch and mode != "decode":
-        patch_emb = layers.dense(params["frontend_proj"], batch["patches"], qc)
-        if tok_emb is None:
-            return patch_emb, patch_emb.shape[1]
-        dt = torch.promote_types(patch_emb.dtype, tok_emb.dtype)
-        return torch.cat([patch_emb.to(dt), tok_emb.to(dt)], dim=1), patch_emb.shape[1]
-    return tok_emb, 0
+        patch_emb = layers.dense(params["frontend_proj"], batch["patches"], qc)  # whole
+    if "tokens" not in batch:
+        return patch_emb, 0 if patch_emb is None else patch_emb.shape[1]
+    # under a vocab split: this rank's rows, the lookups reduced over the group
+    tok_emb = layers.embed(params["embed"], batch["tokens"], _vocab_group(tp)) * cfg.emb_scale
+    if patch_emb is None:
+        return tok_emb, 0
+    dt = torch.promote_types(patch_emb.dtype, tok_emb.dtype)
+    return torch.cat([patch_emb.to(dt), tok_emb.to(dt)], dim=1), patch_emb.shape[1]
 
 
 def _aux_init(cfg: ModelConfig, dev: torch.device) -> dict:
@@ -313,12 +318,19 @@ def forward(
         if vocab_tp is not None:
             x = tp_lib.enter(x, vocab_tp)
         logits = layers.dense(params["lm_head"], x, plan.logits_quant())
-    logits = logits * cfg.logit_scale
-    if cfg.padded_vocab_size > cfg.vocab_size:  # mask the vocab padding, at global indices
-        lo = 0 if vocab_tp is None else vocab_tp.rank * logits.shape[-1]
-        pad = torch.arange(lo, lo + logits.shape[-1], device=dev) >= cfg.vocab_size
-        logits = logits.masked_fill(pad, -1e9)
+    logits = mask_vocab_padding(logits * cfg.logit_scale, cfg, vocab_tp)
     return logits, new_caches, {**aux, "text_offset": text_offset}
+
+
+def mask_vocab_padding(logits: torch.Tensor, cfg: ModelConfig, vocab_tp=None) -> torch.Tensor:
+    """``logits`` with the vocabulary's padding columns (global index >=
+    ``vocab_size``) at -1e9; under ``vocab_tp`` the logits are this rank's
+    even shard of the padded vocabulary's columns."""
+    if cfg.padded_vocab_size == cfg.vocab_size:
+        return logits
+    lo = 0 if vocab_tp is None else vocab_tp.rank * logits.shape[-1]
+    pad = torch.arange(lo, lo + logits.shape[-1], device=logits.device) >= cfg.vocab_size
+    return logits.masked_fill(pad, -1e9)
 
 
 # ---------------------------------------------------------------------------

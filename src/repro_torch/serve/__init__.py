@@ -31,6 +31,7 @@ _EXPORTS = {
     "ModelExecutor": ("executor", "ModelExecutor"),
     "StepOutput": ("executor", "StepOutput"),
     "Engine": ("api", "Engine"),
+    "serve_worker": ("api", "serve_worker"),
     "ReplicaRouter": ("router", "ReplicaRouter"),
     "RequestHandle": ("api", "RequestHandle"),
     "TokenEvent": ("api", "TokenEvent"),

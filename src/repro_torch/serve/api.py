@@ -29,6 +29,12 @@ into k candidates (n-best), which fork off the first one's pages where the
 datapath can replay.  All telemetry is merged from the two layers plus the
 cache manager under :attr:`Engine.telemetry` (the reference's key set).
 The engine runs on the card unless it is given ``device="cpu"``.
+
+Under ``ServeConfig.shard_decode`` in a process group of several ranks
+(``torchrun``), rank 0 builds the :class:`Engine` and every other rank
+calls :func:`serve_worker` with the same arguments: the slots split over
+the ranks (``serve.executor``), the API and the scheduler stay on rank 0,
+and :meth:`Engine.close` ends the workers.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from collections.abc import Iterator
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.device import resolve_device
@@ -66,6 +73,42 @@ NO_TOKEN = -1
 
 #: ServeConfig.scheduler name -> default policy class
 SCHEDULERS = {"fifo": FifoScheduler, "edf": DeadlineScheduler}
+
+
+def _draft_model(serve_cfg: ServeConfig, draft, seed: int, device):
+    """Speculative decoding's draft ``(config, params)``: ``draft`` when
+    given, else the named ``ServeConfig.draft_config`` from the port's
+    registry (reduced), on weights drawn from a generator on the device
+    seeded with ``seed``; None without speculation or with the target as
+    its own draft.  The executor rejects a draft whose vocabulary differs
+    from the target's."""
+    if draft is not None or not serve_cfg.speculative:
+        return draft
+    if serve_cfg.draft_config in (None, "self"):
+        return None
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    dev = resolve_device(device)
+    dcfg = get_config(serve_cfg.draft_config, reduced=True)
+    return dcfg, lm.init_params(dcfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+
+def serve_worker(cfg: ModelConfig, params, serve_cfg: ServeConfig, kernel: dict | None = None,
+                 seed: int = 0, draft: tuple | None = None, *,
+                 device: str | torch.device = "cuda") -> ModelExecutor:
+    """A worker rank of a ``shard_decode`` engine (``ServeConfig.shard_decode``
+    in a process group of several ranks): build the executor that rank 0's
+    :class:`Engine` builds from the same arguments, then run the device
+    programs rank 0 sends, on this rank's slots, until rank 0's engine
+    closes (:meth:`Engine.close`); returns the worker's executor.  An error
+    on any rank fails the run: there is no fallback to fewer ranks."""
+    if not serve_cfg.shard_decode:
+        raise ValueError("serve_worker serves a shard_decode engine: set "
+                         "ServeConfig.shard_decode")
+    executor = ModelExecutor(cfg, params, serve_cfg, kernel=kernel, seed=seed,
+                             draft=_draft_model(serve_cfg, draft, seed, device), device=device)
+    return executor.serve_worker()
 
 
 def _accepts_clock(factory: Callable) -> bool:
@@ -142,19 +185,13 @@ class Engine:
         device: str | torch.device = "cuda",
     ):
         sc_in = serve_cfg or ServeConfig()
-        if draft is None and sc_in.speculative and sc_in.draft_config not in (None, "self"):
-            # the named draft from the port's registry, reduced; the executor
-            # rejects a draft whose vocabulary differs from the target's
-            from repro_torch.configs import get_config
-            from repro_torch.models import lm
-
-            dev = resolve_device(device)
-            dcfg = get_config(sc_in.draft_config, reduced=True)
-            draft = (dcfg, lm.init_params(dcfg, torch.Generator(device=dev).manual_seed(seed),
-                                          device=dev))
+        if sc_in.shard_decode and dist.is_initialized() and dist.get_rank() != 0:
+            raise ValueError(
+                f"rank {dist.get_rank()} of a shard_decode engine runs serve_worker; the Engine "
+                "(its API and scheduler) lives on rank 0")
         self.executor = ModelExecutor(
-            cfg, params, serve_cfg, kernel=kernel, seed=seed, replica=replica, draft=draft,
-            device=device,
+            cfg, params, serve_cfg, kernel=kernel, seed=seed, replica=replica,
+            draft=_draft_model(sc_in, draft, seed, device), device=device,
         )
         self.serve_cfg = self.executor.serve_cfg
         self.clock = clock if clock is not None else time.perf_counter
@@ -213,6 +250,12 @@ class Engine:
         }
 
     # --------------------------------------------------------- lifecycle --
+    def close(self) -> None:
+        """End a ``shard_decode`` engine's worker ranks (their
+        :func:`serve_worker` returns); a no-op for an engine of one rank.
+        The engine takes no step after it."""
+        self.executor.close()
+
     def submit(
         self,
         prompt: list[int],

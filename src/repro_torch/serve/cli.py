@@ -5,7 +5,8 @@ a new engine knob lands in every CLI by construction.  The port adds
 On the card the features that need the cache-extending prefill program
 (chunked prefill, prefix-skip, preemption resume, speculative decoding)
 report themselves disabled, as the reference's Pallas-kernel datapath does;
-``--shard-decode`` needs a process group of one rank.
+``--shard-decode`` splits the slots over the ranks of the launcher's
+process group (``torchrun``'s world, or one rank).
 """
 
 from __future__ import annotations
@@ -152,10 +153,11 @@ def add_serving_args(
                          "synchronous loop (results surface one step late)")
     ap.add_argument("--shard-decode", action="store_true",
                     help="place params and KV pools as DTensors over the "
-                         "process group's (data, model) host mesh, every "
-                         "dispatch on their local tensors (one rank: a "
-                         "semantic no-op; the launcher starts a one-rank "
-                         "group)")
+                         "process group's (data, model=1) host mesh and split "
+                         "the slots over its ranks: rank 0 serves, the others "
+                         "run each dispatch on their slots (the launcher "
+                         "joins torchrun's world, or starts a one-rank group; "
+                         "one rank: a semantic no-op)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="data-parallel engines behind one ReplicaRouter "
                          "front door with least-loaded admission (each "

@@ -51,6 +51,10 @@ class ServingEngine:
         )
         self._engine = Engine(cfg, params, serve_cfg, kernel=kernel, seed=seed, device=device)
 
+    def close(self) -> None:
+        """End a ``shard_decode`` engine's worker ranks (``Engine.close``)."""
+        self._engine.close()
+
     # ------------------------------------------------------- old surface --
     def submit(self, prompt: list[int], max_new_tokens: int = 16,
                eos_id: int | None = None) -> int:

@@ -38,22 +38,47 @@ dispatch and a collect one step apart, and keeps the decode carry (token,
 position, active, budget) on the device between dispatches: a pure decode
 dispatch makes no synchronising call, the carry merge is a ``torch.where``
 over a mask copied up, and the results come down through a non-blocking
-copy into pinned memory that ``collect`` waits for.  ``shard_decode``
-places the params and the cache pools as DTensors over the process
-group's host mesh and runs every dispatch on their local tensors; over one
-rank it is a semantic no-op, and more ranks wait for the tensor-parallel
-blocks of ROADMAP queue 2, item 11.
+copy into pinned memory that ``collect`` waits for.
+
+``shard_decode`` is the reference's mesh-sharded decode (its host mesh:
+``data`` every rank, ``model`` 1) in torch's SPMD idiom: one engine whose
+slots split over ``data``.  The params and the cache pools are placed as
+DTensors over the process group's host mesh under the reference's
+shardings; each rank computes with whole parameters and with its cache
+shards (the dense slabs' rows and the page table's rows of its slots, the
+paged pools whole).  Rank 0 owns the engine (the API, the scheduler, the
+host cache manager); every device program (a :func:`_program` method)
+first broadcasts its host operands (tokens, positions, masks, knobs,
+forced tokens, the page table and the page copies), and the other ranks
+run them in :meth:`ModelExecutor.serve_worker` until rank 0 closes
+(:class:`SlotShard`).  A program indexed by slot (the decode steps, the
+extend window, the draft's proposals) runs on this rank's contiguous run
+of ``max_batch / world`` slots, cut as ``rules.batch_spec`` cuts the
+batch, and its per-slot outputs are all-gathered in slot order; a program
+indexed by admission row (a bucket prefill, a draft resync) runs
+replicated, every rank computing every row and keeping the rows of its
+slots.  The paged pools stay one pool: every rank writes every prefill's
+pages, and after a split program each rank's written rows are copied to
+the others (``kv_cache.share_written_rows``), so a prefix hit, a fork, a
+copy-on-write copy or a spill on any rank reads what any rank wrote.  Every
+rank draws the whole batch's sampling keys from the same seeded generator
+and uses its own rows, so rank 0's streams are the one-rank engine's.  When
+the world does not divide ``max_batch``, every rank runs every slot (the
+reference's ``batch_spec`` fallback).  Over one rank it is a semantic
+no-op.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import warnings
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.core import precision as precision_lib
@@ -93,6 +118,70 @@ def _knobs(knobs, positions, dev: torch.device) -> dict:
                 top_p=upload(k[:, 2].astype(np.float32), dev),
                 seed=upload(k[:, 3].astype(np.int32), dev),
                 positions=upload(np.asarray(positions, np.int32), dev))
+
+
+@dataclasses.dataclass
+class SlotShard:
+    """This rank's place in a ``shard_decode`` engine of ``world`` ranks
+    (module docstring): the slots [lo, hi) it computes (all of them when
+    ``split`` is False: the world does not divide ``max_batch``), and the
+    process group over which rank 0 sends its programs and the ranks
+    gather their per-slot outputs."""
+
+    world: int
+    rank: int
+    lo: int
+    hi: int
+    split: bool
+    group: Any = None
+    #: rank 0 has ended the workers' loops: no program runs any more
+    closed: bool = False
+
+    @property
+    def controls(self) -> bool:
+        """Rank 0 of several: the rank that sends every program."""
+        return self.world > 1 and self.rank == 0
+
+    def send(self, message) -> None:
+        dist.broadcast_object_list([message], src=0, group=self.group)
+
+    def recv(self):
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along ``dim`` in rank (= slot)
+        order; ``t`` itself when every rank holds every slot."""
+        if not self.split:
+            return t
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def local_slots(self, slots) -> np.ndarray:
+        """``slots`` (host) as indices into this rank's rows; a slot of
+        another rank, and the pad sentinel, become this rank's sentinel."""
+        slots = np.asarray(slots, np.int64)
+        mine = (slots >= self.lo) & (slots < self.hi)
+        return np.where(mine, slots - self.lo, self.hi - self.lo)
+
+
+def _program(fn):
+    """A device program: its arguments are host operands, and on the rank
+    that controls a ``shard_decode`` engine they go to every worker rank
+    before it runs, so every rank runs it (``ModelExecutor.serve_worker``)."""
+
+    @functools.wraps(fn)
+    def run(self, *args):
+        if self.shard is not None and self.shard.controls:
+            if self.shard.closed:
+                raise RuntimeError("the shard_decode engine is closed: its workers have left")
+            self.shard.send((fn.__name__, args))
+        return fn(self, *args)
+
+    return run
 
 
 @dataclasses.dataclass
@@ -159,7 +248,8 @@ class DraftWorker:
     draft row i is synced to; -1 means unsynced (the executor's
     ``_host_dirty`` invalidates on every slot turnover)."""
 
-    def __init__(self, cfg, params, serve_cfg, buckets, spec_k, device: torch.device):
+    def __init__(self, cfg, params, serve_cfg, buckets, spec_k, device: torch.device,
+                 shard: SlotShard | None = None):
         self.cfg = cfg
         self.params = params
         self.sc = serve_cfg
@@ -167,7 +257,10 @@ class DraftWorker:
         self.spec_k = int(spec_k)
         self.device = device
         nb = serve_cfg.max_batch
-        self.caches = kv_cache.init_caches(cfg, nb, serve_cfg.max_seq_len, dtype=torch.float32,
+        #: the slots whose cache rows this rank holds (``shard_decode``)
+        self.shard = shard
+        rows = nb if shard is None else shard.hi - shard.lo
+        self.caches = kv_cache.init_caches(cfg, rows, serve_cfg.max_seq_len, dtype=torch.float32,
                                            quantized=False, device=device)
         self.pos = [-1] * nb
         self.tok = [0] * nb
@@ -189,6 +282,8 @@ class DraftWorker:
         _, filled, _ = lm.forward(self.params, self.cfg, {"tokens": tokens}, mode="prefill",
                                   caches=small, device=self.device, in_place=True)
         kv_cache.mask_cache_tail(filled, lengths)
+        if self.shard is not None:  # every rank ran every row: keep its slots' rows
+            slots = self.shard.local_slots(slots)
         kv_cache.insert_prefill_dense(self.caches, filled, slots)
 
     def propose(self, tokens, positions, active) -> torch.Tensor:
@@ -296,8 +391,13 @@ class ModelExecutor:
         self.mesh = None
         self.sharding_rules = None
         self.placed = None
+        self.shard: SlotShard | None = None
         if sc.shard_decode:
             self._place_on_mesh()
+        #: the slots [lo, hi) whose rows this rank's slot-indexed programs run
+        self._rows = (0, sc.max_batch) if self.shard is None else (self.shard.lo, self.shard.hi)
+        #: the logits of the last prefill / extend program, for _run_sample
+        self._logits = None
 
         # Device-resident decode carry (async loop): the last dispatch's
         # final (token, position, active, budget) per slot.
@@ -388,27 +488,20 @@ class ModelExecutor:
                     f"draft {dcfg.vocab_size} vs target {cfg.vocab_size}"
                 )
             self.spec_k = max(1, min(int(sc.spec_tokens), self.extend_width))
-            self.draft = DraftWorker(dcfg, dparams, sc, self.buckets, self.spec_k, self.device)
+            self.draft = DraftWorker(dcfg, dparams, sc, self.buckets, self.spec_k, self.device,
+                                     self.shard)
 
     def _place_on_mesh(self) -> None:
         """``shard_decode``: the host mesh over the process group, the params
-        and every cache pool placed under the reference's shardings, and the
-        page table's sharding handed to the manager."""
-        import torch.distributed as dist
-
+        and every cache pool placed under the reference's shardings, and
+        this rank's :class:`SlotShard`.  Over several ranks each computes
+        with the whole parameters (gathered from their placement: the host
+        mesh's model axis is 1) and with its local cache shards: its slots'
+        rows of the dense slabs and of the page table, the paged pools
+        whole.  The manager writes its rows of the page table."""
         from repro_torch.distributed import sharding as sharding_lib
         from repro_torch.launch.mesh import make_host_mesh
 
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        if world > 1:
-            raise ValueError(
-                f"shard_decode over {world} ranks is not supported: the reference's host "
-                "mesh has a model axis of 1, so its sharded decode is one controller "
-                "splitting the batch over 'data'; under torch.distributed each rank runs "
-                "its own engine, and splitting the batch needs a rank-0 scheduler that "
-                "hands every rank its slots (ROADMAP queue 2, item 11); run it in a "
-                "process group of one rank"
-            )
         self.mesh = make_host_mesh(device_type=self.device.type)
         rules = sharding_lib.ShardingRules(self.mesh)
         self.sharding_rules = rules
@@ -418,9 +511,38 @@ class ModelExecutor:
             "params": sharding_lib.map_tree(sharding_lib.place, self.params, param_sh),
             "caches": sharding_lib.map_tree(sharding_lib.place, self.caches, cache_sh),
         }
-        self.params = sharding_lib.map_tree(lambda t: t.to_local(), self.placed["params"])
+        world = self.mesh.size()
+        whole = sharding_lib.gather if world > 1 else (lambda t: t.to_local())
+        self.params = sharding_lib.map_tree(whole, self.placed["params"])
         self.caches = sharding_lib.map_tree(lambda t: t.to_local(), self.placed["caches"])
         self.cache_mgr.table_sharding = cache_sh["layers"].get("page_table")
+        nb = self.serve_cfg.max_batch
+        split = rules.batch_spec(1, shape=(nb,))[0] is not None and world > 1
+        rank = self.mesh.get_local_rank("data")
+        lo, hi = (rank * nb // world, (rank + 1) * nb // world) if split else (0, nb)
+        self.shard = SlotShard(world, rank, lo, hi, split, self.mesh.get_group("data"))
+        self.cache_mgr.table_rows = (lo, hi)
+
+    def serve_worker(self) -> "ModelExecutor":
+        """A worker rank's loop: run every device program rank 0 sends, on
+        this rank's slots, until rank 0 closes (:meth:`close`); returns the
+        executor (its ``tel`` counts the program shapes this rank ran).  Any
+        error ends the loop and is raised: there is no fallback."""
+        if self.shard is None or self.shard.rank == 0:
+            raise ValueError("serve_worker runs on the ranks other than 0 of a shard_decode "
+                             "engine; rank 0 runs serve.api.Engine")
+        while True:
+            name, args = self.shard.recv()
+            if name == "close":
+                return self
+            getattr(type(self), name).__wrapped__(self, *args)
+
+    def close(self) -> None:
+        """Rank 0 of a ``shard_decode`` engine: end the worker ranks' loops
+        (a no-op otherwise)."""
+        if self.shard is not None and self.shard.controls and not self.shard.closed:
+            self.shard.send(("close", ()))
+            self.shard.closed = True
 
     # ------------------------------------------------------------- view --
     @property
@@ -444,7 +566,7 @@ class ModelExecutor:
 
     # ------------------------------------------------------------ device --
     def _prefill_batch(self, tokens: torch.Tensor, lengths: torch.Tensor, slots,
-                       shared=None) -> torch.Tensor:
+                       shared=None, table_rows=None) -> torch.Tensor:
         """Prefill up to ``max_batch`` same-bucket prompts in ONE dispatch.
 
         ``tokens``: (max_batch, bucket) right-padded per row; ``lengths``:
@@ -456,7 +578,9 @@ class ModelExecutor:
         not touch shared storage.  The model writes a dense scratch cache
         (the bucket rounded up to whole pages when paged, ``max_seq_len``
         when dense), which is tail-masked and inserted into the executor's
-        caches.  Returns the per-row last-token logits (max_batch, V)."""
+        caches (``table_rows``: the slots' host page-table rows, where this
+        rank's device table lacks them).  Returns the per-row last-token
+        logits (max_batch, V)."""
         nb, bucket = tokens.shape
         mask = torch.arange(bucket, device=tokens.device)[None, :] < lengths[:, None]
         tokens = torch.where(mask, tokens, 0)  # canonical pad id
@@ -475,7 +599,7 @@ class ModelExecutor:
         idx = (lengths - 1).clamp_min(0).long()
         last = logits[torch.arange(nb, device=logits.device), idx]
         kv_cache.mask_cache_tail(filled, lengths)
-        self.cache_mgr.insert_prefill(self.caches, filled, slots, shared)
+        self.cache_mgr.insert_prefill(self.caches, filled, slots, shared, table_rows)
         return last
 
     def _extend_batch(self, tokens: torch.Tensor, win_len: torch.Tensor,
@@ -491,8 +615,9 @@ class ModelExecutor:
         through the dense or paged scatter and attended with the prefill
         path's math against history + window; masked entries carry the
         ``max_seq_len`` sentinel (dropped / trash-paged).  Returns the full
-        per-window logits (max_batch, W, V): tail replay takes each row's
-        last valid position, speculative verification every one."""
+        per-window logits (max_batch, W, V), which tail replay reads at each
+        row's last valid position and speculative verification at every
+        one, and the (max_batch, W) positions written."""
         nb, w = tokens.shape
         offs = torch.arange(w, device=tokens.device)
         mask = offs[None, :] < win_len[:, None]
@@ -501,13 +626,14 @@ class ModelExecutor:
         logits, _, _ = lm.forward(self.params, self.cfg, {"tokens": tokens}, mode="extend",
                                   caches=self.caches, positions=positions, kernel=self.kernel,
                                   device=self.device, in_place=True)
-        return logits
+        return logits, positions
 
     def _decode_scan(self, tokens, positions, active, rem, eos, temp, top_k, top_p, seed,
                      forced, n_forced):
         """Run ``decode_steps`` decode steps in one dispatch.
 
-        All tensors are per slot (B,) on the device: ``tokens`` the last
+        All tensors are per slot (B,) on the device (this rank's slots
+        under ``shard_decode``): ``tokens`` the last
         sampled token, ``positions`` the next write position, ``active``
         the live mask, ``rem`` the generation budget left, ``eos`` the eos
         id (-1 = none), and the sampling knobs.  Inactive slots freeze
@@ -522,7 +648,7 @@ class ModelExecutor:
         Returns (per-step tokens (T, B), per-step emit masks (T, B), final
         token, position, active mask and budget)."""
         sc = self.serve_cfg
-        nb = tokens.shape[0]
+        lo, hi = self._rows
         steps = torch.arange(sc.decode_steps, device=self.device)[:, None]
         flags = steps < n_forced[None, :]  # (T, B)
         tok, pos, act, budget = tokens, positions, active, rem
@@ -531,9 +657,10 @@ class ModelExecutor:
             logits, _, _ = lm.forward(self.params, self.cfg, {"tokens": tok[:, None]},
                                       mode="decode", caches=self.caches, positions=pos,
                                       kernel=self.kernel, device=self.device, in_place=True)
-            sampled = sample_tokens(logits[:, -1], draw_keys(self.generator, nb, self.device),
-                                    temperature=temp, top_k=top_k, top_p=top_p, seed=seed,
-                                    positions=pos)
+            # the whole batch's keys on every rank, this rank's rows of them
+            keys = draw_keys(self.generator, sc.max_batch, self.device)[lo:hi]
+            sampled = sample_tokens(logits[:, -1], keys, temperature=temp, top_k=top_k,
+                                    top_p=top_p, seed=seed, positions=pos)
             flag_t = flags[t]
             nxt = torch.where(act, torch.where(flag_t, forced[t], sampled), tok)
             emit = act & ~flag_t
@@ -546,11 +673,128 @@ class ModelExecutor:
             emits.append(emit)
         return torch.stack(toks), torch.stack(emits), tok, pos, act, budget
 
-    def _sample_host(self, logits: torch.Tensor, knobs, positions) -> np.ndarray:
-        """Sample one token per row of ``logits`` (B, V) with per-row knob
-        tuples at the processed tokens' ``positions``; one copy back."""
+    # ---------------------------------------------------- device programs --
+    # Each takes host operands only and runs on every rank of a shard_decode
+    # engine (``_program``), in the same order, so every rank's caches and
+    # generator advance alike.
+
+    @_program
+    def _run_flush(self, ops: dict) -> None:
+        """The host_prep's device work (``CacheManager.take_flush``)."""
+        self.caches = self.cache_mgr.apply_flush(self.caches, ops)
+
+    @_program
+    def _run_prefill(self, toks, lengths, slots, shared, table_rows, n: int) -> torch.Tensor:
+        """One bucket prefill (:meth:`_prefill_batch`), replicated: every
+        rank computes every row and keeps the rows of its slots (dense) or
+        writes every row's pages (paged, ``table_rows`` the slots' host
+        table rows).  Keeps its first ``n`` rows' logits for
+        :meth:`_run_sample`."""
+        self._count_shape("prefill", toks.shape)
+        if self.shard is not None and self.kv_layout != "paged":
+            slots = self.shard.local_slots(slots)
+        last = self._prefill_batch(upload(toks, self.device), upload(lengths, self.device),
+                                   slots, shared, table_rows)
+        self._logits = last[:n]
+        return self._logits
+
+    @_program
+    def _run_extend(self, toks, win_len, starts) -> torch.Tensor:
+        """The cache-extending prefill program (:meth:`_extend_batch`) on
+        this rank's slots; the paged rows it wrote go to every rank, and the
+        logits (max_batch, W, V) come back in slot order, kept for
+        :meth:`_run_sample`."""
+        lo, hi = self._rows
+        toks, win_len, starts = toks[lo:hi], win_len[lo:hi], starts[lo:hi]
+        self._count_shape("extend", toks.shape)
+        logits, positions = self._extend_batch(upload(toks, self.device),
+                                               upload(win_len, self.device),
+                                               upload(starts, self.device))
+        if self._shares_rows:
+            kv_cache.share_written_rows(self.caches["layers"], positions, self.shard.gather)
+        self._logits = logits if self.shard is None else self.shard.gather(logits, 0)
+        return self._logits
+
+    @_program
+    def _run_sample(self, at, knobs, positions) -> np.ndarray:
+        """Sample one token per row of the last prefill / extend program's
+        logits with per-row knob tuples at the processed tokens'
+        ``positions``; ``at`` picks each row's window offset (None: the
+        prefill's rows).  One copy back."""
+        logits = self._logits
+        if at is not None:
+            logits = logits[torch.arange(logits.shape[0], device=logits.device),
+                            upload(at, self.device)]
         keys = draw_keys(self.generator, logits.shape[0], self.device)
         return sample_tokens(logits, keys, **_knobs(knobs, positions, self.device)).cpu().numpy()
+
+    @_program
+    def _run_draft_sync(self, need: list[tuple[int, list[int]]]) -> None:
+        """``DraftWorker.sync``: replicated, each rank keeping its slots' rows."""
+        self.draft.sync(need, self.tel)
+
+    @_program
+    def _run_draft_propose(self, d_tok, d_pos, d_act) -> np.ndarray:
+        """``DraftWorker.propose`` on this rank's slots: (spec_k, max_batch)
+        in slot order, on the host."""
+        lo, hi = self._rows
+        props = self.draft.propose(upload(d_tok[lo:hi], self.device),
+                                   upload(d_pos[lo:hi], self.device),
+                                   upload(d_act[lo:hi], self.device))
+        if self.shard is not None:
+            props = self.shard.gather(props, 1)
+        return props.cpu().numpy()
+
+    @_program
+    def _run_decode(self, ints, floats, valid):
+        """The decode steps (:meth:`_decode_scan`) on this rank's slots.
+        ``ints`` (8 + T, max_batch): token, position, live, budget, eos,
+        top_k, seed, forced count, then the (T, max_batch) forced tokens;
+        ``floats`` (2, max_batch): temperature, top_p; ``valid``: under the
+        async loop, the slots whose device carry overrides the host rows
+        (None: no carry).  The paged rows the steps wrote go to every rank;
+        the results come back packed in one int32 (2T + 4, max_batch)
+        tensor in slot order (rows [0, T) tokens, [T, 2T) emit masks, then
+        the final token, position, active mask and budget), with, on a card,
+        a non-blocking copy into pinned memory and the event after it."""
+        lo, hi = self._rows
+        self._count_shape("decode", (hi - lo, self.serve_cfg.decode_steps))
+        ints_d = upload(ints[:, lo:hi], self.device)
+        floats_d = upload(floats[:, lo:hi], self.device)
+        tok, pos, act, rem, eos, top_k, seed, nfd = ints_d[:8]
+        act = act.bool()
+        if valid is not None:
+            # device truth for the slots with an uncollected dispatch, host
+            # truth where an admission / extend / release made it fresh; the
+            # mask goes up as a copy (``upload``), so no later
+            # ``_host_dirty`` reaches this merge
+            v = upload(valid[lo:hi], self.device)
+            c_tok, c_pos, c_act, c_rem = self._carry
+            tok, pos = torch.where(v, c_tok, tok), torch.where(v, c_pos, pos)
+            act = act & torch.where(v, c_act, True)
+            rem = torch.where(v, c_rem, rem)
+        toks_t, emit_t, tok_f, pos_f, act_f, rem_f = self._decode_scan(
+            tok, pos, act, rem, eos, floats_d[0], top_k, floats_d[1], seed, ints_d[8:], nfd,
+        )
+        if self._shares_rows:  # each slot wrote within [pos, pos + T)
+            window = pos[:, None] + torch.arange(self.serve_cfg.decode_steps, device=pos.device)
+            kv_cache.share_written_rows(self.caches["layers"], window, self.shard.gather)
+        if self.async_loop:
+            self._carry = (tok_f, pos_f, act_f, rem_f)
+        packed = torch.cat([toks_t, emit_t.int(), tok_f[None], pos_f[None],
+                            act_f.int()[None], rem_f[None]])
+        if self.shard is not None:
+            packed = self.shard.gather(packed, 1)
+        host = None
+        if self.device.type == "cuda":  # pinned, without blocking; collect waits
+            host = (packed.to("cpu", non_blocking=True), torch.cuda.Event())
+            host[1].record()
+        return packed, host
+
+    @property
+    def _shares_rows(self) -> bool:
+        """A split program's paged writes must reach the other ranks."""
+        return self.shard is not None and self.shard.split and self.kv_layout == "paged"
 
     # ----------------------------------------------------------- execute --
     def execute(self, decision: ScheduleDecision) -> StepOutput:
@@ -700,10 +944,9 @@ class ModelExecutor:
     def _flush(self, copies: bool = True) -> None:
         """The host_prep's device syncs before a dispatch: victim-tier swaps,
         then (``copies``) copy-on-write page copies, then the page table."""
-        self.caches = self.cache_mgr.flush_swaps(self.caches)
-        if copies:
-            self.caches = self.cache_mgr.flush_copies(self.caches)
-        self.caches = self.cache_mgr.write_table(self.caches)
+        ops = self.cache_mgr.take_flush(copies=copies)
+        if ops is not None:
+            self._run_flush(ops)
 
     def _dispatch_prefill(self, bucket: int, group: list[Admission], out: StepOutput):
         """One fixed-shape prefill dispatch filling every slot in ``group``
@@ -729,19 +972,16 @@ class ModelExecutor:
             # prefill runs: spills drain pages the scatter is about to
             # overwrite, swap-ins fill the columns it redirects to trash
             self._flush(copies=False)
-        if (nb, bucket) not in self._prefill_shapes:
-            self._prefill_shapes.add((nb, bucket))
-            tel["prefill_compiles"] += 1
+        table_rows = self.cache_mgr.table_rows_of(slots_arr) if self._shares_rows else None
         t0 = time.perf_counter()
         with tr.phase("dispatch"):
-            last = self._prefill_batch(upload(toks, self.device), upload(lengths, self.device),
-                                       slots_arr, shared_arr)
+            last = self._run_prefill(toks, lengths, slots_arr, shared_arr, table_rows, len(group))
         with tr.phase("device"):
             tr.fence((last, self.caches))
         tel["prefill_dispatches"] += 1
         with tr.phase("sample"):
-            first_tokens = self._sample_host(last[:len(group)], [adm.sampling for adm in group],
-                                             [len(a.tokens) - 1 for a in group])
+            first_tokens = self._run_sample(None, [adm.sampling for adm in group],
+                                            [len(a.tokens) - 1 for a in group])
             for row, adm in enumerate(group):
                 slot = self.slots[adm.slot]
                 slot.active, slot.request = True, adm.request
@@ -760,11 +1000,13 @@ class ModelExecutor:
                 self._retire(adm.slot, out)
         tel["prefill_time_s"] += time.perf_counter() - t0
 
-    def _count_extend_shape(self) -> None:
-        shape = (self.serve_cfg.max_batch, self.extend_width)
-        if shape not in self._extend_shapes:
-            self._extend_shapes.add(shape)
-            self.tel["extend_compiles"] += 1
+    def _count_shape(self, kind: str, shape: tuple[int, int]) -> None:
+        """Count a program shape (``kind`` "prefill", "decode" or "extend")
+        the first time this rank runs it: the reference's compile count."""
+        shapes = getattr(self, f"_{kind}_shapes")
+        if shape not in shapes:
+            shapes.add(shape)
+            self.tel[f"{kind}_compiles"] += 1
 
     def _dispatch_extend(self, decision: ScheduleDecision, out: StepOutput):
         """ONE fixed-shape dispatch draining every listed slot's prefill
@@ -796,21 +1038,18 @@ class ModelExecutor:
             # swaps before copy-on-write copies: a CoW destination can be a
             # just-evicted page whose rows must spill first
             self._flush()
-        self._count_extend_shape()
         t0 = time.perf_counter()
         with tr.phase("dispatch"):
-            logits = self._extend_batch(upload(toks, self.device), upload(lens, self.device),
-                                        upload(starts, self.device))
+            logits = self._run_extend(toks, lens, starts)
         with tr.phase("device"):
             tr.fence((logits, self.caches))
         tel["extend_dispatches"] += 1
         with tr.phase("sample"):
             # each row's true logits live at its window's last valid position
             idx = np.maximum(lens - 1, 0)
-            last = logits[torch.arange(nb, device=logits.device), upload(idx, self.device)]
             knobs = [encode_sampling(self.slots[i].request if i in work else None,
                                      sc.temperature) for i in range(nb)]
-            first_tokens = self._sample_host(last, knobs, starts + idx)
+            first_tokens = self._run_sample(idx, knobs, starts + idx)
             for i in work:
                 slot = self.slots[i]
                 n = int(lens[i])
@@ -891,7 +1130,8 @@ class ModelExecutor:
             if not cand:
                 tel["spec_time_s"] += time.perf_counter() - t0
                 return set()
-            self.draft.sync(need, tel)
+            if need:
+                self._run_draft_sync(need)
             for i, _ in need:
                 self.draft.pos[i] = self.slots[i].pos
                 self.draft.tok[i] = self.slots[i].last_token
@@ -903,8 +1143,7 @@ class ModelExecutor:
                 d_pos[i] = self.slots[i].pos
                 d_act[i] = True
         with tr.phase("dispatch"):
-            props = self.draft.propose(upload(d_tok, self.device), upload(d_pos, self.device),
-                                       upload(d_act, self.device)).cpu().numpy()  # (k, nb)
+            props = self._run_draft_propose(d_tok, d_pos, d_act)  # (k, nb)
         with tr.phase("host_prep"):
             # verify: ONE extend dispatch over [carry, d1..d_{k-1}]
             vt = np.zeros((nb, self.extend_width), np.int64)
@@ -918,10 +1157,8 @@ class ModelExecutor:
                 vs[i] = slot.pos
                 self.cache_mgr.ensure(i, slot.pos + k, write_from=slot.pos)
             self._flush()
-        self._count_extend_shape()
         with tr.phase("dispatch"):
-            logits = self._extend_batch(upload(vt, self.device), upload(vl, self.device),
-                                        upload(vs, self.device))
+            logits = self._run_extend(vt, vl, vs)
         with tr.phase("device"):
             tr.fence((logits, self.caches))
         tel["spec_dispatches"] += 1
@@ -929,7 +1166,8 @@ class ModelExecutor:
             knobs = [encode_sampling(self.slots[i].request if i in cand else None,
                                      sc.temperature) for i in range(nb)]
             # (k, nb): the target's own token at each window offset
-            samp = np.stack([self._sample_host(logits[:, t], knobs, d_pos + t) for t in range(k)])
+            samp = np.stack([self._run_sample(np.full((nb,), t, np.int64), knobs, d_pos + t)
+                             for t in range(k)])
             served: set[int] = set()
             for i in cand:
                 slot = self.slots[i]
@@ -1039,40 +1277,15 @@ class ModelExecutor:
                 n_forced,
             ])
             floats = np.array([[k[0] for k in knobs], [k[2] for k in knobs]], np.float32)
-            ints_d = upload(np.concatenate([ints, forced]), self.device)
-            floats_d = upload(floats, self.device)
-            tok, pos, act, rem, eos, top_k, seed, nfd = ints_d[:8]
-            act = act.bool()
-            if use_carry:
-                # device truth for the slots with an uncollected dispatch,
-                # host truth where an admission / extend / release made it
-                # fresh; the mask goes up as a copy (``upload``), so no later
-                # ``_host_dirty`` reaches this merge
-                valid = upload(self._carry_valid, self.device)
-                c_tok, c_pos, c_act, c_rem = self._carry
-                tok, pos = torch.where(valid, c_tok, tok), torch.where(valid, c_pos, pos)
-                act = act & torch.where(valid, c_act, True)
-                rem = torch.where(valid, c_rem, rem)
-        if (nb, steps) not in self._decode_shapes:
-            self._decode_shapes.add((nb, steps))
-            tel["decode_compiles"] += 1
+            valid = self._carry_valid.copy() if use_carry else None
         t0 = time.perf_counter()
         with tr.phase("dispatch"):
-            toks_t, emit_t, tok_f, pos_f, act_f, rem_f = self._decode_scan(
-                tok, pos, act, rem, eos, floats_d[0], top_k, floats_d[1], seed, ints_d[8:], nfd,
-            )
-            packed = torch.cat([toks_t, emit_t.int(), tok_f[None], pos_f[None],
-                                act_f.int()[None], rem_f[None]])
-            host = None
-            if self.device.type == "cuda":  # pinned, without blocking; collect waits
-                host = (packed.to("cpu", non_blocking=True), torch.cuda.Event())
-                host[1].record()
+            packed, host = self._run_decode(np.concatenate([ints, forced]), floats, valid)
         with tr.phase("device"):
             tr.fence(packed)
         if self.async_loop:
             # every row's output reflects its merged input, so the whole
             # carry is valid until the next host-side slot change
-            self._carry = (tok_f, pos_f, act_f, rem_f)
             self._carry_valid[:] = True
         snapshot = {i: self.slots[i].request for i in decode_set}
         admit_seqs = {i: self.slots[i].admit_seq for i in decode_set}

@@ -38,8 +38,10 @@ view, so decode attends exactly as over a dense slab), ``mask_cache_tail``
 (zero each row past its prompt length), ``insert_prefill_dense`` /
 ``insert_prefill_paged`` (a prefill's dense scratch into its slots; pad rows,
 slot index ``max_batch``, are dropped by the dense scatter and go to the
-trash page in the paged one).  Slot indices come from the host (numpy or CPU
-tensors), so dropping pad rows needs no device synchronisation.
+trash page in the paged one), ``share_written_rows`` (under a
+``shard_decode`` split, the rows each rank wrote into its replicated paged
+pools copied to every other rank).  Slot indices come from the host (numpy
+or CPU tensors), so dropping pad rows needs no device synchronisation.
 
 ``CacheManager`` is host bookkeeping in numpy and Python, ported by copy:
 page allocation, the worst-case reservation at admission, refcounts, the
@@ -48,7 +50,11 @@ registered pages, copy-on-write (``flush_copies`` applies the queued page
 copies on the device), the host victim tier (``kv_host_pages``: evicted
 registered pages spill their rows to host rings and swap back into fresh
 device pages on a later prefix hit; ``flush_swaps`` moves the rows) and
-``check_invariants``.  Every host-to-device copy goes through
+``check_invariants``.  A dispatch's queued device work is taken off the
+queues as host arrays (``take_flush``) and applied (``apply_flush``), on
+every rank of a ``shard_decode`` engine, each rank writing its own slots'
+rows of the page table (``table_rows``) and keeping its own copy of the
+victim tier's rings.  Every host-to-device copy goes through
 ``device.upload`` (a pinned buffer of its own, not blocking the host); the
 rings are pinned CPU tensors when the manager's device is a card, and a
 spill's device-to-host copy completes before ``flush_swaps`` returns, so
@@ -334,16 +340,12 @@ def paged_window_write(cache: dict, updates: dict[str, torch.Tensor],
     Each position routes through the page table on its own, so a window may
     straddle pages; a sentinel position indexes past the table and goes to
     the trash page, as retired slots' decode writes do."""
-    table = cache["page_table"]  # (B, pages_per_slot)
-    pos = positions.long()
+    first = next(iter(updates))
+    phys, off = window_pages(cache["page_table"], positions,  # one page size for every pool
+                             _pool_page_size(first, cache[first]))
+    phys, off = phys.view(positions.shape), off.view(positions.shape)  # (B, W)
     for name, val in updates.items():
         pool = cache[name]
-        ps = _pool_page_size(name, pool)
-        col = pos // ps
-        inside = col < table.shape[1]
-        phys = torch.where(inside, table.gather(1, col.clamp_max(table.shape[1] - 1)),
-                           TRASH_PAGE).long()  # (B, W)
-        off = pos % ps
         if name in _HEAD_MAJOR_POOLS:  # the index axes lead: values go (B, W, Hkv[, D])
             pool[phys, :, off] = val.movedim(2, 1).to(pool.dtype)
         else:
@@ -378,6 +380,38 @@ def paged_decode_view(cache: dict) -> dict[str, torch.Tensor]:
         g = src.reshape(src.shape[0], -1).index_select(0, rows)
         out[name] = g.view(*lead, n_pages * src.shape[1], *src.shape[2:])
     return out
+
+
+def window_pages(table: torch.Tensor, positions: torch.Tensor,
+                 page_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(physical page, offset) of each of the (B, K) ``positions`` through
+    the (B, pages_per_slot) ``table``, flattened to (B * K,); a position
+    past the table goes to the trash page, as ``paged_window_write`` routes
+    a sentinel."""
+    pos = positions.long()
+    col = pos // page_size
+    inside = col < table.shape[1]
+    phys = torch.where(inside, table.gather(1, col.clamp_max(table.shape[1] - 1)), TRASH_PAGE)
+    return phys.long().reshape(-1), (pos % page_size).reshape(-1)
+
+
+def share_written_rows(layers: dict, positions: torch.Tensor, gather) -> None:
+    """Copy into every rank's replicated paged pools the rows that each rank
+    may just have written at its own slots' (B, K) ``positions`` (through
+    its own rows of the page table), in place: ``gather(t, dim)`` is the
+    all-gather of the ranks' ``t`` along ``dim`` in rank order.  A row a
+    rank did not write holds the same bits on every rank, so copying the
+    whole window is exact; rows aimed at the trash page land there."""
+    pools = {name: pool for name, pool in layers.items() if name != "page_table"}
+    first = next(iter(pools))
+    phys, off = window_pages(layers["page_table"][0], positions,
+                             _pool_page_size(first, pools[first][0]))
+    all_phys, all_off = gather(phys, 0), gather(off, 0)
+    for name, pool in pools.items():
+        if name in _HEAD_MAJOR_POOLS:  # (L, pages, H, ps[, D]): rows (N, L, H[, D])
+            pool[:, all_phys, :, all_off] = gather(pool[:, phys, :, off], 0)
+        else:  # the latent pools (L, pages, ps[, W]): rows (L, N[, W])
+            pool[:, all_phys, all_off] = gather(pool[:, phys, off], 1)
 
 
 # ---------------------------------------------------------------------------
@@ -428,7 +462,7 @@ def insert_prefill_dense(big: dict, filled: dict, slots) -> dict:
 
 
 def insert_prefill_paged(big: dict, filled: dict, slots, page_size: int,
-                         shared_pages=None) -> dict:
+                         shared_pages=None, table_rows=None) -> dict:
     """Scatter dense prefilled rows into each slot's physical pages, in
     place.
 
@@ -439,14 +473,21 @@ def insert_prefill_paged(big: dict, filled: dict, slots, page_size: int,
     prompt's pages, whole pad rows) point at the trash page.
     ``shared_pages``: optional (N,) per-row count of leading entries that
     alias prefix-cache pages owned by earlier requests; those columns go to
-    the trash page, so shared history is never rewritten."""
+    the trash page, so shared history is never rewritten.  ``table_rows``:
+    optional host (N, pages_per_slot) page-table rows of the rows' slots
+    (pad rows all trash), for a rank whose device table holds only its own
+    slots' rows (``shard_decode``); by default the device table's."""
     layers = big["layers"]
-    table = layers["page_table"][0]  # identical across layers: (B, n_pages)
-    nb, dev = table.shape[0], table.device
-    slots = _host_index(slots)
-    valid = ((slots >= 0) & (slots < nb)).to(dev)
-    rows = table[slots.clamp(0, nb - 1).to(dev)]  # (N, pages_per_slot)
-    rows = torch.where(valid[:, None], rows, TRASH_PAGE)
+    dev = layers["page_table"].device
+    if table_rows is None:
+        table = layers["page_table"][0]  # identical across layers: (B, n_pages)
+        nb = table.shape[0]
+        slots = _host_index(slots)
+        valid = ((slots >= 0) & (slots < nb)).to(dev)
+        rows = table[slots.clamp(0, nb - 1).to(dev)]  # (N, pages_per_slot)
+        rows = torch.where(valid[:, None], rows, TRASH_PAGE)
+    else:
+        rows = _host_index(table_rows).to(dev)
     if shared_pages is not None:
         shared = _host_index(shared_pages).to(dev)
         col = torch.arange(rows.shape[1], device=dev)
@@ -704,6 +745,9 @@ class CacheManager:
         #: executor); ``write_table`` copies into the placed table in place,
         #: so its rebuilds keep this placement
         self.table_sharding = None
+        #: the slots [lo, hi) whose page-table rows this rank's device table
+        #: holds (all of them, unless ``shard_decode`` splits the slots)
+        self.table_rows = (0, sc.max_batch)
         self.kv_bytes = sum(
             int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
             for group in self._abstract().values() for shape, dt in group.values()
@@ -1177,58 +1221,26 @@ class CacheManager:
         self._table_dirty = True
 
     # ------------------------------------------------------ device sync --
-    def flush_copies(self, caches: dict) -> dict:
-        """Apply the queued copy-on-write page copies to the device pools,
-        in place (before the decode dispatch that writes the copied
-        pages)."""
-        if self.layout != "paged" or not self._pending_copies:
-            return caches
-        pairs = upload(np.array(self._pending_copies, np.int64).T, self.device)
-        self._pending_copies.clear()
-        src, dst = pairs[0], pairs[1]
-        for name, pool in caches["layers"].items():
-            if name != "page_table":
-                pool[:, dst] = pool[:, src]
-        return caches
-
-    def flush_swaps(self, caches: dict) -> dict:
-        """Apply the queued victim-tier movement to the device pools, in
-        place: spills (evicted warm rows -> host ring) first, then swap-ins
-        (ring rows -> fresh device pages), so a chain that spilled and
-        matched again before any dispatch goes device -> host -> device in
-        one flush.  Batched copies on the current stream, one per pool leaf
-        and direction, through pinned buffers on a card.  A spill's copy
-        completes before this returns (the ring is host memory that a later
-        swap-in reads); a swap-in copies up a pinned gather of its ring rows
-        of its own, never the ring itself.  The executor
-        runs it at the top of every dispatch's host_prep, before
-        ``flush_copies``: a copy-on-write destination may be a just-evicted
-        page whose rows must reach the ring first."""
-        if self.layout != "paged" or not (self._pending_spills or self._pending_swap_ins):
-            return caches
-        t0 = time.perf_counter()
-        layers = caches["layers"]
-        if self._pending_spills:
-            # one row per ring slot: a later entry for a recycled slot wins
+    def take_flush(self, swaps: bool = True, copies: bool = True,
+                   table: bool = True) -> dict | None:
+        """Take the queued device work of a dispatch's host_prep off the
+        queues, its host bookkeeping done: the victim tier's spills and
+        swap-ins (``swaps``), the copy-on-write page copies (``copies``) and
+        the page table when it changed (``table``), as host arrays; None
+        when there is none.  :meth:`apply_flush` runs it on the device, on
+        every rank of a ``shard_decode`` engine.  A spill's ring slot keeps
+        the last page queued for it."""
+        if self.layout != "paged":
+            return None
+        ops = {}
+        if swaps and self._pending_spills:
             by_host = {h: p for p, h in self._pending_spills}
             self._pending_spills.clear()
-            hosts = torch.tensor(list(by_host), dtype=torch.int64)
-            pages = upload(np.array(list(by_host.values()), np.int64), self.device)
-            staged = {name: layers[name][:, pages].to("cpu", non_blocking=True)
-                      for name in self._host_pool}  # pinned on a card
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            for name, ring in self._host_pool.items():
-                ring.index_copy_(1, hosts, staged[name])
-        if self._pending_swap_ins:
-            hosts = torch.tensor([h for h, _ in self._pending_swap_ins], dtype=torch.int64)
-            dst = upload(np.array([p for _, p in self._pending_swap_ins], np.int64),
-                         self.device)
-            for name, ring in self._host_pool.items():
-                rows = torch.empty((ring.shape[0], len(hosts)) + ring.shape[2:],
-                                   dtype=ring.dtype, pin_memory=ring.is_pinned())
-                torch.index_select(ring, 1, hosts, out=rows)
-                layers[name][:, dst] = rows.to(self.device, non_blocking=True)
+            ops["spills"] = (np.array(list(by_host), np.int64),
+                             np.array(list(by_host.values()), np.int64))
+        if swaps and self._pending_swap_ins:
+            ops["swap_ins"] = (np.array([h for h, _ in self._pending_swap_ins], np.int64),
+                               np.array([p for _, p in self._pending_swap_ins], np.int64))
             for host, page in self._pending_swap_ins:
                 self._swap_in_by_page.pop(page, None)
                 # a slot whose key was restored meanwhile (its target page
@@ -1236,8 +1248,75 @@ class CacheManager:
                 if host not in self._host_key:
                     self._host_free.append(host)
             self._pending_swap_ins.clear()
-        self._swap_latency_s += time.perf_counter() - t0
+        if copies and self._pending_copies:
+            ops["copies"] = np.array(self._pending_copies, np.int64).T
+            self._pending_copies.clear()
+        if table and self._table_dirty:
+            ops["table"] = self._table.copy()
+            self._table_dirty = False
+        return ops or None
+
+    def apply_flush(self, caches: dict, ops: dict | None) -> dict:
+        """Run :meth:`take_flush`'s ``ops`` on the device pools, in place:
+        spills (evicted warm rows -> host ring) first, then swap-ins (ring
+        rows -> fresh device pages), so a chain that spilled and matched
+        again before any dispatch goes device -> host -> device in one
+        flush; then the copy-on-write copies (a copy's destination can be a
+        just-evicted page whose rows must reach the ring first); then this
+        rank's rows of the page table (``table_rows``), copied into the
+        placed table.  The victim tier's copies are batched, one per pool
+        leaf and direction, through pinned buffers on a card; a spill's copy
+        completes before this returns (the ring is host memory that a later
+        swap-in reads); a swap-in copies up a pinned gather of its ring rows
+        of its own, never the ring itself."""
+        if not ops:
+            return caches
+        layers = caches["layers"]
+        t0 = time.perf_counter()
+        if "spills" in ops:
+            hosts, pages = ops["spills"]
+            pages = upload(pages, self.device)
+            staged = {name: layers[name][:, pages].to("cpu", non_blocking=True)
+                      for name in self._host_pool}  # pinned on a card
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            for name, ring in self._host_pool.items():
+                ring.index_copy_(1, torch.from_numpy(hosts), staged[name])
+        if "swap_ins" in ops:
+            hosts, dst = ops["swap_ins"]
+            hosts, dst = torch.from_numpy(hosts), upload(dst, self.device)
+            for name, ring in self._host_pool.items():
+                rows = torch.empty((ring.shape[0], len(hosts)) + ring.shape[2:],
+                                   dtype=ring.dtype, pin_memory=ring.is_pinned())
+                torch.index_select(ring, 1, hosts, out=rows)
+                layers[name][:, dst] = rows.to(self.device, non_blocking=True)
+        if "spills" in ops or "swap_ins" in ops:
+            self._swap_latency_s += time.perf_counter() - t0
+        if "copies" in ops:
+            pairs = upload(ops["copies"], self.device)
+            src, dst = pairs[0], pairs[1]
+            for name, pool in layers.items():
+                if name != "page_table":
+                    pool[:, dst] = pool[:, src]
+        if "table" in ops:
+            lo, hi = self.table_rows
+            table = upload(ops["table"][lo:hi], self.device)
+            layers["page_table"].copy_(table.expand_as(layers["page_table"]))
         return caches
+
+    def flush_copies(self, caches: dict) -> dict:
+        """Apply the queued copy-on-write page copies to the device pools,
+        in place (before the decode dispatch that writes the copied
+        pages)."""
+        return self.apply_flush(caches, self.take_flush(swaps=False, table=False))
+
+    def flush_swaps(self, caches: dict) -> dict:
+        """Apply the queued victim-tier movement to the device pools, in
+        place (:meth:`apply_flush`'s spills, then swap-ins).  The executor
+        runs it at the top of every dispatch's host_prep, before
+        ``flush_copies``: a copy-on-write destination may be a just-evicted
+        page whose rows must reach the ring first."""
+        return self.apply_flush(caches, self.take_flush(copies=False, table=False))
 
     def write_table(self, caches: dict) -> dict:
         """Refresh the stacked device page table from the host table, in
@@ -1246,20 +1325,28 @@ class CacheManager:
         device never sees a later ``ensure`` / ``free`` of the live numpy
         array.  In place, a placed (``shard_decode``) table keeps its
         placement."""
-        if self.layout != "paged" or not self._table_dirty:
-            return caches
-        table = upload(self._table, self.device)
-        caches["layers"]["page_table"].copy_(table.expand_as(caches["layers"]["page_table"]))
-        self._table_dirty = False
-        return caches
+        return self.apply_flush(caches, self.take_flush(swaps=False, copies=False))
 
-    def insert_prefill(self, big: dict, filled: dict, slots, shared_pages=None) -> dict:
+    def table_rows_of(self, slots) -> np.ndarray:
+        """The host page-table rows of ``slots`` (the pad sentinel
+        ``max_batch`` gets an all-trash row), for a prefill's insertion on a
+        rank whose device table holds other slots' rows."""
+        slots = np.asarray(slots, np.int64)
+        nb = self._table.shape[0]
+        rows = self._table[np.clip(slots, 0, nb - 1)].copy()
+        rows[(slots < 0) | (slots >= nb)] = TRASH_PAGE
+        return rows
+
+    def insert_prefill(self, big: dict, filled: dict, slots, shared_pages=None,
+                       table_rows=None) -> dict:
         """Insert tail-masked dense prefill rows into the big caches, in
         place.  ``shared_pages``: per-row count of leading prefix-cache
         pages that must not be rewritten (their columns go to the trash
-        page)."""
+        page); ``table_rows``: the slots' host page-table rows
+        (:meth:`table_rows_of`), where the device table lacks them."""
         if self.layout == "paged":
-            return insert_prefill_paged(big, filled, slots, self.page_size, shared_pages)
+            return insert_prefill_paged(big, filled, slots, self.page_size, shared_pages,
+                                        table_rows)
         return insert_prefill_dense(big, filled, slots)
 
     # ---------------------------------------------------------- metrics --

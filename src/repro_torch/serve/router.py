@@ -30,6 +30,7 @@ from collections.abc import Iterator
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.serve.api import Engine, RequestHandle, TokenEvent
@@ -78,6 +79,10 @@ class ReplicaRouter:
         sc = serve_cfg or ServeConfig()
         if sc.replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {sc.replicas}")
+        if sc.shard_decode and sc.replicas > 1 and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise ValueError("replicas of a shard_decode engine over several ranks: each "
+                             "replica would need worker ranks of its own; run one engine")
         per_replica = dataclasses.replace(sc, replicas=1)
         self.serve_cfg = sc
         self.engines = [
@@ -89,6 +94,11 @@ class ReplicaRouter:
         self._uid = 0
         #: router uid -> (replica index, that replica's local uid)
         self._route: dict[int, tuple[int, int]] = {}
+
+    def close(self) -> None:
+        """``Engine.close`` on every replica."""
+        for eng in self.engines:
+            eng.close()
 
     # --------------------------------------------------------- admission --
     def _load(self, idx: int) -> int:

@@ -13,23 +13,25 @@ alike, ``step`` replicated.  The kernel wrappers read raw pointers, so no
 DTensor reaches them (they refuse one): each rank hands them plain local
 tensors.  Two patterns, recorded as the step's ``split``:
 
-- ``"model"`` (the dense GQA, MLA, MoE, Mamba2 and hybrid families:
-  granite-8b, minicpm-2b, starcoder2-7b, minicpm3-4b, granite-moe-3b-a800m,
-  dbrx-132b, mamba2-130m, zamba2-1.2b), GSPMD's split of the reference's
-  step: each parameter is gathered over the data axes only and keeps its
+- ``"model"`` (every family of the zoo on a model axis above one: the
+  dense GQA, MLA, MoE, Mamba2 and hybrid language models, the audio
+  encoder and the VLM: granite-8b, minicpm-2b, starcoder2-7b, minicpm3-4b,
+  granite-moe-3b-a800m, dbrx-132b, mamba2-130m, zamba2-1.2b,
+  hubert-xlarge, internvl2-1b), GSPMD's split of the reference's step:
+  each parameter is gathered over the data axes only and keeps its
   ``model`` shard (``model_split``; a leaf the forward cannot take as a
-  shard, such as K/V whose kv heads do not divide the axis, comes whole),
-  and the forward and backward run at the local shapes under the mesh's
-  model group (``distributed.tensor_parallel``: heads, SSM heads, MLP
-  columns, experts and vocabulary split).  Every rank of the group computes
-  the same loss; a leaf replicated over ``model`` gets its whole gradient
-  on each.  The global norm counts each split leaf's squares over its
-  shards and each replicated leaf's once.
-- ``"repeat"`` (the encoder and VLM families, ROADMAP queue 1, item 13.3):
-  every parameter gathered whole, the whole forward on every rank, the
-  ranks that differ only in ``model`` repeating each other's work (the
-  FSDP pattern).  The global norm comes from the whole averaged gradient.
-  A model axis of one takes this path for every family; on a one-device
+  shard, such as K/V whose kv heads do not divide the axis, or the
+  frontends' ``frontend_proj``, comes whole), and the forward and backward
+  run at the local shapes under the mesh's model group
+  (``distributed.tensor_parallel``: heads, SSM heads, MLP columns, experts
+  and vocabulary split).  Every rank of the group computes the same loss;
+  a leaf replicated over ``model`` gets its whole gradient on each.  The
+  global norm counts each split leaf's squares over its shards and each
+  replicated leaf's once.  A precision plan with int8 weights splits too:
+  its transform takes whole leaves, before the state is sharded.
+- ``"repeat"`` (every family on a model axis of one): every parameter
+  gathered whole, the whole forward on every rank (the FSDP pattern).  The
+  global norm comes from the whole averaged gradient.  On a one-device
   mesh it is bitwise the unsharded step.
 
 Both run on this rank's shard of the batch (split over the data axes),
@@ -202,8 +204,9 @@ def model_split(cfg: ModelConfig, mesh, param_shardings):
     ``AbstractMesh``): the mesh's model group carrying the config's
     ``tensor_parallel.Layout``, and per parameter leaf whether the forward
     takes its ``model`` shard (True) or the whole leaf
-    (``tensor_parallel.split_plan``).  (None, None) for the ``"repeat"``
-    pattern: a family that does not split, or a model axis of one."""
+    (``tensor_parallel.split_plan``); every family of the zoo, the encoder
+    and the VLM among them, takes it.  (None, None) for the ``"repeat"``
+    pattern: a model axis of one."""
     group = tp_lib.active(tp_lib.model_group(mesh))
     if group is None or not tp_lib.splits(cfg):
         return None, None

@@ -1,7 +1,8 @@
 """One rank of the gloo job of ``tests/test_torch_tensor_parallel.py``: four
 CPU processes that run the reduced dense GQA, MoE, MLA, Mamba2 and hybrid
-configs split over the model axis of a (data 2, model 2) and a (data 1,
-model 4) mesh; the (data 4, model 1) mesh whose group of one must leave the
+configs, the audio encoder, the VLM and granite-8b under ``int8_serve``
+split over the model axis of a (data 2, model 2) and a (data 1, model 4)
+mesh; the (data 4, model 1) mesh whose group of one must leave the
 step as it was; a data-sharded MoE step whose capacity binds, on (data 2,
 model 2) and on (data 2, model 1) (a (replica 2, data 2, model 1) mesh:
 two independent replicas, the rules split nothing over ``replica``); and a
@@ -21,6 +22,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import ParallelismConfig, get_config
 from repro_torch.convert import params_from_numpy
+from repro_torch.core import precision as precision_lib
 from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.distributed.sharding import ShardingRules, gather, local_shard, shard_of
 from repro_torch.launch.mesh import make_mesh
@@ -30,14 +32,27 @@ from repro_torch.train import make_train_step, shard_train_state, train_step
 from repro_torch.train.step import (batch_data_group, make_loss_fn, split_params,
                                     train_state_shardings, value_and_grad)
 
+#: a case is an architecture, or "<architecture>:<precision policy>"
 ARCHS = ("granite-8b", "granite-moe-3b-a800m", "starcoder2-7b", "minicpm-2b", "dbrx-132b",
-         "minicpm3-4b", "mamba2-130m", "zamba2-1.2b")
+         "minicpm3-4b", "mamba2-130m", "zamba2-1.2b", "hubert-xlarge", "internvl2-1b",
+         "granite-8b:int8_serve")
 MESHES = ((2, 2), (1, 4))
 LR = 1e-3
 PROMPT, DECODE = 8, 4
 MOE_CF = 0.75  # granite-moe's capacity factor in the whole-batch cases: capacity binds
 MOE_MESHES = {"2x1": ((2, 2, 1), ("replica", "data", "model")),
               "2x2": ((2, 2), ("data", "model"))}
+
+
+def case_config(name: str):
+    """The reduced config of a case name (module ``ARCHS``)."""
+    arch, _, policy = name.partition(":")
+    cfg = get_config(arch, reduced=True)
+    return dataclasses.replace(cfg, precision=policy) if policy else cfg
+
+
+def _batches(inp):
+    return [{k: torch.from_numpy(v) for k, v in b.items()} for b in inp["batches"]]
 
 
 def _items(tree, path=()):
@@ -88,32 +103,65 @@ def _grads(cfg, mesh, step, plain, sharded, batch):
     return errs, shapes, metrics, params, rows
 
 
-def _serve(cfg, group, params, plain, rows):
-    """``lm.forward`` logits, and a prefill plus greedy decode steps, split
-    against unsharded, from this rank's rows."""
-    tokens = rows["tokens"]
-    split = lm.forward(params, cfg, {"tokens": tokens}, device="cpu", group=group)[0]
+def _model_shards(whole, step, mesh):
+    """The split forward's parameters cut from ``whole``: each leaf's model
+    shard where the split takes one, else the whole leaf."""
+    local, sh = step.keywords["local"], step.keywords["shardings"]["params"]
+    return {k: shard_of(w, s.placements, mesh, ("model",)) if loc else w
+            for (k, w), (_, loc), (_, s) in zip(_items(whole), _items(local), _items(sh))}
+
+
+def _nest(flat):
+    out = {}
+    for k, v in flat.items():
+        *head, last = k.split("/")
+        d = out
+        for h in head:
+            d = d.setdefault(h, {})
+        d[last] = v
+    return out
+
+
+def _serve(cfg, group, step, mesh, plain, rows):
+    """``lm.forward`` logits, and (not for the encoder) a prefill plus
+    greedy decode steps, split against unsharded, from this rank's rows.
+    The weights are the precision plan's transform of the whole leaves,
+    cut after it (the serving executor's order); the caches are int8
+    where the plan says so, and the VLM's prefill takes the patches before
+    the prompt's tokens, its decode continuing after them."""
+    plan = precision_lib.resolve_model_plan(cfg)
+    whole = precision_lib.apply_plan_to_params(plain["params"], plan)
+    params = _nest(_model_shards(whole, step, mesh))
+    inputs = {k: v for k, v in rows.items() if k != "labels"}
+    split = lm.forward(params, cfg, inputs, device="cpu", group=group)[0]
     if split.shape[-1] < cfg.padded_vocab_size:
         split = tp_lib.all_gather(split, group, -1)
-    whole = lm.forward(plain["params"], cfg, {"tokens": tokens}, device="cpu")[0]
+    full = lm.forward(whole, cfg, inputs, device="cpu")[0]
+    out = dict(logits_err=float((split - full).abs().max()), decode_errs=[],
+               split_tokens=torch.zeros(0), whole_tokens=torch.zeros(0), cache_shapes={},
+               cache_stays_local={})
+    if cfg.is_encoder:  # no caches, no decode step
+        return out
+    tokens = rows["tokens"]
     b = tokens.shape[0]
-    caches = lm.init_caches(cfg, b, PROMPT + DECODE, torch.float32, device="cpu")
+    off = cfg.n_frontend_tokens if "patches" in rows else 0
+    caches = lm.init_caches(cfg, b, off + PROMPT + DECODE, torch.float32,
+                            quantized=plan.int8_kv_cache, device="cpu")
     local = tp_lib.local_caches(cfg, caches, group)
     cache_shapes = {k: tuple(t.shape) for k, t in _items(local)}
-    prompt = {"tokens": tokens[:, :PROMPT]}
+    prompt = dict(inputs, tokens=tokens[:, :PROMPT])
     s_last, s_c = lm.prefill(params, cfg, prompt, local, device="cpu", group=group)
-    w_last, w_c = lm.prefill(plain["params"], cfg, prompt, caches, device="cpu")
+    w_last, w_c = lm.prefill(whole, cfg, prompt, caches, device="cpu")
     errs, s_tok, w_tok = [float((s_last - w_last).abs().max())], [], []
     for i in range(DECODE):
         st, wt = s_last.argmax(-1, keepdim=True), w_last.argmax(-1, keepdim=True)
         s_tok.append(st)
         w_tok.append(wt)
-        pos = torch.full((b,), PROMPT + i, dtype=torch.int32)
+        pos = torch.full((b,), off + PROMPT + i, dtype=torch.int32)
         s_last, s_c = lm.decode_step(params, cfg, st, pos, s_c, device="cpu", group=group)
-        w_last, w_c = lm.decode_step(plain["params"], cfg, wt, pos, w_c, device="cpu")
+        w_last, w_c = lm.decode_step(whole, cfg, wt, pos, w_c, device="cpu")
         errs.append(float((s_last - w_last).abs().max()))
-    out = dict(logits_err=float((split - whole).abs().max()), decode_errs=errs,
-               split_tokens=torch.cat(s_tok, 1), whole_tokens=torch.cat(w_tok, 1),
+    out.update(decode_errs=errs, split_tokens=torch.cat(s_tok, 1), whole_tokens=torch.cat(w_tok, 1),
                cache_shapes=cache_shapes,
                cache_stays_local={k: tuple(t.shape) for k, t in _items(s_c)})
     if cfg.attn_kind == "mla":
@@ -150,7 +198,7 @@ def _mla_modes(cfg, group, params, plain, tokens):
 
 
 def _case(arch, shape, inp):
-    cfg = get_config(arch, reduced=True)
+    cfg = case_config(arch)
     mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
     rules = ShardingRules(mesh=mesh, plan=ParallelismConfig())
     opt = AdamW(schedule=lambda s: LR)
@@ -159,10 +207,10 @@ def _case(arch, shape, inp):
     shardings = train_state_shardings(cfg, opt, rules)
     sharded = shard_train_state(copy.deepcopy(state0), shardings)
     step = make_train_step(cfg, opt, mesh=mesh, rules=rules)
-    batches = [{"tokens": torch.from_numpy(b)} for b in inp["batches"]]
+    batches = _batches(inp)
     grad_errs, shapes, metric_errs, params, rows = _grads(cfg, mesh, step, plain, sharded,
                                                           batches[0])
-    serve = _serve(cfg, step.keywords["group"], params, plain, rows)
+    serve = _serve(cfg, step.keywords["group"], step, mesh, plain, rows)
     held = {k: tuple(v.to_local().shape) for k, v in _items(sharded["params"])}
     steps = []
     for batch in batches:  # each split step from the state the unsharded step starts from
@@ -208,7 +256,7 @@ def _moe_whole_batch(inp):
     ``MOE_MESHES``, against the unsharded step on the whole batch."""
     base = get_config("granite-moe-3b-a800m", reduced=True)
     cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=MOE_CF))
-    batches = [{"tokens": torch.from_numpy(b)} for b in inp["batches"]]
+    batches = _batches(inp)
     return {name: _whole_batch_steps(cfg, make_mesh(shape, axes, device_type="cpu"), inp,
                                      batches)
             for name, (shape, axes) in MOE_MESHES.items()}
@@ -219,8 +267,7 @@ def _masked(inp):
     data shards hold unequal sums, against the whole-batch step."""
     cfg = get_config("granite-8b", reduced=True)
     mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
-    batches = [{"tokens": torch.from_numpy(b), "loss_mask": torch.from_numpy(inp["mask"])}
-               for b in inp["batches"]]
+    batches = [dict(b, loss_mask=torch.from_numpy(inp["mask"])) for b in _batches(inp)]
     return _whole_batch_steps(cfg, mesh, inp, batches)
 
 
@@ -237,7 +284,7 @@ def _group_of_one(inp):
     plain = copy.deepcopy(state0)
     sharded = shard_train_state(copy.deepcopy(state0), train_state_shardings(cfg, opt, rules))
     step = make_train_step(cfg, opt, mesh=mesh, rules=rules)
-    batch = {"tokens": torch.from_numpy(inp["batches"][0])}
+    batch = _batches(inp)[0]
     _, m_plain = train_step(plain, batch, cfg=cfg, optimizer=opt)
     _, m_step = step(sharded, batch)
     group = tp_lib.model_group(mesh)

@@ -12,8 +12,8 @@ on the CPU, on the same numpy parameters.
   (no fences) and the fenced tracer's warning.
 - ``shard_decode`` in a one-process gloo group: params and every cache pool
   are DTensors whose local tensors the engine runs on, streams equal the
-  unsharded engine's, one decode shape; a larger world raises naming
-  ROADMAP queue 2, item 11.
+  unsharded engine's, one decode shape (several ranks:
+  ``tests/test_torch_shard_decode.py``).
 - The program count with everything on at once, and the router: streams of
   one engine and of the JAX router, least-loaded admission, stream and
   cancel delegation.
@@ -298,14 +298,6 @@ def test_shard_decode_places_dtensors(granite, one_rank_group):
         assert isinstance(t, DTensor)
         n += 1
     assert n > 0 and eng.telemetry["decode_compiles"] == 1
-
-
-def test_shard_decode_over_more_ranks_raises(granite, one_rank_group, monkeypatch):
-    import torch.distributed as dist
-
-    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(ValueError, match="queue 2, item 11"):
-        _ours(*granite, _serve(shard_decode=True))
 
 
 def test_program_count_with_everything_enabled(granite, one_rank_group):

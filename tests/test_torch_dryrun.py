@@ -23,6 +23,7 @@ from repro_torch.distributed.sharding import ShardingRules  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import abstract_mesh  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import params as params_lib  # noqa: E402
 
 RUNNABLE = [(a, s) for a, s, ok, _ in configs.dryrun_cells() if ok]
 SKIPPED = [(a, s, why) for a, s, ok, why in configs.dryrun_cells() if not ok]
@@ -161,6 +162,31 @@ def test_mla_ssm_and_hybrid_split_over_model_on_pod(arch):
     if cfg.family == "hybrid":
         assert 4 * flops[(16, 16)] < flops[(16, 1)] and 4 * peak[(16, 16)] < peak[(16, 1)]
     assert split.param_bytes < repeat.param_bytes
+
+
+#: peak live bytes per device of the repeat pattern at train_4k x pod (the
+#: dry run's, before the encoder and the VLM split)
+REPEAT_PEAK = {"hubert-xlarge": 88.4e9, "internvl2-1b": 118.2e9}
+
+
+@pytest.mark.parametrize("arch", sorted(REPEAT_PEAK))
+def test_encoder_and_vlm_split_over_model_on_pod(arch, tmp_path):
+    """train_4k x pod: the audio encoder and the VLM take the split
+    (hubert-xlarge's 16 heads split to one a device; internvl2-1b's 14
+    repeat on 16, its MLP and vocabulary split), each device below the
+    repeat pattern's peak live bytes, its attention at the local heads."""
+    r = dryrun.run_cell(arch, "train_4k", "pod", out_dir=str(tmp_path))
+    assert r["status"] == "ok", r.get("traceback")
+    assert r["split"] == "model" and "model all-reduce" in r["coll_bytes"]
+    assert r["memory_stats"]["temp_bytes"] < REPEAT_PEAK[arch]
+    cfg = configs.get_config(arch)
+    mesh = dryrun.make_mesh("pod")
+    split = dryrun._split_for(cfg, mesh, ShardingRules(mesh=mesh).tree_shardings(
+        lm.abstract_params(cfg), params_lib.logical_axes(lm.param_spec(cfg))))
+    local = dryrun._device_cfg(cfg, split)
+    heads = (1, 1) if arch == "hubert-xlarge" else (14, 2)  # internvl2-1b repeats attention
+    assert (local.n_heads, local.n_kv_heads) == heads
+    assert local.resolved_head_dim == cfg.resolved_head_dim
 
 
 def test_dbrx_train_on_pod_fits_a_card(tmp_path):

@@ -6,22 +6,28 @@ One spawned gloo job of 4 CPU processes (``tests/_torch_tp_worker.py``;
 ``init_method="file://"`` under ``tmp_path``, so no port is fixed) runs the
 reduced granite-8b, granite-moe-3b-a800m, starcoder2-7b (biases, an untied
 ``lm_head``, a rolling window in decode), minicpm-2b (MHA, muP scales),
-dbrx-132b (LayerNorm, untied), minicpm3-4b (MLA), mamba2-130m (Mamba2)
-and zamba2-1.2b (Mamba2 and the shared attention block) on the (data 2,
-model 2) and (data 1, model 4) meshes.  At model 4 the two kv heads of
+dbrx-132b (LayerNorm, untied), minicpm3-4b (MLA), mamba2-130m (Mamba2),
+zamba2-1.2b (Mamba2 and the shared attention block), hubert-xlarge (the
+audio encoder: frames and labels, bidirectional, its vocabulary in
+``lm_head``), internvl2-1b (the VLM: patches before the tokens) and
+granite-8b under ``int8_serve`` (its weights the plan's transform of the
+whole leaves, int8 KV caches, the LUT softmax) on the (data 2, model 2) and
+(data 1, model 4) meshes.  At model 4 the two kv heads of
 granite-8b, starcoder2 and dbrx do not divide the axis, so K/V's weight
 comes whole and each rank projects the kv head its q head uses, and the
-MoE configs run one expert per rank; the MLA, Mamba2 and hybrid cases
-split their heads on both meshes.  From the same converted parameters:
+MoE configs run one expert per rank; the MLA, Mamba2, hybrid, encoder and
+VLM cases split their heads on both meshes (internvl2-1b's two kv heads
+come whole at model 4).  From the same converted parameters:
 
 - each leaf's split gradient on a rank's rows, averaged over the data
   axis as the step averages it, against the unsharded gradient of the
   whole batch (the router, the norms and the embedding among them), and
   the step's metrics, ``moe_dropped_frac`` exactly;
 - the shapes each rank holds and computes at against ``rules.spec_for``;
-- ``lm.forward`` logits and a prefill plus 4 greedy decode steps over
-  caches of the local kv heads / SSM heads against the unsharded ones;
-  for MLA also an absorbed decode step and a 4-token extend window;
+- ``lm.forward`` logits and (not for the encoder) a prefill plus 4 greedy
+  decode steps over caches of the local kv heads / SSM heads against the
+  unsharded ones; for MLA also an absorbed decode step and a 4-token
+  extend window;
 - two split steps' losses and states, each step from the state the
   unsharded step starts from, against the unsharded step on the whole
   batch, and against the JAX package's ``train_step`` (``grad_accum=1``)
@@ -68,6 +74,7 @@ from repro.models import lm as jlm  # noqa: E402
 from repro.optim import AdamW as JAdamW  # noqa: E402
 from repro.train import step as jstep  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.core import precision as precision_lib  # noqa: E402
 from repro_torch.distributed import tensor_parallel as tp_lib  # noqa: E402
 from repro_torch.distributed.sharding import ShardingRules  # noqa: E402
 from repro_torch.launch.mesh import abstract_mesh  # noqa: E402
@@ -75,9 +82,13 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import params as params_lib  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: a case is an architecture, or "<architecture>:<precision policy>"
 ARCHS = ("granite-8b", "granite-moe-3b-a800m", "starcoder2-7b", "minicpm-2b", "dbrx-132b",
-         "minicpm3-4b", "mamba2-130m", "zamba2-1.2b")
-SPLIT_NEW = ("minicpm3-4b", "mamba2-130m", "zamba2-1.2b")  # split from this slice on
+         "minicpm3-4b", "mamba2-130m", "zamba2-1.2b", "hubert-xlarge", "internvl2-1b",
+         "granite-8b:int8_serve")
+#: the cases whose heads split on both meshes (their reduced configs' 4 or 8
+#: heads divide both model axes)
+SPLIT_HEADS = ("minicpm3-4b", "mamba2-130m", "zamba2-1.2b", "hubert-xlarge", "internvl2-1b")
 MESHES = ((2, 2), (1, 4))
 CASES = [(a, m) for a in ARCHS for m in MESHES]
 MOE_CF = 0.75  # the whole-batch MoE cases' capacity factor (the worker's)
@@ -93,14 +104,33 @@ def _ids(case):
     return f"{arch}@{d}x{m}"
 
 
+def _jax_config(name):
+    """The JAX package's reduced config of a case name (``ARCHS``)."""
+    arch, _, policy = name.partition(":")
+    jcfg = jax_get_config(arch, reduced=True)
+    return dataclasses.replace(jcfg, precision=policy) if policy else jcfg
+
+
+def _batch(jcfg, rng):
+    """One batch of the config's family: frames and labels (the audio
+    encoder), patches before ``SEQ`` tokens (the VLM), or tokens."""
+    if jcfg.frontend == "audio":
+        return {"frames": rng.normal(size=(BATCH, SEQ, jcfg.frontend_dim)).astype(np.float32),
+                "labels": rng.integers(0, jcfg.vocab_size, (BATCH, SEQ)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, jcfg.vocab_size, (BATCH, SEQ)).astype(np.int32)}
+    if jcfg.frontend == "patch":
+        batch["patches"] = rng.normal(size=(BATCH, jcfg.n_frontend_tokens,
+                                            jcfg.frontend_dim)).astype(np.float32)
+    return batch
+
+
 def _inputs():
     out = {}
     for i, arch in enumerate(ARCHS):
-        jcfg = jax_get_config(arch, reduced=True)
+        jcfg = _jax_config(arch)
         rng = np.random.default_rng(100 + i)
         out[arch] = {"params": numpy_tree(jlm.param_spec(jcfg), seed=10 + i),
-                     "batches": [rng.integers(0, jcfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
-                                 for _ in range(STEPS)]}
+                     "batches": [_batch(jcfg, rng) for _ in range(STEPS)]}
     # the masked case's loss_mask: the first data shard (rows 0-1) keeps 5
     # of its 32 positions, the second 27
     mask = np.ones((BATCH, SEQ), np.float32)
@@ -156,6 +186,13 @@ def _adam_update(mu, nu, step: int):
     opt = JAdamW(schedule=lambda s: LR)
     c1, c2 = 1 - opt.b1 ** step, 1 - opt.b2 ** step
     return (mu / c1) / (np.sqrt(nu / c2) + opt.eps)
+
+
+def _config(name: str, reduced: bool = True):
+    """The port's config of a case name (``ARCHS``)."""
+    arch, _, policy = name.partition(":")
+    cfg = configs.get_config(arch, reduced=reduced)
+    return dataclasses.replace(cfg, precision=policy) if policy else cfg
 
 
 def _tol(arch: str) -> float:
@@ -232,21 +269,22 @@ def test_split_step_tracks_the_reference_train_step(tp_job, case):
     inputs, ranks = tp_job
     arch, mesh = case
     r = ranks[0][_key(arch, mesh)]
-    batches = [{"tokens": b} for b in inputs[arch]["batches"]]
-    for st, (ref, m) in zip(r["steps"], _jax_steps(jax_get_config(arch, reduced=True),
-                                                    r["steps"], batches)):
+    for st, (ref, m) in zip(r["steps"], _jax_steps(_jax_config(arch), r["steps"],
+                                                    inputs[arch]["batches"])):
         assert abs(st["loss"]["split"] - m["loss"]) <= TOL
         _hold_state({k: v.numpy() for k, v in st["split"].items()}, ref, _tol(arch))
 
 
-@pytest.mark.parametrize("arch", SPLIT_NEW)
+@pytest.mark.parametrize("arch", SPLIT_HEADS)
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
-def test_mla_ssm_and_hybrid_really_split_their_heads(tp_job, arch, mesh):
-    """The MLA, Mamba2 and hybrid cases take the ``"model"`` pattern with a
-    layout that splits their heads (the reduced configs' 4 or 8 heads
-    divide both model axes), so no case passes on a repeated layer."""
+def test_mla_ssm_hybrid_encoder_and_vlm_really_split_their_heads(tp_job, arch, mesh):
+    """The MLA, Mamba2, hybrid, audio encoder and VLM cases take the
+    ``"model"`` pattern with a layout that splits their heads, so no case
+    passes on a repeated layer; the encoder's vocabulary splits through
+    ``lm_head`` (it has no table), and ``frontend_proj`` is computed whole,
+    as ``takes_model_shard`` says of its ``("frontend", "embed")`` axes."""
     _, ranks = tp_job
-    cfg = configs.get_config(arch, reduced=True)
+    cfg = _config(arch)
     for rank in ranks:
         r = rank[_key(arch, mesh)]
         assert r["split"] == "model"
@@ -259,6 +297,11 @@ def test_mla_ssm_and_hybrid_really_split_their_heads(tp_job, arch, mesh):
         if cfg.family == "hybrid":
             assert layout["heads"] and layout["kv_heads"] and layout["mlp"]
             assert layout["shared_out"]
+        if cfg.frontend is not None:
+            assert layout["heads"] and layout["mlp"]
+            assert layout["kv_heads"] == (cfg.n_kv_heads % mesh[1] == 0)
+            shape, local = r["compute_shapes"]["frontend_proj/kernel"]
+            assert local and shape == (cfg.frontend_dim, cfg.d_model)
 
 
 def _moe_cfgs():
@@ -278,8 +321,7 @@ def test_data_sharded_moe_step_is_the_whole_batch_step(tp_job, mesh):
     jcfg = _moe_cfgs()
     r = ranks[0]["moe_whole_batch"][mesh]
     assert r["split"] == ("repeat" if mesh == "2x1" else "model")
-    batches = [{"tokens": b} for b in inputs["granite-moe-3b-a800m"]["batches"]]
-    jax_steps = _jax_steps(jcfg, r["steps"], batches)
+    jax_steps = _jax_steps(jcfg, r["steps"], inputs["granite-moe-3b-a800m"]["batches"])
     for st, (ref, m) in zip(r["steps"], jax_steps):
         got, plain = st["metrics"]["split"], st["metrics"]["plain"]
         assert 0 < m["moe_dropped_frac"] < 1  # capacity binds
@@ -305,7 +347,7 @@ def test_loss_mask_with_unequal_shards_is_the_whole_batch_mean(tp_job):
     assert r["split"] == "model"
     mask = inputs["granite-8b"]["mask"]
     assert mask[:2, 1:].sum() != mask[2:, 1:].sum()
-    batches = [{"tokens": b, "loss_mask": mask} for b in inputs["granite-8b"]["batches"]]
+    batches = [dict(b, loss_mask=mask) for b in inputs["granite-8b"]["batches"]]
     for st, (ref, m) in zip(r["steps"], _jax_steps(jax_get_config("granite-8b", reduced=True),
                                                     r["steps"], batches)):
         got, plain = st["metrics"]["split"], st["metrics"]["plain"]
@@ -329,7 +371,7 @@ def test_split_gradients_equal_the_unsharded_gradients(tp_job, case):
         r = rank[_key(arch, mesh)]
         named = [k for k in r["grad_errs"] if any(
             s in k for s in ("router", "ln1", "ln2", "final_norm", "embed"))]
-        cfg = configs.get_config(arch)
+        cfg = _config(arch, reduced=False)
         assert len(named) >= (5 if cfg.moe else 3 if cfg.family == "ssm" else 4)  # no ln2
         for k, err in r["grad_errs"].items():
             assert err <= _tol(arch), (k, err)
@@ -344,7 +386,7 @@ def test_each_rank_holds_and_computes_its_shards(tp_job, case):
     leaf where it does not (K/V when the kv heads do not divide the axis)."""
     _, ranks = tp_job
     arch, (n_data, n_model) = case
-    cfg = configs.get_config(arch, reduced=True)
+    cfg = _config(arch)
     rules = ShardingRules(mesh=abstract_mesh((n_data, n_model), ("data", "model")))
     spec_tree = lm.param_spec(cfg)
     full = _flat(params_lib.abstract_params(spec_tree))
@@ -384,16 +426,27 @@ def test_each_rank_holds_and_computes_its_shards(tp_job, case):
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_split_forward_prefill_and_decode_equal_the_unsharded(tp_job, case):
+    """The split forward's logits, and a prefill plus 4 greedy decode steps
+    (not for the encoder, which has no decode step; the VLM's prefill
+    takes its patches), against the unsplit ones; under ``int8_serve`` on
+    the plan's whole-leaf weights cut after the transform, over int8 KV
+    caches narrowed by kv head (codes and scales), with the LUT softmax."""
     _, ranks = tp_job
     arch, mesh = case
-    cfg = configs.get_config(arch, reduced=True)
+    cfg = _config(arch)
     for rank in ranks:
         s = rank[_key(arch, mesh)]["serve"]
         assert s["logits_err"] <= _tol(arch)
-        assert max(s["decode_errs"]) <= _tol(arch)
         assert torch.equal(s["split_tokens"], s["whole_tokens"])
+        if cfg.is_encoder:
+            assert s["decode_errs"] == [] and s["cache_shapes"] == {}
+            continue
+        assert len(s["decode_errs"]) == 5 and max(s["decode_errs"]) <= _tol(arch)
         shapes = s["cache_shapes"]
         assert s["cache_stays_local"] == shapes
+        if cfg.precision == "int8_serve":  # int8 codes, one scale per (token, local kv head)
+            kv = max(1, cfg.n_kv_heads // mesh[1])
+            assert shapes["layers/k_scale"][2] == shapes["layers/v_scale"][2] == kv
         if cfg.attn_kind == "gqa":  # the caches hold the local kv heads
             k = "shared/k" if cfg.family == "hybrid" else "layers/k"
             assert shapes[k][2] == max(1, cfg.n_kv_heads // mesh[1])
@@ -431,26 +484,30 @@ def test_a_group_of_one_leaves_the_old_path(tp_job):
         assert one["state_close"] <= TOL
 
 
-def test_unsplit_families_refuse_a_model_group():
-    """The encoder and the VLM keep the repeat pattern: ``lm.forward``
-    refuses a group of two (item 13.3); int8 weights too (item 13.4)."""
-    group = tp_lib.ModelGroup(2, 0)
-    inputs = {"hubert-xlarge": lambda c: {"frames": torch.zeros(1, 4, c.frontend_dim)},
-              "internvl2-1b": lambda c: {"patches": torch.zeros(1, c.n_frontend_tokens,
-                                                                c.frontend_dim),
-                                         "tokens": torch.zeros(1, 4, dtype=torch.int32)}}
-    for name, batch in inputs.items():
-        cfg = configs.get_config(name, reduced=True)
-        assert not tp_lib.splits(cfg)
-        params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 13.3"):
-            lm.forward(params, cfg, batch(cfg), device="cpu", group=group)
-    dense = dataclasses.replace(configs.get_config("granite-8b", reduced=True),
-                                precision="int8_serve")
-    params = lm.init_params(dense, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13.4"):
-        lm.forward(params, dense, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
-                   device="cpu", group=group)
+@pytest.mark.parametrize("size", [2, 16])
+def test_vocab_padding_mask_on_each_rank_of_hubert(size):
+    """hubert-xlarge's 504 units pad to 512: on a model axis of 2 and of 16
+    each rank's shard of the logits masks exactly its columns at global
+    index 504 or above (on 16, only the last rank's top 8)."""
+    cfg = configs.get_config("hubert-xlarge")
+    assert (cfg.vocab_size, cfg.padded_vocab_size) == (504, 512)
+    n = cfg.padded_vocab_size // size
+    parts = [lm.mask_vocab_padding(torch.zeros(1, 1, n), cfg, tp_lib.ModelGroup(size, r))
+             for r in range(size)]
+    masked = (torch.cat(parts, -1)[0, 0] == -1e9).nonzero()[:, 0]
+    assert masked.tolist() == list(range(504, 512))
+    assert all(not (p == -1e9).any() for p in parts[:-1])
+
+
+def test_every_family_and_int8_plans_split():
+    """``splits`` takes every family of the zoo, and ``require_split``
+    refuses neither the encoder, the VLM nor an ``int8_serve`` plan."""
+    for name in configs.ARCH_NAMES:
+        cfg = configs.get_config(name)
+        assert tp_lib.splits(cfg), name
+        tp_lib.require_split(cfg)
+    dense = dataclasses.replace(configs.get_config("granite-8b"), precision="int8_serve")
+    tp_lib.require_split(dense, precision_lib.resolve_model_plan(dense))
 
 
 @pytest.mark.parametrize("name,size,heads", [
@@ -458,7 +515,9 @@ def test_unsplit_families_refuse_a_model_group():
     ("dbrx-132b", 16, (True, (0, 1))), ("granite-moe-3b-a800m", 16, (False, None)),
     ("starcoder2-7b", 4, (True, (0, 1))), ("minicpm-2b", 16, (False, None)),
     ("minicpm3-4b", 2, (True, (0, 20))), ("minicpm3-4b", 16, (False, None)),
-    ("zamba2-1.2b", 16, (True, (0, 2)))])
+    ("zamba2-1.2b", 16, (True, (0, 2))), ("hubert-xlarge", 2, (True, (0, 8))),
+    ("hubert-xlarge", 16, (True, (0, 1))), ("internvl2-1b", 2, (True, (0, 1))),
+    ("internvl2-1b", 16, (False, None))])
 def test_heads_split_and_kv_head_ranges(name, size, heads):
     """Which published configs split attention by whole heads on a model
     axis, and rank 0's kv heads."""
@@ -484,14 +543,21 @@ def test_heads_split_and_kv_head_ranges(name, size, heads):
     ("mamba2-130m", 2, tp_lib.Layout(vocab=True, ssm=True)),
     ("mamba2-130m", 16, tp_lib.Layout(vocab=True)),
     ("zamba2-1.2b", 16, tp_lib.Layout(heads=True, kv_heads=True, mlp=True, vocab=True, ssm=True,
-                                      shared_out=True))])
+                                      shared_out=True)),
+    ("hubert-xlarge", 2, tp_lib.Layout(heads=True, kv_heads=True, mlp=True, vocab=True)),
+    ("hubert-xlarge", 16, tp_lib.Layout(heads=True, kv_heads=True, mlp=True, vocab=True)),
+    ("internvl2-1b", 2, tp_lib.Layout(heads=True, kv_heads=True, mlp=True, vocab=True)),
+    ("internvl2-1b", 16, tp_lib.Layout(mlp=True, vocab=True))])
 def test_split_plan_layouts_of_published_configs(name, size, want):
     """The layout that ``split_plan`` derives from the rules' specs on a
     (16, ``size``) mesh: K/V whole where the kv heads do not divide the
     axis, q heads that do not split evenly repeated, granite-moe's 40
     experts split by ``mlp`` on 16; minicpm3-4b's 40 heads and
     mamba2-130m's 24 SSM heads repeat on 16, zamba2-1.2b's 64 SSM heads and
-    32 shared-block heads split."""
+    32 shared-block heads split; hubert-xlarge's 16 heads split on both
+    (its vocabulary through ``lm_head``, having no table), internvl2-1b's
+    14 split on 2 (7 q heads and one kv head a rank) and repeat on 16, the
+    MLP and vocabulary splitting; ``frontend_proj`` is whole."""
     cfg = configs.get_config(name)
     spec_tree = lm.param_spec(cfg)
     axes = params_lib.logical_axes(spec_tree)
@@ -499,6 +565,9 @@ def test_split_plan_layouts_of_published_configs(name, size, want):
     shardings = rules.tree_shardings(params_lib.abstract_params(spec_tree), axes)
     layout, local = tp_lib.split_plan(cfg, axes, shardings, size)
     assert layout == want
+    if cfg.frontend is not None:
+        assert local["frontend_proj"]["kernel"]  # its own shard: no model axis in its spec
+        assert tp_lib.model_dim(shardings["frontend_proj"]["kernel"].spec) is None
     attn = local["shared_attn" if cfg.family == "hybrid" else "blocks"].get("attn", {})
     if "wk" in attn:
         assert attn["wk"]["kernel"] == want.kv_heads  # else gathered whole
