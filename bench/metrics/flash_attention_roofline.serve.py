@@ -1,0 +1,9 @@
+"""The attention kernel's share of its roofline in the traced stretch, in
+percent: its calls' summed bounds over its summed device time."""
+
+from bench.metrics import _roofline
+
+
+def read(run):
+    return _roofline.share(run, "attention", _roofline.ATTENTION_KERNELS,
+                           _roofline.attention_bound_s)
