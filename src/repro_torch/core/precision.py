@@ -19,6 +19,7 @@ import re
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core import quant as quant_lib
 
@@ -275,27 +276,30 @@ class PrecisionPlan:
     def _accum_cfg(self) -> fxp.FixedPointConfig:
         return self.accum.fixed_cfg() or fxp.ACCUM_CONFIG
 
-    def quant_for(self, slot: SlotPlan) -> quant_lib.QuantConfig:
-        """Runtime hook for one dense site group: QAT weight STE and
-        activation fake-quant (PTQ and int8 are parameter transforms)."""
+    def quant_for(self, slot: SlotPlan, name: str = "layer") -> quant_lib.QuantConfig:
+        """Runtime hook for one dense site group (``name``: its slot):
+        QAT weight STE and activation fake-quant (PTQ and int8 are
+        parameter transforms)."""
         w, a = slot.weights, slot.activations
         weight_cfg = w.fixed_cfg() if w.kind == "fixed" and w.method == "qat" else None
         act_cfg = a.fixed_cfg() if a.kind == "fixed" else None
         mode = "qat" if (weight_cfg is not None or act_cfg is not None) else "none"
-        return quant_lib.QuantConfig(
+        qc = quant_lib.QuantConfig(
             mode=mode, weight_cfg=weight_cfg, act_cfg=act_cfg,
             accum_cfg=self._accum_cfg(),
         )
+        object.__setattr__(qc, "slot", name)  # frozen; not a field
+        return qc
 
     def embed_quant(self) -> quant_lib.QuantConfig:
-        return self.quant_for(self.embed)
+        return self.quant_for(self.embed, "embed")
 
     def logits_quant(self) -> quant_lib.QuantConfig:
-        return self.quant_for(self.logits)
+        return self.quant_for(self.logits, "logits")
 
     def shared_quant(self) -> quant_lib.QuantConfig:
         """The hybrid family's shared attention block's hook."""
-        return self.quant_for(self.shared)
+        return self.quant_for(self.shared, "shared")
 
     def quant_for_layer(self, i: int) -> quant_lib.QuantConfig:
         return self.quant_for(self.layers[i])
@@ -359,10 +363,12 @@ class LayerQuantArrays:
         return LayerQuantArrays(*(t[i] for t in dataclasses.astuple(self)))
 
     def maybe_fake_quant_weight(self, w: torch.Tensor) -> torch.Tensor:
-        return _fake_quant_traced(w, self.w_step, self.w_lo, self.w_hi)
+        with trace.span("precision", slot="layer", operand="weight"):
+            return _fake_quant_traced(w, self.w_step, self.w_lo, self.w_hi)
 
     def maybe_fake_quant_act(self, x: torch.Tensor) -> torch.Tensor:
-        return _fake_quant_traced(x, self.a_step, self.a_lo, self.a_hi)
+        with trace.span("precision", slot="layer", operand="act"):
+            return _fake_quant_traced(x, self.a_step, self.a_lo, self.a_hi)
 
 
 def _fake_quant_traced(x, step, lo, hi):

@@ -15,6 +15,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import fixed_point as fxp
 from repro_torch.device import scalar
 
@@ -93,15 +94,22 @@ class QuantConfig:
     int8_weights: bool = False
     int8_kv_cache: bool = False
     lut_softmax: bool = False
+    #: the plan slot the hook serves ("embed", "layer", "logits", "shared";
+    #: "model" for a model-level config), named by its ``precision`` spans.
+    #: Not a field, so the config compares and converts as the reference's:
+    #: ``PrecisionPlan.quant_for`` sets it on the instance.
+    slot = "model"
 
     def maybe_fake_quant_act(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "qat" and self.act_cfg is not None:
-            return fxp.quantize_ste(x, self.act_cfg)
+            with trace.span("precision", slot=self.slot, operand="act"):
+                return fxp.quantize_ste(x, self.act_cfg)
         return x
 
     def maybe_fake_quant_weight(self, w: torch.Tensor) -> torch.Tensor:
         if self.mode == "qat" and self.weight_cfg is not None:
-            return fxp.quantize_ste(w, self.weight_cfg)
+            with trace.span("precision", slot=self.slot, operand="weight"):
+                return fxp.quantize_ste(w, self.weight_cfg)
         return w
 
 

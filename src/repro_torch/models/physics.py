@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import precision as precision_lib
 from repro_torch.device import resolve_device
@@ -68,26 +69,27 @@ def forward(
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
     x = x.to(dev)
-    plan = precision_lib.resolve_model_plan(cfg)
-    kernel = plan.kernel_defaults(kernel)
-    h = layers.dense(params["input_proj"], x, plan.embed_quant())
-    h = h + params["pos_embed"]
+    with trace.span("physics.forward", batch=x.shape[0]):
+        plan = precision_lib.resolve_model_plan(cfg)
+        kernel = plan.kernel_defaults(kernel)
+        h = layers.dense(params["input_proj"], x, plan.embed_quant())
+        h = h + params["pos_embed"]
 
-    uniform_quant = plan.uniform_layer_quant()
-    layer_quants = None if uniform_quant is not None else plan.layer_quant_arrays()
-    for i in range(cfg.n_layers):  # the reference's scan over the stacked blocks
-        bparams = params_lib.map_leaves(lambda _, t: t[i], params["blocks"])
-        quant = uniform_quant if layer_quants is None else layer_quants.layer(i)
-        h, _, _ = blocks.block_apply(bparams, cfg, h, mode="train", kernel=kernel, quant=quant)
-    if cfg.norm_kind != "none":
-        h = layers.norm(
-            params["final_norm"], h, cfg.norm_kind, cfg.norm_eps,
-            use_lut=(kernel or {}).get("norm_lut", False),
-        )
-    h = torch.mean(h, dim=1)  # pool over time
-    qc_head = plan.logits_quant()
-    h = torch.relu(layers.dense(params["head1"], h, qc_head))
-    return layers.dense(params["head2"], h, qc_head)
+        uniform_quant = plan.uniform_layer_quant()
+        layer_quants = None if uniform_quant is not None else plan.layer_quant_arrays()
+        for i in range(cfg.n_layers):  # the reference's scan over the stacked blocks
+            bparams = params_lib.map_leaves(lambda _, t: t[i], params["blocks"])
+            quant = uniform_quant if layer_quants is None else layer_quants.layer(i)
+            h, _, _ = blocks.block_apply(bparams, cfg, h, mode="train", kernel=kernel, quant=quant)
+        if cfg.norm_kind != "none":
+            h = layers.norm(
+                params["final_norm"], h, cfg.norm_kind, cfg.norm_eps,
+                use_lut=(kernel or {}).get("norm_lut", False),
+            )
+        h = torch.mean(h, dim=1)  # pool over time
+        qc_head = plan.logits_quant()
+        h = torch.relu(layers.dense(params["head1"], h, qc_head))
+        return layers.dense(params["head2"], h, qc_head)
 
 
 def predict_proba(params, cfg: ModelConfig, x, **kw) -> torch.Tensor:

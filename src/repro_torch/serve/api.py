@@ -50,6 +50,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.device import resolve_device
 from repro_torch.serve.executor import InflightStep, ModelExecutor
@@ -235,6 +236,8 @@ class Engine:
                 "speculative: drafts verify through the cache-extending prefill "
                 "program, which this datapath does not support")
         self._uid = 0
+        #: engine steps taken (the ``engine.step`` span's ``step``)
+        self._steps = 0
         self._requests: dict[int, Request] = {}
         self._finished: dict[int, Request] = {}
         self._finish_reason: dict[int, str] = {}
@@ -409,49 +412,53 @@ class Engine:
         engine clock at the step's dispatch (its collect under the
         synchronous loop, one step earlier under the async loop, so both
         loops give the same virtual-clock timelines)."""
-        finished_uids = {req.uid for req in out.finished}
-        reasons = {
-            req.uid: (
-                FINISH_EOS
-                if req.eos_id is not None
-                and req.generated
-                and req.generated[-1] == req.eos_id
-                else FINISH_LENGTH
-            )
-            for req in out.finished
-        }
-        last_index = {
-            req.uid: len(req.generated) - 1 for req in out.finished
-        }
-        for uid, token, index in out.tokens:
-            final = uid in finished_uids and index == last_index[uid]
-            self._events.setdefault(uid, collections.deque()).append(TokenEvent(
-                uid=uid, token=token, index=index, ts=ts,
-                finished=final,
-                finish_reason=reasons[uid] if final else None,
-            ))
-        for req in out.finished:
-            req.finished_at = ts
-            self._finished[req.uid] = req
-            self._finish_reason[req.uid] = reasons[req.uid]
-        self._account_slo(out.finished)
+        with trace.span("route", tokens=len(out.tokens)):
+            finished_uids = {req.uid for req in out.finished}
+            reasons = {
+                req.uid: (
+                    FINISH_EOS
+                    if req.eos_id is not None
+                    and req.generated
+                    and req.generated[-1] == req.eos_id
+                    else FINISH_LENGTH
+                )
+                for req in out.finished
+            }
+            last_index = {
+                req.uid: len(req.generated) - 1 for req in out.finished
+            }
+            for uid, token, index in out.tokens:
+                final = uid in finished_uids and index == last_index[uid]
+                self._events.setdefault(uid, collections.deque()).append(TokenEvent(
+                    uid=uid, token=token, index=index, ts=ts,
+                    finished=final,
+                    finish_reason=reasons[uid] if final else None,
+                ))
+            for req in out.finished:
+                req.finished_at = ts
+                self._finished[req.uid] = req
+                self._finish_reason[req.uid] = reasons[req.uid]
+            self._account_slo(out.finished)
 
     def _route_dropped(self, dropped, ts: float) -> None:
         """Finish past-deadline drops: the scheduler removed them from
         its queue; they finish here with a tokenless terminal event so
         every consumer (stream / generate / result) sees an answered
         request."""
-        for req in dropped:
-            req.finished_at = ts
-            self._finished[req.uid] = req
-            self._finish_reason[req.uid] = FINISH_DEADLINE
-            self._events.setdefault(req.uid, collections.deque()).append(
-                TokenEvent(
-                    uid=req.uid, token=NO_TOKEN, index=len(req.generated),
-                    ts=ts, finished=True, finish_reason=FINISH_DEADLINE,
+        if not dropped:
+            return
+        with trace.span("route", dropped=len(dropped)):
+            for req in dropped:
+                req.finished_at = ts
+                self._finished[req.uid] = req
+                self._finish_reason[req.uid] = FINISH_DEADLINE
+                self._events.setdefault(req.uid, collections.deque()).append(
+                    TokenEvent(
+                        uid=req.uid, token=NO_TOKEN, index=len(req.generated),
+                        ts=ts, finished=True, finish_reason=FINISH_DEADLINE,
+                    )
                 )
-            )
-        self._account_slo(dropped)
+            self._account_slo(dropped)
 
     def _account_slo(self, reqs) -> None:
         for req in reqs:
@@ -474,12 +481,13 @@ class Engine:
             return self._step_async()
         tr = self._tracer
         tr.begin_step()
-        with tr.phase("schedule"):
-            decision = self.scheduler.schedule(self.executor.slots)
-        out = self.executor.execute(decision)
-        now = self.clock()
-        self._route_output(out, now)
-        self._route_dropped(decision.dropped, now)
+        self._steps += 1
+        with trace.span("engine.step", step=self._steps):
+            decision = self._schedule()
+            out = self.executor.execute(decision)
+            now = self.clock()
+            self._route_output(out, now)
+            self._route_dropped(decision.dropped, now)
         stats = out.stats
         stats.update(
             prefill_compiles=self.executor.tel["prefill_compiles"],
@@ -487,6 +495,12 @@ class Engine:
         )
         tr.end_step()
         return stats
+
+    def _schedule(self):
+        with trace.span("schedule") as sp:
+            decision = self.scheduler.schedule(self.executor.slots)
+            sp.set(admissions=len(decision.admissions))
+        return decision
 
     def _step_async(self) -> dict:
         """One pipelined iteration: schedule and *dispatch* step N, then
@@ -500,18 +514,19 @@ class Engine:
         them), and deadline drops touch queued requests only."""
         tr = self._tracer
         tr.begin_step()
-        with tr.phase("schedule"):
-            decision = self.scheduler.schedule(self.executor.slots)
-        inflight = self.executor.dispatch(decision)
-        inflight.dispatched_at = self.clock()
-        self._route_dropped(decision.dropped, inflight.dispatched_at)
-        prev, self._inflight = self._inflight, inflight
-        stats = {"prefilled": 0, "decoded": 0}
-        if prev is not None:
-            out = self.executor.collect(prev)
-            ts = prev.dispatched_at if prev.dispatched_at is not None else self.clock()
-            self._route_output(out, ts)
-            stats = out.stats
+        self._steps += 1
+        with trace.span("engine.step", step=self._steps):
+            decision = self._schedule()
+            inflight = self.executor.dispatch(decision)
+            inflight.dispatched_at = self.clock()
+            self._route_dropped(decision.dropped, inflight.dispatched_at)
+            prev, self._inflight = self._inflight, inflight
+            stats = {"prefilled": 0, "decoded": 0}
+            if prev is not None:
+                out = self.executor.collect(prev)
+                ts = prev.dispatched_at if prev.dispatched_at is not None else self.clock()
+                self._route_output(out, ts)
+                stats = out.stats
         stats.update(
             prefill_compiles=self.executor.tel["prefill_compiles"],
             decode_compiles=self.executor.tel["decode_compiles"],

@@ -135,17 +135,21 @@ def add_serving_args(
                          "passed: drop (finish_reason='deadline'), demote "
                          "(run behind feasible work), or ignore")
     ap.add_argument("--trace-phases", action="store_true",
-                    help="per-step phase tracing (schedule/host_prep/"
-                         "dispatch/device/sample) with device fencing; "
+                    help="per-step phase summaries: each step's spans "
+                         "(repro_torch.trace) summed by phase (schedule/"
+                         "host_prep/dispatch/device/sample, wall = the "
+                         "engine.step span), with device fencing; "
                          "p50/p95/p99 land in Engine.telemetry['phases']. "
                          "Off by default: fencing serializes dispatch")
     ap.add_argument("--phase-mode", default="fenced",
                     choices=("fenced", "overlap"),
                     help="tracer mode under --trace-phases: fenced isolates "
                          "device time by blocking each dispatch; overlap "
-                         "never fences and reports device_overlap_s / "
-                         "host_bubble_s / overlap_efficiency instead (use "
-                         "with --async-loop)")
+                         "never fences and reports, from the spans, "
+                         "device_overlap_s (a decode span's end to the "
+                         "collect span it caused) / host_bubble_s "
+                         "(collect's own time) / overlap_efficiency instead "
+                         "(use with --async-loop)")
     ap.add_argument("--async-loop", action="store_true",
                     help="pipelined engine loop: dispatch step N+1 while "
                          "step N's decode scan runs on device; greedy "

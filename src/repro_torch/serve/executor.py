@@ -80,6 +80,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.core import precision as precision_lib
 from repro_torch.device import resolve_device, upload
@@ -223,8 +224,8 @@ class InflightStep:
     #: monotone dispatch stamp: collect clears a slot's in-flight mark only
     #: when no newer dispatch re-marked it
     seq: int = 0
-    #: tracer stamp of the decode dispatch's return
-    t_dispatch: float = 0.0
+    #: the decode dispatch's span (0 untraced): its collect names it as cause
+    decode_span: int = 0
     #: perf_counter at decode dispatch start (decode_time_s accounting)
     t0: float = 0.0
     #: engine-clock stamp set by the Engine right after dispatch; the
@@ -447,6 +448,7 @@ class ModelExecutor:
         self._prefill_shapes: set[tuple[int, int]] = set()
         self._decode_shapes: set[tuple[int, int]] = set()
         self._extend_shapes: set[tuple[int, int]] = set()
+        #: the engine's phase tracer: its ``fence`` splits launch from device time
         self.tracer = NULL_TRACER
         self.tel = {
             "tokens_generated": 0,
@@ -848,58 +850,57 @@ class ModelExecutor:
         out = inflight.out
         if inflight.dev is None:
             return out
-        tel, tr = self.tel, self.tracer
-        decision = inflight.decision
-        tr.collect_begin(inflight.t_dispatch)
-        with tr.phase(tr.collect_phase):
+        with trace.span("collect", inflight.decode_span):
+            tel = self.tel
+            decision = inflight.decision
             if inflight.host is None:
                 packed = inflight.dev.cpu().numpy()  # the dispatch's one transfer
             else:
                 host, done = inflight.host
                 done.synchronize()
                 packed = host.numpy()
-        t = self.serve_cfg.decode_steps
-        toks_t, emit_t = packed[:t], packed[t:2 * t].astype(bool)
-        tok_f, pos_f, act_f = packed[2 * t], packed[2 * t + 1], packed[2 * t + 2].astype(bool)
-        tel["decode_time_s"] += time.perf_counter() - inflight.t0
-        with tr.phase("sample"):
-            for idx in inflight.decode_set:
-                slot = self.slots[idx]
-                req = inflight.snapshot.get(idx)
-                if (
-                    req is None
-                    or req.cancelled
-                    or not slot.active
-                    or slot.request is not req
-                    or slot.admit_seq != inflight.admit_seqs.get(idx, -2)
-                ):
-                    # cancelled, preempted or turned over (the same request
-                    # re-admitted too: the admit_seq stamp) since the
-                    # dispatch; a preempted request regenerates them
-                    continue
-                for step in range(t):
-                    if not emit_t[step, idx]:
+            t = self.serve_cfg.decode_steps
+            toks_t, emit_t = packed[:t], packed[t:2 * t].astype(bool)
+            tok_f, pos_f, act_f = packed[2 * t], packed[2 * t + 1], packed[2 * t + 2].astype(bool)
+            tel["decode_time_s"] += time.perf_counter() - inflight.t0
+            with trace.span("sample"):
+                for idx in inflight.decode_set:
+                    slot = self.slots[idx]
+                    req = inflight.snapshot.get(idx)
+                    if (
+                        req is None
+                        or req.cancelled
+                        or not slot.active
+                        or slot.request is not req
+                        or slot.admit_seq != inflight.admit_seqs.get(idx, -2)
+                    ):
+                        # cancelled, preempted or turned over (the same request
+                        # re-admitted too: the admit_seq stamp) since the
+                        # dispatch; a preempted request regenerates them
                         continue
-                    req.generated.append(int(toks_t[step, idx]))
-                    out.stats["decoded"] += 1
-                    tel["tokens_generated"] += 1
-                    out.tokens.append((req.uid, int(toks_t[step, idx]), len(req.generated) - 1))
-                slot.pos = int(pos_f[idx])
-                slot.last_token = int(tok_f[idx])
-                if decision.register_decoded:
-                    # decode-completed full pages are shareable too on the
-                    # bit-exact datapath
-                    self.cache_mgr.register_filled(idx, req.resume_tokens, slot.pos)
-                if not act_f[idx]:
-                    out.finished.append(req)
-                    self._finish_slot(idx)
-                else:
-                    self._retire(idx, out)
-        # clear in-flight marks, unless a newer dispatch re-marked the slot
-        for idx in inflight.decode_set:
-            if self._slot_dispatch[idx] == inflight.seq:
-                self.slots[idx].inflight = False
-        return out
+                    for step in range(t):
+                        if not emit_t[step, idx]:
+                            continue
+                        req.generated.append(int(toks_t[step, idx]))
+                        out.stats["decoded"] += 1
+                        tel["tokens_generated"] += 1
+                        out.tokens.append((req.uid, int(toks_t[step, idx]), len(req.generated) - 1))
+                    slot.pos = int(pos_f[idx])
+                    slot.last_token = int(tok_f[idx])
+                    if decision.register_decoded:
+                        # decode-completed full pages are shareable too on the
+                        # bit-exact datapath
+                        self.cache_mgr.register_filled(idx, req.resume_tokens, slot.pos)
+                    if not act_f[idx]:
+                        out.finished.append(req)
+                        self._finish_slot(idx)
+                    else:
+                        self._retire(idx, out)
+            # clear in-flight marks, unless a newer dispatch re-marked the slot
+            for idx in inflight.decode_set:
+                if self._slot_dispatch[idx] == inflight.seq:
+                    self.slots[idx].inflight = False
+            return out
 
     def _activate_tail(self, slot: Slot, adm: Admission, start: int) -> None:
         """Split an admission's unwritten token tail per its
@@ -957,48 +958,54 @@ class ModelExecutor:
         logits; chunked rows activate with their tail split."""
         sc, tel, tr = self.serve_cfg, self.tel, self.tracer
         nb = sc.max_batch
-        with tr.phase("host_prep"):
-            toks = np.zeros((nb, bucket), np.int64)
-            lengths = np.zeros((nb,), np.int64)
-            slots_arr = np.full((nb,), nb, np.int64)
-            shared_arr = np.zeros((nb,), np.int64)
-            for row, adm in enumerate(group):
-                n = adm.fill_len
-                toks[row, :n] = adm.tokens[:n]
-                lengths[row] = n
-                slots_arr[row] = adm.slot
-                shared_arr[row] = adm.shared_pages
-            # victim-tier movement of this step's admissions lands before the
-            # prefill runs: spills drain pages the scatter is about to
-            # overwrite, swap-ins fill the columns it redirects to trash
-            self._flush(copies=False)
-        table_rows = self.cache_mgr.table_rows_of(slots_arr) if self._shares_rows else None
-        t0 = time.perf_counter()
-        with tr.phase("dispatch"):
-            last = self._run_prefill(toks, lengths, slots_arr, shared_arr, table_rows, len(group))
-        with tr.phase("device"):
-            tr.fence((last, self.caches))
-        tel["prefill_dispatches"] += 1
-        with tr.phase("sample"):
-            first_tokens = self._run_sample(None, [adm.sampling for adm in group],
-                                            [len(a.tokens) - 1 for a in group])
-            for row, adm in enumerate(group):
-                slot = self.slots[adm.slot]
-                slot.active, slot.request = True, adm.request
-                self._host_dirty(adm.slot)
-                if adm.emits_first_token:
-                    nxt = int(first_tokens[row])
-                    adm.request.generated.append(nxt)
-                    tel["tokens_generated"] += 1
-                    out.tokens.append((adm.request.uid, nxt, len(adm.request.generated) - 1))
-                    slot.pos = len(adm.tokens)  # next write position
-                    slot.last_token = nxt
-                else:  # MODE_CHUNKED: the tail replays per the admission split
-                    slot.pos = adm.fill_len
-                    self._activate_tail(slot, adm, adm.fill_len)
-                out.stats["prefilled"] += 1
-                self._retire(adm.slot, out)
-        tel["prefill_time_s"] += time.perf_counter() - t0
+        with trace.span("prefill") as sp:
+            if sp is not trace.NULL:
+                sp.set(bucket=bucket, rows=len(group), max_batch=nb,
+                       fill_tokens=sum(adm.fill_len for adm in group),
+                       uids=[adm.request.uid for adm in group])
+            with trace.span("host_prep"):
+                toks = np.zeros((nb, bucket), np.int64)
+                lengths = np.zeros((nb,), np.int64)
+                slots_arr = np.full((nb,), nb, np.int64)
+                shared_arr = np.zeros((nb,), np.int64)
+                for row, adm in enumerate(group):
+                    n = adm.fill_len
+                    toks[row, :n] = adm.tokens[:n]
+                    lengths[row] = n
+                    slots_arr[row] = adm.slot
+                    shared_arr[row] = adm.shared_pages
+                # victim-tier movement of this step's admissions lands before the
+                # prefill runs: spills drain pages the scatter is about to
+                # overwrite, swap-ins fill the columns it redirects to trash
+                self._flush(copies=False)
+            table_rows = self.cache_mgr.table_rows_of(slots_arr) if self._shares_rows else None
+            t0 = time.perf_counter()
+            with trace.span("launch"):
+                last = self._run_prefill(toks, lengths, slots_arr, shared_arr, table_rows,
+                                         len(group))
+            with trace.span("device"):
+                tr.fence((last, self.caches))
+            tel["prefill_dispatches"] += 1
+            with trace.span("sample"):
+                first_tokens = self._run_sample(None, [adm.sampling for adm in group],
+                                                [len(a.tokens) - 1 for a in group])
+                for row, adm in enumerate(group):
+                    slot = self.slots[adm.slot]
+                    slot.active, slot.request = True, adm.request
+                    self._host_dirty(adm.slot)
+                    if adm.emits_first_token:
+                        nxt = int(first_tokens[row])
+                        adm.request.generated.append(nxt)
+                        tel["tokens_generated"] += 1
+                        out.tokens.append((adm.request.uid, nxt, len(adm.request.generated) - 1))
+                        slot.pos = len(adm.tokens)  # next write position
+                        slot.last_token = nxt
+                    else:  # MODE_CHUNKED: the tail replays per the admission split
+                        slot.pos = adm.fill_len
+                        self._activate_tail(slot, adm, adm.fill_len)
+                    out.stats["prefilled"] += 1
+                    self._retire(adm.slot, out)
+            tel["prefill_time_s"] += time.perf_counter() - t0
 
     def _count_shape(self, kind: str, shape: tuple[int, int]) -> None:
         """Count a program shape (``kind`` "prefill", "decode" or "extend")
@@ -1022,57 +1029,60 @@ class ModelExecutor:
             return
         sc, tel, tr = self.serve_cfg, self.tel, self.tracer
         nb, w = sc.max_batch, self.extend_width
-        with tr.phase("host_prep"):
-            toks = np.zeros((nb, w), np.int64)
-            lens = np.zeros((nb,), np.int64)
-            starts = np.zeros((nb,), np.int64)
-            for i in work:
-                slot = self.slots[i]
-                n = min(len(slot.prefill_tail), w)
-                toks[i, :n] = slot.prefill_tail[:n]
-                lens[i] = n
-                starts[i] = slot.pos
-                # grow pages over the write range; shared pages overlapping
-                # it are copy-on-write replaced before the scatter
-                self.cache_mgr.ensure(i, slot.pos + n, write_from=slot.pos)
-            # swaps before copy-on-write copies: a CoW destination can be a
-            # just-evicted page whose rows must spill first
-            self._flush()
-        t0 = time.perf_counter()
-        with tr.phase("dispatch"):
-            logits = self._run_extend(toks, lens, starts)
-        with tr.phase("device"):
-            tr.fence((logits, self.caches))
-        tel["extend_dispatches"] += 1
-        with tr.phase("sample"):
-            # each row's true logits live at its window's last valid position
-            idx = np.maximum(lens - 1, 0)
-            knobs = [encode_sampling(self.slots[i].request if i in work else None,
-                                     sc.temperature) for i in range(nb)]
-            first_tokens = self._run_sample(idx, knobs, starts + idx)
-            for i in work:
-                slot = self.slots[i]
-                n = int(lens[i])
-                del slot.prefill_tail[:n]
-                slot.pos += n
-                self._host_dirty(i)
-                if slot.prefill_tail:
-                    continue  # another window next step
-                if slot.pending:
-                    # resume handoff: the generated part teacher-forces
-                    # through the decode steps from here
-                    slot.last_token = slot.pending.pop(0)
-                else:
-                    nxt = int(first_tokens[i])
-                    slot.request.generated.append(nxt)
-                    tel["tokens_generated"] += 1
-                    out.tokens.append((slot.request.uid, nxt, len(slot.request.generated) - 1))
-                    slot.last_token = nxt
-                # window-written full pages hold prefill-path content: as
-                # shareable as a bucket dispatch's
-                self.cache_mgr.register_filled(i, slot.request.resume_tokens, slot.pos)
-                self._retire(i, out)
-        tel["extend_time_s"] += time.perf_counter() - t0
+        with trace.span("extend") as sp:
+            if sp is not trace.NULL:
+                sp.set(uids=[self.slots[i].request.uid for i in work])
+            with trace.span("host_prep"):
+                toks = np.zeros((nb, w), np.int64)
+                lens = np.zeros((nb,), np.int64)
+                starts = np.zeros((nb,), np.int64)
+                for i in work:
+                    slot = self.slots[i]
+                    n = min(len(slot.prefill_tail), w)
+                    toks[i, :n] = slot.prefill_tail[:n]
+                    lens[i] = n
+                    starts[i] = slot.pos
+                    # grow pages over the write range; shared pages overlapping
+                    # it are copy-on-write replaced before the scatter
+                    self.cache_mgr.ensure(i, slot.pos + n, write_from=slot.pos)
+                # swaps before copy-on-write copies: a CoW destination can be a
+                # just-evicted page whose rows must spill first
+                self._flush()
+            t0 = time.perf_counter()
+            with trace.span("launch"):
+                logits = self._run_extend(toks, lens, starts)
+            with trace.span("device"):
+                tr.fence((logits, self.caches))
+            tel["extend_dispatches"] += 1
+            with trace.span("sample"):
+                # each row's true logits live at its window's last valid position
+                idx = np.maximum(lens - 1, 0)
+                knobs = [encode_sampling(self.slots[i].request if i in work else None,
+                                         sc.temperature) for i in range(nb)]
+                first_tokens = self._run_sample(idx, knobs, starts + idx)
+                for i in work:
+                    slot = self.slots[i]
+                    n = int(lens[i])
+                    del slot.prefill_tail[:n]
+                    slot.pos += n
+                    self._host_dirty(i)
+                    if slot.prefill_tail:
+                        continue  # another window next step
+                    if slot.pending:
+                        # resume handoff: the generated part teacher-forces
+                        # through the decode steps from here
+                        slot.last_token = slot.pending.pop(0)
+                    else:
+                        nxt = int(first_tokens[i])
+                        slot.request.generated.append(nxt)
+                        tel["tokens_generated"] += 1
+                        out.tokens.append((slot.request.uid, nxt, len(slot.request.generated) - 1))
+                        slot.last_token = nxt
+                    # window-written full pages hold prefill-path content: as
+                    # shareable as a bucket dispatch's
+                    self.cache_mgr.register_filled(i, slot.request.resume_tokens, slot.pos)
+                    self._retire(i, out)
+            tel["extend_time_s"] += time.perf_counter() - t0
 
     def _dispatch_speculative(self, decision: ScheduleDecision, out: StepOutput) -> set[int]:
         """Advance eligible decode slots by up to ``spec_k + 1`` tokens in
@@ -1111,101 +1121,104 @@ class ModelExecutor:
             cand.append(i)
         if not cand:
             return set()
-        t0 = time.perf_counter()
-        with tr.phase("host_prep"):
-            # resync draft rows whose (pos, carry) drifted from the target's
-            need: list[tuple[int, list[int]]] = []
-            fit: list[int] = []
-            for i in cand:
-                slot = self.slots[i]
-                if self.draft.pos[i] == slot.pos and self.draft.tok[i] == slot.last_token:
+        with trace.span("verify") as sp:
+            if sp is not trace.NULL:
+                sp.set(uids=[self.slots[i].request.uid for i in cand])
+            t0 = time.perf_counter()
+            with trace.span("host_prep"):
+                # resync draft rows whose (pos, carry) drifted from the target's
+                need: list[tuple[int, list[int]]] = []
+                fit: list[int] = []
+                for i in cand:
+                    slot = self.slots[i]
+                    if self.draft.pos[i] == slot.pos and self.draft.tok[i] == slot.last_token:
+                        fit.append(i)
+                        continue
+                    hist = list(slot.request.resume_tokens[:slot.pos])
+                    if hist and self.draft.bucket_for(len(hist)) is None:
+                        continue  # history outgrew the draft buckets
+                    need.append((i, hist))
                     fit.append(i)
-                    continue
-                hist = list(slot.request.resume_tokens[:slot.pos])
-                if hist and self.draft.bucket_for(len(hist)) is None:
-                    continue  # history outgrew the draft buckets
-                need.append((i, hist))
-                fit.append(i)
-            cand = fit
-            if not cand:
-                tel["spec_time_s"] += time.perf_counter() - t0
-                return set()
-            if need:
-                self._run_draft_sync(need)
-            for i, _ in need:
-                self.draft.pos[i] = self.slots[i].pos
-                self.draft.tok[i] = self.slots[i].last_token
-            d_tok = np.zeros((nb,), np.int32)
-            d_pos = np.zeros((nb,), np.int32)
-            d_act = np.zeros((nb,), bool)
-            for i in cand:
-                d_tok[i] = self.slots[i].last_token
-                d_pos[i] = self.slots[i].pos
-                d_act[i] = True
-        with tr.phase("dispatch"):
-            props = self._run_draft_propose(d_tok, d_pos, d_act)  # (k, nb)
-        with tr.phase("host_prep"):
-            # verify: ONE extend dispatch over [carry, d1..d_{k-1}]
-            vt = np.zeros((nb, self.extend_width), np.int64)
-            vl = np.zeros((nb,), np.int64)
-            vs = np.zeros((nb,), np.int64)
-            for i in cand:
-                slot = self.slots[i]
-                vt[i, 0] = slot.last_token
-                vt[i, 1:k] = props[:k - 1, i]
-                vl[i] = k
-                vs[i] = slot.pos
-                self.cache_mgr.ensure(i, slot.pos + k, write_from=slot.pos)
-            self._flush()
-        with tr.phase("dispatch"):
-            logits = self._run_extend(vt, vl, vs)
-        with tr.phase("device"):
-            tr.fence((logits, self.caches))
-        tel["spec_dispatches"] += 1
-        with tr.phase("sample"):
-            knobs = [encode_sampling(self.slots[i].request if i in cand else None,
-                                     sc.temperature) for i in range(nb)]
-            # (k, nb): the target's own token at each window offset
-            samp = np.stack([self._run_sample(np.full((nb,), t, np.int64), knobs, d_pos + t)
-                             for t in range(k)])
-            served: set[int] = set()
-            for i in cand:
-                slot = self.slots[i]
-                req = slot.request
-                d = [int(props[t, i]) for t in range(k)]
-                s = [int(samp[t, i]) for t in range(k)]
-                m = 0
-                while m < k and s[m] == d[m]:
-                    m += 1
-                emitted = d[:m] + ([] if m == k else [s[m]])
-                req.draft_proposed += k
-                req.draft_accepted += m
-                tel["draft_tokens_proposed"] += k
-                tel["draft_tokens_accepted"] += m
-                base = slot.pos
-                n_emit = 0
-                for nxt in emitted:
-                    req.generated.append(nxt)
-                    out.stats["decoded"] += 1
-                    tel["tokens_generated"] += 1
-                    out.tokens.append((req.uid, nxt, len(req.generated) - 1))
-                    n_emit += 1
-                    if ((req.eos_id is not None and nxt == req.eos_id)
-                            or len(req.generated) >= req.max_new_tokens
-                            or base + n_emit + 1 >= sc.max_seq_len):
-                        break
-                slot.pos = base + n_emit
-                slot.last_token = emitted[n_emit - 1]
-                self._host_dirty(i)
-                # the accepted positions were written to the draft cache
-                # while proposing: the draft is synced by construction
-                self.draft.pos[i] = slot.pos
-                self.draft.tok[i] = slot.last_token
-                self.cache_mgr.register_filled(i, req.resume_tokens, slot.pos)
-                self._retire(i, out)
-                served.add(i)
-        tel["spec_time_s"] += time.perf_counter() - t0
-        return served
+                cand = fit
+                if not cand:
+                    tel["spec_time_s"] += time.perf_counter() - t0
+                    return set()
+                if need:
+                    self._run_draft_sync(need)
+                for i, _ in need:
+                    self.draft.pos[i] = self.slots[i].pos
+                    self.draft.tok[i] = self.slots[i].last_token
+                d_tok = np.zeros((nb,), np.int32)
+                d_pos = np.zeros((nb,), np.int32)
+                d_act = np.zeros((nb,), bool)
+                for i in cand:
+                    d_tok[i] = self.slots[i].last_token
+                    d_pos[i] = self.slots[i].pos
+                    d_act[i] = True
+            with trace.span("launch"):
+                props = self._run_draft_propose(d_tok, d_pos, d_act)  # (k, nb)
+            with trace.span("host_prep"):
+                # verify: ONE extend dispatch over [carry, d1..d_{k-1}]
+                vt = np.zeros((nb, self.extend_width), np.int64)
+                vl = np.zeros((nb,), np.int64)
+                vs = np.zeros((nb,), np.int64)
+                for i in cand:
+                    slot = self.slots[i]
+                    vt[i, 0] = slot.last_token
+                    vt[i, 1:k] = props[:k - 1, i]
+                    vl[i] = k
+                    vs[i] = slot.pos
+                    self.cache_mgr.ensure(i, slot.pos + k, write_from=slot.pos)
+                self._flush()
+            with trace.span("launch"):
+                logits = self._run_extend(vt, vl, vs)
+            with trace.span("device"):
+                tr.fence((logits, self.caches))
+            tel["spec_dispatches"] += 1
+            with trace.span("sample"):
+                knobs = [encode_sampling(self.slots[i].request if i in cand else None,
+                                         sc.temperature) for i in range(nb)]
+                # (k, nb): the target's own token at each window offset
+                samp = np.stack([self._run_sample(np.full((nb,), t, np.int64), knobs, d_pos + t)
+                                 for t in range(k)])
+                served: set[int] = set()
+                for i in cand:
+                    slot = self.slots[i]
+                    req = slot.request
+                    d = [int(props[t, i]) for t in range(k)]
+                    s = [int(samp[t, i]) for t in range(k)]
+                    m = 0
+                    while m < k and s[m] == d[m]:
+                        m += 1
+                    emitted = d[:m] + ([] if m == k else [s[m]])
+                    req.draft_proposed += k
+                    req.draft_accepted += m
+                    tel["draft_tokens_proposed"] += k
+                    tel["draft_tokens_accepted"] += m
+                    base = slot.pos
+                    n_emit = 0
+                    for nxt in emitted:
+                        req.generated.append(nxt)
+                        out.stats["decoded"] += 1
+                        tel["tokens_generated"] += 1
+                        out.tokens.append((req.uid, nxt, len(req.generated) - 1))
+                        n_emit += 1
+                        if ((req.eos_id is not None and nxt == req.eos_id)
+                                or len(req.generated) >= req.max_new_tokens
+                                or base + n_emit + 1 >= sc.max_seq_len):
+                            break
+                    slot.pos = base + n_emit
+                    slot.last_token = emitted[n_emit - 1]
+                    self._host_dirty(i)
+                    # the accepted positions were written to the draft cache
+                    # while proposing: the draft is synced by construction
+                    self.draft.pos[i] = slot.pos
+                    self.draft.tok[i] = slot.last_token
+                    self.cache_mgr.register_filled(i, req.resume_tokens, slot.pos)
+                    self._retire(i, out)
+                    served.add(i)
+            tel["spec_time_s"] += time.perf_counter() - t0
+            return served
 
     def _dispatch_decode(self, decision: ScheduleDecision, out: StepOutput,
                          exclude: frozenset[int] | set[int] = frozenset()) -> InflightStep:
@@ -1231,58 +1244,62 @@ class ModelExecutor:
             return InflightStep(out=out, decision=decision)
         nb, steps = sc.max_batch, sc.decode_steps
         use_carry = self.async_loop and self._carry is not None
-        with tr.phase("host_prep"):
-            forced = np.zeros((steps, nb), np.int32)
-            n_forced = np.zeros((nb,), np.int32)
-            for idx in sorted(decode_set):
-                slot = self.slots[idx]
-                nf = min(len(slot.pending), steps)
-                if nf:
-                    forced[:nf, idx] = slot.pending[:nf]
-                    n_forced[idx] = nf
-                    # consumed by THIS dispatch: trimming here keeps the next
-                    # dispatch's forced window right before this one's collect
-                    del slot.pending[:nf]
-                if use_carry and self._carry_valid[idx]:
-                    # the true position is on the device: ensure up to the
-                    # conservative bound, from the stale host pos (a lower
-                    # bound) so copy-on-write covers the range
-                    upto = min(self._pos_ub[idx] + steps, self._reserve_cap(slot.request))
-                    self._pos_ub[idx] = upto
+        with trace.span("decode") as sp:
+            if sp is not trace.NULL:
+                sp.set(slots=len(decode_set), decode_steps=steps,
+                       uids=[self.slots[i].request.uid for i in sorted(decode_set)])
+            with trace.span("host_prep"):
+                forced = np.zeros((steps, nb), np.int32)
+                n_forced = np.zeros((nb,), np.int32)
+                for idx in sorted(decode_set):
+                    slot = self.slots[idx]
+                    nf = min(len(slot.pending), steps)
+                    if nf:
+                        forced[:nf, idx] = slot.pending[:nf]
+                        n_forced[idx] = nf
+                        # consumed by THIS dispatch: trimming here keeps the next
+                        # dispatch's forced window right before this one's collect
+                        del slot.pending[:nf]
+                    if use_carry and self._carry_valid[idx]:
+                        # the true position is on the device: ensure up to the
+                        # conservative bound, from the stale host pos (a lower
+                        # bound) so copy-on-write covers the range
+                        upto = min(self._pos_ub[idx] + steps, self._reserve_cap(slot.request))
+                        self._pos_ub[idx] = upto
+                        self.cache_mgr.ensure(idx, upto, write_from=slot.pos)
+                        continue
+                    # the steps advance at most min(decode_steps, forced tail +
+                    # remaining budget) positions, within the admission-time
+                    # reservation; the write range lets the manager copy-on-write
+                    # a shared page before the dispatch writes it
+                    rem_i = max(slot.request.max_new_tokens - len(slot.request.generated), 1)
+                    upto = min(slot.pos + min(steps, nf + rem_i), sc.max_seq_len)
                     self.cache_mgr.ensure(idx, upto, write_from=slot.pos)
-                    continue
-                # the steps advance at most min(decode_steps, forced tail +
-                # remaining budget) positions, within the admission-time
-                # reservation; the write range lets the manager copy-on-write
-                # a shared page before the dispatch writes it
-                rem_i = max(slot.request.max_new_tokens - len(slot.request.generated), 1)
-                upto = min(slot.pos + min(steps, nf + rem_i), sc.max_seq_len)
-                self.cache_mgr.ensure(idx, upto, write_from=slot.pos)
-                if self.async_loop:
-                    self._pos_ub[idx] = upto
-            self._flush()
-            live = [s.active and i in decode_set for i, s in enumerate(self.slots)]
-            knobs = [encode_sampling(s.request if live[i] else None, sc.temperature)
-                     for i, s in enumerate(self.slots)]
-            ints = np.stack([
-                np.array([s.last_token for s in self.slots], np.int32),
-                np.array([s.pos if s.active else 0 for s in self.slots], np.int32),
-                np.array(live, np.int32),
-                np.array([max(s.request.max_new_tokens - len(s.request.generated), 0)
-                          if live[i] else 0 for i, s in enumerate(self.slots)], np.int32),
-                np.array([s.request.eos_id if s.active and s.request.eos_id is not None else -1
-                          for s in self.slots], np.int32),
-                np.array([k[1] for k in knobs], np.int32),
-                np.array([k[3] for k in knobs], np.int32),
-                n_forced,
-            ])
-            floats = np.array([[k[0] for k in knobs], [k[2] for k in knobs]], np.float32)
-            valid = self._carry_valid.copy() if use_carry else None
-        t0 = time.perf_counter()
-        with tr.phase("dispatch"):
-            packed, host = self._run_decode(np.concatenate([ints, forced]), floats, valid)
-        with tr.phase("device"):
-            tr.fence(packed)
+                    if self.async_loop:
+                        self._pos_ub[idx] = upto
+                self._flush()
+                live = [s.active and i in decode_set for i, s in enumerate(self.slots)]
+                knobs = [encode_sampling(s.request if live[i] else None, sc.temperature)
+                         for i, s in enumerate(self.slots)]
+                ints = np.stack([
+                    np.array([s.last_token for s in self.slots], np.int32),
+                    np.array([s.pos if s.active else 0 for s in self.slots], np.int32),
+                    np.array(live, np.int32),
+                    np.array([max(s.request.max_new_tokens - len(s.request.generated), 0)
+                              if live[i] else 0 for i, s in enumerate(self.slots)], np.int32),
+                    np.array([s.request.eos_id if s.active and s.request.eos_id is not None else -1
+                              for s in self.slots], np.int32),
+                    np.array([k[1] for k in knobs], np.int32),
+                    np.array([k[3] for k in knobs], np.int32),
+                    n_forced,
+                ])
+                floats = np.array([[k[0] for k in knobs], [k[2] for k in knobs]], np.float32)
+                valid = self._carry_valid.copy() if use_carry else None
+            t0 = time.perf_counter()
+            with trace.span("launch"):
+                packed, host = self._run_decode(np.concatenate([ints, forced]), floats, valid)
+            with trace.span("device"):
+                tr.fence(packed)
         if self.async_loop:
             # every row's output reflects its merged input, so the whole
             # carry is valid until the next host-side slot change
@@ -1295,7 +1312,7 @@ class ModelExecutor:
             self._slot_dispatch[i] = self._dispatch_seq
         return InflightStep(out=out, decision=decision, decode_set=tuple(sorted(decode_set)),
                             dev=packed, host=host, snapshot=snapshot, admit_seqs=admit_seqs,
-                            seq=self._dispatch_seq, t_dispatch=tr.mark_dispatch(), t0=t0)
+                            seq=self._dispatch_seq, decode_span=sp.id, t0=t0)
 
     def _retire(self, idx: int, out: StepOutput):
         slot = self.slots[idx]

@@ -1,27 +1,38 @@
-"""Per-engine-step phase tracing: where does a step's time actually go?
+"""Per-engine-step phase summaries, computed from the port's spans: where
+does a step's time actually go?
 
 The paper's discipline is *accountable* latency — a 64-cycle MLP is only
 meaningful inside its ~140k-cycle shell if you can say where the other
-cycles went.  The serving counterpart: each engine step decomposes into
+cycles went.  The serving counterpart: each engine step opens spans
+(:mod:`repro_torch.trace`), and a step's record sums them by phase:
 
-    schedule   policy: FifoScheduler/DeadlineScheduler.schedule()
-    host_prep  numpy batch assembly + page-table bookkeeping
-               (ensure / flush_copies / write_table) before a dispatch
-    dispatch   launching the program's device work (returns as soon
-               as it is enqueued; first-call kernel builds also land
-               here)
-    device     waiting for the dispatched tensors (a device synchronise)
-    sample     host-side post-processing: device->host transfers,
-               token sampling/routing, slot bookkeeping
+    phase      span          what
+    schedule   schedule      policy: FifoScheduler/DeadlineScheduler.schedule()
+    host_prep  host_prep     numpy batch assembly + page-table bookkeeping
+                             (ensure / flush_copies / write_table) before a
+                             dispatch
+    dispatch   launch        launching the program's device work (returns
+                             as soon as it is enqueued; first-call kernel
+                             builds also land here)
+    device     device        waiting for the dispatched tensors (a device
+                             synchronise)
+    sample     sample        host-side post-processing: device->host
+                             transfers, token sampling, slot bookkeeping
+    wall       engine.step   the whole step
 
-:class:`PhaseTracer` accumulates per-phase seconds for the current step,
-pushes the finished record into a bounded ring buffer, and summarizes
-p50/p95/p99 on demand.  Isolating ``device`` requires *fencing* every
-dispatch (``torch.cuda.synchronize``), which serializes host and device
-work — so tracing is **off by default** (``ServeConfig.trace_phases``)
-and the off path is :data:`NULL_TRACER`, whose methods are no-ops and
-which never fences: an untraced engine runs the exact code it ran
-before, test-enforced to cost no measurable throughput.
+The dispatch spans (``prefill``, ``decode``, ``extend``, ``verify``) hold
+these phases, and ``collect`` holds the decode results' blocking wait (its
+own time, outside its ``sample`` child).  Time in no phase (``route``, the
+dispatch spans' own lines) is the summary's ``unattributed_s``.
+
+:class:`PhaseTracer` listens to the spans of one step at a time
+(``begin_step`` / ``end_step``), pushes the step's record into a bounded
+ring buffer, and summarizes p50/p95/p99 on demand.  Isolating ``device``
+requires *fencing* every dispatch (``torch.cuda.synchronize``), which
+serializes host and device work — so tracing is **off by default**
+(``ServeConfig.trace_phases``) and the off path is :data:`NULL_TRACER`,
+whose methods are no-ops and which never fences: an untraced engine's span
+sites cost one check each (:mod:`repro_torch.trace`).
 
 The fenced tracer *destroys the pipeline it measures*: under the
 pipelined engine loop (``ServeConfig.async_loop``) a fence between
@@ -30,10 +41,10 @@ exists to remove.  :class:`OverlapTracer`
 (``ServeConfig.phase_mode="overlap"``) is the non-fencing alternative:
 it records, per step,
 
-    overlap    host seconds between a dispatch returning and its
-               collect starting — device compute hidden under host
-               work (schedule/host_prep/sample of the next step)
-    collect    the residual blocking wait inside ``collect`` — host
+    overlap    host seconds from a ``decode`` span's end to the start of
+               the ``collect`` span it caused — device compute hidden
+               under host work (schedule/host_prep/sample of the next step)
+    collect    the ``collect`` span's own time, its blocking wait — host
                time the device did NOT hide (the pipeline bubble)
 
 and its summary adds ``device_overlap_s`` (total overlap),
@@ -41,27 +52,33 @@ and its summary adds ``device_overlap_s`` (total overlap),
 overlap / (overlap + bubble) — 1.0 means the loop is fully pipelined,
 0.0 means it is effectively synchronous.  ``overlap`` is an upper
 bound on hidden device time (the device may finish early inside the
-span); ``collect`` is exact.
+span); ``collect`` is exact.  The fenced tracer counts the wait in
+``sample``, as the untraced record schema does (``collect_phase``).
 
-The tracer always stamps with ``time.perf_counter`` — real host/device
-seconds — even when the engine itself runs on a virtual clock
+Spans stamp with ``time.time_ns`` — real host/device time — even when the
+engine itself runs on a virtual clock
 (:class:`~repro_torch.serve.workloads.StepClock`): phase timings are physical
 measurements, arrival/deadline bookkeeping is simulation time.
 
-This module stays importable without torch (the single
-``torch.cuda.synchronize`` call imports lazily), so host-side tooling can
-consume recorded phase data anywhere the scheduler runs.  A port, by copy,
-of ``repro.serve.phases``; the fence synchronises the CUDA device the
-fenced tensors live on, and is a no-op for CPU tensors.
+This module needs torch only for the fence (imported lazily).  The
+summary is a port, by copy, of ``repro.serve.phases``'s; the fence
+synchronises the CUDA device the fenced tensors live on, and is a no-op
+for CPU tensors.
 """
 
 from __future__ import annotations
 
 import collections
-import time
+
+from repro_torch import trace
 
 #: phase names in within-step order (``wall`` is the whole step)
 PHASES = ("schedule", "host_prep", "dispatch", "device", "sample")
+#: the phase each span name sums into (``collect`` apart: its own time)
+PHASE_OF = {"schedule": "schedule", "host_prep": "host_prep", "launch": "dispatch",
+            "device": "device", "sample": "sample", "engine.step": "wall"}
+#: the span each phase name opens (:meth:`PhaseTracer.phase`)
+SPAN_OF = {phase: name for name, phase in PHASE_OF.items()}
 
 
 def _percentile(xs: list[float], q: float) -> float:
@@ -84,28 +101,14 @@ def _cuda_devices(value, torch) -> set[int]:
     return set()
 
 
-class _NullCtx:
-    """Reusable no-op context manager (one shared instance, no allocation
-    per phase on the untraced path)."""
-
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
 class NullTracer:
     """The off switch: every hook is a no-op and :meth:`fence` never
     touches the device, so an untraced engine's hot loop is unchanged."""
 
     enabled = False
-    _ctx = _NullCtx()
-    #: record key the executor wraps collect's blocking transfer in
-    #: ("sample" keeps the fenced/untraced record schema; the overlap
-    #: tracer renames it "collect" — the pipeline-bubble measurement)
+    #: record key of collect's blocking wait ("sample" keeps the
+    #: fenced/untraced record schema; the overlap tracer names it
+    #: "collect" — the pipeline-bubble measurement)
     collect_phase = "sample"
 
     def begin_step(self) -> None:
@@ -114,20 +117,11 @@ class NullTracer:
     def end_step(self) -> None:
         pass
 
-    def phase(self, name: str) -> _NullCtx:
-        return self._ctx
+    def phase(self, name: str):
+        return trace.NULL
 
     def fence(self, value):
         return value
-
-    def mark_dispatch(self) -> float:
-        """Timestamp a decode dispatch's return (overlap accounting);
-        the no-op tracer never reads a clock."""
-        return 0.0
-
-    def collect_begin(self, dispatched_at: float) -> None:
-        """Record the dispatch->collect host span as hidden device time
-        (overlap accounting); no-op here."""
 
     def records(self) -> list[dict]:
         return []
@@ -140,43 +134,21 @@ class NullTracer:
 NULL_TRACER = NullTracer()
 
 
-class _PhaseCtx:
-    """Context manager accumulating elapsed seconds into the tracer's
-    current step record under ``name`` (re-entrant per step: repeated
-    phases — one per dispatch — sum)."""
-
-    __slots__ = ("tracer", "name", "t0")
-
-    def __init__(self, tracer: PhaseTracer, name: str):
-        self.tracer = tracer
-        self.name = name
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        cur = self.tracer._cur
-        if cur is not None:
-            cur[self.name] = (
-                cur.get(self.name, 0.0) + time.perf_counter() - self.t0
-            )
-        return False
-
-
 class PhaseTracer:
-    """Accumulate per-step phase timings into a bounded ring buffer.
+    """Sum each engine step's spans into a per-phase record, kept in a
+    bounded ring buffer.
 
     Usage (the engine/executor wiring)::
 
-        tracer.begin_step()
-        with tracer.phase("schedule"):
-            decision = scheduler.schedule(slots)
-        with tracer.phase("dispatch"):
-            out = program(...)           # returns once enqueued
-        with tracer.phase("device"):
-            tracer.fence(out)            # device synchronise
-        tracer.end_step()
+        tracer.begin_step()                  # listen to the spans
+        with trace.span("engine.step"):
+            with trace.span("schedule"):
+                decision = scheduler.schedule(slots)
+            with trace.span("launch"):
+                out = program(...)           # returns once enqueued
+            with trace.span("device"):
+                tracer.fence(out)            # device synchronise
+        tracer.end_step()                    # the step's record
 
     ``fence`` is the only device-touching call and exists so the *same*
     executor source runs fenced and unfenced: under :data:`NULL_TRACER`
@@ -193,33 +165,36 @@ class PhaseTracer:
         if ring < 1:
             raise ValueError(f"phase ring must hold >= 1 record, got {ring}")
         self._ring: collections.deque[dict] = collections.deque(maxlen=ring)
-        self._cur: dict | None = None
-        self._t0 = 0.0
+        #: the current step's spans (None between steps)
+        self._spans: list | None = None
         #: dispatches fenced so far (the off-costs-nothing guard test
         #: asserts an untraced engine performs zero fences)
         self.fences = 0
 
     # ------------------------------------------------------------ hooks --
     def begin_step(self) -> None:
-        self._cur = {}
-        self._t0 = time.perf_counter()
+        if self._spans is not None:  # a step that raised never ended
+            trace.unlisten(self._spans)
+        self._spans = []
+        trace.listen(self._spans)
 
     def end_step(self) -> None:
-        if self._cur is None:
+        if self._spans is None:
             return
-        self._cur["wall"] = time.perf_counter() - self._t0
-        self._ring.append(self._cur)
-        self._cur = None
+        spans, self._spans = self._spans, None
+        trace.unlisten(spans)
+        self._ring.append(self._record(spans))
 
-    def phase(self, name: str) -> _PhaseCtx:
-        return _PhaseCtx(self, name)
+    def phase(self, name: str):
+        """A span of phase ``name`` (``dispatch`` opens ``launch``)."""
+        return trace.span(SPAN_OF.get(name, name))
 
     def fence(self, value):
         """Wait for every tensor in ``value`` (nested tuples, lists and
-        dicts) to be ready on its device.  Call inside a
-        ``phase("device")`` block, right after the dispatch returned, to
-        split launch time from device time.  CPU tensors are ready when
-        the call returns: no-op for them."""
+        dicts) to be ready on its device.  Call inside a ``device`` span,
+        right after the dispatch returned, to split launch time from
+        device time.  CPU tensors are ready when the call returns: no-op
+        for them."""
         import torch  # lazy: keep the module importable host-side
 
         self.fences += 1
@@ -227,15 +202,21 @@ class PhaseTracer:
             torch.cuda.synchronize(dev)
         return value
 
-    def mark_dispatch(self) -> float:
-        """Timestamp a decode dispatch's return.  The fenced tracer
-        already isolates device time via :meth:`fence`; the stamp is
-        consumed by :class:`OverlapTracer.collect_begin`."""
-        return time.perf_counter()
-
-    def collect_begin(self, dispatched_at: float) -> None:
-        """Overlap accounting hook; the fenced tracer measures device
-        time by fencing instead, so this records nothing."""
+    def _record(self, spans: list) -> dict:
+        """One step's record: seconds per phase, summed over its spans."""
+        rec: dict[str, float] = {}
+        children: dict[int, int] = collections.Counter()
+        for s in spans:
+            children[s.parent] += s.end - s.start
+        for s in spans:
+            if s.name == "collect":
+                key, ns = self.collect_phase, s.end - s.start - children[s.id]
+            elif s.name in PHASE_OF:
+                key, ns = PHASE_OF[s.name], s.end - s.start
+            else:
+                continue
+            rec[key] = rec.get(key, 0.0) + ns / 1e9
+        return rec
 
     # ---------------------------------------------------------- reading --
     def records(self) -> list[dict]:
@@ -278,18 +259,19 @@ class PhaseTracer:
 
 class OverlapTracer(PhaseTracer):
     """The non-fencing tracer for the pipelined loop: same per-phase
-    accumulation as :class:`PhaseTracer`, but :meth:`fence` is a
-    pass-through (device and host stay overlapped) and device time is
-    accounted by *span*, not by blocking:
+    sums as :class:`PhaseTracer`, but :meth:`fence` is a pass-through
+    (device and host stay overlapped) and device time is accounted by
+    *span*, not by blocking:
 
-    * ``overlap`` — host seconds between :meth:`mark_dispatch` (a decode
-      dispatch returned, device busy) and :meth:`collect_begin` (the
-      host finally needs the results).  Under the async loop this span
-      contains the *next* step's schedule/host_prep — exactly the work
-      the pipeline hides.  Upper bound on hidden device time.
-    * ``collect`` — wrapped by the executor around the blocking
-      device->host conversion in ``collect()``: host time the device
-      did not hide (the pipeline bubble).  Exact.
+    * ``overlap`` — host seconds from a ``decode`` span's end (the
+      dispatch returned, device busy) to the start of the ``collect``
+      span that names it as its cause (the host finally needs the
+      results).  Under the async loop this gap contains the *next*
+      step's schedule/host_prep — exactly the work the pipeline hides.
+      Upper bound on hidden device time.
+    * ``collect`` — the ``collect`` span's own time, its blocking
+      device->host wait: host time the device did not hide (the
+      pipeline bubble).  Exact.
 
     The summary adds ``device_overlap_s`` / ``host_bubble_s`` /
     ``overlap_efficiency`` totals over the ring.
@@ -298,15 +280,27 @@ class OverlapTracer(PhaseTracer):
     _names = PHASES + ("collect", "overlap")
     collect_phase = "collect"
 
+    def __init__(self, ring: int = 512):
+        super().__init__(ring)
+        #: end of each decode span of the last step (its collect comes in
+        #: the next step under the async loop, in the same one otherwise)
+        self._decode_end: dict[int, int] = {}
+
     def fence(self, value):
         """Never blocks — fencing would serialize the pipeline this
         tracer exists to measure.  ``fences`` stays 0."""
         return value
 
-    def collect_begin(self, dispatched_at: float) -> None:
-        if self._cur is not None and dispatched_at > 0.0:
-            span = max(0.0, time.perf_counter() - dispatched_at)
-            self._cur["overlap"] = self._cur.get("overlap", 0.0) + span
+    def _record(self, spans: list) -> dict:
+        rec = super()._record(spans)
+        ends = {s.id: s.end for s in spans if s.name == "decode"}
+        prior, self._decode_end = self._decode_end, ends
+        ends = {**prior, **ends}
+        for s in spans:
+            if s.name == "collect" and s.cause in ends:
+                gap = max(0, s.start - ends[s.cause])
+                rec["overlap"] = rec.get("overlap", 0.0) + gap / 1e9
+        return rec
 
     def summary(self) -> dict:
         out = super().summary()

@@ -981,3 +981,51 @@ def test_async_carry_merge_makes_no_synchronizing_call(dev):
     want = np.where(np.array([True, False] * 4), np.stack([c.cpu().numpy() for c in carry]),
                     host_rows)
     np.testing.assert_array_equal(host.numpy(), want)
+
+
+def test_spans_line_up_with_the_device_trace(dev):
+    """A span opened around a launch and ``torch.profiler``'s record of the
+    launch share one clock: each launching runtime call starts inside its
+    span, each kernel (a torch operation's and a hand-written one's) is
+    attributed to its span by correlation id, and the clocks agree to
+    50 µs (the closest a launch came to either end of its span bounds
+    their offset from both sides)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+
+    x = torch.randn(4096, 1024, device=dev)
+    gamma, beta = torch.ones(1024, device=dev), torch.zeros(1024, device=dev)
+    x.add_(1)
+    layernorm(x, gamma, beta)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace.start()
+        try:
+            for _ in range(20):
+                with trace.span("add"):
+                    x.add_(1)
+                with trace.span("norm"):
+                    layernorm(x, gamma, beta)
+        finally:
+            spans = trace.stop()
+        torch.cuda.synchronize()
+    ops = [op for op in trace.device_ops(prof) if op[3]]
+    by_id = {s.id: s for s in spans}
+    owners = trace.innermost(spans, [op[3] for op in ops])
+    kinds = {"add": "elementwise", "norm": "layernorm"}
+    hits = {name: 0 for name in kinds}
+    after_open, before_close = [], []
+    for op, sid in zip(ops, owners):
+        assert sid, f"{op[2]} launched outside every span"
+        s = by_id[sid]
+        assert kinds[s.name] in op[2], (s, op)
+        assert s.start <= op[3] <= s.end
+        hits[s.name] += 1
+        after_open.append(op[3] - s.start)
+        before_close.append(s.end - op[3])
+    assert hits == {"add": 20, "norm": 20}
+    print(f"[trace] launch after span open: min {min(after_open) / 1e3:.1f} us, median "
+          f"{sorted(after_open)[20] / 1e3:.1f} us; span close after launch: min "
+          f"{min(before_close) / 1e3:.1f} us, median {sorted(before_close)[20] / 1e3:.1f} us")
+    assert min(after_open) < 50_000 and min(before_close) < 50_000
